@@ -1,0 +1,260 @@
+"""Compressed gossip: per-agent-row quantization for the communication path.
+
+* :class:`Compressor` — per-agent-message lossy codecs (symmetric int8/int4
+  quantization, identity) that also *price* themselves
+  (:meth:`Compressor.wire_bits`) for the byte-level accounting.
+* :class:`CompressedGossip` — dense gossip in the **mean-preserving
+  difference form**
+
+      out_i = x_i + gamma (sum_j W_ji q(m_j) - q(m_i)),     m_i = x_i (+ e_i)
+
+  with error feedback ``e' = m - q(m)``.  Each leaf runs two kernels: the
+  row abs-max of ``m`` (:func:`repro_torch.kernels.quantize.row_absmax`) and
+  the fused quantize/contract/combine
+  (:func:`repro_torch.kernels.quantize.compressed_mix`).  Scales are per
+  agent row **per leaf**.  Stochastic rounding draws uniform noise from a
+  device ``torch.Generator`` seeded from the spec and carried in the state
+  (it cannot reproduce JAX's PRNG bits; the rounding rule is the same).
+* :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
+  dense mixing ops, and build the closed-form :class:`RoundByteModel`.
+
+Top-k sparsification and compression over the sparse mixer are not ported
+yet (they raise ``NotImplementedError``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.mixing import MixingOps
+from repro_torch.core.schedule import RoundByteModel
+from repro_torch.kernels import ref
+from repro_torch.kernels.quantize import compressed_mix, qmax_of, row_absmax
+from repro_torch.utils.pytree import tree_leaves, tree_zeros_like
+
+Tree = Dict[str, torch.Tensor]
+
+SCALE_BITS = 32  # one fp32 scale per (leaf, agent) message row
+
+
+class Compressor:
+    """Lossy codec for one agent-stacked leaf (axis 0 = agents)."""
+
+    name: str = "abstract"
+
+    def compress(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        raise NotImplementedError
+
+    def wire_bits(self, n_elements: int, itemsize_bits: int = 32) -> int:
+        """Exact wire bits for one agent's message of ``n_elements`` scalars
+        from a single leaf (including the scale side channel)."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityCompressor(Compressor):
+    """Full precision — the pricing baseline (and the 'disabled' codec)."""
+
+    name: str = "fp32"
+
+    def compress(self, x, noise=None):
+        return x
+
+    def wire_bits(self, n_elements: int, itemsize_bits: int = 32) -> int:
+        return n_elements * itemsize_bits
+
+
+@dataclasses.dataclass(frozen=True)
+class StochasticQuantizer(Compressor):
+    """QSGD-style symmetric quantizer, per-agent-row max-abs scaling.
+
+    ``bits`` ∈ {4, 8}: signed grid {-qmax..qmax}, qmax = 2^(bits-1) - 1.
+    Deterministic mode rounds half to even; stochastic mode rounds
+    ``floor(u + noise)`` with uniform noise, unbiased: E[q(x)] = x."""
+
+    bits: int = 8
+    stochastic: bool = True
+
+    def __post_init__(self):
+        qmax_of(self.bits)
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"q{self.bits}" + ("s" if self.stochastic else "")
+
+    def compress(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        """Dequantized wire values of one leaf (the standalone quantizer,
+        plain PyTorch; gossip runs the fused kernels instead).  ``noise`` is
+        used only in stochastic mode."""
+        rows = x.reshape(x.shape[0], -1).to(torch.float32)
+        q = ref.quantize_rows_ref(
+            rows, ref.row_absmax_ref(rows), self.bits,
+            noise if self.stochastic else None,
+        )
+        return q.reshape(x.shape).to(x.dtype)
+
+    def wire_bits(self, n_elements: int, itemsize_bits: int = 32) -> int:
+        return n_elements * self.bits + SCALE_BITS
+
+
+_REGISTRY: dict = {
+    "none": lambda: IdentityCompressor(),
+    "fp32": lambda: IdentityCompressor(),
+    "q8": lambda: StochasticQuantizer(bits=8),
+    "q4": lambda: StochasticQuantizer(bits=4),
+    "q8d": lambda: StochasticQuantizer(bits=8, stochastic=False),
+    "q4d": lambda: StochasticQuantizer(bits=4, stochastic=False),
+}
+
+TOPK_NOT_PORTED = "top-k compression is not ported yet (ROADMAP A5)"
+
+
+def make_compressor(spec: str) -> Compressor:
+    """Parse 'none' | 'fp32' | 'q8' | 'q4' | 'q8d' | 'q4d'."""
+    if spec in _REGISTRY:
+        return _REGISTRY[spec]()
+    if spec.startswith("top"):
+        raise NotImplementedError(TOPK_NOT_PORTED)
+    raise ValueError(f"unknown compressor spec {spec!r}; options: {sorted(_REGISTRY)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedGossip:
+    """Difference-form compressed gossip over the dense ``w``.
+
+    :meth:`__call__` threads an error-feedback residual and a generator
+    through the round function; :meth:`stateless` is the generator-free,
+    residual-free variant installed as ``MixingOps.gossip``.  Both preserve
+    the agent mean exactly, for any ``gamma`` (W is doubly stochastic)."""
+
+    w: torch.Tensor
+    compressor: StochasticQuantizer
+    error_feedback: bool = True
+    seed: int = 0
+    gamma: float = 1.0
+
+    def init_ef(self, template: Tree) -> dict:
+        """Per-stream residuals (X and Y are mixed separately each round) and
+        the noise generator, seeded from the spec, on the state's device."""
+        device = tree_leaves(template)[0].device
+        return {
+            "x": tree_zeros_like(template) if self.error_feedback else (),
+            "y": tree_zeros_like(template) if self.error_feedback else (),
+            "gen": torch.Generator(device=device).manual_seed(self.seed),
+        }
+
+    def _mix_leaf(self, x, residual, gen) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        rows = x.reshape(x.shape[0], -1)
+        res = None if residual is None else residual.reshape(rows.shape)
+        noise = None
+        if self.compressor.stochastic and gen is not None:
+            noise = torch.rand(
+                rows.shape, generator=gen, dtype=torch.float32, device=rows.device
+            )
+        out, new_res = compressed_mix(
+            rows, res, self.w, row_absmax(rows, res),
+            bits=self.compressor.bits, gamma=self.gamma, noise=noise,
+        )
+        return out.reshape(x.shape), (None if new_res is None else new_res.reshape(x.shape))
+
+    def __call__(self, tree: Tree, residual: Any, gen) -> Tuple[Tree, Any]:
+        mixed, new_res = {}, {}
+        for k in sorted(tree):
+            r = residual[k] if self.error_feedback else None
+            mixed[k], new_res[k] = self._mix_leaf(tree[k], r, gen)
+        return mixed, (new_res if self.error_feedback else residual)
+
+    def stateless(self, tree: Tree) -> Tree:
+        """Deterministic rounding, no error feedback — the baseline form."""
+        return {k: self._mix_leaf(tree[k], None, None)[0] for k in sorted(tree)}
+
+
+def compress_mixing(
+    base: MixingOps,
+    compressor: Compressor,
+    *,
+    error_feedback: bool = True,
+    seed: int = 0,
+    gamma: float = 1.0,
+) -> MixingOps:
+    """Attach a compressor to dense mixing ops.  ``global_avg`` (the server
+    round) stays full precision."""
+    if isinstance(compressor, IdentityCompressor):
+        return base
+    if base.w is None:
+        raise NotImplementedError(
+            f"compressed gossip over {base.name!r} is not ported yet: only the "
+            "dense mixer (ROADMAP B6: sparse_compressed_mix)"
+        )
+    cg = CompressedGossip(
+        w=base.w, compressor=compressor, error_feedback=error_feedback,
+        seed=seed, gamma=gamma,
+    )
+    return dataclasses.replace(
+        base,
+        gossip=cg.stateless,
+        name=f"{base.name}/{compressor.name}" + ("+ef" if error_feedback else ""),
+        compression=cg,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Byte-level communication pricing
+# ---------------------------------------------------------------------------
+
+
+def _per_agent_leaf_sizes(template: Tree, n_agents: int):
+    for leaf in tree_leaves(template):
+        if leaf.shape[0] != n_agents:
+            raise ValueError(
+                f"leaf {tuple(leaf.shape)} is not agent-stacked over {n_agents} agents"
+            )
+        yield leaf.numel() // n_agents, leaf.element_size() * 8
+
+
+def message_bytes(
+    compressor: Optional[Compressor], template: Tree, n_agents: int
+) -> int:
+    """Bytes ONE agent ships per message for the agent-stacked ``template``."""
+    comp = compressor or IdentityCompressor()
+    bits = sum(
+        comp.wire_bits(n, itemsize)
+        for n, itemsize in _per_agent_leaf_sizes(template, n_agents)
+    )
+    return -(-bits // 8)
+
+
+def _directed_gossip_messages(mixing: MixingOps) -> int:
+    if mixing.gossip_messages is not None:
+        return mixing.gossip_messages
+    return 2 * mixing.gossip_edges
+
+
+def make_byte_model(
+    mixing: MixingOps,
+    template: Tree,
+    n_agents: int,
+    *,
+    mixes_per_round: int = 2,
+    server_payloads: Optional[int] = None,
+) -> RoundByteModel:
+    """Closed-form network-wide bytes per round: gossip rounds move
+    ``mixes_per_round`` compressed messages per directed edge; server rounds
+    move ``server_payloads`` full-precision uploads + downloads per agent."""
+    comp = mixing.compression.compressor if mixing.compression is not None else None
+    if server_payloads is None:
+        server_payloads = mixes_per_round
+    gossip_msg = message_bytes(comp, template, n_agents)
+    server_msg = message_bytes(None, template, n_agents)
+    return RoundByteModel(
+        gossip_round_bytes=mixes_per_round
+        * _directed_gossip_messages(mixing)
+        * gossip_msg,
+        server_round_bytes=server_payloads * 2 * n_agents * server_msg,
+        gossip_message_bytes=gossip_msg,
+        server_message_bytes=server_msg,
+        mixes_per_round=mixes_per_round,
+        server_payloads=server_payloads,
+    )

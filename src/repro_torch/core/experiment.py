@@ -1,0 +1,260 @@
+"""Declarative experiments: ``ExperimentSpec`` + ``Experiment``.
+
+:class:`ExperimentSpec` has every field of the reference spec and the same
+JSON, so one payload loads in both packages.  A field whose feature is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item when the
+spec is built; that is a refusal, not a fallback.
+
+::
+
+    spec = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, p=0.1,
+                                 eta_l=0.3, rounds=100, eval_every=10)
+    exp = Experiment(spec, loss_fn=loss_fn, params0=params0,
+                     sampler_factory=make_sampler, eval_fn=eval_fn)
+    hist = exp.run()                    # on the GPU; device="cpu" to opt out
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.core.algorithms import BoundAlgorithm, get_algorithm
+from repro_torch.core.compression import compress_mixing, make_byte_model, make_compressor
+from repro_torch.core.driver import DEFAULT_BLOCK_SIZE, DRIVERS, drive_loop, drive_scan
+from repro_torch.core.mixing import MixingOps, dense_mixing, sparse_mixing
+from repro_torch.core.pisco import LossFn, PiscoConfig, replicate_params
+from repro_torch.core.topology import make_sparse_topology, make_topology, use_sparse_topology
+from repro_torch.core.trainer import History, record_wall_time
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.weights import from_jax
+
+Tree = Dict[str, torch.Tensor]
+Sampler = Callable[[int], tuple]
+EvalFn = Callable[[Tree], Dict[str, float]]
+
+_CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(PiscoConfig))
+
+# spec field -> the ROADMAP item that ports its feature
+_NOT_PORTED = {
+    "network": "A2/A5 (dynamic networks: TopologyProcess and dynamic mixers)",
+    "participation": "A2/A5 (partial participation: ParticipationProcess)",
+    "cohort": "A2/A5 (neighbor-sampled cohorts)",
+    "systems": "A10 (sim/: systems-cost profiles)",
+    "async_": "A11 (events/: asynchronous execution)",
+    "adversary": "A12 (Byzantine fault injection)",
+    "robust_agg": "A12 (robust server aggregation)",
+    "optimizer": "A9 (optim/: update rules)",
+    "server_optimizer": "A9 (optim/: server update rules)",
+    "lr_schedule": "A9 (optim/: learning-rate schedules)",
+    "opt_policy": "A9 (optim/: opt-state communication policy)",
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """Everything declarative about one training run (the reference's fields;
+    see ``repro.core.experiment.ExperimentSpec`` for each one's meaning)."""
+
+    algo: str
+    config: PiscoConfig
+    topology: str = "ring"
+    topology_kwargs: Tuple[Tuple[str, Any], ...] = ()
+    network: Optional[str] = None
+    participation: float = 1.0
+    # True => CSR sparse gossip, False => dense n×n, None => auto (sparse
+    # above SPARSE_AUTO_MIN_AGENTS agents)
+    sparse: Optional[bool] = None
+    cohort: Optional[float] = None
+    systems: Optional[str] = None
+    async_: Optional[str] = None
+    adversary: Optional[str] = None
+    robust_agg: str = "mean"
+    compression: Optional[str] = None  # None | "q8" | "q4" | "q8d" | "q4d"
+    error_feedback: bool = True
+    optimizer: Optional[str] = None
+    server_optimizer: Optional[str] = None
+    lr_schedule: Optional[str] = None
+    opt_policy: Optional[str] = None
+    rounds: int = 100
+    eval_every: int = 1
+    driver: str = "scan"  # "scan" (block driver) | "loop"
+    block_size: int = DEFAULT_BLOCK_SIZE
+
+    def __post_init__(self):
+        if self.driver not in DRIVERS:
+            raise ValueError(f"driver {self.driver!r} not in {DRIVERS}")
+        if self.driver == "events":
+            raise _not_ported("driver='events'", "A11 (events/)")
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError(
+                f"participation must be in (0, 1], got {self.participation}"
+            )
+        defaults = {"participation": 1.0, "robust_agg": "mean"}
+        for name, item in _NOT_PORTED.items():
+            if getattr(self, name) != defaults.get(name):
+                raise _not_ported(f"{name}={getattr(self, name)!r}", item)
+        if self.compression is not None:
+            make_compressor(self.compression)  # fail fast (top-k: not ported)
+            if self.compression not in ("none", "fp32") and self.use_sparse:
+                raise _not_ported(
+                    "compression over the sparse mixer",
+                    "B6 (sparse_compressed_mix kernel)",
+                )
+        if isinstance(self.topology_kwargs, dict):
+            object.__setattr__(
+                self, "topology_kwargs", tuple(sorted(self.topology_kwargs.items()))
+            )
+        get_algorithm(self.algo)  # fail fast on unknown / unported algorithms
+
+    @classmethod
+    def create(cls, algo: str = "pisco", **kw) -> "ExperimentSpec":
+        """Flat constructor: PiscoConfig fields may be passed directly."""
+        cfg_kw = {k: kw.pop(k) for k in list(kw) if k in _CONFIG_FIELDS}
+        return cls(algo=algo, config=PiscoConfig(**cfg_kw), **kw)
+
+    def replace(self, **kw) -> "ExperimentSpec":
+        """``dataclasses.replace`` that also routes PiscoConfig field names."""
+        cfg_kw = {k: kw.pop(k) for k in list(kw) if k in _CONFIG_FIELDS}
+        spec = self
+        if cfg_kw:
+            spec = dataclasses.replace(
+                spec, config=dataclasses.replace(spec.config, **cfg_kw)
+            )
+        return dataclasses.replace(spec, **kw) if kw else spec
+
+    # -- serialization ------------------------------------------------------
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["topology_kwargs"] = dict(self.topology_kwargs)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ExperimentSpec":
+        d = dict(d)
+        d["config"] = PiscoConfig(**d["config"])
+        d["topology_kwargs"] = tuple(sorted(dict(d.get("topology_kwargs", {})).items()))
+        return cls(**d)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentSpec":
+        return cls.from_dict(json.loads(s))
+
+    # -- derived pieces -----------------------------------------------------
+
+    @property
+    def use_sparse(self) -> bool:
+        """Whether this spec routes through the sparse CSR mixer."""
+        return use_sparse_topology(self.sparse, self.config.n_agents)
+
+    def make_mixing(self, device: torch.device) -> MixingOps:
+        kw = dict(self.topology_kwargs)
+        if self.use_sparse:
+            return sparse_mixing(
+                make_sparse_topology(self.topology, self.config.n_agents, **kw), device
+            )
+        mixing = dense_mixing(
+            make_topology(self.topology, self.config.n_agents, **kw), device
+        )
+        if self.compression is not None:
+            mixing = compress_mixing(
+                mixing,
+                make_compressor(self.compression),
+                error_feedback=self.error_feedback,
+                seed=self.config.seed,
+            )
+        return mixing
+
+
+class Experiment:
+    """A spec plus the runtime problem pieces; ``run()`` produces a History.
+
+    ``device=None`` means the GPU and raises without one; pass
+    ``device="cpu"`` to run the plain PyTorch path.  ``params0`` (unstacked)
+    or ``x0`` (agent-stacked) may be numpy arrays or tensors; they are moved
+    to the device.  ``sampler_factory(spec)`` builds the per-round sampler
+    (its batches must already lie on the device)."""
+
+    def __init__(
+        self,
+        spec: ExperimentSpec,
+        *,
+        loss_fn: LossFn,
+        params0: Optional[Mapping[str, Any]] = None,
+        x0: Optional[Mapping[str, Any]] = None,
+        sampler: Optional[Sampler] = None,
+        sampler_factory: Optional[Callable[[ExperimentSpec], Sampler]] = None,
+        eval_fn: Optional[EvalFn] = None,
+        mixing: Optional[MixingOps] = None,
+        stop_when: Optional[Callable[[History], bool]] = None,
+        device: DeviceLike = None,
+    ):
+        if (params0 is None) == (x0 is None):
+            raise ValueError("pass exactly one of params0 (unstacked) or x0 (stacked)")
+        if (sampler is None) == (sampler_factory is None):
+            raise ValueError("pass exactly one of sampler or sampler_factory")
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.loss_fn = loss_fn
+        self._params0 = None if params0 is None else from_jax(params0, self.device)
+        self._x0 = None if x0 is None else from_jax(x0, self.device)
+        self._sampler = sampler
+        self._sampler_factory = sampler_factory
+        self.eval_fn = eval_fn
+        self._mixing = mixing
+        self.stop_when = stop_when
+
+    def _make_sampler(self, spec: ExperimentSpec) -> Sampler:
+        if self._sampler_factory is not None:
+            return self._sampler_factory(spec)
+        return self._sampler
+
+    def _x0_stacked(self) -> Tree:
+        if self._x0 is not None:
+            return self._x0
+        return replicate_params(self._params0, self.spec.config.n_agents)
+
+    def _bind(self, mixing: MixingOps) -> BoundAlgorithm:
+        return get_algorithm(self.spec.algo).bind(self.loss_fn, self.spec.config, mixing)
+
+    def run(self) -> History:
+        spec = self.spec
+        mixing = self._mixing if self._mixing is not None else spec.make_mixing(self.device)
+        bound = self._bind(mixing)
+        sampler = self._make_sampler(spec)
+        _, comm0 = sampler(-1)
+        x0 = self._x0_stacked()
+        state = bound.init(self.loss_fn, x0, comm0)
+        hist = History(
+            byte_model=make_byte_model(
+                mixing, x0, spec.config.n_agents,
+                mixes_per_round=bound.comm.mixes_per_round,
+                server_payloads=bound.comm.server_payloads,
+            )
+        )
+        drive = drive_scan if spec.driver == "scan" else drive_loop
+        kw = {"block_size": spec.block_size} if spec.driver == "scan" else {}
+        with record_wall_time(hist):
+            state = drive(
+                bound, state, sampler, spec.rounds, hist,
+                eval_fn=self.eval_fn, eval_every=spec.eval_every,
+                stop_when=self.stop_when, **kw,
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        hist.final_state = state
+        return hist
+
+    def sweep(self, seeds=None, grid=None):
+        raise _not_ported("Experiment.sweep", "A7 (seed and grid sweeps)")
+

@@ -1,0 +1,194 @@
+"""PISCO — Algorithm 1 of the paper over agent-stacked dicts of tensors.
+
+One communication round k (two stages):
+
+  Stage 1 — T_o *local* tracked-SGD steps, zero communication (eq. 3a-3c):
+      X^{k+1,t} = X^{k+1,t-1} - eta_l * Y^{k+1,t-1}
+      G^{k+1,t} = stochastic grads at X^{k+1,t}
+      Y^{k+1,t} = Y^{k+1,t-1} + G^{k+1,t} - G^{k+1,t-1}
+
+  Stage 2 — one mixing round with W^k = J w.p. p else W (eq. 4a-4c):
+      X^{k+1} = ((1-eta_c) X^k + eta_c (X^{k+1,T_o} - eta_l Y^{k+1,T_o})) W^k
+      G^{k+1} = stochastic grads at X^{k+1} on a fresh batch
+      Y^{k+1} = (Y^{k+1,T_o} + G^{k+1} - G^{k+1,T_o}) W^k
+
+Stage 1 runs on the fused track-step kernel
+(:func:`repro_torch.kernels.gt_update.fused_track_step`): after the first
+(3a), each step's (3c) is fused with the next step's (3a), and the last one
+leaves exactly the ``X^{T_o} - eta_l Y^{T_o}`` term of (4a).
+
+The W^k draw is made by the host driver; the round functions here are the
+legacy (hardcoded-SGD) form.  State invariant (Lemma 1):
+mean_i y_i == mean_i g_i at every round.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core.mixing import MixingOps
+from repro_torch.kernels.gt_update import fused_track_step
+from repro_torch.utils.pytree import tree_add, tree_map, tree_sq_norm, tree_sub
+
+Tree = Dict[str, torch.Tensor]
+# loss_fn(params, batch) -> scalar loss for ONE agent.
+LossFn = Callable[[Tree, Any], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class PiscoConfig:
+    """Hyper-parameters of Algorithm 1."""
+
+    n_agents: int
+    t_o: int = 1  # number of local updates per round (T_o)
+    eta_l: float = 0.05  # local-update step size
+    eta_c: float = 1.0  # communication step size
+    p: float = 0.1  # agent-to-server probability
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.t_o < 1:
+            raise ValueError("T_o >= 1 (at least one local update)")
+        if not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"p must be in [0, 1], got {self.p}")
+
+
+class PiscoState(NamedTuple):
+    """Agent-stacked algorithm state (leading axis = n_agents on every leaf)."""
+
+    x: Tree  # model estimates X^k
+    y: Tree  # gradient-tracking variables Y^k
+    g: Tree  # last stochastic gradients G^k
+    step: torch.Tensor  # round counter k
+    # () when compression is off, else {"x": residual, "y": residual,
+    # "gen": torch.Generator} from CompressedGossip.init_ef.
+    ef: Any = ()
+
+
+class RoundMetrics(NamedTuple):
+    loss: torch.Tensor  # mean over agents & local steps
+    grad_sq_norm: torch.Tensor  # ||mean_i g_i||^2 (tracked-gradient proxy)
+    consensus_err: torch.Tensor  # ||X - X_bar||_F^2 / n
+
+
+def make_stacked_value_and_grad(loss_fn: LossFn) -> Callable:
+    """``vg(params, batch) -> (losses (n,), grads)``: value-and-grad vmapped
+    over the agent axis — each agent its own params slice and batch slice."""
+    gv = vmap(grad_and_value(loss_fn), in_dims=(0, 0))
+
+    def vg(params: Tree, batch):
+        grads, loss = gv(params, batch)
+        return loss, grads
+
+    return vg
+
+
+def init_state(loss_fn: LossFn, x0: Tree, batch0: Any) -> PiscoState:
+    """Line 2: draw Z^0 and set Y^0 = G^0 = grads(X^0; Z^0).  ``x0`` must
+    already be agent-stacked."""
+    _, g0 = make_stacked_value_and_grad(loss_fn)(x0, batch0)
+    step = torch.zeros((), dtype=torch.int32, device=next(iter(x0.values())).device)
+    return PiscoState(x=x0, y=g0, g=g0, step=step)
+
+
+def init_compression_state(state: PiscoState, mixing: MixingOps) -> PiscoState:
+    """Attach error-feedback residuals and the noise generator when
+    ``mixing`` carries a compressor (no-op otherwise)."""
+    if mixing.compression is None:
+        return state
+    return state._replace(ef=mixing.compression.init_ef(state.x))
+
+
+def replicate_params(params: Tree, n_agents: int) -> Tree:
+    """X^0 = x^0 1_n^T — identical start for all agents (materialised)."""
+    return tree_map(
+        lambda p: p[None].expand((n_agents,) + tuple(p.shape)).contiguous(), params
+    )
+
+
+def _local_phase(
+    stacked_vg: Callable, state: PiscoState, local_batches: Tuple, eta_l: float
+) -> Tuple[Tree, Tree, Tree, torch.Tensor]:
+    """Stage 1.  Returns ``(X^{T_o} - eta_l Y^{T_o}, Y^{T_o}, G^{T_o},
+    mean loss)`` — the first output is the (4a) term, left by the fused
+    track step of the last iteration."""
+    x = tree_map(lambda xi, yi: xi - eta_l * yi, state.x, state.y)  # first (3a)
+    y, g = state.y, state.g
+    losses = []
+    for t in range(local_batches[0].shape[0]):
+        loss, g_new = stacked_vg(x, tuple(b[t] for b in local_batches))  # (3b)
+        losses.append(torch.mean(loss))
+        # (3c) of step t fused with (3a) of step t+1
+        stepped = tree_map(
+            lambda xi, yi, gn, go: fused_track_step(xi, yi, gn, go, eta_l),
+            x, y, g_new, g,
+        )
+        x = {k: v[0] for k, v in stepped.items()}
+        y = {k: v[1] for k, v in stepped.items()}
+        g = g_new
+    return x, y, g, torch.mean(torch.stack(losses))
+
+
+def _consensus_error(x: Tree) -> torch.Tensor:
+    errs = [torch.sum((v - v.mean(dim=0, keepdim=True)) ** 2) for v in x.values()]
+    out = errs[0]
+    for e in errs[1:]:
+        out = out + e
+    return out
+
+
+def _round_metrics(cfg: PiscoConfig, mean_loss, loss_c, g_new, x_new) -> RoundMetrics:
+    gbar = tree_map(lambda v: v.mean(dim=0), g_new)
+    return RoundMetrics(
+        loss=(mean_loss * cfg.t_o + torch.mean(loss_c)) / (cfg.t_o + 1),
+        grad_sq_norm=tree_sq_norm(gbar),
+        consensus_err=_consensus_error(x_new) / cfg.n_agents,
+    )
+
+
+def make_round_fn(
+    loss_fn: LossFn, cfg: PiscoConfig, mixing: MixingOps, *, global_round: bool
+) -> Callable[[PiscoState, Any, Any], Tuple[PiscoState, RoundMetrics]]:
+    """One PISCO round for a fixed W^k kind (the driver dispatches between
+    the gossip and the global form per its host-side Bernoulli(p) draw).
+
+    With a compressor attached, a gossip round's two mixes go through the
+    stateful error-feedback path (residuals and generator in ``state.ef``).
+
+    Args to the returned fn:
+      state:         PiscoState
+      local_batches: tuple of tensors with leading axes (T_o, n_agents, ...)
+      comm_batch:    tuple of tensors (n_agents, ...) — the fresh Z^{k+1}
+    """
+    stacked_vg = make_stacked_value_and_grad(loss_fn)
+    mix = mixing.global_avg if global_round else mixing.gossip
+    compressed = mixing.compression is not None and not global_round
+
+    def round_fn(state: PiscoState, local_batches, comm_batch):
+        x_half, y_to, g_to, mean_loss = _local_phase(
+            stacked_vg, state, local_batches, cfg.eta_l
+        )
+        # (4a): X^{k+1} = ((1-eta_c) X^k + eta_c (X^{T_o} - eta_l Y^{T_o})) W^k
+        cand = tree_map(
+            lambda xk, h: (1.0 - cfg.eta_c) * xk + cfg.eta_c * h, state.x, x_half
+        )
+        ef = state.ef
+        if compressed:
+            cg = mixing.compression
+            x_new, res_x = cg(cand, ef["x"], ef["gen"])
+            loss_c, g_new = stacked_vg(x_new, comm_batch)  # (4b)
+            # (4c) compressed: the difference form preserves the agent mean,
+            # so Lemma 1 (mean Y == mean G) survives exactly.
+            y_new, res_y = cg(tree_add(y_to, tree_sub(g_new, g_to)), ef["y"], ef["gen"])
+            ef = {"x": res_x, "y": res_y, "gen": ef["gen"]}
+        else:
+            x_new = mix(cand)
+            loss_c, g_new = stacked_vg(x_new, comm_batch)  # (4b)
+            y_new = mix(tree_add(y_to, tree_sub(g_new, g_to)))  # (4c)
+        new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef)
+        return new_state, _round_metrics(cfg, mean_loss, loss_c, g_new, x_new)
+
+    return round_fn

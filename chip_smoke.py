@@ -5,17 +5,21 @@
 
 on a machine with one NVIDIA H100 and the CUDA toolkit.  It
 
-1. builds the four hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
+1. builds the five hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at ragged shapes, and times kernel,
    plain version and (where one PyTorch call computes the same function) the
    library call, beside the least time the card could take (``bound_ms``);
-3. drives the PISCO main path through ``Experiment.run`` — the paper's
+3. drives the main paths through ``Experiment.run`` — PISCO on the paper's
    logreg fleet ("paper"), a 512-agent MLP fleet with int8 compressed gossip
-   ("dense-q8") and a 10,000-agent MLP fleet on sparse gossip ("sparse-10k")
-   — with every launch counter zeroed just before each run and read just
-   after, and checks each against the same spec run on the CPU;
+   ("dense-q8"), a 10,000-agent MLP fleet on sparse gossip ("sparse-10k")
+   and the same fleet with stochastic int8 compressed gossip and error
+   feedback ("sparse-10k-q8"); the paper's six baselines on the paper's fleet
+   ("baselines-paper"); and DSGT on the 10,000-agent fleet with int8
+   compressed gossip ("dsgt-sparse-10k-q8d") — with every launch counter
+   zeroed just before each run and read just after, and checks each against
+   the same spec run on the CPU (the 10,000-agent paths at 1,024 agents);
 4. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -49,25 +53,34 @@ KERNELS = (
      "src/repro/kernels/quantize.py:145"),
     ("sparse_mix", "src/repro_torch/kernels/csrc/sparse_mix.cu",
      "src/repro/kernels/sparse_mix.py:144"),
+    ("sparse_compressed_mix", "src/repro_torch/kernels/csrc/sparse_mix.cu",
+     "src/repro/kernels/sparse_mix.py:188"),
 )
 
 # Tolerances of the on-card kernel checks.  K1 and K2 compute the same
-# roundings as their plain versions and must match exactly, as must K3's
-# quantizer grid (checked through the residual r' = m - q).  K3's W^T q and
-# K4's neighbour sums add in another order than cuBLAS / index_add_ (whose
-# atomics have no fixed order): max |err| <= TOL * (1 + max |input|).
+# roundings as their plain versions and must match exactly, as must the
+# quantizer grid of K3 and K5 (checked through the residual r' = m - q).
+# K3's W^T q and the neighbour sums of K4 and K5 add in another order than
+# cuBLAS / index_add_ (whose atomics have no fixed order):
+# max |err| <= TOL * (1 + max |input|).
 MIX_TOL = 2e-5
 
 # Path sizes: the paper's quickstart fleet, the largest dense fleet (n = 512,
 # topology.SPARSE_AUTO_MIN_AGENTS) and the documented large-fleet deployment
 # (10^4 agents, 16 samples each); "compare" is the fleet size of the
-# sparse GPU-vs-CPU check.
+# sparse GPU-vs-CPU checks.
 SIZES = dict(paper_samples=32560, paper_rounds=100, dense_agents=512, dense_rounds=20,
-             sparse_agents=10000, sparse_rounds=20, compare_agents=1024)
+             sparse_agents=10000, sparse_rounds=20, compare_agents=1024, dsgt_rounds=10)
+
+# The paper's baselines (Figs. 4-7, Table 2), run on the paper's fleet.
+BASELINES = ("dsgd", "gossip_pga", "dsgt", "periodical_gt", "fedavg", "scaffold")
+SERVER_BASED = ("fedavg", "scaffold")
 
 # GPU-vs-CPU agreement of whole runs (float32, different summation orders):
 # per-round losses within this relative deviation; flags and bytes equal.
-PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4}
+# Deterministic rounding (q8d) may flip at ties, hence the looser limit.
+PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4,
+                  "sparse-1024-q8d": 1e-3, "baselines-paper": 1e-4}
 
 
 def log(*a):
@@ -193,13 +206,16 @@ def kernel_checks(torch, dev):
     del x, r, noise, m
 
     # K4 — sparse-10k's w1 leaf over the degree-4 expander, plus ragged cases
+    def csr_on(topo):
+        return (torch.as_tensor(topo.indptr, device=dev), torch.as_tensor(topo.indices, device=dev),
+                torch.as_tensor(topo.data, dtype=torch.float32, device=dev),
+                torch.as_tensor(topo.self_weight, dtype=torch.float32, device=dev))
+
     err4 = 0.0
     for n_ag, d, name in ((10000, 25088, "random_regular"), (10000, 10, "random_regular"),
                           (1024, 320, "random_regular"), (7, 3, "ring"), (1, 5, "ring")):
         topo = make_sparse_topology(name, n_ag)
-        csr = (torch.as_tensor(topo.indptr, device=dev), torch.as_tensor(topo.indices, device=dev),
-               torch.as_tensor(topo.data, dtype=torch.float32, device=dev),
-               torch.as_tensor(topo.self_weight, dtype=torch.float32, device=dev))
+        csr = csr_on(topo)
         x = randn(n_ag, d)
         e4 = max_err(ops.sparse_mix_csr(x, *csr), ref.sparse_mix_csr_ref(x, *csr))
         check(e4 <= MIX_TOL * (1.0 + float(x.abs().max())), f"K4 ({n_ag}, {d}): max |err| {e4}")
@@ -208,7 +224,8 @@ def kernel_checks(torch, dev):
             big, big_csr, big_topo = x, csr, topo
     x, csr, topo = big, big_csr, big_topo
     nnz = int(topo.indptr[-1])
-    n_ag = topo.n_agents
+    n_ag = n_ag_big = topo.n_agents
+    d_big = x.shape[1]
     diag = torch.arange(n_ag, device=dev)
     rows_idx = torch.repeat_interleave(diag, csr[0][1:] - csr[0][:-1])
     with warnings.catch_warnings():  # beta-state notices of torch.sparse
@@ -228,7 +245,61 @@ def kernel_checks(torch, dev):
         library_ms=timer(lambda: torch.sparse.mm(w_csr, x)),
         bound_ms=b_ms, bound_by=b_by,
     )
-    del x, csr, big, big_csr, w_csr
+    del x, big, w_csr
+    torch.cuda.empty_cache()
+
+    # K5 — sparse-10k's w1 leaf over the same expander in the error-feedback
+    # form (residual and noise: what sparse-10k-q8 runs) and the stateless
+    # form (the Pallas kernel's function: what the gossip baselines run under
+    # q8d), plus ragged cases with int4 and gamma = 0.5
+    err5 = 0.0
+    for n_ag, d, bits, gamma, ef in ((10000, 25088, 8, 1.0, True), (10000, 25088, 8, 1.0, False),
+                                     (1024, 320, 4, 0.5, True), (1024, 10, 8, 1.0, False),
+                                     (7, 10, 4, 0.5, True), (7, 5, 8, 1.0, False),
+                                     (1, 5, 4, 0.5, True)):
+        c = csr if n_ag == n_ag_big else csr_on(
+            make_sparse_topology("random_regular" if n_ag > 7 else "ring", n_ag))
+        x = randn(n_ag, d)
+        r = 0.01 * randn(n_ag, d) if ef else None
+        noise = torch.rand(n_ag, d, generator=gen, device=dev) if ef else None
+        am = ops.row_absmax(x, r)
+        out, r_new = ops.sparse_compressed_mix_csr(x, r, *c, am, bits=bits, gamma=gamma,
+                                                   noise=noise)
+        out_p, r_new_p = ref.sparse_compressed_mix_csr_ref(x, r, *c, am, bits, gamma, noise)
+        if ef:
+            e = max_err(r_new, r_new_p)
+            check(e == 0.0, f"K5 q grid ({n_ag}, {d}, q{bits}): residual max |err| {e}")
+        else:
+            check(r_new is None and r_new_p is None, "K5 stateless: a residual came back")
+        e5 = max_err(out, out_p)
+        check(e5 <= MIX_TOL * (1.0 + float(x.abs().max())),
+              f"K5 ({n_ag}, {d}, q{bits}, gamma={gamma}, ef={ef}): max |err| {e5}")
+        err5 = max(err5, e5)
+        del x, r, noise, out, r_new, out_p, r_new_p
+    torch.cuda.empty_cache()
+    x, r = randn(n_ag_big, d_big), 0.01 * randn(n_ag_big, d_big)
+    noise = torch.rand(n_ag_big, d_big, generator=gen, device=dev)
+    am, am0 = ops.row_absmax(x, r), ops.row_absmax(x)
+    nd = x.numel()
+    csr_bytes = 8 * (n_ag_big + 1) + 12 * nnz + 4 * n_ag_big
+    # EF form: read x, r, noise and write out, r'; stateless: read x, write out
+    b_ms, b_by = bound_ms(5 * 4 * nd + csr_bytes + 4 * n_ag_big,
+                          2 * (nnz + n_ag_big) * d_big + 10 * nd)
+    b0_ms, b0_by = bound_ms(2 * 4 * nd + csr_bytes + 4 * n_ag_big,
+                            2 * (nnz + n_ag_big) * d_big + 7 * nd)
+    rows["sparse_compressed_mix"] = dict(
+        shape=[n_ag_big, d_big], max_abs_err=err5,
+        ms=timer(lambda: ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, noise=noise)),
+        plain_ms=timer(lambda: ref.sparse_compressed_mix_csr_ref(x, r, *csr, am, 8, 1.0, noise),
+                       iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        stateless_ms=timer(lambda: ops.sparse_compressed_mix_csr(x, None, *csr, am0, bits=8)),
+        stateless_plain_ms=timer(
+            lambda: ref.sparse_compressed_mix_csr_ref(x, None, *csr, am0, 8), iters=3),
+        stateless_bound_ms=b0_ms, stateless_bound_by=b0_by,
+        noise_ms=timer(lambda: torch.rand(n_ag_big, d_big, generator=gen, device=dev)),
+    )
+    del x, r, noise, csr, big_csr
     torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"kernel {name}: {json.dumps(row)}")
@@ -350,6 +421,8 @@ def check_run(torch, label, hist, rounds, n_agents, template):
     for k, v in template.items():
         check(tuple(st.x[k].shape) == (n_agents,) + tuple(v.shape), f"{label}: shape of {k}")
         check(bool(torch.isfinite(st.x[k]).all()), f"{label}: non-finite {k}")
+        if not hasattr(st, "y"):  # no gradient tracking (DSGD family, SCAFFOLD)
+            continue
         # Lemma 1: mean_i y_i == mean_i g_i
         dev_l1 = float((st.y[k].mean(0) - st.g[k].mean(0)).abs().max())
         scale = 1.0 + float(st.g[k].abs().max())
@@ -359,22 +432,25 @@ def check_run(torch, label, hist, rounds, n_agents, template):
 
 
 def compare_cpu(torch, label, gpu_hist, cpu_hist):
+    """Flags and bytes equal, per-round losses within the path's limit
+    (looked up by the label up to its first "/")."""
     import dataclasses
 
     import numpy as np
 
+    limit = PATH_LOSS_RTOL[label.split("/")[0]]
     check(gpu_hist.is_global == cpu_hist.is_global, f"{label}: is_global differs")
     check(dataclasses.asdict(gpu_hist.accountant) == dataclasses.asdict(cpu_hist.accountant),
           f"{label}: accountant bytes differ")
     g, c = np.asarray(gpu_hist.loss), np.asarray(cpu_hist.loss)
     rel = float(np.max(np.abs(g - c) / np.abs(c)))
     log(f"compare {label}: GPU vs CPU max relative loss deviation {rel:.3e} "
-        f"(limit {PATH_LOSS_RTOL[label]}), is_global and bytes equal")
-    check(rel <= PATH_LOSS_RTOL[label], f"{label}: losses deviate by {rel}")
+        f"(limit {limit}), is_global and bytes equal")
+    check(rel <= limit, f"{label}: losses deviate by {rel}")
 
 
 def main_path(torch, dev):
-    import numpy as np
+    import dataclasses
 
     from repro_torch.core import ExperimentSpec
     from repro_torch.data import FederatedDataset
@@ -413,6 +489,22 @@ def main_path(torch, dev):
     profile_rounds(torch, dev, "paper", spec, loss, params0, data, 128)
     cpu_hist = run_path(torch, cpu, spec, loss, params0, data, 128)
     compare_cpu(torch, "paper", hist, cpu_hist)
+
+    # -- baselines-paper: the paper's six baselines on the same fleet --------
+    for algo in BASELINES:
+        label = f"baselines-paper/{algo}"
+        bspec = spec.replace(algo=algo)
+        hist, counts = drive(torch, dev, label, bspec, loss, params0, data, 128, logreg_eval(dev))
+        add(counts)
+        check_run(torch, label, hist, bspec.rounds, 10, params0)
+        ev = hist.eval_metrics
+        log(f"{label}: test loss {ev[0]['test_loss']:.6f} -> {ev[-1]['test_loss']:.6f}, "
+            f"test acc {ev[-1]['test_acc']:.4f}, server rounds {hist.accountant.agent_to_server}")
+        if algo in SERVER_BASED:
+            check(all(hist.is_global), f"{label}: a round without the server")
+        else:
+            check(ev[-1]["test_loss"] < ev[0]["test_loss"], f"{label}: test loss did not fall")
+        compare_cpu(torch, label, hist, run_path(torch, cpu, bspec, loss, params0, data, 128))
 
     # -- dense-q8: the largest dense fleet, MLP, stochastic int8 with EF -----
     n_dense = SIZES["dense_agents"]
@@ -464,14 +556,47 @@ def main_path(torch, dev):
     log(f"sparse-10k: {1e3 * hist.wall_time_s / spec.rounds:.3f} ms/round, "
         f"loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}")
     profile_rounds(torch, dev, "sparse-10k", spec, models.mlp_loss, mlp0, data, 16)
+    del hist
+
+    # -- sparse-10k-q8: the same fleet, stochastic int8 + error feedback -----
+    spec_q8 = spec.replace(compression="q8")
+    hist, counts = drive(torch, dev, "sparse-10k-q8", spec_q8, models.mlp_loss, mlp0, data, 16,
+                         mlp_eval(dev, data))
+    add(counts)
+    check_run(torch, "sparse-10k-q8", hist, spec_q8.rounds, n_sparse, mlp0)
+    for k in ("fused_local_step", "row_absmax", "sparse_compressed_mix"):
+        check(counts[k] > 0, f"sparse-10k-q8: {k} not launched")
+    log(f"sparse-10k-q8: {1e3 * hist.wall_time_s / spec_q8.rounds:.3f} ms/round, "
+        f"loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}, "
+        f"gossip bytes/round {hist.byte_model.gossip_round_bytes}, "
+        f"server bytes/round {hist.byte_model.server_round_bytes}")
+    profile_rounds(torch, dev, "sparse-10k-q8", spec_q8, models.mlp_loss, mlp0, data, 16)
+    del hist
+
+    # -- dsgt-sparse-10k-q8d: DSGT on the same fleet, deterministic int8 -----
+    # (the stateless K5: the gossip baselines carry no residuals)
+    spec_dsgt = spec.replace(algo="dsgt", compression="q8d", rounds=SIZES["dsgt_rounds"])
+    hist, counts = drive(torch, dev, "dsgt-sparse-10k-q8d", spec_dsgt, models.mlp_loss, mlp0,
+                         data, 16)
+    add(counts)
+    check_run(torch, "dsgt-sparse-10k-q8d", hist, spec_dsgt.rounds, n_sparse, mlp0)
+    for k in ("row_absmax", "sparse_compressed_mix"):
+        check(counts[k] > 0, f"dsgt-sparse-10k-q8d: {k} not launched")
+    log(f"dsgt-sparse-10k-q8d: {1e3 * hist.wall_time_s / spec_dsgt.rounds:.3f} ms/round, "
+        f"loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}")
     del data, hist
+
     n_cmp = SIZES["compare_agents"]
     x, y = synthetic_mnist(n_cmp * 20, seed=1)
     small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
-    short = spec.replace(n_agents=n_cmp, rounds=3, p=0.3)
-    gpu_h = run_path(torch, dev, short, models.mlp_loss, mlp0, small, 16)
-    cpu_h = run_path(torch, cpu, short, models.mlp_loss, mlp0, small, 16)
-    compare_cpu(torch, "sparse-1024", gpu_h, cpu_h)
+    for label, cspec in (("sparse-1024", spec), ("sparse-1024-q8d", spec_q8.replace(
+            compression="q8d"))):
+        short = cspec.replace(n_agents=n_cmp, rounds=3, p=0.3)
+        gpu_h = run_path(torch, dev, short, models.mlp_loss, mlp0, small, 16)
+        cpu_h = run_path(torch, cpu, short, models.mlp_loss, mlp0, small, 16)
+        check(dataclasses.asdict(gpu_h.byte_model) == dataclasses.asdict(cpu_h.byte_model),
+              f"{label}: byte model differs")
+        compare_cpu(torch, label, gpu_h, cpu_h)
     return launches
 
 
@@ -514,12 +639,11 @@ def main() -> int:
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 
+    # each row: max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by and
+    # shape, plus K5's stateless-form and noise times
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], max_abs_err=rows[name]["max_abs_err"],
-             ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
-             bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
-             library_ms=rows[name]["library_ms"], shape=rows[name]["shape"])
+             launches=launches[name], **rows[name])
         for name, source, replaces in KERNELS
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,13 @@
 """Algorithm registry — the experiment-facing protocol layer.
 
-Each protocol is one :class:`Algorithm` entry: a builder closing the round
-functions over ``(loss_fn, cfg, mixing)`` and a :class:`CommProfile` pricing
-its traffic as data.  Only PISCO is ported; the baselines of the reference
-registry (DSGD, DSGT, Gossip-PGA, periodical GT, FedAvg, SCAFFOLD) raise
-``NotImplementedError``.
+Each protocol (PISCO and the paper's six baselines) is one
+:class:`Algorithm` entry:
+
+* a **builder** closing the round functions over ``(loss_fn, cfg, mixing)``,
+* a declarative **default schedule** (``"bernoulli"`` / ``"never"`` /
+  ``"always"`` / ``"periodic"`` — line 8 of Algorithm 1 and its degenerate
+  cases), and
+* a :class:`CommProfile` pricing its traffic as data.
 
 Round-function contract::
 
@@ -14,8 +17,9 @@ Round-function contract::
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+from repro_torch.core import baselines as B
 from repro_torch.core.mixing import MixingOps
 from repro_torch.core.pisco import (
     LossFn,
@@ -24,24 +28,37 @@ from repro_torch.core.pisco import (
     init_state,
     make_round_fn,
 )
-from repro_torch.core.schedule import make_schedule
+from repro_torch.core.schedule import (
+    AlwaysSchedule,
+    NeverSchedule,
+    PeriodicSchedule,
+    make_schedule,
+)
 
+# builder(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0)
+#   -> (init, gossip_round, global_round)
 Builder = Callable[..., Tuple[Callable, Callable, Callable]]
 
-# Registered in the reference, waiting for ROADMAP A6 (baselines).
-NOT_PORTED = ("periodical_gt", "dsgt", "dsgd", "gossip_pga", "fedavg", "scaffold")
+SCHEDULE_KINDS = ("bernoulli", "never", "always", "periodic")
 
 
 @dataclasses.dataclass(frozen=True)
 class CommProfile:
     """Per-protocol communication cost, priced as data.
 
-    ``mixes_per_round``   — mixing invocations per communication round.
-    ``server_payloads``   — payloads per direction of a server exchange.
+    ``mixes_per_round``   — mixing invocations per communication round; each
+                            gossip mix moves one message per directed edge.
+    ``server_payloads``   — payloads one agent moves per direction of a server
+                            exchange (model only = 1; model + control variate
+                            or tracking stream = 2).
+    ``server_based``      — every communication round is agent-to-server.
+    ``uses_local_updates``— the protocol consumes the T_o local batches.
     """
 
     mixes_per_round: int = 1
     server_payloads: int = 1
+    server_based: bool = False
+    uses_local_updates: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,22 +76,55 @@ class BoundAlgorithm:
 
 @dataclasses.dataclass(frozen=True)
 class Algorithm:
-    """One registry entry: builder + comm profile; the schedule is line 8 of
-    Algorithm 1, Bernoulli(p) from the config's seed."""
+    """One registry entry: builder + declarative schedule + comm profile.
+
+    ``avg_period`` (periodic schedules only) is the server-averaging period H
+    used when ``cfg.p == 0`` gives no implied period; when ``cfg.p > 0`` the
+    period is ``round(1/p)``, so a Bernoulli(p) PISCO run and a periodic
+    baseline spend the same expected server budget."""
 
     name: str
     build: Builder
     comm: CommProfile = CommProfile()
+    schedule: str = "bernoulli"
+    avg_period: int = 10
     description: str = ""
 
-    def bind(self, loss_fn: LossFn, cfg: PiscoConfig, mixing: MixingOps) -> BoundAlgorithm:
-        init, gossip, glob = self.build(loss_fn, cfg, mixing)
+    def __post_init__(self):
+        if self.schedule not in SCHEDULE_KINDS:
+            raise ValueError(f"schedule {self.schedule!r} not in {SCHEDULE_KINDS}")
+
+    def make_default_schedule(self, cfg: PiscoConfig):
+        if self.schedule == "never":
+            return NeverSchedule()
+        if self.schedule == "always":
+            return AlwaysSchedule()
+        if self.schedule == "periodic":
+            return PeriodicSchedule(
+                max(1, int(round(1.0 / cfg.p))) if cfg.p > 0 else self.avg_period
+            )
+        return make_schedule(cfg.p, cfg.seed)
+
+    def bind(
+        self,
+        loss_fn: LossFn,
+        cfg: PiscoConfig,
+        mixing: MixingOps,
+        *,
+        eta: Optional[float] = None,
+        eta_g: float = 1.0,
+        schedule: Optional[Callable[[int], bool]] = None,
+    ) -> BoundAlgorithm:
+        """Close the algorithm over a concrete problem; ``eta`` overrides the
+        baselines' step size (default ``cfg.eta_l``), ``eta_g`` is SCAFFOLD's
+        server step, and ``schedule`` overrides the declarative default."""
+        init, gossip, glob = self.build(loss_fn, cfg, mixing, eta=eta, eta_g=eta_g)
         return BoundAlgorithm(
             name=self.name,
             init=init,
             gossip_round=gossip,
             global_round=glob,
-            schedule=make_schedule(cfg.p, cfg.seed),
+            schedule=schedule if schedule is not None else self.make_default_schedule(cfg),
             comm=self.comm,
         )
 
@@ -83,7 +133,14 @@ _REGISTRY: Dict[str, Algorithm] = {}
 
 
 def register_algorithm(
-    name: str, *, mixes_per_round: int = 1, server_payloads: int = None,
+    name: str,
+    *,
+    mixes_per_round: int = 1,
+    server_payloads: Optional[int] = None,
+    server_based: bool = False,
+    uses_local_updates: bool = True,
+    schedule: str = "bernoulli",
+    avg_period: int = 10,
     description: str = "",
 ) -> Callable[[Builder], Builder]:
     """Decorator registering a builder under ``name``; ``server_payloads``
@@ -100,7 +157,11 @@ def register_algorithm(
                 server_payloads=(
                     mixes_per_round if server_payloads is None else server_payloads
                 ),
+                server_based=server_based,
+                uses_local_updates=uses_local_updates,
             ),
+            schedule=schedule,
+            avg_period=avg_period,
             description=description or (build.__doc__ or "").strip(),
         )
         return build
@@ -109,10 +170,6 @@ def register_algorithm(
 
 
 def get_algorithm(name: str) -> Algorithm:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet (ROADMAP A6: baselines)"
-        )
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -121,14 +178,101 @@ def get_algorithm(name: str) -> Algorithm:
         ) from None
 
 
+def registered_algorithms() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# ---------------------------------------------------------------------------
+# The paper's seven protocols
+# ---------------------------------------------------------------------------
+
+
 @register_algorithm(
     "pisco",
     mixes_per_round=2,
     description="PISCO (Algorithm 1): tracked local updates + Bernoulli(p) server",
 )
-def _build_pisco(loss_fn, cfg, mixing):
+def _build_pisco(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
     return (
         lambda lf, x0, b0: init_compression_state(init_state(lf, x0, b0), mixing),
         make_round_fn(loss_fn, cfg, mixing, global_round=False),
         make_round_fn(loss_fn, cfg, mixing, global_round=True),
     )
+
+
+@register_algorithm(
+    "periodical_gt",
+    mixes_per_round=2,
+    schedule="never",
+    description="Periodical-GT [LLKS24]: PISCO with p = 0 (gossip every round)",
+)
+def _build_periodical_gt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+    fn = B.make_periodical_gt_round_fn(loss_fn, cfg, mixing)
+    return init_state, fn, fn
+
+
+@register_algorithm(
+    "dsgt",
+    mixes_per_round=2,
+    uses_local_updates=False,
+    description="DSGT [PN21]: gradient tracking, one step per round",
+)
+def _build_dsgt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+    eta = cfg.eta_l if eta is None else eta
+    return (
+        B.dsgt_init,
+        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=False),
+        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=True),
+    )
+
+
+def _build_dsgd_family(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+    eta = cfg.eta_l if eta is None else eta
+    return (
+        B.dsgd_init,
+        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=False, t_o=cfg.t_o),
+        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o),
+    )
+
+
+register_algorithm(
+    "dsgd",
+    mixes_per_round=1,
+    uses_local_updates=False,
+    schedule="never",
+    description="DSGD [NO09]: gossip SGD",
+)(_build_dsgd_family)
+
+register_algorithm(
+    "gossip_pga",
+    mixes_per_round=1,
+    uses_local_updates=False,
+    schedule="periodic",
+    avg_period=10,
+    description="Gossip-PGA [CYZ+21]: gossip SGD + periodic global averaging",
+)(_build_dsgd_family)
+
+
+@register_algorithm(
+    "fedavg",
+    mixes_per_round=1,
+    server_based=True,
+    schedule="always",
+    description="FedAvg [MMR+17]: local SGD + server averaging every round",
+)
+def _build_fedavg(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+    eta = cfg.eta_l if eta is None else eta
+    fn = B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o)
+    return B.dsgd_init, fn, fn
+
+
+@register_algorithm(
+    "scaffold",
+    mixes_per_round=2,
+    server_based=True,
+    schedule="always",
+    description="SCAFFOLD [KKM+20]: model + control variate per server exchange",
+)
+def _build_scaffold(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+    fn = B.make_scaffold_round_fn(loss_fn, cfg.eta_l, eta_g, cfg.t_o, mixing)
+    return B.scaffold_init, fn, fn

@@ -3,23 +3,25 @@
 * :class:`Compressor` — per-agent-message lossy codecs (symmetric int8/int4
   quantization, identity) that also *price* themselves
   (:meth:`Compressor.wire_bits`) for the byte-level accounting.
-* :class:`CompressedGossip` — dense gossip in the **mean-preserving
-  difference form**
+* :class:`CompressedGossip` — gossip over the dense W or the sparse CSR W in
+  the **mean-preserving difference form**
 
       out_i = x_i + gamma (sum_j W_ji q(m_j) - q(m_i)),     m_i = x_i (+ e_i)
 
   with error feedback ``e' = m - q(m)``.  Each leaf runs two kernels: the
   row abs-max of ``m`` (:func:`repro_torch.kernels.quantize.row_absmax`) and
-  the fused quantize/contract/combine
-  (:func:`repro_torch.kernels.quantize.compressed_mix`).  Scales are per
-  agent row **per leaf**.  Stochastic rounding draws uniform noise from a
-  device ``torch.Generator`` seeded from the spec and carried in the state
-  (it cannot reproduce JAX's PRNG bits; the rounding rule is the same).
+  the fused quantize/mix/combine — over the dense W
+  (:func:`repro_torch.kernels.quantize.compressed_mix`) or over the CSR
+  (:func:`repro_torch.kernels.sparse_mix.sparse_compressed_mix_csr`).  Scales
+  are per agent row **per leaf**.  Stochastic rounding draws uniform noise
+  from a device ``torch.Generator`` seeded from the spec and carried in the
+  state (it cannot reproduce JAX's PRNG bits; the rounding rule is the same).
 * :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
-  dense mixing ops, and build the closed-form :class:`RoundByteModel`.
+  dense or sparse mixing ops, and build the closed-form
+  :class:`RoundByteModel`.
 
-Top-k sparsification and compression over the sparse mixer are not ported
-yet (they raise ``NotImplementedError``).
+Top-k sparsification is not ported yet (it raises ``NotImplementedError``,
+ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.core.mixing import MixingOps
 from repro_torch.core.schedule import RoundByteModel
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import compressed_mix, qmax_of, row_absmax
+from repro_torch.kernels.sparse_mix import sparse_compressed_mix_csr
 from repro_torch.utils.pytree import tree_leaves, tree_zeros_like
 
 Tree = Dict[str, torch.Tensor]
@@ -122,18 +125,24 @@ def make_compressor(spec: str) -> Compressor:
 
 @dataclasses.dataclass(frozen=True)
 class CompressedGossip:
-    """Difference-form compressed gossip over the dense ``w``.
+    """Difference-form compressed gossip over the dense ``w`` or the sparse
+    ``csr`` = (indptr, indices, data, self_w) — exactly one of the two.
 
     :meth:`__call__` threads an error-feedback residual and a generator
     through the round function; :meth:`stateless` is the generator-free,
     residual-free variant installed as ``MixingOps.gossip``.  Both preserve
     the agent mean exactly, for any ``gamma`` (W is doubly stochastic)."""
 
-    w: torch.Tensor
     compressor: StochasticQuantizer
+    w: Optional[torch.Tensor] = None
+    csr: Optional[Tuple[torch.Tensor, ...]] = None
     error_feedback: bool = True
     seed: int = 0
     gamma: float = 1.0
+
+    def __post_init__(self):
+        if (self.w is None) == (self.csr is None):
+            raise ValueError("CompressedGossip needs exactly one of w (dense) or csr (sparse)")
 
     def init_ef(self, template: Tree) -> dict:
         """Per-stream residuals (X and Y are mixed separately each round) and
@@ -153,10 +162,12 @@ class CompressedGossip:
             noise = torch.rand(
                 rows.shape, generator=gen, dtype=torch.float32, device=rows.device
             )
-        out, new_res = compressed_mix(
-            rows, res, self.w, row_absmax(rows, res),
-            bits=self.compressor.bits, gamma=self.gamma, noise=noise,
-        )
+        kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
+        absmax = row_absmax(rows, res)
+        if self.w is not None:
+            out, new_res = compressed_mix(rows, res, self.w, absmax, **kw)
+        else:
+            out, new_res = sparse_compressed_mix_csr(rows, res, *self.csr, absmax, **kw)
         return out.reshape(x.shape), (None if new_res is None else new_res.reshape(x.shape))
 
     def __call__(self, tree: Tree, residual: Any, gen) -> Tuple[Tree, Any]:
@@ -179,18 +190,18 @@ def compress_mixing(
     seed: int = 0,
     gamma: float = 1.0,
 ) -> MixingOps:
-    """Attach a compressor to dense mixing ops.  ``global_avg`` (the server
-    round) stays full precision."""
+    """Attach a compressor to dense or sparse mixing ops.  ``global_avg``
+    (the server round) stays full precision."""
     if isinstance(compressor, IdentityCompressor):
         return base
-    if base.w is None:
+    if base.w is None and base.csr is None:
         raise NotImplementedError(
-            f"compressed gossip over {base.name!r} is not ported yet: only the "
-            "dense mixer (ROADMAP B6: sparse_compressed_mix)"
+            f"compressed gossip over {base.name!r} is not ported: only over the "
+            "static dense and sparse mixers (collective mixers: ROADMAP A17)"
         )
     cg = CompressedGossip(
-        w=base.w, compressor=compressor, error_feedback=error_feedback,
-        seed=seed, gamma=gamma,
+        compressor=compressor, w=base.w, csr=base.csr,
+        error_feedback=error_feedback, seed=seed, gamma=gamma,
     )
     return dataclasses.replace(
         base,

@@ -101,12 +101,7 @@ class ExperimentSpec:
             if getattr(self, name) != defaults.get(name):
                 raise _not_ported(f"{name}={getattr(self, name)!r}", item)
         if self.compression is not None:
-            make_compressor(self.compression)  # fail fast (top-k: not ported)
-            if self.compression not in ("none", "fp32") and self.use_sparse:
-                raise _not_ported(
-                    "compression over the sparse mixer",
-                    "B6 (sparse_compressed_mix kernel)",
-                )
+            make_compressor(self.compression)  # fail fast (top-k: ROADMAP A5)
         if isinstance(self.topology_kwargs, dict):
             object.__setattr__(
                 self, "topology_kwargs", tuple(sorted(self.topology_kwargs.items()))
@@ -160,12 +155,13 @@ class ExperimentSpec:
     def make_mixing(self, device: torch.device) -> MixingOps:
         kw = dict(self.topology_kwargs)
         if self.use_sparse:
-            return sparse_mixing(
+            mixing = sparse_mixing(
                 make_sparse_topology(self.topology, self.config.n_agents, **kw), device
             )
-        mixing = dense_mixing(
-            make_topology(self.topology, self.config.n_agents, **kw), device
-        )
+        else:
+            mixing = dense_mixing(
+                make_topology(self.topology, self.config.n_agents, **kw), device
+            )
         if self.compression is not None:
             mixing = compress_mixing(
                 mixing,

@@ -9,15 +9,17 @@ dicts of tensors:
   contract with it inside the fused kernel (:mod:`repro_torch.core.compression`).
 * :func:`sparse_mixing` — gossip over the precomputed CSR triple of a
   :class:`SparseTopology` through the sparse-gossip kernel, O(n + m) state.
+  Keeps the CSR on the device so compressed gossip can run the fused
+  compressed sparse-gossip kernel over it.
 * :func:`identity_mixing` — no communication.
 
 Dynamic networks (time-varying W_k, partial participation) and the
-collective multi-GPU mixers are not ported yet.
+collective multi-GPU mixers are not ported yet (ROADMAP A2/A5, A17).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,9 @@ class MixingOps:
     # The dense W (float32, on the device) for dense mixers — what the fused
     # compressed-gossip kernel contracts with; None for sparse/identity.
     w: Optional[torch.Tensor] = None
+    # (indptr, indices, data, self_w) on the device for sparse mixers — what
+    # the fused compressed sparse-gossip kernel walks; None otherwise.
+    csr: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def dense_mixing(topology: Topology, device: torch.device) -> MixingOps:
@@ -78,18 +83,21 @@ def sparse_mixing(topology: SparseTopology, device: torch.device) -> MixingOps:
             and topology.indptr[-1] == nnz and np.all(np.diff(topology.indptr) >= 0)
             and (nnz == 0 or 0 <= topology.indices.min() <= topology.indices.max() < n)):
         raise ValueError(f"malformed CSR triple for {n} agents")
-    indptr = torch.as_tensor(topology.indptr, dtype=torch.int64, device=device)
-    indices = torch.as_tensor(topology.indices, dtype=torch.int64, device=device)
-    data = torch.as_tensor(topology.data, dtype=torch.float32, device=device)
-    self_w = torch.as_tensor(topology.self_weight, dtype=torch.float32, device=device)
+    csr = (
+        torch.as_tensor(topology.indptr, dtype=torch.int64, device=device),
+        torch.as_tensor(topology.indices, dtype=torch.int64, device=device),
+        torch.as_tensor(topology.data, dtype=torch.float32, device=device),
+        torch.as_tensor(topology.self_weight, dtype=torch.float32, device=device),
+    )
 
     def mix(x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(x.shape[0], -1)
-        return sparse_mix_csr(flat, indptr, indices, data, self_w).reshape(x.shape)
+        return sparse_mix_csr(flat, *csr).reshape(x.shape)
 
     return MixingOps(
         gossip=lambda tree: tree_map(mix, tree),
         global_avg=tree_agent_mean,
         name=f"sparse/{topology.name}",
         gossip_edges=topology.n_edges,
+        csr=csr,
     )

@@ -150,13 +150,21 @@ def _round_metrics(cfg: PiscoConfig, mean_loss, loss_c, g_new, x_new) -> RoundMe
 
 
 def make_round_fn(
-    loss_fn: LossFn, cfg: PiscoConfig, mixing: MixingOps, *, global_round: bool
+    loss_fn: LossFn,
+    cfg: PiscoConfig,
+    mixing: MixingOps,
+    *,
+    global_round: bool,
+    use_ef: bool = True,
 ) -> Callable[[PiscoState, Any, Any], Tuple[PiscoState, RoundMetrics]]:
     """One PISCO round for a fixed W^k kind (the driver dispatches between
     the gossip and the global form per its host-side Bernoulli(p) draw).
 
     With a compressor attached, a gossip round's two mixes go through the
     stateful error-feedback path (residuals and generator in ``state.ef``).
+    ``use_ef=False`` forces the stateless compressed gossip instead, for
+    states that carry no residuals (periodical GT in
+    :mod:`repro_torch.core.baselines`).
 
     Args to the returned fn:
       state:         PiscoState
@@ -165,7 +173,7 @@ def make_round_fn(
     """
     stacked_vg = make_stacked_value_and_grad(loss_fn)
     mix = mixing.global_avg if global_round else mixing.gossip
-    compressed = mixing.compression is not None and not global_round
+    compressed = mixing.compression is not None and not global_round and use_ef
 
     def round_fn(state: PiscoState, local_batches, comm_batch):
         x_half, y_to, g_to, mean_loss = _local_phase(

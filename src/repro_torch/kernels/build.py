@@ -4,9 +4,9 @@ Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), one ``nvcc`` process per source, all started together.  Libraries
 land in ``<repo>/build/kernels/`` (git-ignored) under a name that carries a
-hash of the source and flags, so an edited source is never served a stale
-build.  Nothing is compiled at import: the first launch of any kernel builds
-them all.
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is never served a stale build.  Nothing is compiled at import:
+the first launch of any kernel builds them all.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, because a refused launch never runs
@@ -31,8 +31,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # -fmad=false: no multiply-add contraction, so the elementwise arithmetic
-# (K1, the K2/K3 quantizer grid, K4's products) rounds exactly as the plain
-# PyTorch versions do; K3's contraction asks for FMA explicitly (fmaf).
+# (K1, the K3/K5 quantizer grid, K4's and K5's products) rounds exactly as
+# the plain PyTorch versions do; K3's contraction asks for FMA explicitly
+# (fmaf).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +47,7 @@ LAUNCHES: Dict[str, int] = {
     "row_absmax": 0,
     "compressed_mix": 0,
     "sparse_mix": 0,
+    "sparse_compressed_mix": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -66,6 +68,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "sparse_mix": {
         "launch_sparse_mix_csr": [P, P, P, P, P, P, I64, I64, P],
+        "launch_sparse_compressed_mix_csr": [P, P, P, P, P, P, P, P, P, P, I64, I64, F32, F32,
+                                             I32, P],
     },
 }
 
@@ -87,6 +91,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers, too
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -30,12 +30,14 @@
 // matching 32 x 64 block of W, and every thread keeps an 8 x 4 register tile
 // of accumulators.  q never round-trips through device memory.
 //
-// Exactness: round half to even (rintf), divide by the scale (never multiply
-// by a reciprocal), and the _rn intrinsics with -fmad=false keep the q grid,
-// the residual and the epilogue bit-identical to the plain version; only the
-// order of the W^T q sum differs from a library matmul.
+// Exactness: the quantizer of quant.cuh and the _rn intrinsics with
+// -fmad=false keep the q grid, the residual and the epilogue bit-identical to
+// the plain version; only the order of the W^T q sum differs from a library
+// matmul.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quant.cuh"
 
 namespace {
 
@@ -71,19 +73,6 @@ constexpr int TX = 32;   // threads along columns
 constexpr int TY = 8;    // threads along rows
 constexpr int RI = BI / TY;  // 8 rows per thread
 constexpr int RC = BC / TX;  // 4 columns per thread
-
-// Dequantised wire value of element (j, c): q * s_j, with m = x (+ r).
-__device__ __forceinline__ float quant(float m, float s, float qmax, const float* noise,
-                                       int64_t idx) {
-  const float u = __fdiv_rn(m, s);
-  float q = noise ? floorf(__fadd_rn(u, noise[idx])) : rintf(u);
-  q = fminf(fmaxf(q, -qmax), qmax);
-  return __fmul_rn(q, s);
-}
-
-__device__ __forceinline__ float row_scale(const float* absmax, int64_t j, float qmax) {
-  return __fdiv_rn(fmaxf(absmax[j], 1e-12f), qmax);
-}
 
 __global__ void __launch_bounds__(TX * TY)
 compressed_mix_kernel(const float* __restrict__ x, const float* __restrict__ r,

@@ -15,7 +15,14 @@ from typing import Dict
 from repro_torch.kernels import build
 from repro_torch.kernels.gt_update import fused_local_step, fused_track_step
 from repro_torch.kernels.quantize import compressed_mix, row_absmax
-from repro_torch.kernels.sparse_mix import csr_from_edges, sparse_mix, sparse_mix_csr
+from repro_torch.kernels.sparse_mix import (
+    csr_from_edges,
+    sparse_compressed_mix,
+    sparse_compressed_mix_csr,
+    sparse_mix,
+    sparse_mix_csr,
+    topology_edge_arrays,
+)
 
 __all__ = [
     "fused_local_step",
@@ -24,7 +31,10 @@ __all__ = [
     "compressed_mix",
     "sparse_mix",
     "sparse_mix_csr",
+    "sparse_compressed_mix",
+    "sparse_compressed_mix_csr",
     "csr_from_edges",
+    "topology_edge_arrays",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -90,3 +90,26 @@ def sparse_mix_csr_ref(
     )
     acc = torch.zeros_like(xf).index_add_(0, rows, data[:, None] * xf[indices])
     return (self_w[:, None] * xf + acc).to(x.dtype)
+
+
+def sparse_compressed_mix_csr_ref(
+    x: Tensor,
+    residual: Optional[Tensor],
+    indptr: Tensor,
+    indices: Tensor,
+    data: Tensor,
+    self_w: Tensor,
+    absmax: Tensor,
+    bits: int,
+    gamma: float = 1.0,
+    noise: Optional[Tensor] = None,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """Mean-preserving compressed gossip over the CSR W with optional error
+    feedback: ``m = x + r``, ``q = q(m)``, ``out = x + gamma*((self_w q +
+    sum_row data q[indices]) - q)`` grouped as ``x + (mixed - q)`` when
+    gamma == 1; ``r' = m - q`` (None without r)."""
+    m = x if residual is None else x + residual
+    q = quantize_rows_ref(m, absmax, bits, noise)
+    diff = sparse_mix_csr_ref(q, indptr, indices, data, self_w) - q
+    out = x + diff if gamma == 1.0 else x + gamma * diff
+    return out, (None if residual is None else m - q)

@@ -13,10 +13,17 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.pisco import PiscoState
 from repro_torch.device import DeviceLike
 
 Tree = Dict[str, torch.Tensor]
+
+# tree fields of each state type; ``step`` (and PISCO's ``ef``) cross apart
+_TREE_FIELDS = {
+    "PiscoState": ("x", "y", "g"),
+    "GTState": ("x", "y", "g"),
+    "ScaffoldState": ("x", "c_i", "c"),
+    "SGDState": ("x",),
+}
 
 
 def from_jax(params: Mapping[str, Any], device: DeviceLike) -> Tree:
@@ -37,36 +44,49 @@ def to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: params[k].detach().cpu().numpy() for k in sorted(params)}
 
 
-def state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> PiscoState:
-    """An agent-stacked reference ``PiscoState`` (anything with ``x``, ``y``,
-    ``g``, ``step`` and optionally ``ef``) as a port state.  Error-feedback
+def _state_kind(state: Any) -> str:
+    """The port's state type for a reference state, from its fields: PISCO
+    (and periodical GT) carry ``ef``, DSGT carries ``y`` without it,
+    SCAFFOLD carries ``c_i``, DSGD / Gossip-PGA / FedAvg only ``x``."""
+    if hasattr(state, "c_i"):
+        return "ScaffoldState"
+    if hasattr(state, "y"):
+        return "PiscoState" if hasattr(state, "ef") else "GTState"
+    return "SGDState"
+
+
+def state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> Any:
+    """An agent-stacked reference state as the port's state of the same
+    algorithm: ``PiscoState`` (``x``, ``y``, ``g``, ``step``, optionally
+    ``ef``), ``GTState``, ``ScaffoldState`` or ``SGDState``.  Error-feedback
     residuals carry across; the JAX PRNG key cannot, so a compressed state
-    gets a fresh generator seeded with ``seed``."""
-    ef = getattr(state, "ef", ())
-    if ef:
-        dev = torch.device(device)
-        ef = {
-            "x": from_jax(ef["x"], dev) if ef["x"] else (),
-            "y": from_jax(ef["y"], dev) if ef["y"] else (),
-            "gen": torch.Generator(device=dev).manual_seed(seed),
-        }
-    return PiscoState(
-        x=from_jax(state.x, device),
-        y=from_jax(state.y, device),
-        g=from_jax(state.g, device),
-        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
-        ef=ef,
-    )
+    gets a fresh generator seeded with ``seed``.  The reference's update-rule
+    state (``opt``) is not ported (ROADMAP A9) and must be empty."""
+    from repro_torch.core import baselines, pisco
+
+    if getattr(state, "opt", ()):
+        raise NotImplementedError("update-rule state is not ported yet (ROADMAP A9)")
+    kind = _state_kind(state)
+    cls = pisco.PiscoState if kind == "PiscoState" else getattr(baselines, kind)
+    fields = {f: from_jax(getattr(state, f), device) for f in _TREE_FIELDS[kind]}
+    fields["step"] = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
+    if kind == "PiscoState":
+        ef = getattr(state, "ef", ())
+        if ef:
+            dev = torch.device(device)
+            ef = {
+                "x": from_jax(ef["x"], dev) if ef["x"] else (),
+                "y": from_jax(ef["y"], dev) if ef["y"] else (),
+                "gen": torch.Generator(device=dev).manual_seed(seed),
+            }
+        fields["ef"] = ef
+    return cls(**fields)
 
 
-def state_to_numpy(state: PiscoState) -> Dict[str, Any]:
+def state_to_numpy(state: Any) -> Dict[str, Any]:
     """Inverse of :func:`state_from_jax` (the generator does not cross)."""
-    out = {
-        "x": to_numpy(state.x),
-        "y": to_numpy(state.y),
-        "g": to_numpy(state.g),
-        "step": int(state.step),
-    }
-    if state.ef:
+    out = {f: to_numpy(getattr(state, f)) for f in _TREE_FIELDS[type(state).__name__]}
+    out["step"] = int(state.step)
+    if getattr(state, "ef", ()):
         out["ef"] = {k: to_numpy(state.ef[k]) if state.ef[k] else () for k in ("x", "y")}
     return out

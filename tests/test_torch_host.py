@@ -90,7 +90,8 @@ def _template(n):
 
 
 @pytest.mark.parametrize("sparse,compression", [(False, None), (True, None),
-                                                (False, "q8"), (False, "q4d")])
+                                                (False, "q8"), (False, "q4d"),
+                                                (True, "q8"), (True, "q4d")])
 def test_round_byte_model_equal(sparse, compression):
     n = 12
     tmpl = _template(n)
@@ -124,7 +125,7 @@ def test_spec_json_round_trips_across_packages():
     ("systems", "uniform"), ("adversary", "signflip:f=0.2"), ("robust_agg", "median"),
     ("optimizer", "momentum"), ("server_optimizer", "fedadam"),
     ("lr_schedule", "cosine"), ("compression", "top0.1"), ("driver", "events"),
-    ("algo", "dsgt"),
+    ("async_", "constant"),
 ])
 def test_unported_spec_fields_raise(field, value):
     kw = {"n_agents": 8, field: value}
@@ -133,8 +134,13 @@ def test_unported_spec_fields_raise(field, value):
 
 
 def test_compression_over_sparse_mixer_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="q8")
+    """Quantized gossip over the sparse mixer builds (K5); top-k over it is
+    still refused, as over the dense mixer."""
+    spec = texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="q8")
+    mixing = spec.make_mixing(CPU)
+    assert mixing.csr is not None and mixing.compression.csr is mixing.csr
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="top0.1")
 
 
 def test_identity_mixing_holds_iterates():

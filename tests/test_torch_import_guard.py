@@ -20,6 +20,7 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.quantize" in mods and "repro_torch.core.experiment" in mods
+    assert "repro_torch.core.baselines" in mods and "repro_torch.kernels.sparse_mix" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

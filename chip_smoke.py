@@ -5,7 +5,7 @@
 
 on a machine with one NVIDIA H100 and the CUDA toolkit.  It
 
-1. builds the five hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
+1. builds the seven hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at ragged shapes, and times kernel,
@@ -20,7 +20,15 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    compressed gossip ("dsgt-sparse-10k-q8d") — with every launch counter
    zeroed just before each run and read just after, and checks each against
    the same spec run on the CPU (the 10,000-agent paths at 1,024 agents);
-4. prints the card's name and power limit, one JSON line of per-kernel
+4. serves the two decoder-only models that fit the card at full width, in
+   bf16, through ``FleetDelta.synthetic`` -> ``DecodeEngine`` ->
+   ``ContinuousBatcher`` -> ``run_load``: Qwen3-8B ("serve-qwen3-8b": flash
+   attention, K6, 36 launches per admitted request; its prefill logits held
+   against the plain versions on the card) and Mamba2-370m
+   ("serve-mamba2-370m": the SSD scan, K7, 48 launches per request; admit,
+   step and dense-fleet token streams bit-identical), then both models at
+   their reduced widths on the card and on the CPU ("serve-reduced");
+5. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -42,6 +50,7 @@ SRC = os.path.join(ROOT, "src")
 # device memory and float32 arithmetic outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 
 # (name, CUDA source, the Pallas call it replaces)
 KERNELS = (
@@ -55,6 +64,10 @@ KERNELS = (
      "src/repro/kernels/sparse_mix.py:144"),
     ("sparse_compressed_mix", "src/repro_torch/kernels/csrc/sparse_mix.cu",
      "src/repro/kernels/sparse_mix.py:188"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:117"),
+    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:106"),
 )
 
 # Tolerances of the on-card kernel checks.  K1 and K2 compute the same
@@ -64,6 +77,17 @@ KERNELS = (
 # cuBLAS / index_add_ (whose atomics have no fixed order):
 # max |err| <= TOL * (1 + max |input|).
 MIX_TOL = 2e-5
+# K6 against its plain version (the ROADMAP's): f32 2e-6 absolute (online
+# against one-pass softmax); bf16 2e-2 absolute (the output rounds to bf16).
+# K7 (the ROADMAP's 5e-4, scaled by 1 + max |plain|): f32 y and the f32
+# state within 5e-4; bf16 y within one bf16 ulp (2^-8) of the same scale.
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 2.0 ** -8}
+# serve-qwen3-8b: last-position prefill logits through K6 against the plain
+# versions, both on the card, in bf16 through 36 layers: within 5e-2 of
+# 1 + max |logit| (a few bf16 ulps; attention outputs may round one ulp
+# apart and that carries through the residual stream)
+PREFILL_LOGIT_TOL = 5e-2
 
 # Path sizes: the paper's quickstart fleet, the largest dense fleet (n = 512,
 # topology.SPARSE_AUTO_MIN_AGENTS) and the documented large-fleet deployment
@@ -87,8 +111,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -355,7 +379,6 @@ def profile_rounds(torch, dev, label, spec, loss_fn, params0, data, batch, activ
     all).  The profiler's step is advanced by the sampler, which the driver
     calls once per round, after a synchronize — so the idle share includes
     one host sync per round that an untraced block would not make."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import Experiment
@@ -385,9 +408,23 @@ def profile_rounds(torch, dev, label, spec, loss_fn, params0, data, batch, activ
         torch.cuda.synchronize()
     traced = hist.is_global[first:first + active]
     check(not any(traced), f"profile {label}: a server round in the gossip window")
+    window, busy, top = device_share(prof, label)
+    log(f"profile {label}: gossip rounds {first}-{first + active - 1}, "
+        f"window {window / 1e3 / active:.3f} ms/round, "
+        f"device busy {100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), "
+        f"device time {busy / 1e3 / active:.3f} ms/round")
+    for name, us in top:
+        log(f"profile {label}:   {us / 1e3 / active:8.3f} ms/round  {name[:110]}")
+
+
+def device_share(prof, label):
+    """(window µs, device-busy µs, the ten heaviest device ops as (name, µs))
+    of a finished ``torch.profiler`` trace.  Busy time is the union of the
+    intervals of device work — kernels, copies and fills, not the step
+    annotations the profiler also puts on the device timeline."""
+    from torch.autograd import DeviceType
+
     events = prof.events()
-    # device work only: kernels, copies and fills, not the step annotations
-    # the profiler also puts on the device timeline
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")]
     dev_iv = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
@@ -404,13 +441,7 @@ def profile_rounds(torch, dev, label, spec, loss_fn, params0, data, batch, activ
     per_kernel = {}
     for e in dev_events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    log(f"profile {label}: gossip rounds {first}-{first + active - 1}, "
-        f"window {window / 1e3 / active:.3f} ms/round, "
-        f"device busy {100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), "
-        f"device time {busy / 1e3 / active:.3f} ms/round")
-    for name, us in top:
-        log(f"profile {label}:   {us / 1e3 / active:8.3f} ms/round  {name[:110]}")
+    return window, busy, sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
 
 
 def check_run(torch, label, hist, rounds, n_agents, template):
@@ -600,6 +631,293 @@ def main_path(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 1b: the serving path's kernels (K6, K7) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_cost(b, hq, hkv, sq, sk, d, window, itemsize):
+    """(bytes, flops) of one causal attention call: q, k, v read and o
+    written once; 4·D flops per unmasked (query, key) pair."""
+    pairs = 0
+    for i in range(sq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        pairs += min(i, sk - 1) - lo + 1
+    nbytes = itemsize * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    return nbytes, 4.0 * b * hq * d * pairs
+
+
+def ssd_cost(b, l, h, p, g, n, chunk, itemsize):
+    """(bytes, flops) of one SSD scan with the model's chunk: x, dt, B, C read
+    and y written once, the f32 final state written; per chunk of length c
+    and head, C·Bᵀ and its product with x over the causal triangle
+    (c(c+1)/2 · 2(N + P)), the state read-out and update (2 · 2·c·P·N)."""
+    flops = 0.0
+    for c0 in range(0, l, chunk):
+        c = min(chunk, l - c0)
+        flops += c * (c + 1) / 2 * 2 * (n + p) + 4 * c * p * n
+    nbytes = itemsize * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n) + 4 * b * h * p * n
+    return nbytes, b * h * flops
+
+
+def lm_kernel_checks(torch, dev):
+    """K6 at Qwen3-8B's prefill shape (B 1, Hq 32, Hkv 8, D 128, S 2048, bf16,
+    causal), at the served prompt (S 500), and at a ragged S of 1000 with a
+    256 window in f32; K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
+    N 128, chunk 256, bf16) and at a ragged L of 1000 in f32."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    rows = {}
+
+    def attn_inputs(b, hq, hkv, s, d, dt):
+        # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt).transpose(1, 2)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt) for _ in range(2))
+        return q, k, v
+
+    err6 = 0.0
+    for b, hq, hkv, s, d, window, dt in ((1, 32, 8, 2048, 128, None, torch.bfloat16),
+                                         (1, 32, 8, 500, 128, None, torch.bfloat16),
+                                         (1, 32, 8, 1000, 128, 256, torch.float32),
+                                         (2, 4, 2, 77, 32, None, torch.float32)):
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt)
+        e = max_err(ops.flash_attention(q, k, v, causal=True, window=window),
+                    ref.flash_attention_ref(q, k, v, causal=True, window=window))
+        check(e <= FLASH_TOL[names[dt]], f"K6 {(b, hq, hkv, s, d, window, dt)}: max |err| {e}")
+        log(f"K6 check {(b, hq, hkv, s, d, window, names[dt])}: max |err| {e:.3e}")
+        err6 = max(err6, e)
+        del q, k, v
+    q, k, v = attn_inputs(1, 32, 8, 2048, 128, torch.bfloat16)
+    nb, fl = flash_cost(1, 32, 8, 2048, 2048, 128, None, 2)
+    b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=True))
+    check(e_lib <= FLASH_TOL["bfloat16"], f"SDPA disagrees with the plain version: {e_lib}")
+    rows["flash_attention"] = dict(
+        shape=[1, 32, 8, 2048, 128], dtype="bfloat16", max_abs_err=err6,
+        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=3),
+        library_ms=time_ms(torch, lib), bound_ms=b_ms, bound_by=b_by,
+        f32_window_ms=None,
+    )
+    q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
+    rows["flash_attention"]["f32_window_ms"] = time_ms(
+        torch, lambda: ops.flash_attention(q, k, v, causal=True, window=256))
+    del q, k, v
+
+    def ssd_inputs(b, l, h, p, g, n, dt):
+        x = torch.randn(b, l, h, p, generator=gen, device=dev).to(dt)
+        # softplus(dt) of the model lies in [dt_min, dt_max] = [0.001, 0.1]
+        dtt = (0.001 + 0.099 * torch.rand(b, l, h, generator=gen, device=dev)).to(dt)
+        a = -(1.0 + 15.0 * torch.rand(h, generator=gen, device=dev))  # A = -[1, 16]
+        bm, cm = (torch.randn(b, l, g, n, generator=gen, device=dev).to(dt) for _ in range(2))
+        return x, dtt, a, bm, cm
+
+    err7 = 0.0
+    for b, l, h, p, g, n, dt in ((1, 2048, 32, 64, 1, 128, torch.bfloat16),
+                                 (1, 1000, 32, 64, 1, 128, torch.bfloat16),
+                                 (1, 1000, 32, 64, 1, 128, torch.float32),
+                                 (2, 77, 8, 32, 2, 16, torch.float32)):
+        args = ssd_inputs(b, l, h, p, g, n, dt)
+        y, hf = ops.ssd_scan(*args, chunk=256)
+        y2, hf2 = ref.ssd_scan_ref(*args, chunk=256)
+        ey = max_err(y, y2) / (1.0 + float(y2.float().abs().max()))
+        eh = max_err(hf, hf2) / (1.0 + float(hf2.abs().max()))
+        check(ey <= SSD_TOL[names[dt]] and eh <= SSD_TOL["float32"],
+              f"K7 {(b, l, h, p, g, n, dt)}: scaled max |err| y {ey}, state {eh}")
+        log(f"K7 check {(b, l, h, p, g, n, names[dt])}: max |err| / (1 + max |plain|) "
+            f"y {ey:.3e}, state {eh:.3e}")
+        err7 = max(err7, max_err(y, y2), max_err(hf, hf2))
+        del args, y, hf, y2, hf2
+    args = ssd_inputs(1, 2048, 32, 64, 1, 128, torch.bfloat16)
+    nb, fl = ssd_cost(1, 2048, 32, 64, 1, 128, 256, 2)
+    b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
+    rows["ssd_scan"] = dict(
+        shape=[1, 2048, 32, 64, 1, 128], dtype="bfloat16", max_abs_err=err7,
+        ms=time_ms(torch, lambda: ops.ssd_scan(*args, chunk=256)),
+        plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=256), iters=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    del args
+    torch.cuda.empty_cache()
+    for name in ("flash_attention", "ssd_scan"):
+        log(f"kernel {name}: {json.dumps(rows[name])}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the serving path
+# ---------------------------------------------------------------------------
+
+# (arch, agents, delta fraction, slots, requests, prompt length, new tokens)
+SERVE = {"serve-qwen3-8b": ("qwen3-8b", 4, 0.001, 2, 6, 500, 16),
+         "serve-mamba2-370m": ("mamba2-370m", 8, 0.02, 4, 12, 1000, 32)}
+SERVE_ARRIVAL = "poisson:rate=4"
+
+
+def serve_run(torch, dev, label, bundle, fleet, mode="admit", count=True):
+    """One served trace (measured engine time): token streams, the report,
+    and, when ``count``, the launch counts of this run alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine,
+                                   make_requests, run_load)
+
+    _, _, _, slots, n_req, prompt_len, gen = SERVE[label]
+    engine = DecodeEngine(bundle, fleet, n_slots=slots, max_seq=prompt_len + gen + 8,
+                          materialize=mode)
+    reqs = make_requests(ArrivalProcess.parse(SERVE_ARRIVAL), n_req, n_agents=fleet.n_agents,
+                         vocab_size=bundle.cfg.vocab_size, prompt_len=prompt_len,
+                         max_new_tokens=gen, seed=0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = run_load(ContinuousBatcher(engine), reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(len(rep.requests) == n_req and all(len(r.tokens) == gen for r in rep.requests),
+          f"{label} ({mode}): {len(rep.requests)} requests served")
+    return engine, rep, {r.rid: list(r.tokens) for r in rep.requests}, (counts if count else None)
+
+
+def serve_report(torch, dev, label, engine, rep, card):
+    """The path's end-to-end numbers, with decode ms per step measured over
+    steps of the full slot batch after the run, then one traced prefill
+    and four traced decode steps (device busy share, heaviest device ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = [0] * engine.n_slots
+    engine.step(toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        engine.step(toks)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 8
+    req = min(rep.requests, key=lambda r: r.rid)
+    for what, fn, n in (("prefill", lambda: engine.admit(0, req.agent_id, req.prompt), 1),
+                        ("decode", lambda: [engine.step(toks) for _ in range(4)], 4)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        window, busy, top = device_share(prof, f"{label} {what}")
+        log(f"profile {label} {what}: window {window / 1e3 / n:.3f} ms per call, device busy "
+            f"{100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), "
+            f"device time {busy / 1e3 / n:.3f} ms per call")
+        for name, us in top:
+            log(f"profile {label} {what}:   {us / 1e3 / n:8.3f} ms  {name[:100]}")
+    log(f"path {label}: {rep.total_tokens} tokens from {len(rep.requests)} requests, "
+        f"{rep.tokens_per_s:.3f} tokens/s, p50 {1e3 * rep.p50_s:.3f} ms, "
+        f"p99 {1e3 * rep.p99_s:.3f} ms, prefill {1e3 * rep.mean('prefill_s'):.3f} ms/request, "
+        f"decode {step_ms:.3f} ms/step ({engine.n_slots} slots), "
+        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
+
+
+def serve_paths(torch, dev, card):
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, FleetDelta,
+                                   StepCosts, make_requests, materialize_fleet, run_load)
+    from repro_torch.utils.pytree import nest_leaves, nest_map
+
+    launches = {}
+
+    # -- serve-qwen3-8b: full width, bf16, flash attention on every layer -----
+    label = "serve-qwen3-8b"
+    arch, n_agents, frac = SERVE[label][:3]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    bundle = get_bundle(get_config(arch), dev)
+    base = bundle.init(seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fleet = FleetDelta.synthetic(base, n_agents, fraction=frac, seed=0)
+    torch.cuda.synchronize()
+    log(f"{label}: {bundle.cfg.param_count() / 1e9:.3f} B parameters drawn in {t1 - t0:.1f} s, "
+        f"fleet of {n_agents} ({fleet.spec.name}) in {time.perf_counter() - t1:.1f} s: "
+        f"{fleet.nbytes() / 1e9:.3f} GB vs {fleet.naive_nbytes() / 1e9:.3f} GB naive")
+    engine, rep, tokens, counts = serve_run(torch, dev, label, bundle, fleet)
+    n_attn = bundle.cfg.layer_kinds().count("attn")
+    check(counts["flash_attention"] == n_attn * len(rep.requests),
+          f"{label}: {counts['flash_attention']} K6 launches for {len(rep.requests)} admissions")
+    launches["flash_attention"] = counts["flash_attention"]
+    log(f"{label}: launches {counts} ({n_attn} K6 per admitted request)")
+    serve_report(torch, dev, label, engine, rep, card)
+    first = min(rep.requests, key=lambda r: r.rid)
+    kern = engine.admit(0, first.agent_id, first.prompt)
+    plain = engine.admit(0, first.agent_id, first.prompt, use_kernels=False)
+    check(bool(np.isfinite(kern).all()) and kern.shape == (bundle.cfg.vocab_size,),
+          f"{label}: prefill logits")
+    e = float(np.abs(kern - plain).max()) / (1.0 + float(np.abs(plain).max()))
+    top2 = np.sort(plain)[-2:]
+    log(f"{label}: request {first.rid} prefill logits, K6 vs plain on the card: "
+        f"max |err| / (1 + max |logit|) {e:.3e} (limit {PREFILL_LOGIT_TOL}); greedy token "
+        f"{int(np.argmax(kern))} vs {int(np.argmax(plain))} (served {first.tokens[0]}), "
+        f"top-2 margin {float(top2[1] - top2[0]):.4f}")
+    check(e <= PREFILL_LOGIT_TOL, f"{label}: prefill logits differ by {e}")
+    check(int(np.argmax(kern)) == int(np.argmax(plain)) == first.tokens[0],
+          f"{label}: greedy first tokens differ")
+    del engine, fleet, base, bundle
+    torch.cuda.empty_cache()
+
+    # -- serve-mamba2-370m: SSD scan on every layer; admit / step / dense ----
+    label = "serve-mamba2-370m"
+    arch, n_agents, frac = SERVE[label][:3]
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = get_bundle(get_config(arch), dev)
+    base = bundle.init(seed=0)
+    t1 = time.perf_counter()
+    fleet = FleetDelta.synthetic(base, n_agents, fraction=frac, seed=0)
+    torch.cuda.synchronize()
+    log(f"{label}: {bundle.cfg.param_count() / 1e9:.3f} B parameters, fleet of {n_agents} "
+        f"({fleet.spec.name}) in {time.perf_counter() - t1:.1f} s: "
+        f"{fleet.nbytes() / 1e9:.3f} GB vs {fleet.naive_nbytes() / 1e9:.3f} GB naive")
+    engine, rep, tokens, counts = serve_run(torch, dev, label, bundle, fleet)
+    n_ssm = bundle.cfg.layer_kinds().count("mamba")
+    check(counts["ssd_scan"] == n_ssm * len(rep.requests),
+          f"{label}: {counts['ssd_scan']} K7 launches for {len(rep.requests)} admissions")
+    launches["ssd_scan"] = counts["ssd_scan"]
+    log(f"{label}: launches {counts} ({n_ssm} K7 per admitted request)")
+    serve_report(torch, dev, label, engine, rep, card)
+    del engine
+    _, rep_step, tokens_step, _ = serve_run(torch, dev, label, bundle, fleet, "step", False)
+    dense = materialize_fleet(fleet)
+    _, rep_dense, tokens_dense, _ = serve_run(torch, dev, label, bundle, dense, "admit", False)
+    check(tokens == tokens_step == tokens_dense,
+          f"{label}: admit, step and dense token streams differ")
+    log(f"{label}: admit, step and dense ({dense.nbytes() / 1e9:.3f} GB) token streams "
+        f"bit-identical over {rep.total_tokens} tokens; step mode {rep_step.tokens_per_s:.3f} "
+        f"tokens/s, dense {rep_dense.tokens_per_s:.3f} tokens/s")
+    del dense, fleet, base, bundle
+    torch.cuda.empty_cache()
+
+    # -- serve-reduced: both models at reduced width, f32, card against CPU --
+    cpu = torch.device("cpu")
+    for arch in ("qwen3-8b", "mamba2-370m"):
+        cfg = get_reduced(arch)
+        streams = []
+        base_cpu = get_bundle(cfg, cpu).init(seed=0)
+        for d in (dev, cpu):
+            bundle = get_bundle(cfg, d)
+            base = nest_map(lambda t: t.to(d), base_cpu)
+            fleet = FleetDelta.synthetic(base, 4, seed=0)
+            reqs = make_requests(ArrivalProcess.parse(SERVE_ARRIVAL), 6, n_agents=4,
+                                 vocab_size=cfg.vocab_size, prompt_len=45, max_new_tokens=8,
+                                 seed=0)
+            eng = DecodeEngine(bundle, fleet, n_slots=2, max_seq=64)
+            rep = run_load(ContinuousBatcher(eng), reqs, costs=StepCosts())
+            streams.append({r.rid: r.tokens for r in rep.requests})
+        check(streams[0] == streams[1], f"serve-reduced/{arch}: GPU and CPU tokens differ")
+        check(len(nest_leaves(base_cpu)) > 0, "serve-reduced: empty parameters")
+        log(f"compare serve-reduced/{arch}: greedy token streams equal on GPU and CPU "
+            f"({sum(map(len, streams[0].values()))} tokens)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -635,12 +953,14 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     rows = kernel_checks(torch, dev)
+    rows.update(lm_kernel_checks(torch, dev))
     launches = main_path(torch, dev)
+    launches.update(serve_paths(torch, dev, card))
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 
     # each row: max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by and
-    # shape, plus K5's stateless-form and noise times
+    # shape, plus K5's stateless-form and noise times and K6's f32 window time
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **rows[name])

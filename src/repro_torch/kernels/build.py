@@ -32,14 +32,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # -fmad=false: no multiply-add contraction, so the elementwise arithmetic
 # (K1, the K3/K5 quantizer grid, K4's and K5's products) rounds exactly as
-# the plain PyTorch versions do; K3's contraction asks for FMA explicitly
-# (fmaf).
+# the plain PyTorch versions do; the contractions of K3, K6 and K7 ask for
+# FMA explicitly (fmaf).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-SOURCES = ("gt_update", "quantize", "sparse_mix")
+SOURCES = ("gt_update", "quantize", "sparse_mix", "flash_attention", "ssd_scan")
 
 # name -> launches since the last reset; one entry per ported kernel
 LAUNCHES: Dict[str, int] = {
@@ -48,6 +48,8 @@ LAUNCHES: Dict[str, int] = {
     "compressed_mix": 0,
     "sparse_mix": 0,
     "sparse_compressed_mix": 0,
+    "flash_attention": 0,
+    "ssd_scan": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -71,7 +73,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "launch_sparse_compressed_mix_csr": [P, P, P, P, P, P, P, P, P, P, I64, I64, F32, F32,
                                              I32, P],
     },
+    "flash_attention": {
+        "launch_flash_attention": [P, P, P, P, I64, I32, I32, I32, I32, I32, *[I64] * 9, F32,
+                                   I32, I32, I32, P],
+    },
+    "ssd_scan": {
+        "launch_ssd_scan": [P, P, P, P, P, P, P, *[I32] * 6, *[I64] * 12, I32, I32, P],
+        "ssd_scan_smem_bytes": [I32, I32],
+    },
 }
+
+# entry points returning something other than a cudaError_t
+RESTYPES = {"ssd_scan_smem_bytes": I64}
 
 
 def reset_launches() -> None:
@@ -142,7 +155,7 @@ def library(name: str) -> ctypes.CDLL:
         for fn_name, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
         _LIBS[name] = lib
     return lib
 
@@ -158,6 +171,12 @@ def stream_of(t: torch.Tensor) -> int:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last dimension is contiguous (the kernels read
+    the other dimensions through their strides), else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gt_update import fused_local_step, fused_track_step
 from repro_torch.kernels.quantize import compressed_mix, row_absmax
 from repro_torch.kernels.sparse_mix import (
@@ -23,6 +24,7 @@ from repro_torch.kernels.sparse_mix import (
     sparse_mix_csr,
     topology_edge_arrays,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = [
     "fused_local_step",
@@ -35,6 +37,8 @@ __all__ = [
     "sparse_compressed_mix_csr",
     "csr_from_edges",
     "topology_edge_arrays",
+    "flash_attention",
+    "ssd_scan",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -84,3 +84,30 @@ def tree_agent_mix_sparse(tree: Tree, senders, receivers, edge_w, self_w) -> Tre
         return sparse_mix(flat, senders, receivers, edge_w, self_w).reshape(x.shape)
 
     return tree_map(mix, tree)
+
+
+# ---------------------------------------------------------------------------
+# Nested trees (the LM zoo's parameters and caches): dicts walked in sorted
+# key order, lists in order, the order ``jax.tree`` uses.
+# ---------------------------------------------------------------------------
+
+
+def nest_map(fn: Callable, *trees):
+    """``fn`` over the leaves of ``trees[0]`` (nested dicts and lists); the
+    other trees are cut at those leaf positions, so a delta payload facing a
+    tensor leaf of the first tree arrives whole."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: nest_map(fn, *(t[k] for t in trees)) for k in sorted(t0)}
+    if isinstance(t0, list):
+        return [nest_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
+
+
+def nest_leaves(tree) -> list:
+    """Every tensor of a nested tree, delta payloads (NamedTuples) opened."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in nest_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in nest_leaves(x)]
+    return [tree]

@@ -1,5 +1,6 @@
-"""The five Hopper kernels against their plain PyTorch versions on a card,
-and short PISCO and baseline runs on the GPU against the CPU.
+"""The seven Hopper kernels against their plain PyTorch versions on a card,
+short PISCO and baseline runs on the GPU against the CPU, and greedy
+serving of both reduced LMs on the GPU against the CPU.
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips without one.  The file imports no JAX, so on a GPU machine without JAX
@@ -124,3 +125,58 @@ def test_short_run_gpu_matches_cpu(cuda, kw):
     assert gpu.is_global == cpu.is_global
     np.testing.assert_allclose(gpu.loss, cpu.loss, rtol=1e-4)
 
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype", [
+    (1, 32, 8, 300, 128, None, torch.bfloat16), (2, 4, 2, 77, 32, None, torch.float32),
+    (1, 8, 8, 130, 64, 50, torch.float32), (1, 4, 1, 64, 128, 16, torch.bfloat16)])
+def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype):
+    q = torch.randn(b, s, hq, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    # f32: the ROADMAP's 2e-6; bf16: the output's rounding, 2e-2
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,dtype", [
+    (1, 300, 32, 64, 1, 128, torch.bfloat16), (2, 77, 8, 32, 2, 16, torch.float32),
+    (1, 1000, 4, 64, 1, 128, torch.float32), (1, 3, 2, 16, 1, 8, torch.float32)])
+def test_k7_within_tolerance(cuda, gen, b, l, h, p, g, n, dtype):
+    x = torch.randn(b, l, h, p, generator=gen, device=cuda).to(dtype)
+    dt = (0.1 * torch.rand(b, l, h, generator=gen, device=cuda)).to(dtype)
+    a = -0.5 - 4 * torch.rand(h, generator=gen, device=cuda)
+    bm, cm = (torch.randn(b, l, g, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    y, hfin = ops.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    y2, h2 = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+    # the ROADMAP's 5e-4 scaled by the output's size; bf16 y is rounded to
+    # bf16 (one bf16 ulp, 2^-8 relative)
+    ymax = 1.0 + float(y2.float().abs().max())
+    ytol = 5e-4 if dtype == torch.float32 else 2.0 ** -8
+    assert float((y.float() - y2.float()).abs().max()) <= ytol * ymax
+    assert float((hfin - h2).abs().max()) <= 5e-4 * (1.0 + float(h2.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m"])
+def test_reduced_serving_gpu_matches_cpu(cuda, arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, FleetDelta,
+                                   StepCosts, make_requests, run_load)
+
+    streams = []
+    ops.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        bundle = get_bundle(get_reduced(arch), dev)
+        fleet = FleetDelta.synthetic(bundle.init(0), 4, seed=0)
+        reqs = make_requests(ArrivalProcess(rate=4.0), 4, n_agents=4, vocab_size=512,
+                             prompt_len=37, max_new_tokens=6, seed=1)
+        rep = run_load(ContinuousBatcher(DecodeEngine(bundle, fleet, n_slots=2, max_seq=48)),
+                       reqs, costs=StepCosts())
+        streams.append({r.rid: r.tokens for r in rep.requests})
+    kernel = "flash_attention" if arch == "qwen3-8b" else "ssd_scan"
+    assert ops.launch_counts()[kernel] == 2 * 4  # two layers, four admissions
+    assert streams[0] == streams[1]

@@ -21,6 +21,12 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.quantize" in mods and "repro_torch.core.experiment" in mods
     assert "repro_torch.core.baselines" in mods and "repro_torch.kernels.sparse_mix" in mods
+    for name in ("kernels.flash_attention", "kernels.ssd_scan", "models.config",
+                 "models.layers", "models.rope", "models.mlp", "models.attention",
+                 "models.mamba2", "models.transformer", "models.registry", "configs",
+                 "configs.qwen3_8b", "configs.mamba2_370m", "serve", "serve.delta",
+                 "serve.engine", "serve.batcher", "serve.load", "serve.__main__"):
+        assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

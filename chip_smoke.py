@@ -5,7 +5,7 @@
 
 on a machine with one NVIDIA H100 and the CUDA toolkit.  It
 
-1. builds the seven hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
+1. builds the nine hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at ragged shapes, and times kernel,
@@ -28,7 +28,19 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    ("serve-mamba2-370m": the SSD scan, K7, 48 launches per request; admit,
    step and dense-fleet token streams bit-identical), then both models at
    their reduced widths on the card and on the CPU ("serve-reduced");
-5. prints the card's name and power limit, one JSON line of per-kernel
+5. trains across four ranks (spawned processes, one PISCO agent each, all on
+   the one card and joined by gloo through pinned host memory, since NCCL
+   refuses two ranks on one device): Mamba2-370m at full width in bf16 on a
+   ring ("collective-mamba2-370m": a gossip round through the fused
+   candidate combine K8, a server round, then an int8 compressed gossip
+   round through K2's one-row form and K9), held to invariants (x
+   bit-equal on every rank after the server round, the ring's mean of x, y
+   and an eta_c = 0.7 candidate, Lemma 1, finite losses); and the reduced
+   model over a ring, a ring with deterministic int8 gossip, a 2 x 2 torus,
+   the hierarchical mixer and a dense Erdos-Renyi W, on the card against the
+   same ranks on the CPU, and over a ring with stochastic int8 gossip (noise
+   drawn on each device) held to its invariants on both ("collective-reduced");
+6. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -68,6 +80,10 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:117"),
     ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:106"),
+    ("fused_mix_combine", "src/repro_torch/kernels/csrc/gt_update.cu",
+     "src/repro/kernels/gt_update.py:112"),
+    ("rowwise_quant_dequant", "src/repro_torch/kernels/csrc/quantize.cu",
+     "src/repro/kernels/quantize.py:111"),
 )
 
 # Tolerances of the on-card kernel checks.  K1 and K2 compute the same
@@ -750,6 +766,149 @@ def lm_kernel_checks(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1c: the collective path's kernels (K8, K9, K2's one-row form)
+# ---------------------------------------------------------------------------
+
+# One agent's in_proj leaf of Mamba2-370m (d_model 1024 x (2 * 2048 + 2 * 128
+# + 32) = 4384 per layer, 48 layers): the largest leaf the collective path
+# mixes, one row of 215.5 M elements per rank.
+IN_PROJ = (48, 1024, 4384)
+
+
+def collective_kernel_checks(torch, dev, rows):
+    """K8 (both forms), K9 (deterministic, stochastic, with and without a
+    residual) and K2's one-row form at the in_proj leaf in bf16 and f32, and
+    at ragged shapes; each must equal its plain version bit for bit (same
+    roundings, f32 math).  Times the forms the collective path runs: K8 from
+    x_half with the f32 wire, K9 and K2 with the error-feedback residual, all
+    over bf16 state.  Adds K8 and K9 to ``rows`` and the one-row numbers to
+    K2's row."""
+    import math
+
+    from repro_torch.kernels import ops, ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n = math.prod(IN_PROJ)
+
+    def randn(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    # K8: (shape, state dtype, wire dtype, with y_to (the reference's form), with right)
+    err8 = 0.0
+    for shape, dt, wire, has_y, has_r in ((IN_PROJ, bf16, bf16, True, True),
+                                          (IN_PROJ, bf16, f32, False, True),
+                                          (IN_PROJ, f32, f32, False, True),
+                                          ((1001, 3), bf16, f32, False, False),
+                                          ((7,), f32, f32, True, True)):
+        xk, xt = randn(shape, dt), randn(shape, dt)
+        yt = randn(shape, dt) if has_y else None
+        left, right = randn(shape, wire), (randn(shape, wire) if has_r else None)
+        coef = (0.9, 0.01 if has_y else 0.0, 0.5, 0.25, 0.25 if has_r else 0.0)
+        got = ops.fused_mix_combine(xk, xt, yt, left, right, eta_c=coef[0], eta_l=coef[1],
+                                    w_self=coef[2], w_left=coef[3], w_right=coef[4]) \
+            if has_y else ops.mix_combine_half(xk, xt, left, right, eta_c=coef[0],
+                                               w_self=coef[2], w_left=coef[3], w_right=coef[4])
+        want = ref.fused_mix_combine_ref(xk, xt, yt, left, right, *coef)
+        e = max_err(got, want)
+        check(e == 0.0 and got.dtype == dt, f"K8 {shape} {dt} wire {wire}: max |err| {e}")
+        err8 = max(err8, e)
+        del xk, xt, yt, left, right, got, want
+    torch.cuda.empty_cache()
+    xk, xh, yt = randn(IN_PROJ, bf16), randn(IN_PROJ, bf16), randn(IN_PROJ, bf16)
+    left, right = randn(IN_PROJ, f32), randn(IN_PROJ, f32)
+    lb, rb = left.to(bf16), right.to(bf16)
+    path = lambda: ops.mix_combine_half(xk, xh, left, right, eta_c=1.0, w_self=0.5,  # noqa: E731
+                                        w_left=0.25, w_right=0.25)
+    jax_form = lambda: ops.fused_mix_combine(  # noqa: E731
+        xk, xh, yt, lb, rb, eta_c=1.0, eta_l=0.01, w_self=0.5, w_left=0.25, w_right=0.25)
+    # path: x_k, x_half and the output in bf16, both neighbours in f32
+    b_ms, b_by = bound_ms((3 * 2 + 2 * 4) * n, 7 * n)
+    j_ms, j_by = bound_ms(6 * 2 * n, 9 * n)
+    rows["fused_mix_combine"] = dict(
+        shape=list(IN_PROJ), dtype="bfloat16 state, float32 wire", max_abs_err=err8,
+        ms=time_ms(torch, path), bound_ms=b_ms, bound_by=b_by,
+        plain_ms=time_ms(torch, lambda: ref.fused_mix_combine_ref(
+            xk, xh, None, left, right, 1.0, 0.0, 0.5, 0.25, 0.25), iters=3),
+        library_ms=None, jax_form_ms=time_ms(torch, jax_form), jax_form_bound_ms=j_ms,
+    )
+    del xk, xh, yt, left, right, lb, rb
+    torch.cuda.empty_cache()
+
+    # K9 and K2: (rows, columns, dtype, bits, residual, noise)
+    err9 = err2 = 0.0
+    for r_, d, dt, bits, with_res, with_noise in ((1, n, bf16, 8, True, False),
+                                                  (1, n, f32, 8, True, True),
+                                                  (1, n, bf16, 8, False, False),
+                                                  (3, 100_003, bf16, 4, True, True),
+                                                  (5, 7, f32, 8, False, False)):
+        x = randn((r_, d), dt)
+        res = randn((r_, d), dt, 0.01) if with_res else None
+        noise = torch.rand((r_, d), generator=gen, device=dev) if with_noise else None
+        am = ops.row_absmax(x, res)
+        e2 = max_err(am, ref.row_absmax_ref(x, res))
+        check(e2 == 0.0, f"K2 one-row ({r_}, {d}) {dt}: max |err| {e2} (must be exact)")
+        q, r_new = ops.rowwise_quant_dequant(x, am, bits=bits, residual=res, noise=noise)
+        q2, r2 = ref.rowwise_quant_dequant_ref(x, am, bits, res, noise)
+        e9 = max(max_err(q, q2), max_err(r_new, r2) if with_res else 0.0)
+        check(e9 == 0.0 and q.dtype == dt, f"K9 ({r_}, {d}) {dt} q{bits}: max |err| {e9}")
+        err2, err9 = max(err2, e2), max(err9, e9)
+        del x, res, noise, am, q, r_new, q2, r2
+    torch.cuda.empty_cache()
+    x, res = randn((1, n), bf16), randn((1, n), bf16, 0.01)
+    am = ops.row_absmax(x, res)
+    m = (x.float() + res.float()).to(bf16)
+    b9_ms, b9_by = bound_ms(4 * 2 * n, 6 * n)  # read x, r; write q, r'
+    p9_ms, _ = bound_ms(2 * 2 * n, 5 * n)  # the Pallas kernel's form: read x, write q
+    rows["rowwise_quant_dequant"] = dict(
+        shape=[1, n], dtype="bfloat16", max_abs_err=err9,
+        ms=time_ms(torch, lambda: ops.rowwise_quant_dequant(x, am, bits=8, residual=res)),
+        bound_ms=b9_ms, bound_by=b9_by,
+        plain_ms=time_ms(torch, lambda: ref.rowwise_quant_dequant_ref(x, am, 8, res), iters=3),
+        library_ms=None,
+        no_residual_ms=time_ms(torch, lambda: ops.rowwise_quant_dequant(x, am, bits=8)),
+        no_residual_bound_ms=p9_ms,
+    )
+    # the library yardstick: fake_quantize over one channel (the row) is the
+    # per-row symmetric round trip clamp(rint(x / s)) * s of the reference's
+    # form (no residual), timed on the float32 row beside K9's same form; it
+    # multiplies by 1 / s, so at a tie it may land one step from K9
+    xf = x.float()
+    amf = ops.row_absmax(xf)
+    scale = amf / torch.full_like(amf, 127.0)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    library = lambda: torch.fake_quantize_per_channel_affine(  # noqa: E731
+        xf, scale, zero, 0, -127, 127)
+    lib_steps = float((library() - ops.rowwise_quant_dequant(xf, amf, bits=8)[0]).abs().max()
+                      / scale)
+    check(lib_steps <= 1.0 + 1e-3, f"K9's library yardstick is {lib_steps} steps off")
+    rows["rowwise_quant_dequant"].update(
+        library_ms=time_ms(torch, library), library_max_steps=lib_steps,
+        library_form="torch.fake_quantize_per_channel_affine, float32 row, no residual",
+        f32_no_residual_ms=time_ms(torch, lambda: ops.rowwise_quant_dequant(xf, amf, bits=8)),
+        f32_no_residual_bound_ms=bound_ms(2 * 4 * n, 5 * n)[0],
+    )
+    del xf, amf, scale, zero
+    b2_ms, _ = bound_ms(2 * 2 * n + 4, 2 * n)
+    b20_ms, _ = bound_ms(2 * n + 4, n)
+    rows["row_absmax"].update(
+        one_row_shape=[1, n], one_row_dtype="bfloat16", one_row_max_abs_err=err2,
+        one_row_ms=time_ms(torch, lambda: ops.row_absmax(x, res), iters=20),
+        one_row_bound_ms=b2_ms,
+        one_row_plain_ms=time_ms(torch, lambda: ref.row_absmax_ref(x, res), iters=3),
+        one_row_no_residual_ms=time_ms(torch, lambda: ops.row_absmax(x), iters=20),
+        one_row_no_residual_bound_ms=b20_ms,
+        # one call over the precomputed m = x + r (the add is not timed)
+        one_row_library_ms=time_ms(
+            torch, lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1), iters=20),
+    )
+    del x, res, am, m
+    torch.cuda.empty_cache()
+    for name in ("fused_mix_combine", "rowwise_quant_dequant", "row_absmax"):
+        log(f"kernel {name}: {json.dumps(rows[name])}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the serving path
 # ---------------------------------------------------------------------------
 
@@ -918,6 +1077,409 @@ def serve_paths(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: PISCO across ranks (spawned processes, one agent each)
+# ---------------------------------------------------------------------------
+
+# collective-mamba2-370m: TRAIN_4K's sequence, 4 agents (not 16) with 2
+# sequences each (not 64: global batch 8, not 256), T_o = 2, eta_l = 1e-2,
+# eta_c = 1, the f32 wire; "reduced" is collective-reduced's model and sizes.
+COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=4096,
+                  batch=2, t_o=2, eta_l=1e-2, eta_c=1.0, wire="float32",
+                  reduced_seq=64, reduced_batch=2, reduced_rounds=3)
+# collective-reduced, card against CPU: f32 round losses within 1e-4 relative
+# and the final x within 1e-4 of its largest magnitude (cuBLAS and the CPU
+# sum in other orders over three rounds); with int8 gossip (q8d) a few
+# elements may round to the neighbouring grid point at a tie: x within two
+# int8 steps and losses within 1e-3 (PATH_LOSS_RTOL's q8d limit).  The
+# stochastic q8 mixer draws its noise on each device, so the card and the CPU
+# round apart: both are held to the invariants of _stochastic_invariants.
+COLLECTIVE_TOL = {"exact": 1e-4, "q8": 1e-3}
+
+
+def _stats_all_reduce(torch, t, op):
+    """``t`` reduced over every rank with ``op``, through the host (gloo)."""
+    import torch.distributed as dist
+
+    host = t.detach().to("cpu", torch.float32)
+    dist.all_reduce(host, op=op)
+    return host
+
+
+def _rank_invariants(torch, label, state, n_ranks, what):
+    """Lemma 1 on this state: mean over ranks of y equals that of g, within
+    2^-5 of the leaf's largest |y| (about fifteen bf16 roundings of 2^-9 over
+    three rounds; exact up to f32 rounding in f32)."""
+    import torch.distributed as dist
+
+    worst = 0.0
+    for k in sorted(state.y):
+        sy = _stats_all_reduce(torch, state.y[k], dist.ReduceOp.SUM)
+        sg = _stats_all_reduce(torch, state.g[k], dist.ReduceOp.SUM)
+        ymax = float(_stats_all_reduce(torch, state.y[k].abs().amax(), dist.ReduceOp.MAX))
+        dev = float((sy - sg).abs().max()) / n_ranks
+        tol = (2.0 ** -5 if state.y[k].dtype == torch.bfloat16 else 1e-5) * ymax
+        check(dev <= tol, f"{label} {what}: Lemma 1 off by {dev} on {k} (limit {tol})")
+        worst = max(worst, dev / max(ymax, 1e-30))
+        check(bool(torch.isfinite(state.x[k]).all() and torch.isfinite(state.y[k]).all()),
+              f"{label} {what}: non-finite state in {k}")
+    return worst
+
+
+def _stochastic_invariants(torch, label, mixing, state, n_ranks):
+    """One stochastic int8 gossip of x with this state's residual and noise
+    generator, held to what holds for any draw of the noise: the sum over
+    ranks is kept (to float32 rounding), each message q = m - r' lies on its
+    leaf's int8 grid within one step of m = x + r, and some elements rounded
+    away from the nearest grid point (noise was drawn).  Returns the largest
+    sum deviation as a share of its limit and the share rounded away."""
+    import torch.distributed as dist
+
+    qmax = 2 ** (mixing.compression.compressor.bits - 1) - 1
+    out, res = mixing.compression(state.x, state.ef["x"], state.ef["gen"])
+    used, away, total = 0.0, 0, 0
+    for k in sorted(state.x):
+        m = state.x[k].float() + state.ef["x"][k].float()
+        before = _stats_all_reduce(torch, state.x[k], dist.ReduceOp.SUM)
+        after = _stats_all_reduce(torch, out[k], dist.ReduceOp.SUM)
+        vmax = float(_stats_all_reduce(torch, torch.stack(
+            [m.abs().amax(), out[k].abs().amax()]).amax(), dist.ReduceOp.MAX))
+        tol = n_ranks * 2.0 ** -18 * vmax + 1e-30  # 64 float32 ulps a rank
+        d = float((after - before).abs().max())
+        check(d <= tol, f"{label}: stochastic q8 gossip moved the sum of x/{k} by {d} "
+                        f"(limit {tol})")
+        used = max(used, d / tol)
+        s = float(m.abs().max()) / qmax
+        steps = (m - res[k].float()) / s
+        grid = torch.round(steps)
+        off = float((steps - grid).abs().max())
+        check(off <= 1e-3 and float(grid.abs().max()) <= qmax
+              and float(res[k].abs().max()) <= s * (1 + 1e-3),
+              f"{label}: stochastic q8 message of x/{k} is off its grid by {off} steps")
+        away += int((grid != torch.round(m / s)).sum())
+        total += m.numel()
+    check(away > 0.01 * total, f"{label}: stochastic q8 rounded {away} of {total} elements "
+                               "away from the nearest grid point")
+    return used, away / total
+
+
+def _collective_run(torch, spec, dev, label, full):
+    """One collective path on this rank: build the model and the mesh, run
+    the rounds, return what the parent reports and checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core import mixing as M
+    from repro_torch.core.compression import StochasticQuantizer, compress_mixing
+    from repro_torch.core.pisco import (PiscoConfig, init_compression_state, init_rank_state,
+                                        make_rank_round_fn)
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, rank_slice
+    from repro_torch.launch.steps import build_train_steps, flat_value_and_grad
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+
+    world = spec["world"]
+    cfg = (get_reduced(spec["arch"]) if spec["reduced"] or not full
+           else get_config(spec["arch"], spec["dtype"]))
+    seq, batch = (spec["seq"], spec["batch"]) if full else (spec["reduced_seq"],
+                                                           spec["reduced_batch"])
+    bundle = get_bundle(cfg, dev)
+    vg = flat_value_and_grad(bundle)
+    mesh = make_mesh((world, 1), ("data", "model"), dev)
+    agent = ("data",)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=seq, global_batch=world * batch)
+    steps = build_train_steps(bundle, shape, mesh, t_o=spec["t_o"], eta_l=spec["eta_l"],
+                              eta_c=spec["eta_c"], wire_dtype=spec["wire"])
+    pcfg = PiscoConfig(world, spec["t_o"], spec["eta_l"], spec["eta_c"])
+    sampler = make_lm_sampler(cfg, world, batch, seq, spec["t_o"], seed=0)
+    rounds = 3 if full else spec["reduced_rounds"]
+    batches = [tuple(rank_slice(b, mesh, agent, axis=1 - i, device=dev)
+                     for i, b in enumerate(sampler(k))) for k in range(rounds + 1)]
+    # the full-width weights are drawn on the card; the reduced ones on the
+    # CPU, so that the card's and the CPU's runs start from the same point
+    x0 = flatten_paths(bundle.init(seed=0) if full else
+                       get_bundle(cfg, "cpu").init(seed=0))
+    x0 = {k: v.to(dev) for k, v in x0.items()}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    out = {"losses": {}, "rounds": {}}
+
+    if full:
+        gossip, glob = steps["train_gossip"], steps["train_global"]
+        cmix = M.compressed_mixing(gossip.mixing, bits=8)
+        q8d = make_rank_round_fn(vg, pcfg, cmix, global_round=False)
+        plan = [("gossip", gossip.fn), ("global", glob.fn), ("gossip-q8d", q8d)]
+        out["n_leaves"] = len(x0)
+        state = init_rank_state(vg, x0, batches[0][1])
+        del x0
+        mesh.clock.on = True
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        ops.reset_launch_counts()
+        for k, (kind, fn) in enumerate(plan, start=1):
+            if kind == "gossip-q8d":
+                state = init_compression_state(state, cmix)
+            mesh.clock.reset()
+            sync()
+            t0 = time.perf_counter()
+            state, loss = fn(state, *batches[k])
+            sync()
+            wall = time.perf_counter() - t0
+            secs = dict(mesh.clock.seconds)
+            out["rounds"][kind] = dict(
+                ms=1e3 * wall, local_ms=1e3 * secs.get("local", 0.0),
+                exchange_ms=1e3 * secs.get("exchange", 0.0),
+                combine_ms=1e3 * (secs.get("mix", 0.0) - secs.get("exchange", 0.0)),
+                bytes_sent=mesh.clock.bytes_sent)
+            out["losses"][kind] = float(loss)
+            check(np.isfinite(float(loss)), f"{label}: {kind} loss {float(loss)}")
+            if kind == "global":  # x bit-equal on every rank after the server round
+                for name, v in state.x.items():
+                    hi = _stats_all_reduce(torch, v, dist.ReduceOp.MAX)
+                    lo = _stats_all_reduce(torch, v, dist.ReduceOp.MIN)
+                    check(torch.equal(hi, lo), f"{label}: x/{name} differs across ranks "
+                                               "after the server round")
+            out["rounds"][kind]["lemma1"] = _rank_invariants(torch, label, state, world, kind)
+        sync()
+        out["launches"] = ops.launch_counts()
+        mesh.clock.on = False
+        if dev.type == "cuda":
+            out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            free, total = torch.cuda.mem_get_info(dev)
+            out["card_used_gib"] = (total - free) / 2**30
+        # one traced gradient call of rank 0 at the round's shapes while the
+        # others wait: where the local phase's time goes on the card
+        dist.barrier()
+        if mesh.rank == 0 and dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                vg(state.x, batches[1][1])
+                sync()
+            window, busy, top = device_share(prof, label)
+            out["profile"] = dict(window_ms=window / 1e3, busy_ms=busy / 1e3,
+                                  top=[(name[:90], us / 1e3) for name, us in top])
+        dist.barrier()
+        # ring gossip preserves the mean over ranks (checks, not the main path):
+        # x through the round's fused candidate combine, y through the mixer,
+        # and the candidate 0.3 x + 0.7 y (eta_c = 0.7, y standing in for
+        # x_half) through the fused combine, against its float32 value
+        ring = gossip.mixing
+
+        def cand(name):
+            return 0.3 * state.x[name].float() + 0.7 * state.y[name].float()
+
+        for stream, mix, before_of in (
+                ("x", lambda: M.mix_candidate(ring, state.x, state.x, 1.0), state.x.get),
+                ("y", lambda: ring.gossip(state.y), state.y.get),
+                ("cand", lambda: M.mix_candidate(ring, state.x, state.y, 0.7), cand)):
+            mixed, worst = mix(), 0.0
+            for name in sorted(mixed):
+                v = before_of(name)
+                before = _stats_all_reduce(torch, v, dist.ReduceOp.SUM)
+                after = _stats_all_reduce(torch, mixed[name], dist.ReduceOp.SUM)
+                vmax = float(_stats_all_reduce(torch, v.abs().amax(), dist.ReduceOp.MAX))
+                # each rank's output rounds once to bf16 (2^-9 relative at most)
+                tol = world * 2.0 ** -8 * vmax + 1e-30
+                d = float((after - before).abs().max())
+                check(d <= tol, f"{label}: ring gossip moved the sum of {stream}/{name} by {d} "
+                                f"(limit {tol})")
+                worst = max(worst, d / tol)
+                del v
+            out[f"mean_{stream}_used_of_limit"] = worst
+            del mixed
+        return out
+
+    # collective-reduced: six mixers, three rounds each (gossip, server, gossip)
+    shifts = {"data": [(0, 0.5), (1, 0.25), (-1, 0.25)]}
+    ring = steps["train_gossip"].mixing
+    torus_mesh = make_mesh((2, 2), ("pod", "data"), dev)
+    torus = M.collective_shift_mixing(torus_mesh, ("pod", "data"),
+                                      {"pod": [(0, 0.5), (1, 0.25)], "data": [(1, 0.25)]})
+    mixers = {
+        "ring": ring,
+        "ring-q8d": M.compressed_mixing(M.collective_shift_mixing(mesh, agent, shifts), bits=8),
+        "ring-q8": compress_mixing(M.collective_shift_mixing(mesh, agent, shifts),
+                                   StochasticQuantizer(bits=8), seed=0),
+        "torus": torus,
+        "hierarchical": M.hierarchical_mixing(torus_mesh),
+        "dense-er": M.collective_dense_mixing(
+            mesh, agent, make_topology("erdos_renyi", world, prob=0.6, seed=3)),
+    }
+    state0 = init_rank_state(vg, x0, batches[0][1])
+    ops.reset_launch_counts()
+    for name, mixing in mixers.items():
+        fns = {g: make_rank_round_fn(vg, pcfg, mixing, global_round=g) for g in (False, True)}
+        state = init_compression_state(state0, mixing)
+        losses = []
+        for k in range(1, rounds + 1):
+            state, loss = fns[k == 2](state, *batches[k])
+            losses.append(float(loss))
+            check(np.isfinite(losses[-1]), f"{label}/{name}: round {k} loss {losses[-1]}")
+        out["losses"][name] = losses
+        if name == "ring-q8":
+            noisy = (mixing, state)
+        else:
+            out["rounds"][name] = {k: v.detach().cpu() for k, v in state.x.items()}
+    out["launches"] = ops.launch_counts()
+    out["ring-q8"] = _stochastic_invariants(torch, f"{label}/ring-q8", *noisy, world)
+    return out
+
+
+def _card_vs_cpu(torch, card, cpu):
+    """Per deterministic mixer of collective-reduced: this rank's final x on
+    the card against the CPU, as the largest deviation over its limit (see
+    COLLECTIVE_TOL), and the round losses of both."""
+    out = {}
+    for name, xs in card["rounds"].items():
+        lim = COLLECTIVE_TOL["q8" if "q8" in name else "exact"]
+        used = 0.0
+        for leaf, v in xs.items():
+            want = cpu["rounds"][name][leaf]
+            scale = float(want.abs().max())
+            bound = (2 * scale / 127) if "q8" in name else lim * scale
+            used = max(used, float((v - want).abs().max()) / max(bound, 1e-30))
+        out[name] = dict(x_used_of_limit=used, card_losses=card["losses"][name],
+                         cpu_losses=cpu["losses"][name])
+    return out
+
+
+def collective_rank(rank, spec, port, out_dir):
+    """Body of one spawned rank: the collective-reduced paths on the card
+    and on the CPU, then collective-mamba2-370m on the card; results go to
+    ``out_dir/rank<r>.json``.  An exception fails the spawn, and the script."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(spec["device"])
+    if dev.type == "cuda":  # every rank on the one card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=spec["world"])
+    try:
+        card = _collective_run(torch, spec, dev, "collective-reduced", False)
+        cpu = _collective_run(torch, spec, torch.device("cpu"), "collective-reduced", False)
+        res = {"reduced": _card_vs_cpu(torch, card, cpu), "reduced_launches": card["launches"],
+               "ring_q8": {"card": card["ring-q8"], "cpu": cpu["ring-q8"],
+                           "card_losses": card["losses"]["ring-q8"]}}
+        del card, cpu
+        res["full"] = _collective_run(torch, spec, dev, "collective-mamba2-370m", True)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def collective_paths(torch, dev, card, spec=None):
+    """Spawn the ranks, then check and report what they return."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    spec = dict(COLLECTIVE if spec is None else spec, device=str(dev))
+    world = spec["world"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # each rank caches its own allocations: expandable segments keep four
+    # caching allocators from fragmenting the one card
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.start_processes(collective_rank, args=(spec, port, out_dir), nprocs=world,
+                           join=True, start_method="spawn")
+        res = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    log(f"collective: {world} ranks spawned and joined in {time.perf_counter() - t0:.1f} s")
+
+    def summed(runs):
+        out = {}
+        for run in runs:
+            for k, v in run["launches"].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    # -- collective-reduced: card against CPU -------------------------------
+    for name in res[0]["reduced"]:
+        lim = COLLECTIVE_TOL["q8" if "q8" in name else "exact"]
+        g = np.array([r["reduced"][name]["card_losses"] for r in res])
+        c = np.array([r["reduced"][name]["cpu_losses"] for r in res])
+        rel = float(np.max(np.abs(g - c) / np.abs(c)))
+        used = max(r["reduced"][name]["x_used_of_limit"] for r in res)
+        log(f"compare collective-reduced/{name}: card vs CPU over {g.shape[1]} rounds on "
+            f"{world} ranks, max relative loss deviation {rel:.3e} (limit {lim}), final x at "
+            f"{used:.3f} of its limit")
+        check(rel <= lim, f"collective-reduced/{name}: losses deviate by {rel} (limit {lim})")
+        check(used <= 1.0, f"collective-reduced/{name}: final x past its limit ({used})")
+    for where in ("card", "cpu"):
+        used = max(r["ring_q8"][where][0] for r in res)
+        away = min(r["ring_q8"][where][1] for r in res)
+        log(f"check collective-reduced/ring-q8 on the {where}: one more stochastic int8 gossip "
+            f"kept the sum of x within {used:.3f} of its limit, every message on its grid, "
+            f"at least {100.0 * away:.1f}% of the elements rounded away from the nearest point")
+    log(f"collective-reduced/ring-q8: card losses {res[0]['ring_q8']['card_losses']} (rank 0)")
+    reduced_counts = summed([{"launches": r["reduced_launches"]} for r in res])
+    log(f"collective-reduced: launches on the card, summed over ranks {reduced_counts}")
+
+    # -- collective-mamba2-370m: full width ---------------------------------
+    full = [r["full"] for r in res]
+    label = "collective-mamba2-370m"
+    counts = summed(full)
+    for kind in full[0]["rounds"]:
+        per = {k: float(np.mean([f["rounds"][kind][k] for f in full]))
+               for k in ("ms", "local_ms", "exchange_ms", "combine_ms")}
+        log(f"path {label} {kind}: {per['ms']:.3f} ms/round (mean over ranks; local "
+            f"{per['local_ms']:.3f}, exchange {per['exchange_ms']:.3f}, combine "
+            f"{per['combine_ms']:.3f}), {full[0]['rounds'][kind]['bytes_sent'] / 1e9:.3f} GB sent "
+            f"per rank, loss {np.mean([f['losses'][kind] for f in full]):.6f}, Lemma 1 within "
+            f"{max(f['rounds'][kind]['lemma1'] for f in full):.3e} of max |y|")
+    if "profile" in full[0]:
+        pr = full[0]["profile"]
+        log(f"profile {label}: one gradient call of rank 0 alone (b {spec['batch']} x "
+            f"{spec['seq']} tokens): window {pr['window_ms']:.3f} ms, device busy "
+            f"{100.0 * pr['busy_ms'] / pr['window_ms']:.1f}%, device time {pr['busy_ms']:.3f} ms")
+        for name, ms in pr["top"]:
+            log(f"profile {label}:   {ms:9.3f} ms  {name}")
+    peaks = [f.get("peak_gib", 0.0) for f in full]
+    log(f"path {label}: peak device memory per rank "
+        f"{', '.join(format(p, '.3f') for p in peaks)} GiB (sum {sum(peaks):.3f} GiB); card in "
+        f"use after the rounds {full[0].get('card_used_gib', 0.0):.3f} GiB, on {card}")
+    log(f"path {label}: launches summed over ranks {counts}; ring gossip kept the sum of x "
+        f"within {max(f['mean_x_used_of_limit'] for f in full):.3f}, of y within "
+        f"{max(f['mean_y_used_of_limit'] for f in full):.3f} and of the eta_c = 0.7 "
+        f"candidate within {max(f['mean_cand_used_of_limit'] for f in full):.3f} of its limit")
+    # the launch checks last (on the CPU, in a rehearsal, nothing launches)
+    for k in ("fused_local_step", "fused_mix_combine", "row_absmax", "rowwise_quant_dequant"):
+        check(reduced_counts.get(k, 0) > 0, f"collective-reduced: {k} not launched")
+    for f in full:  # per rank: K8 once per leaf (gossip), K2 and K9 twice (q8d's x and y)
+        n = f["n_leaves"]
+        lc = f["launches"]
+        check(lc["fused_mix_combine"] == n and lc["row_absmax"] == lc["rowwise_quant_dequant"]
+              == 2 * n and lc["fused_local_step"] > 0,
+              f"{label}: launches per rank {lc} for {n} leaves")
+    return {k: counts.get(k, 0) for k in ("fused_local_step", "fused_mix_combine", "row_absmax",
+                                         "rowwise_quant_dequant")}
+
+
 def main() -> int:
     try:
         import torch
@@ -954,8 +1516,11 @@ def main() -> int:
 
     rows = kernel_checks(torch, dev)
     rows.update(lm_kernel_checks(torch, dev))
+    collective_kernel_checks(torch, dev, rows)
     launches = main_path(torch, dev)
     launches.update(serve_paths(torch, dev, card))
+    for k, v in collective_paths(torch, dev, card).items():
+        launches[k] = launches.get(k, 0) + v
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 

@@ -3,21 +3,28 @@
 * :class:`Compressor` — per-agent-message lossy codecs (symmetric int8/int4
   quantization, identity) that also *price* themselves
   (:meth:`Compressor.wire_bits`) for the byte-level accounting.
-* :class:`CompressedGossip` — gossip over the dense W or the sparse CSR W in
-  the **mean-preserving difference form**
+* :class:`CompressedGossip` — gossip over the dense W, the sparse CSR W or a
+  collective mixer in the **mean-preserving difference form**
 
       out_i = x_i + gamma (sum_j W_ji q(m_j) - q(m_i)),     m_i = x_i (+ e_i)
 
-  with error feedback ``e' = m - q(m)``.  Each leaf runs two kernels: the
-  row abs-max of ``m`` (:func:`repro_torch.kernels.quantize.row_absmax`) and
-  the fused quantize/mix/combine — over the dense W
-  (:func:`repro_torch.kernels.quantize.compressed_mix`) or over the CSR
-  (:func:`repro_torch.kernels.sparse_mix.sparse_compressed_mix_csr`).  Scales
-  are per agent row **per leaf**.  Stochastic rounding draws uniform noise
-  from a device ``torch.Generator`` seeded from the spec and carried in the
-  state (it cannot reproduce JAX's PRNG bits; the rounding rule is the same).
+  with error feedback ``e' = m - q(m)``.  Each leaf runs the row abs-max of
+  ``m`` (K2, :func:`repro_torch.kernels.quantize.row_absmax`) and then,
+  over the dense W or the CSR, the fused quantize/mix/combine
+  (:func:`repro_torch.kernels.quantize.compressed_mix`,
+  :func:`repro_torch.kernels.sparse_mix.sparse_compressed_mix_csr`), which
+  never writes q.  Over a collective mixer each rank must hold its message
+  before sending it: :meth:`StochasticQuantizer.quantize` writes q (K9,
+  :func:`repro_torch.kernels.quantize.rowwise_quant_dequant`), the base
+  mixer exchanges it, and the difference form is combined in plain tensor
+  code (as the reference does, the dequantised q crosses the wire).  Scales
+  are per agent row **per leaf** (one row per rank on a collective mixer).
+  Stochastic rounding draws uniform noise on the state's device from a
+  ``torch.Generator`` seeded from the spec (and the rank, over a collective
+  mixer) and carried in the state (it cannot reproduce JAX's PRNG bits; the
+  rounding rule is the same).
 * :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
-  dense or sparse mixing ops, and build the closed-form
+  dense, sparse or collective mixing ops, and build the closed-form
   :class:`RoundByteModel`.
 
 Top-k sparsification is not ported yet (it raises ``NotImplementedError``,
@@ -26,14 +33,18 @@ ROADMAP A5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.mixing import MixingOps
 from repro_torch.core.schedule import RoundByteModel
-from repro_torch.kernels import ref
-from repro_torch.kernels.quantize import compressed_mix, qmax_of, row_absmax
+from repro_torch.kernels.quantize import (
+    compressed_mix,
+    qmax_of,
+    row_absmax,
+    rowwise_quant_dequant,
+)
 from repro_torch.kernels.sparse_mix import sparse_compressed_mix_csr
 from repro_torch.utils.pytree import tree_leaves, tree_zeros_like
 
@@ -87,16 +98,24 @@ class StochasticQuantizer(Compressor):
     def name(self) -> str:  # type: ignore[override]
         return f"q{self.bits}" + ("s" if self.stochastic else "")
 
+    def quantize(
+        self, rows: torch.Tensor, residual: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(q, new_residual)`` of the (n, d) message rows ``m = rows (+
+        residual)``: the row abs-max (K2) and the round trip with the
+        error-feedback update (K9), in the rows' dtype.  ``noise`` is used
+        only in stochastic mode."""
+        absmax = row_absmax(rows, residual)
+        return rowwise_quant_dequant(rows, absmax, bits=self.bits, residual=residual,
+                                     noise=noise if self.stochastic else None)
+
     def compress(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
-        """Dequantized wire values of one leaf (the standalone quantizer,
-        plain PyTorch; gossip runs the fused kernels instead).  ``noise`` is
-        used only in stochastic mode."""
-        rows = x.reshape(x.shape[0], -1).to(torch.float32)
-        q = ref.quantize_rows_ref(
-            rows, ref.row_absmax_ref(rows), self.bits,
-            noise if self.stochastic else None,
-        )
-        return q.reshape(x.shape).to(x.dtype)
+        """Dequantized wire values of one agent-stacked leaf (K2 and K9 on
+        a card).  Gossip over the dense or sparse W runs the fused kernels
+        instead, which never write q; gossip over a collective mixer sends
+        what :meth:`quantize` writes."""
+        return self.quantize(x.reshape(x.shape[0], -1), None, noise)[0].reshape(x.shape)
 
     def wire_bits(self, n_elements: int, itemsize_bits: int = 32) -> int:
         return n_elements * self.bits + SCALE_BITS
@@ -125,8 +144,9 @@ def make_compressor(spec: str) -> Compressor:
 
 @dataclasses.dataclass(frozen=True)
 class CompressedGossip:
-    """Difference-form compressed gossip over the dense ``w`` or the sparse
-    ``csr`` = (indptr, indices, data, self_w) — exactly one of the two.
+    """Difference-form compressed gossip over the dense ``w``, the sparse
+    ``csr`` = (indptr, indices, data, self_w), or the gossip of a collective
+    mixer ``base_gossip`` (trees of one rank's own leaves) — exactly one.
 
     :meth:`__call__` threads an error-feedback residual and a generator
     through the round function; :meth:`stateless` is the generator-free,
@@ -136,32 +156,47 @@ class CompressedGossip:
     compressor: StochasticQuantizer
     w: Optional[torch.Tensor] = None
     csr: Optional[Tuple[torch.Tensor, ...]] = None
+    base_gossip: Optional[Callable[[Tree], Tree]] = None
     error_feedback: bool = True
     seed: int = 0
     gamma: float = 1.0
+    # collective mixers: this rank's noise stream (its global rank), so that
+    # ranks round independently as the reference's agent rows do
+    stream: int = 0
 
     def __post_init__(self):
-        if (self.w is None) == (self.csr is None):
-            raise ValueError("CompressedGossip needs exactly one of w (dense) or csr (sparse)")
+        if sum(b is not None for b in (self.w, self.csr, self.base_gossip)) != 1:
+            raise ValueError("CompressedGossip needs exactly one of w (dense), csr (sparse) "
+                             "or base_gossip (collective)")
 
     def init_ef(self, template: Tree) -> dict:
         """Per-stream residuals (X and Y are mixed separately each round) and
-        the noise generator, seeded from the spec, on the state's device."""
+        the noise generator on the state's device, seeded from the spec (and
+        over a collective mixer from the rank too, so that ranks round
+        independently)."""
         device = tree_leaves(template)[0].device
+        seed = self.seed * 65536 + self.stream if self.base_gossip is not None else self.seed
+        gen = torch.Generator(device=device).manual_seed(seed)
         return {
             "x": tree_zeros_like(template) if self.error_feedback else (),
             "y": tree_zeros_like(template) if self.error_feedback else (),
-            "gen": torch.Generator(device=device).manual_seed(self.seed),
+            "gen": gen,
         }
 
     def _mix_leaf(self, x, residual, gen) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        rows = x.reshape(x.shape[0], -1)
+        # a collective mixer's leaf is one rank's own message: one row
+        rows = x.reshape(1 if self.base_gossip is not None else x.shape[0], -1)
         res = None if residual is None else residual.reshape(rows.shape)
         noise = None
         if self.compressor.stochastic and gen is not None:
-            noise = torch.rand(
-                rows.shape, generator=gen, dtype=torch.float32, device=rows.device
-            )
+            noise = torch.rand(rows.shape, generator=gen, dtype=torch.float32,
+                               device=rows.device)
+        if self.base_gossip is not None:
+            q, new_res = self.compressor.quantize(rows, res, noise)
+            q = q.reshape(x.shape)
+            diff = self.base_gossip({"leaf": q})["leaf"] - q
+            out = x + diff if self.gamma == 1.0 else x + self.gamma * diff
+            return out, (None if new_res is None else new_res.reshape(x.shape))
         kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
         absmax = row_absmax(rows, res)
         if self.w is not None:
@@ -190,18 +225,20 @@ def compress_mixing(
     seed: int = 0,
     gamma: float = 1.0,
 ) -> MixingOps:
-    """Attach a compressor to dense or sparse mixing ops.  ``global_avg``
-    (the server round) stays full precision."""
+    """Attach a compressor to dense, sparse or collective mixing ops.
+    ``global_avg`` (the server round) stays full precision."""
     if isinstance(compressor, IdentityCompressor):
         return base
-    if base.w is None and base.csr is None:
+    if base.w is None and base.csr is None and base.mesh is None:
         raise NotImplementedError(
             f"compressed gossip over {base.name!r} is not ported: only over the "
-            "static dense and sparse mixers (collective mixers: ROADMAP A17)"
+            "static dense and sparse mixers and the collective mixers"
         )
     cg = CompressedGossip(
         compressor=compressor, w=base.w, csr=base.csr,
+        base_gossip=base.gossip if base.w is None and base.csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
+        stream=base.mesh.rank if base.mesh is not None else 0,
     )
     return dataclasses.replace(
         base,

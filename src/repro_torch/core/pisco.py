@@ -20,6 +20,17 @@ leaves exactly the ``X^{T_o} - eta_l Y^{T_o}`` term of (4a).
 The W^k draw is made by the host driver; the round functions here are the
 legacy (hardcoded-SGD) form.  State invariant (Lemma 1):
 mean_i y_i == mean_i g_i at every round.
+
+Two layouts.  :func:`make_round_fn` runs every agent in one process over
+agent-stacked leaves (the per-agent gradients vmapped).
+:func:`make_rank_round_fn` runs one agent per rank of a collective mixer
+(:mod:`repro_torch.launch.mesh`): the state holds this rank's own leaves, a
+flat dict keyed by leaf path, and the gradients come from the model's own
+value-and-grad (vmap does not compose with an LM under activation
+checkpointing).  On a one-axis ring without compression its x-gossip sends
+the candidate and combines it through the fused kernel (K8,
+:func:`repro_torch.core.mixing.mix_candidate`); y's gossip, a torus and
+compressed gossip use the mixer's own combine, as the reference does.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.mixing import MixingOps
+from repro_torch.core.mixing import MixingOps, mix_candidate, ring_of
 from repro_torch.kernels.gt_update import fused_track_step
 from repro_torch.utils.pytree import tree_add, tree_map, tree_sq_norm, tree_sub
 
@@ -109,8 +120,16 @@ def replicate_params(params: Tree, n_agents: int) -> Tree:
     )
 
 
+def _batch_at(batches, t: int):
+    """Local step ``t``'s batch: a tuple of tensors or a dict of them, each
+    with the T_o axis first."""
+    if isinstance(batches, dict):
+        return {k: v[t] for k, v in batches.items()}
+    return tuple(b[t] for b in batches)
+
+
 def _local_phase(
-    stacked_vg: Callable, state: PiscoState, local_batches: Tuple, eta_l: float
+    stacked_vg: Callable, state: PiscoState, local_batches, eta_l: float
 ) -> Tuple[Tree, Tree, Tree, torch.Tensor]:
     """Stage 1.  Returns ``(X^{T_o} - eta_l Y^{T_o}, Y^{T_o}, G^{T_o},
     mean loss)`` — the first output is the (4a) term, left by the fused
@@ -118,8 +137,10 @@ def _local_phase(
     x = tree_map(lambda xi, yi: xi - eta_l * yi, state.x, state.y)  # first (3a)
     y, g = state.y, state.g
     losses = []
-    for t in range(local_batches[0].shape[0]):
-        loss, g_new = stacked_vg(x, tuple(b[t] for b in local_batches))  # (3b)
+    first = next(iter(local_batches.values())) if isinstance(local_batches, dict) \
+        else local_batches[0]
+    for t in range(first.shape[0]):
+        loss, g_new = stacked_vg(x, _batch_at(local_batches, t))  # (3b)
         losses.append(torch.mean(loss))
         # (3c) of step t fused with (3a) of step t+1
         stepped = tree_map(
@@ -198,5 +219,78 @@ def make_round_fn(
             y_new = mix(tree_add(y_to, tree_sub(g_new, g_to)))  # (4c)
         new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef)
         return new_state, _round_metrics(cfg, mean_loss, loss_c, g_new, x_new)
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# One agent per rank (collective mixers)
+# ---------------------------------------------------------------------------
+
+
+def init_rank_state(value_and_grad: Callable, x0: Tree, batch0: Any) -> PiscoState:
+    """Line 2 for this rank's agent: Y^0 = G^0 = grads(x0; Z^0).
+    ``value_and_grad(params, batch) -> (loss, grads)`` over flat dicts."""
+    _, g0 = value_and_grad(x0, batch0)
+    step = torch.zeros((), dtype=torch.int32, device=next(iter(x0.values())).device)
+    return PiscoState(x=x0, y=g0, g=g0, step=step)
+
+
+def make_rank_round_fn(
+    value_and_grad: Callable,
+    cfg: PiscoConfig,
+    mixing: MixingOps,
+    *,
+    global_round: bool,
+) -> Callable[[PiscoState, Any, Any], Tuple[PiscoState, torch.Tensor]]:
+    """One PISCO round of this rank's agent over a collective mixer (every
+    rank calls it with its own state and batches).
+
+    ``value_and_grad(params, batch) -> (loss, grads)`` over flat dicts of
+    this agent's leaves.  Batches are this agent's: ``local_batches`` with
+    the T_o axis first, ``comm_batch`` the fresh Z^{k+1}.  Returns the new
+    state and this agent's round loss ``(T_o * mean local loss + comm loss)
+    / (T_o + 1)`` (the reference's metric before its mean over agents).
+
+    The mesh's clock, when on, charges the round's phases: "local" (every
+    gradient call and the local steps), "mix" (the two mixes, which include
+    the mesh's "exchange")."""
+    mix = mixing.global_avg if global_round else mixing.gossip
+    compressed = mixing.compression is not None and not global_round
+    fused_x = not global_round and mixing.compression is None and ring_of(mixing) is not None
+    mesh = mixing.mesh
+
+    def span(name: str):
+        return mesh.clock.span(name, mesh.device)
+
+    def round_fn(state: PiscoState, local_batches, comm_batch):
+        ef = state.ef
+        with span("local"):
+            x_half, y_to, g_to, mean_loss = _local_phase(
+                value_and_grad, state, local_batches, cfg.eta_l)
+        with span("mix"):  # (4a)
+            if fused_x:
+                x_new = mix_candidate(mixing, state.x, x_half, cfg.eta_c)
+            else:
+                cand = tree_map(lambda xk, h: (1.0 - cfg.eta_c) * xk + cfg.eta_c * h,
+                                state.x, x_half)
+                if compressed:
+                    x_new, res_x = mixing.compression(cand, ef["x"], ef["gen"])
+                else:
+                    x_new = mix(cand)
+                del cand
+        del x_half
+        with span("local"):
+            loss_c, g_new = value_and_grad(x_new, comm_batch)  # (4b)
+        with span("mix"):  # (4c)
+            tracked = tree_add(y_to, tree_sub(g_new, g_to))
+            del y_to, g_to
+            if compressed:
+                y_new, res_y = mixing.compression(tracked, ef["y"], ef["gen"])
+                ef = {"x": res_x, "y": res_y, "gen": ef["gen"]}
+            else:
+                y_new = mix(tracked)
+        new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef)
+        return new_state, (mean_loss * cfg.t_o + loss_c) / (cfg.t_o + 1)
 
     return round_fn

@@ -5,6 +5,7 @@ reference ``repro.data.synthetic`` for the same seed.
   separable by a planted logistic model plus label noise (§5.1).
 * :func:`synthetic_mnist` — 10-class, 784-dim "digit" clusters (§5.2 MLP).
 * :func:`synthetic_cifar` — 10-class small images, 16×16×3 (Fig. 7 CNN).
+* :func:`synthetic_lm_tokens` — a Zipf token stream with bigrams (LM training).
 """
 from __future__ import annotations
 
@@ -48,3 +49,19 @@ def synthetic_cifar(
     labels = rng.integers(0, n_classes, size=n_samples)
     x = 0.6 * templates[labels] + 0.4 * rng.random((n_samples, hw, hw, 3))
     return x.astype(np.float32), labels.astype(np.int32)
+
+
+def synthetic_lm_tokens(
+    n_tokens: int, vocab_size: int, seed: int = 0, alpha: float = 1.1
+) -> np.ndarray:
+    """Zipf-distributed token stream with local bigram structure (so a small
+    LM has something learnable); int32."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = ranks ** (-alpha)
+    probs /= probs.sum()
+    base = rng.choice(vocab_size, size=n_tokens, p=probs)
+    # learnable bigrams: token t is often followed by (7 t + 1) mod vocab
+    follow = rng.random(n_tokens) < 0.35
+    base[1:][follow[1:]] = (base[:-1][follow[1:]] * 7 + 1) % vocab_size
+    return base.astype(np.int32)

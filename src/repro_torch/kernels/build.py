@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # -fmad=false: no multiply-add contraction, so the elementwise arithmetic
-# (K1, the K3/K5 quantizer grid, K4's and K5's products) rounds exactly as
+# (K1, K8, the K3/K5/K9 quantizer grid, K4's and K5's products) rounds exactly as
 # the plain PyTorch versions do; the contractions of K3, K6 and K7 ask for
 # FMA explicitly (fmaf).
 NVCC_FLAGS = [
@@ -50,6 +50,8 @@ LAUNCHES: Dict[str, int] = {
     "sparse_compressed_mix": 0,
     "flash_attention": 0,
     "ssd_scan": 0,
+    "fused_mix_combine": 0,
+    "rowwise_quant_dequant": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -63,9 +65,11 @@ F32 = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "gt_update": {
         "launch_local_step": [P, P, P, P, P, P, I64, F32, I32, I32, P],
+        "launch_mix_combine": [P, P, P, P, P, P, I64, *[F32] * 6, I32, I32, P],
     },
     "quantize": {
-        "launch_row_absmax": [P, P, P, I64, I64, P],
+        "launch_row_absmax": [P, P, P, I64, I64, I32, I32, P],
+        "launch_quant_dequant": [P, P, P, P, P, P, I64, I64, F32, I32, P],
         "launch_compressed_mix": [P, P, P, P, P, P, P, I32, I64, F32, F32, I32, P],
     },
     "sparse_mix": {

@@ -14,8 +14,13 @@ from typing import Dict
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gt_update import fused_local_step, fused_track_step
-from repro_torch.kernels.quantize import compressed_mix, row_absmax
+from repro_torch.kernels.gt_update import (
+    fused_local_step,
+    fused_mix_combine,
+    fused_track_step,
+    mix_combine_half,
+)
+from repro_torch.kernels.quantize import compressed_mix, row_absmax, rowwise_quant_dequant
 from repro_torch.kernels.sparse_mix import (
     csr_from_edges,
     sparse_compressed_mix,
@@ -29,7 +34,10 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 __all__ = [
     "fused_local_step",
     "fused_track_step",
+    "fused_mix_combine",
+    "mix_combine_half",
     "row_absmax",
+    "rowwise_quant_dequant",
     "compressed_mix",
     "sparse_mix",
     "sparse_mix_csr",

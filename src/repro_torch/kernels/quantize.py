@@ -1,17 +1,25 @@
-"""K2 and K3 — the two phases of compressed gossip (CUDA source
+"""K2, K3 and K9 — the phases of compressed gossip (CUDA source
 ``csrc/quantize.cu``).
 
 * :func:`row_absmax` (K2, port of ``repro.kernels.quantize._row_scales``):
-  ``max_j |x_ij + r_ij|`` per agent row, the residual optional.
+  ``max_j |x_ij + r_ij|`` per agent row, the residual optional; float32 or
+  bfloat16 rows.  A row too long for one block (one agent's whole leaf on a
+  collective mixer) is split across blocks.
 * :func:`compressed_mix` (K3, port of
   ``repro.kernels.quantize.fused_compressed_mix`` extended to the error-
   feedback and damped form of ``CompressedGossip.__call__``):
   ``m = x + r``, ``q = q_bits(m)``, ``out = x + gamma (W^T q - q)``,
   ``r' = m - q``.
 
-Both take agent-stacked (n, d) float32 rows.  Tensors on the CPU go through
-the plain versions in :mod:`.ref`; tensors on a CUDA device launch the kernel
-(or raise).
+* :func:`rowwise_quant_dequant` (K9, port of
+  ``repro.kernels.quantize.rowwise_quant_dequant``): the per-row int8/int4
+  round trip of ``m = x + r``, deterministic or stochastic, in ``x``'s
+  dtype, with the error-feedback residual ``r' = m - q`` — the message a
+  rank puts on the wire of a collective mixer.
+
+They take agent-stacked (n, d) rows (K3: float32).  Tensors on the CPU go
+through the plain versions in :mod:`.ref`; tensors on a CUDA device launch
+the kernel (or raise).
 """
 from __future__ import annotations
 
@@ -28,14 +36,23 @@ def qmax_of(bits: int) -> float:
     return float(2 ** (bits - 1) - 1)
 
 
-def _check_rows(name: str, x: torch.Tensor, *others: Optional[torch.Tensor]) -> None:
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"{name}: x must be (n, d) float32, got {tuple(x.shape)} {x.dtype}")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K2 splits a row across blocks when there are too few rows to fill the
+# card's 132 SMs; each block then reads at least this many elements
+SPLIT_MIN_COLUMNS = 65536
+
+
+def _check_rows(name: str, x: torch.Tensor, *others: Optional[torch.Tensor],
+                dtypes=(torch.float32,)) -> None:
+    if x.dim() != 2 or x.dtype not in dtypes:
+        raise ValueError(f"{name}: x must be (n, d) {' or '.join(map(str, dtypes))}, "
+                         f"got {tuple(x.shape)} {x.dtype}")
     for t in others:
-        if t is not None and (t.shape != x.shape or t.dtype != torch.float32):
+        if t is not None and (t.shape != x.shape or t.dtype != x.dtype):
             raise ValueError(
                 f"{name}: operand {tuple(t.shape)} {t.dtype} does not match x "
-                f"{tuple(x.shape)} float32"
+                f"{tuple(x.shape)} {x.dtype}"
             )
 
 
@@ -43,20 +60,64 @@ def _contig(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
 
 
+def absmax_parts(n_rows: int, d: int) -> int:
+    """Blocks per row of K2: one when the rows alone fill the card, else
+    enough to put ~4 blocks on every SM, each over >= SPLIT_MIN_COLUMNS."""
+    if n_rows >= 2 * 132:
+        return 1
+    return max(1, min(-(-d // SPLIT_MIN_COLUMNS), -(-4 * 132 // max(n_rows, 1))))
+
+
 def row_absmax(x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(n, d) -> (n,) float32 row abs-max of ``x + residual``."""
-    _check_rows("row_absmax", x, residual)
+    """(n, d) -> (n,) float32 row abs-max of ``x + residual`` (summed in f32)."""
+    _check_rows("row_absmax", x, residual, dtypes=tuple(_DTYPES))
     if not build.on_cuda(x, residual):
         return ref.row_absmax_ref(x, residual)
     x, residual = x.contiguous(), _contig(residual)
-    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    n, d = x.shape
+    parts = absmax_parts(n, d)
+    out = (torch.zeros if parts > 1 else torch.empty)(n, dtype=torch.float32, device=x.device)
     err = build.library("quantize").launch_row_absmax(
-        build.ptr(x), build.ptr(residual), build.ptr(out), x.shape[0], x.shape[1],
+        build.ptr(x), build.ptr(residual), build.ptr(out), n, d, parts, _DTYPES[x.dtype],
         build.stream_of(x),
     )
     build.check(err, "row_absmax")
     build.LAUNCHES["row_absmax"] += 1
     return out
+
+
+def rowwise_quant_dequant(
+    x: torch.Tensor,
+    absmax: torch.Tensor,
+    *,
+    bits: int,
+    residual: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(q, new_residual)``: the dequantised round trip of ``m = x (+
+    residual)`` (n, d) on the int-``bits`` grid of each row's ``absmax`` (K2's
+    of m), in ``x``'s dtype; ``noise`` (uniform [0, 1), float32) selects
+    stochastic rounding.  ``new_residual = m - q`` with a residual, else
+    None."""
+    qmax = qmax_of(bits)
+    _check_rows("rowwise_quant_dequant", x, residual, dtypes=tuple(_DTYPES))
+    n, d = x.shape
+    if noise is not None and (noise.shape != x.shape or noise.dtype != torch.float32):
+        raise ValueError(f"rowwise_quant_dequant: noise must be ({n}, {d}) float32")
+    if absmax.shape != (n,) or absmax.dtype != torch.float32:
+        raise ValueError(f"rowwise_quant_dequant: absmax must be ({n},) float32")
+    if not build.on_cuda(x, residual, absmax, noise):
+        return ref.rowwise_quant_dequant_ref(x, absmax, bits, residual, noise)
+    x, residual, absmax, noise = (_contig(t) for t in (x, residual, absmax, noise))
+    q = torch.empty_like(x)
+    r_out = None if residual is None else torch.empty_like(x)
+    err = build.library("quantize").launch_quant_dequant(
+        build.ptr(x), build.ptr(residual), build.ptr(absmax), build.ptr(noise), build.ptr(q),
+        build.ptr(r_out), n, d, qmax, _DTYPES[x.dtype], build.stream_of(x),
+    )
+    build.check(err, "rowwise_quant_dequant")
+    build.LAUNCHES["rowwise_quant_dequant"] += 1
+    return q, r_out
 
 
 def compressed_mix(

@@ -40,6 +40,31 @@ def fused_track_step_ref(
     return (_f32(x) - eta_l * yn).to(x.dtype), yn.to(y.dtype)
 
 
+def fused_mix_combine_ref(
+    x_k: Tensor,
+    x_to: Tensor,
+    y_to: Optional[Tensor],
+    left: Tensor,
+    right: Optional[Tensor],
+    eta_c: float,
+    eta_l: float,
+    w_self: float,
+    w_left: float,
+    w_right: float = 0.0,
+) -> Tensor:
+    """PISCO's (4a) candidate fused with the ring-gossip combine:
+    ``u = (1 - eta_c) x_k + eta_c (x_to - eta_l y_to)``, ``out = w_self u +
+    w_left left + w_right right``.  Without ``y_to``, ``x_to`` is already
+    ``x_to - eta_l y_to`` (the port's round); without ``right`` the ring has
+    one neighbour.  f32 math, output in ``x_k``'s dtype."""
+    half = _f32(x_to) if y_to is None else _f32(x_to) - eta_l * _f32(y_to)
+    cand = (1.0 - eta_c) * _f32(x_k) + eta_c * half
+    out = w_self * cand + w_left * _f32(left)
+    if right is not None:
+        out = out + w_right * _f32(right)
+    return out.to(x_k.dtype)
+
+
 def row_absmax_ref(x: Tensor, residual: Optional[Tensor] = None) -> Tensor:
     """(n, d) -> (n,) float32: ``max_j |x_ij + r_ij|``."""
     m = _f32(x) if residual is None else _f32(x) + _f32(residual)
@@ -60,6 +85,22 @@ def quantize_rows_ref(
     u = m / scale
     q = torch.floor(u + noise) if noise is not None else torch.round(u)
     return torch.clamp(q, -qmax, qmax) * scale
+
+
+def rowwise_quant_dequant_ref(
+    x: Tensor,
+    absmax: Tensor,
+    bits: int,
+    residual: Optional[Tensor] = None,
+    noise: Optional[Tensor] = None,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """The per-agent-row round trip ``q = q_bits(m)`` of ``m = x (+ r)`` (n, d)
+    with the row abs-max ``absmax`` of ``m``, in ``x``'s dtype, and with a
+    residual the error-feedback update ``r' = m - q`` (q as sent; None
+    without r).  f32 math."""
+    m = _f32(x) if residual is None else _f32(x) + _f32(residual)
+    q = quantize_rows_ref(m, absmax, bits, noise).to(x.dtype)
+    return q, (None if residual is None else (m - _f32(q)).to(x.dtype))
 
 
 def compressed_mix_ref(

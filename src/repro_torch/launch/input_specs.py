@@ -1,0 +1,42 @@
+"""Shapes of the training inputs (the twin of ``repro.launch.input_specs``).
+
+``local_batches`` leaves are (T_o, A, b, ...) and ``comm_batch`` leaves
+(A, b, ...), where A = n_agents and b = global_batch // A; on a rank mesh each
+rank takes its own slice of the agent axis
+(:func:`repro_torch.launch.mesh.rank_slice`).  Only text batches are ported:
+the audio and VLM stubs wait for ROADMAP A14.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.shapes import InputShape
+from repro_torch.models.config import ModelConfig
+
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _per_agent_batch(cfg: ModelConfig, b: int, seq: int) -> Dict[str, TensorSpec]:
+    if cfg.is_enc_dec or cfg.modality != "text":
+        raise NotImplementedError(f"{cfg.name}: audio / VLM training inputs are not ported yet "
+                                  "(ROADMAP A14)")
+    return {"tokens": TensorSpec((b, seq), torch.int32)}
+
+
+def train_inputs(cfg: ModelConfig, shape: InputShape, n_agents: int,
+                 t_o: int) -> Tuple[Dict[str, TensorSpec], Dict[str, TensorSpec]]:
+    """(local_batches, comm_batch) shapes."""
+    if shape.kind != "train":
+        raise ValueError(f"{shape.name} is a {shape.kind} shape, not a train shape")
+    if shape.global_batch % n_agents:
+        raise ValueError(f"global_batch {shape.global_batch} must divide across "
+                         f"{n_agents} agents")
+    per = _per_agent_batch(cfg, shape.global_batch // n_agents, shape.seq_len)
+    comm = {k: TensorSpec((n_agents,) + s.shape, s.dtype) for k, s in per.items()}
+    local = {k: TensorSpec((t_o,) + s.shape, s.dtype) for k, s in comm.items()}
+    return local, comm

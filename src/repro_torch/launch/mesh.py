@@ -1,0 +1,240 @@
+"""Rank meshes over ``torch.distributed`` (the twin of ``repro.launch.mesh``).
+
+The reference lays a mesh with named axes over its devices and runs one
+PISCO agent per position of the agent axes.  Here the same named axes lie
+over the ranks of the default process group in row-major order: rank ``r``
+sits at ``np.unravel_index(r, shape)``, and every axis gets one sub-group per
+setting of the other coordinates (the ranks that differ on that axis alone).
+The collectives the mixers need — a neighbour shift along one axis (the
+reference's ``ppermute``), a sum and a gather over a set of axes (``psum``,
+``all_gather``) — are methods of the mesh.
+
+Transport.  NCCL moves CUDA tensors between cards directly.  Gloo moves host
+tensors only; it runs the CPU tests, and it is the only choice when several
+ranks share one card (NCCL refuses two ranks on one device).  A mesh whose
+group runs gloo over CUDA tensors therefore stages every exchange through
+pinned host buffers: the model, the state and the kernels stay on the card,
+only the bytes in flight pass through the host.  The choice is read once
+from ``dist.get_backend()`` when the mesh is built.
+
+Only the agent axes are ported: the "model" axis (tensor parallelism inside
+an agent) has size 1 here, and the 256- and 512-chip production meshes of the
+reference wait for ROADMAP A17.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class MeshClock:
+    """Wall-clock seconds by phase ("exchange" is filled by the mesh's
+    collectives, the round adds its own phases through :meth:`span`).
+    Inactive unless ``on``; when on, every span synchronises the device at
+    both ends, so a phase is charged only its own device work."""
+
+    on: bool = False
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    bytes_sent: int = 0
+
+    @contextlib.contextmanager
+    def span(self, name: str, device: torch.device):
+        if not self.on:
+            yield
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    def reset(self) -> None:
+        self.seconds.clear()
+        self.bytes_sent = 0
+
+
+@dataclasses.dataclass
+class RankMesh:
+    """This rank's place in a mesh of named axes over the process group."""
+
+    shape: Dict[str, int]  # axis name -> size, in mesh order
+    rank: int
+    device: torch.device
+    stage_on_host: bool  # gloo over CUDA tensors: exchanges go through pinned host memory
+    clock: MeshClock = dataclasses.field(default_factory=MeshClock)
+    _groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        idx = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.shape, idx)}
+
+    def size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major position over ``axes`` (its agent index
+        when ``axes`` are the agent axes)."""
+        c = self.coords
+        return int(np.ravel_multi_index([c[a] for a in axes], [self.shape[a] for a in axes]))
+
+    def group(self, axes: Sequence[str]):
+        """``(group, ranks)``: the sub-group of the ranks that share this
+        rank's coordinates outside ``axes``, and their global ranks in
+        row-major order over ``axes``.  Built on first use; every rank asks
+        for the same groups in the same order, as ``new_group`` requires."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes not in self._groups:
+            sizes = tuple(self.shape.values())
+            all_ranks = np.arange(int(np.prod(sizes))).reshape(sizes)
+            moved = np.moveaxis(all_ranks, [self.axis_names.index(a) for a in axes],
+                                range(len(axes)))
+            classes = moved.reshape(self.size(axes), -1).T  # one row per sub-group
+            mine = None
+            for ranks in classes:
+                g = dist.new_group([int(r) for r in ranks])
+                if self.rank in ranks:
+                    mine = (g, [int(r) for r in ranks])
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    # -- collectives -------------------------------------------------------
+
+    def _to_wire(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.stage_on_host:
+            return x.contiguous()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
+
+    def _empty_wire(self, like: torch.Tensor) -> torch.Tensor:
+        if not self.stage_on_host:
+            return torch.empty_like(like, memory_format=torch.contiguous_format)
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def _from_wire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self.stage_on_host else t
+
+    def _neighbour(self, axis: str, s: int) -> int:
+        """Global rank ``s`` steps ahead of this one along ``axis``."""
+        c = self.coords
+        c[axis] = (c[axis] + s) % self.shape[axis]
+        return int(np.ravel_multi_index([c[a] for a in self.shape], tuple(self.shape.values())))
+
+    def shift(self, x: torch.Tensor, moves: Sequence[Tuple[str, int]]) -> List[torch.Tensor]:
+        """For each ``(axis, shift)``: the block of the rank ``shift`` steps
+        behind along ``axis`` — what the reference's ``ppermute`` with
+        ``perm = [(s, (s + shift) % size)]`` delivers.  All moves go out in
+        one batch of sends and receives."""
+        with self.clock.span("exchange", self.device):
+            send = self._to_wire(x)
+            ops, recvs = [], []
+            for axis, s in moves:
+                recv = self._empty_wire(x)
+                recvs.append(recv)
+                # one batch takes one group: the default one, peers by global rank
+                ops.append(dist.P2POp(dist.isend, send, self._neighbour(axis, s)))
+                ops.append(dist.P2POp(dist.irecv, recv, self._neighbour(axis, -s)))
+                self.clock.bytes_sent += send.numel() * send.element_size()
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return [self._from_wire(r) for r in recvs]
+
+    def all_reduce_sum(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """The sum of ``x`` over the ranks of ``axes`` (a new tensor)."""
+        with self.clock.span("exchange", self.device):
+            buf = self._to_wire(x)
+            if buf is x:
+                buf = x.clone()
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axes)[0])
+            self.clock.bytes_sent += buf.numel() * buf.element_size()
+            return self._from_wire(buf)
+
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """(n, *x.shape): every rank's ``x`` over ``axes``, in row-major
+        order of their coordinates."""
+        with self.clock.span("exchange", self.device):
+            group, ranks = self.group(axes)
+            send = self._to_wire(x)
+            parts = [self._empty_wire(x) for _ in ranks]
+            dist.all_gather(parts, send, group=group)
+            self.clock.bytes_sent += send.numel() * send.element_size()
+            return self._from_wire(torch.stack(parts))
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Sequence[str], device: DeviceLike = None) -> RankMesh:
+    """The mesh of named ``axes`` with ``shape`` over the default process
+    group (initialised by the caller; its world size must be the mesh's),
+    for tensors on ``device`` (CUDA when none is given)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialised "
+                           "(init_process_group with this mesh's world size)")
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {tuple(axes)} differ in length")
+    world = dist.get_world_size()
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {dict(zip(axes, shape))} needs {int(np.prod(shape))} ranks, "
+                         f"the group has {world}")
+    dev = resolve_device(device)
+    return RankMesh(shape=dict(zip(axes, (int(s) for s in shape))), rank=dist.get_rank(),
+                    device=dev, stage_on_host=dist.get_backend() == "gloo" and dev.type == "cuda")
+
+
+def make_debug_mesh(shape: Tuple[int, ...] = (1, 1), axes=("data", "model"),
+                    device: DeviceLike = None) -> RankMesh:
+    """A (data, model) mesh over the process group (1 x 1 by default)."""
+    return make_mesh(shape, axes, device)
+
+
+def agent_axes_for(mesh, mode: str = "flat") -> Tuple[str, ...]:
+    """Which mesh axes form the PISCO agent axis.
+
+    flat:          all non-model axes
+    hierarchical:  the 'pod' axis only
+    """
+    names = list(mesh.axis_names)
+    if mode == "hierarchical":
+        if "pod" not in names:
+            raise ValueError("hierarchical mode needs a pod axis")
+        return ("pod",)
+    return tuple(n for n in names if n != "model")
+
+
+def n_agents_for(mesh, mode: str = "flat") -> int:
+    n = 1
+    for a in agent_axes_for(mesh, mode):
+        n *= mesh.shape[a]
+    return n
+
+
+def rank_slice(tree: Dict, mesh: RankMesh, agent_axes: Sequence[str], axis: int = 0,
+               device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+    """This rank's agent of an agent-stacked dict of arrays or tensors (the
+    agent axis at ``axis``), as tensors on ``device`` (the mesh's by
+    default)."""
+    a = mesh.index(agent_axes)
+    dev = mesh.device if device is None else device
+
+    def take(v):
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        return t.select(axis, a).contiguous().to(dev)
+
+    return {k: take(v) for k, v in tree.items()}

@@ -1,5 +1,6 @@
 """GQA attention with QK-norm and sliding windows: prefill through the
-flash-attention kernel (K6), decode against a KV cache in plain PyTorch.
+flash-attention kernel (K6), decode against a KV cache and the training
+forward (:func:`gqa_forward`, differentiable) in plain PyTorch.
 
 The reference's prefill core (``repro.models.attention.attention_core``)
 computes full or chunked scores in jnp; the port routes it to
@@ -87,6 +88,66 @@ def attention_core(
     out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
              causal=True, window=window)
     return out.transpose(1, 2)
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
+    """Grouped attention as the reference's ``_sdpa``: q (B, Sq, Hkv, G, D),
+    k and v (B, Sk, Hkv, D); scores in the input dtype, softmax in float32,
+    probabilities cast back.  Returns (B, Sq, Hkv, G, D)."""
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+
+def _causal_mask(sq: int, sk: int, q_offset: int, window: Optional[int], device) -> Tensor:
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def attention_train(
+    q: Tensor,  # (B, Sq, H, D)
+    k: Tensor,  # (B, Sk, Hkv, D)
+    v: Tensor,  # (B, Sk, Hkv, D)
+    *,
+    window: Optional[int] = None,
+    chunk: int = 1024,
+) -> Tensor:
+    """Causal attention of the training forward, differentiable: the
+    reference's ``attention_core`` (full scores up to ``chunk`` queries, else
+    query chunks against their causal key span).  The reference trains
+    through this jnp code and has no gradient kernel; K6 is forward-only and
+    stays the prefill's.  Returns (B, Sq, H, D)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    if sq <= chunk or sq % chunk:
+        out = _sdpa(qg, k, v, _causal_mask(sq, k.shape[1], 0, window, q.device))
+        return out.reshape(b, sq, h, -1)
+    outs = []
+    for q0 in range(0, sq, chunk):
+        k_end = q0 + chunk
+        k0 = 0 if window is None else max(0, k_end - window - chunk)
+        mask = _causal_mask(chunk, k_end - k0, q0 - k0, window, q.device)
+        outs.append(_sdpa(qg[:, q0:k_end], k[:, k0:k_end], v[:, k0:k_end], mask))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, -1)
+
+
+def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
+    """The training forward of a GQA layer, x (B, S, d) -> (B, S, d)."""
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
+    q, k, v = _project_qkv(params, cfg, x)
+    q = apply_rope(q, *cos_sin)
+    k = apply_rope(k, *cos_sin)
+    out = attention_train(q, k, v, window=cfg.sliding_window, chunk=cfg.attn_chunk)
+    b, s, h, hd = out.shape
+    return linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
 
 
 def decode_attention_core(

@@ -56,7 +56,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "float32"
     attn_chunk: int = 1024
-    remat: bool = True
+    remat: bool = True  # recompute each period's activations in the backward pass
+    loss_chunk: int = 0  # >0: cross-entropy over sequence chunks of this length
     init_scale: float = 0.02
 
     @property

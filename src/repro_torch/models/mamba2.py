@@ -4,6 +4,12 @@
 is the reference's chunked algorithm in plain PyTorch.  Decode carries the
 (conv window, SSM state) caches and costs O(1) per token.
 
+Training (:func:`mamba2_forward`) runs :func:`ssd_reference` under autograd,
+as the reference's training forward (``mamba2_forward(use_kernel=False)``)
+does: this is the model code of the training path, not a stand-in for a
+kernel.  The reference has no gradient kernel for the SSD (its Pallas scan
+is forward-only), so none is written here; K7 stays the prefill's kernel.
+
 Layout: heads H = d_inner / head_dim (P), groups G (B/C shared per group),
 state size N.  Caches are updated in place.
 """
@@ -113,6 +119,22 @@ def _split_xbc(cfg: ModelConfig, xbc: Tensor):
     return (x.reshape(bsz, l, n_heads, s.head_dim),
             b_mat.reshape(bsz, l, s.n_groups, s.d_state),
             c_mat.reshape(bsz, l, s.n_groups, s.d_state))
+
+
+def mamba2_forward(params: Dict, cfg: ModelConfig, u: Tensor) -> Tensor:
+    """The training forward, u (B, L, d_model) -> (B, L, d_model): the
+    chunked SSD through :func:`ssd_reference` (differentiable)."""
+    s, d_in, _, _ = _dims(cfg)
+    z, xbc, dt_raw = _split_proj(cfg, linear(u, params["in_proj"]))
+    x, b_mat, c_mat = _split_xbc(cfg, F.silu(causal_conv(xbc, params["conv_w"],
+                                                         params["conv_b"])))
+    dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])
+    y, _ = ssd_reference(x, dt.to(x.dtype), a, b_mat, c_mat, s.chunk)
+    y = y.to(u.dtype) + params["d_skip"].to(u.dtype)[None, None, :, None] * x
+    y = y.reshape(u.shape[0], u.shape[1], d_in)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return linear(y, params["out_proj"])
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device=None, stack: tuple = ()) -> Dict:

@@ -1,9 +1,9 @@
 """Model registry: one interface over the ported decoder-only families (the
 twin of ``repro.models.registry``).
 
-``ModelBundle`` is what the serving engine consumes: init / init_cache /
-prefill / decode bound to one configuration and one device.  Training
-(``loss``) is not ported yet and raises.
+``ModelBundle`` is what the serving engine and the trainer consume: init /
+init_cache / prefill / decode / loss / value_and_grad bound to one
+configuration and one device.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.pytree import nest_leaves, nest_map
 
 Tree = Any
 
@@ -45,7 +46,17 @@ class ModelBundle:
         return T.lm_decode(slot_params, self.cfg, tokens, cache, slotted=True)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
-        raise NotImplementedError("LM training (lm_loss) is not ported yet (ROADMAP A14)")
+        return T.lm_loss(params, self.cfg, batch)
+
+    def value_and_grad(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
+        """``(loss, grads)`` of :meth:`loss` at ``params`` (the twin of
+        ``jax.value_and_grad(bundle.loss)``): grads in each leaf's dtype, in
+        the parameters' tree layout; nothing stays attached to a graph."""
+        live = nest_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = T.lm_loss(live, self.cfg, batch)
+            grads = iter(torch.autograd.grad(loss, nest_leaves(live)))
+        return loss.detach(), nest_map(lambda _: next(grads), params)
 
 
 def get_bundle(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:

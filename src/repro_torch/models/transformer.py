@@ -13,7 +13,14 @@ Entry points:
   flash-attention kernel (K6), Mamba layers the SSD scan kernel (K7);
   ``use_kernels=False`` runs their plain versions instead.
 * :func:`lm_decode` — one token per row against the cache (plain PyTorch;
-  the reference has no decode kernel).  With ``slotted=True`` every
+  the reference has no decode kernel).
+* :func:`lm_loss` — next-token cross-entropy of the training forward
+  (:func:`lm_forward`), differentiable: attention through
+  :func:`repro_torch.models.attention.attention_train` and Mamba layers
+  through the chunked ``ssd_reference``, as the reference trains (it has no
+  gradient kernels); with ``cfg.remat`` every period is recomputed in the
+  backward pass (``torch.utils.checkpoint``, non-reentrant), the reference's
+  ``jax.checkpoint`` of its scanned period.  With ``slotted=True`` every
   parameter carries a leading slot axis, one agent per row, and each
   projection is one batched product over the slots; the cache's ``pos`` is
   then one position per slot.
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ref as kref
@@ -142,10 +150,109 @@ def _index(tree: Tree, fn) -> Tree:
     return {k: _index(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def params_from_paths(flat: Dict[str, Tensor], cfg: ModelConfig) -> Tree:
+    """The parameter tree of a flat dict keyed by leaf path (the layout of
+    :func:`repro_torch.utils.pytree.flatten_paths`)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    head = tree.pop("head_layers", {})
+    tree["head_layers"] = [head[str(i)] for i in range(len(_period_patterns(cfg)[0]))]
+    return tree
+
+
 def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
     if not cfg.tie_embeddings:
         return params["lm_head"]
     return params["embed"].transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor,
+                  cos_sin) -> Tensor:
+    h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
+    if kind == "attn":
+        h = A.gqa_forward(bp["mixer"], cfg, h, cos_sin)
+    else:
+        h = M.mamba2_forward(bp["mixer"], cfg, h)
+    x = x + h
+    if ffn_kind != "none":
+        x = x + mlp_forward(bp["ffn"], cfg.mlp_type, rms_norm(x, bp["norm2"]["scale"],
+                                                              cfg.norm_eps))
+    return x
+
+
+def _text_only(batch: Dict) -> None:
+    if batch.get("prefix_embeds") is not None or batch.get("positions") is not None:
+        raise NotImplementedError("prefix embeddings and explicit positions (VLM / audio) "
+                                  "are not ported yet (ROADMAP A14)")
+
+
+def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """Forward to the final norm, without the vocabulary projection."""
+    head_pat, period_pat, n_periods = _period_patterns(cfg)
+    x = params["embed"][tokens.long()]
+    b, s, _ = x.shape
+    cos_sin = None
+    if cfg.arch_type != "ssm":
+        cos_sin = rope_cos_sin(text_positions(b, s, 0, x.device), cfg.resolved_head_dim,
+                               cfg.rope_theta)
+    for bp, (k, f) in zip(params["head_layers"], head_pat):
+        x = block_forward(bp, cfg, k, f, x, cos_sin)
+
+    def period(x_in: Tensor, p: int) -> Tensor:
+        for i, (k, f) in enumerate(period_pat):
+            bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
+            x_in = block_forward(bp, cfg, k, f, x_in, cos_sin)
+        return x_in
+
+    for p in range(n_periods):
+        x = checkpoint(period, x, p, use_reentrant=False) if cfg.remat else period(x, p)
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+
+
+def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """Full causal training forward; returns logits (B, S, V)."""
+    return linear(_hidden_states(params, cfg, tokens), _lm_head(params, cfg))
+
+
+def _ce_sum(logits: Tensor, targets: Tensor) -> Tensor:
+    pred = logits.to(torch.float32)
+    gold = torch.gather(pred, -1, targets.long()[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(pred, dim=-1) - gold)
+
+
+def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int) -> Tensor:
+    """Next-token CE over sequence chunks: one (B, chunk, V) logits block is
+    live at a time in the forward pass."""
+    b, s_pred, _ = hidden.shape
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s_pred, min(chunk, s_pred)):
+        c1 = min(c0 + chunk, s_pred)
+        total = total + _ce_sum(linear(hidden[:, c0:c1], head), targets[:, c0:c1])
+    return total / (b * s_pred)
+
+
+def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
+    """Next-token cross-entropy over ``batch["tokens"]`` (B, S): position t
+    predicts token t + 1, logits in float32."""
+    _text_only(batch)
+    tokens = batch["tokens"]
+    if cfg.loss_chunk > 0:
+        hidden = _hidden_states(params, cfg, tokens)
+        return _chunked_ce(hidden[:, :-1], _lm_head(params, cfg), tokens[:, 1:],
+                           cfg.loss_chunk)
+    logits = lm_forward(params, cfg, tokens)
+    b, s = tokens.shape
+    return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +309,7 @@ def lm_prefill(
 
     A Mamba layer keeps the last ``d_conv - 1`` inputs of its convolution
     in the cache, so prompts shorter than that are refused."""
-    if prefix_embeds is not None or positions is not None:
-        raise NotImplementedError("prefix embeddings and explicit positions (VLM / audio) "
-                                  "are not ported yet (ROADMAP A14)")
+    _text_only({"prefix_embeds": prefix_embeds, "positions": positions})
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     b, s = tokens.shape
     if cfg.arch_type == "ssm" and s < cfg.ssm.d_conv - 1:

@@ -111,3 +111,22 @@ def nest_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in nest_leaves(x)]
     return [tree]
+
+
+def nest_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over a nested tree; ``path`` joins the dict keys
+    and list indices from the root with "/"."""
+    if isinstance(tree, dict):
+        return {k: nest_map_with_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [nest_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn("/".join(path), tree)
+
+
+def flatten_paths(tree) -> Tree:
+    """A nested tree as a flat dict keyed by leaf path (``"layers/pos0/
+    mixer/in_proj"``): the layout the agent-state arithmetic walks."""
+    flat: Tree = {}
+    nest_map_with_path(lambda p, t: flat.__setitem__(p, t), tree)
+    return flat
+

@@ -5,11 +5,14 @@ Layouts stay the reference's at this boundary: the MLP's ``w1`` is already
 so crossing over is a copy into a tensor on the target device.  The JAX
 side hands over numpy arrays (``np.asarray`` of its arrays); nothing here
 imports JAX.  The LM zoo's nested trees (parameters and caches) cross with
-:func:`lm_params_from_jax` / :func:`lm_cache_from_jax` and back.
+:func:`lm_params_from_jax` / :func:`lm_cache_from_jax` and back; a PISCO
+state over LM trees crosses with :func:`lm_state_from_jax` as flat,
+path-keyed dicts, and :func:`split_state` / :func:`join_states` cut an
+agent-stacked state into one state per rank and back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -157,3 +160,55 @@ def lm_params_to_numpy(params: Any, bf16_dtype: Any = None) -> Any:
 
 def lm_cache_to_numpy(cache: Any, bf16_dtype: Any = None) -> Any:
     return tree_to_numpy(cache, bf16_dtype)
+
+
+# ---------------------------------------------------------------------------
+# PISCO states over LM trees, and one agent per rank
+# ---------------------------------------------------------------------------
+
+
+def lm_state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> Any:
+    """A reference ``PiscoState`` whose x, y, g (and error-feedback
+    residuals) are agent-stacked LM trees, as the port's ``PiscoState`` over
+    flat dicts keyed by leaf path (what the collective round carries).  The
+    JAX PRNG key does not cross: a compressed state gets a fresh generator
+    seeded with ``seed``."""
+    from repro_torch.core.pisco import PiscoState
+    from repro_torch.utils.pytree import flatten_paths
+
+    if getattr(state, "opt", ()):
+        raise NotImplementedError("update-rule state is not ported yet (ROADMAP A9)")
+    fields = {f: flatten_paths(tree_from_jax(getattr(state, f), device)) for f in ("x", "y", "g")}
+    ef = getattr(state, "ef", ())
+    if ef:
+        ef = {k: flatten_paths(tree_from_jax(ef[k], device)) if ef[k] else () for k in ("x", "y")}
+        ef["gen"] = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
+    return PiscoState(step=step, ef=ef, **fields)
+
+
+def split_state(state: Any) -> List[Any]:
+    """One ``PiscoState`` per agent (x, y, g rows and the step) of an
+    agent-stacked one: what rank ``a`` of a collective mixer holds.  The
+    error-feedback state does not split: attach it per rank with
+    ``init_compression_state``."""
+    from repro_torch.core.pisco import PiscoState
+
+    n = next(iter(state.x.values())).shape[0]
+    return [PiscoState(**{f: {k: v[a].clone() for k, v in getattr(state, f).items()}
+                          for f in ("x", "y", "g")}, step=state.step.clone())
+            for a in range(n)]
+
+
+def join_states(states: List[Any]) -> Dict[str, Any]:
+    """The agent-stacked numpy view of per-rank states (each brought to the
+    host; bfloat16 as its uint16 bits): x, y, g and, where the ranks carry
+    them, the residuals."""
+    def stack(trees):
+        return {k: np.stack([_leaf_to_numpy(t[k], None) for t in trees]) for k in sorted(trees[0])}
+
+    out: Dict[str, Any] = {f: stack([getattr(st, f) for st in states]) for f in ("x", "y", "g")}
+    out["step"] = int(states[0].step)
+    if states[0].ef:
+        out["ef"] = {s: stack([st.ef[s] for st in states]) for s in ("x", "y")}
+    return out

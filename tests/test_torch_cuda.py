@@ -1,6 +1,7 @@
-"""The seven Hopper kernels against their plain PyTorch versions on a card,
-short PISCO and baseline runs on the GPU against the CPU, and greedy
-serving of both reduced LMs on the GPU against the CPU.
+"""The nine Hopper kernels against their plain PyTorch versions on a card,
+short PISCO and baseline runs on the GPU against the CPU, greedy serving of
+both reduced LMs on the GPU against the CPU, and a two-rank gloo round of
+reduced Mamba2-370m training on the card against the same ranks on the CPU.
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips without one.  The file imports no JAX, so on a GPU machine without JAX
@@ -8,6 +9,12 @@ it runs alone, past the suite's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -160,18 +167,67 @@ def test_k7_within_tolerance(cuda, gen, b, l, h, p, g, n, dtype):
     assert float((hfin - h2).abs().max()) <= 5e-4 * (1.0 + float(h2.abs().max()))
 
 
+@pytest.mark.parametrize("shape,dtype,wire,has_y,has_right", [
+    ((1000, 37), torch.float32, torch.float32, True, True),
+    ((4096, 8), torch.bfloat16, torch.bfloat16, True, True),
+    ((3, 1001), torch.bfloat16, torch.float32, False, True),
+    ((2048,), torch.float32, torch.float32, False, False),
+    ((5,), torch.bfloat16, torch.float32, False, False)])
+def test_k8_exact(cuda, gen, shape, dtype, wire, has_y, has_right):
+    xk, xt, yt = (torch.randn(*shape, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    left, right = (torch.randn(*shape, generator=gen, device=cuda).to(wire) for _ in range(2))
+    yt = yt if has_y else None
+    right = right if has_right else None
+    kw = dict(eta_c=0.7, eta_l=0.05, w_self=0.5, w_left=0.25, w_right=0.25 if has_right else 0.0)
+    ops.reset_launch_counts()
+    if has_y:
+        out = ops.fused_mix_combine(xk, xt, yt, left, right, **kw)
+    else:
+        kw.pop("eta_l")
+        out = ops.mix_combine_half(xk, xt, left, right, **kw)
+        kw["eta_l"] = 0.0
+    assert ops.launch_counts()["fused_mix_combine"] == 1
+    want = ref.fused_mix_combine_ref(xk, xt, yt, left, right, kw["eta_c"], kw["eta_l"],
+                                     kw["w_self"], kw["w_left"], kw["w_right"])
+    assert out.dtype == dtype and torch.equal(out, want)  # same roundings, f32 math
+
+
+@pytest.mark.parametrize("n,d,dtype,bits,res,noise", [
+    (1, 200_003, torch.float32, 8, True, False), (1, 1 << 20, torch.bfloat16, 8, True, False),
+    (4, 4096, torch.bfloat16, 4, False, True), (3, 1001, torch.float32, 8, True, True),
+    (512, 328, torch.float32, 8, False, False)])
+def test_k2_one_row_and_k9_exact(cuda, gen, n, d, dtype, bits, res, noise):
+    x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    r = (0.01 * torch.randn(n, d, generator=gen, device=cuda)).to(dtype) if res else None
+    u = torch.rand(n, d, generator=gen, device=cuda) if noise else None
+    ops.reset_launch_counts()
+    am = ops.row_absmax(x, r)
+    assert torch.equal(am, ref.row_absmax_ref(x, r))  # max is exact in any order
+    q, r_new = ops.rowwise_quant_dequant(x, am, bits=bits, residual=r, noise=u)
+    assert ops.launch_counts()["rowwise_quant_dequant"] == 1
+    q2, r2 = ref.rowwise_quant_dequant_ref(x, am, bits, r, u)
+    assert q.dtype == dtype and torch.equal(q, q2)
+    assert (r_new is None) == (r is None)
+    if r is not None:
+        assert torch.equal(r_new, r2)
+
+
 @pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m"])
 def test_reduced_serving_gpu_matches_cpu(cuda, arch):
     from repro_torch.configs import get_reduced
     from repro_torch.models.registry import get_bundle
     from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, FleetDelta,
                                    StepCosts, make_requests, run_load)
+    from repro_torch.utils.pytree import nest_map
 
     streams = []
+    # one set of weights for both devices: drawn on the CPU (a CUDA generator
+    # draws other numbers from the same seed), moved to the card
+    base = get_bundle(get_reduced(arch), "cpu").init(0)
     ops.reset_launch_counts()
     for dev in (cuda, torch.device("cpu")):
         bundle = get_bundle(get_reduced(arch), dev)
-        fleet = FleetDelta.synthetic(bundle.init(0), 4, seed=0)
+        fleet = FleetDelta.synthetic(nest_map(lambda t: t.to(dev), base), 4, seed=0)
         reqs = make_requests(ArrivalProcess(rate=4.0), 4, n_agents=4, vocab_size=512,
                              prompt_len=37, max_new_tokens=6, seed=1)
         rep = run_load(ContinuousBatcher(DecodeEngine(bundle, fleet, n_slots=2, max_seq=48)),
@@ -180,3 +236,84 @@ def test_reduced_serving_gpu_matches_cpu(cuda, arch):
     kernel = "flash_attention" if arch == "qwen3-8b" else "ssd_scan"
     assert ops.launch_counts()[kernel] == 2 * 4  # two layers, four admissions
     assert streams[0] == streams[1]
+
+
+_TWO_RANKS = textwrap.dedent("""
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.pisco import init_rank_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, rank_slice
+    from repro_torch.launch.steps import build_train_steps, flat_value_and_grad
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + os.environ["PORT"],
+                            rank=rank, world_size=2)
+    cfg = get_reduced("mamba2-370m")
+    sampler = make_lm_sampler(cfg, 2, 2, 48, 2, seed=0)
+    draws = [sampler(k) for k in range(3)]
+    x0 = flatten_paths(get_bundle(cfg, "cpu").init(seed=0))
+    finals = {}
+    for dev in ("cuda", "cpu"):
+        bundle = get_bundle(cfg, dev)
+        mesh = make_mesh((2, 1), ("data", "model"), dev)
+        assert mesh.stage_on_host == (dev == "cuda")  # gloo moves host tensors only
+        steps = build_train_steps(bundle, InputShape("t", 48, 4, "train"), mesh, t_o=2,
+                                  eta_l=0.05, eta_c=0.9)
+        batches = [tuple(rank_slice(b, mesh, ("data",), axis=1 - i) for i, b in enumerate(d))
+                   for d in draws]
+        vg = flat_value_and_grad(bundle)
+        state = init_rank_state(vg, {k: v.to(dev) for k, v in x0.items()}, batches[0][1])
+        ops.reset_launch_counts()
+        state, _ = steps["train_gossip"].fn(state, *batches[1])
+        state, _ = steps["train_global"].fn(state, *batches[2])
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            assert counts["fused_mix_combine"] == len(x0), counts  # one per leaf
+            assert counts["fused_local_step"] == 2 * 2 * len(x0), counts
+        finals[dev] = {k: v.cpu() for k, v in state.x.items()}
+    for k, want in finals["cpu"].items():
+        # float32, other summation orders on the card over two rounds
+        err = float((finals["cuda"][k] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (k, err)
+    # bf16 state, eta_c = 0.7, the f32 wire: K8's output is bit for bit the
+    # plain combine of the float32 candidates of the rank and its neighbour
+    import torch
+    from repro_torch.core import mixing as M
+    from repro_torch.kernels import ref
+    ring = M.collective_shift_mixing(make_mesh((2, 1), ("data", "model"), "cuda"), ("data",),
+                                     {"data": [(0, 0.5), (1, 0.25), (-1, 0.25)]},
+                                     wire_dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    xs, hs = (torch.randn(2, 1000, 37, generator=g).bfloat16() for _ in range(2))
+    got = M.mix_candidate(ring, {"w": xs[rank].cuda()}, {"w": hs[rank].cuda()}, 0.7)["w"]
+    u = [(1.0 - 0.7) * xs[i].float() + 0.7 * hs[i].float() for i in range(2)]
+    want = ref.fused_mix_combine_ref(xs[rank], hs[rank], None, u[1 - rank], u[1 - rank],
+                                     0.7, 0.0, 0.5, 0.25, 0.25)
+    assert torch.equal(got.cpu(), want)
+    dist.destroy_process_group()
+    print("RANK-OK")
+""")
+
+
+def test_two_rank_gloo_round_on_the_card_matches_cpu(cuda):
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src), PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0 and "RANK-OK" in log, log[-3000:]

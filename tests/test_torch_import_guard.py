@@ -25,7 +25,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "models.layers", "models.rope", "models.mlp", "models.attention",
                  "models.mamba2", "models.transformer", "models.registry", "configs",
                  "configs.qwen3_8b", "configs.mamba2_370m", "serve", "serve.delta",
-                 "serve.engine", "serve.batcher", "serve.load", "serve.__main__"):
+                 "serve.engine", "serve.batcher", "serve.load", "serve.__main__",
+                 "configs.shapes", "launch", "launch.mesh", "launch.steps", "launch.train",
+                 "launch.input_specs"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -333,5 +333,6 @@ def test_unported_families_and_short_prompts_raise():
     with pytest.raises(ValueError, match="at least 3"):
         bundle.prefill(params, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
                        bundle.init_cache(1, 8))
-    with pytest.raises(NotImplementedError):
-        bundle.loss(params, {})
+    with pytest.raises(NotImplementedError, match="A14"):  # VLM prefix embeddings
+        bundle.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.long),
+                             "prefix_embeds": torch.zeros((1, 2, 128))})

@@ -23,8 +23,9 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
 4. serves the two decoder-only models that fit the card at full width, in
    bf16, through ``FleetDelta.synthetic`` -> ``DecodeEngine`` ->
    ``ContinuousBatcher`` -> ``run_load``: Qwen3-8B ("serve-qwen3-8b": flash
-   attention, K6, 36 launches per admitted request; its prefill logits held
-   against the plain versions on the card) and Mamba2-370m
+   attention, K6, 36 launches per admitted request, all on the tensor cores,
+   with their share of a traced prefill's device time; its prefill logits
+   held against the plain versions on the card) and Mamba2-370m
    ("serve-mamba2-370m": the SSD scan, K7, 48 launches per request; admit,
    step and dense-fleet token streams bit-identical), then both models at
    their reduced widths on the card and on the CPU ("serve-reduced");
@@ -98,6 +99,12 @@ MIX_TOL = 2e-5
 # K7 (the ROADMAP's 5e-4, scaled by 1 + max |plain|): f32 y and the f32
 # state within 5e-4; bf16 y within one bf16 ulp (2^-8) of the same scale.
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+# K6's bf16 (tensor-core) path against the plain version that rounds P to
+# bf16 as the kernel does (ref.flash_attention_ref(p_dtype=bfloat16)): one
+# bf16 ulp of the plain value (the two outputs may round apart) plus
+# FLASH_P_ATOL (the kernel rounds each p against its running max, the plain
+# version against the final one); tighter than 2e-2 wherever |out| < 4.
+FLASH_P_ATOL = 2.0 ** -8
 SSD_TOL = {"float32": 5e-4, "bfloat16": 2.0 ** -8}
 # serve-qwen3-8b: last-position prefill logits through K6 against the plain
 # versions, both on the card, in bf16 through 36 layers: within 5e-2 of
@@ -145,6 +152,32 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls: the
+    time of the kernels, copies and fills it launched, from a
+    ``torch.profiler`` trace (CUDA activity only).  Host launch costs are
+    left out: at small shapes a wrapper's host time exceeds its kernel's,
+    and ``time_ms`` then measures the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+
+
+def flash_p_tol(torch, model):
+    """Elementwise limit of |K6 - plain(p_dtype=bf16)| at the plain values:
+    one bf16 ulp of each (2^(e - 7) for |x| in [2^e, 2^(e+1))) + FLASH_P_ATOL."""
+    ulp = torch.exp2(torch.floor(torch.log2(model.abs().clamp_min(2.0 ** -126))) - 7)
+    return ulp + FLASH_P_ATOL
 
 
 def max_err(a, b) -> float:
@@ -226,14 +259,25 @@ def kernel_checks(torch, dev):
     noise = torch.rand(512, 25088, generator=gen, device=dev)
     m = x + r
     am = ops.row_absmax(x, r)
+    check(torch.equal(ops.row_absmax(m), torch.linalg.vector_norm(m, ord=float("inf"), dim=1)),
+          "K2 without the residual differs from vector_norm(ord=inf)")
     nd = x.numel()
     b_ms, b_by = bound_ms(2 * 4 * nd + 4 * 512, 2 * nd)
     rows["row_absmax"] = dict(
         shape=[512, 25088], max_abs_err=err2,
         ms=timer(lambda: ops.row_absmax(x, r), iters=50),
         plain_ms=timer(lambda: ref.row_absmax_ref(x, r), iters=50),
-        # one call over the precomputed m = x + r (the add is not timed)
+        # the fair pair: K2's no-residual form and vector_norm over one m
+        # (the same function, the same bytes); ms and bound_ms above are the
+        # form the path runs, which also reads the residual
         library_ms=timer(lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1), iters=50),
+        no_residual_ms=timer(lambda: ops.row_absmax(m), iters=50),
+        no_residual_bound_ms=bound_ms(4 * nd + 4 * 512, nd)[0],
+        # the pair's device time (profiler): at ~0.02 ms a call the event
+        # times above can be the host's dispatch, not the kernels'
+        no_residual_device_ms=device_ms(torch, lambda: ops.row_absmax(m), iters=50),
+        library_device_ms=device_ms(
+            torch, lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1), iters=50),
         bound_ms=b_ms, bound_by=b_by,
     )
     b_ms, b_by = bound_ms(5 * 4 * nd + 4 * 512 * 512 + 4 * 512, 2 * 512 * nd + 12 * nd)
@@ -429,13 +473,13 @@ def profile_rounds(torch, dev, label, spec, loss_fn, params0, data, batch, activ
         f"window {window / 1e3 / active:.3f} ms/round, "
         f"device busy {100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), "
         f"device time {busy / 1e3 / active:.3f} ms/round")
-    for name, us in top:
+    for name, us in top[:10]:
         log(f"profile {label}:   {us / 1e3 / active:8.3f} ms/round  {name[:110]}")
 
 
 def device_share(prof, label):
-    """(window µs, device-busy µs, the ten heaviest device ops as (name, µs))
-    of a finished ``torch.profiler`` trace.  Busy time is the union of the
+    """(window µs, device-busy µs, every device op as (name, µs), heaviest
+    first) of a finished ``torch.profiler`` trace.  Busy time is the union of the
     intervals of device work — kernels, copies and fills, not the step
     annotations the profiler also puts on the device timeline."""
     from torch.autograd import DeviceType
@@ -457,7 +501,7 @@ def device_share(prof, label):
     per_kernel = {}
     for e in dev_events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    return window, busy, sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return window, busy, sorted(per_kernel.items(), key=lambda kv: -kv[1])
 
 
 def check_run(torch, label, hist, rounds, n_agents, template):
@@ -678,8 +722,9 @@ def ssd_cost(b, l, h, p, g, n, chunk, itemsize):
 
 def lm_kernel_checks(torch, dev):
     """K6 at Qwen3-8B's prefill shape (B 1, Hq 32, Hkv 8, D 128, S 2048, bf16,
-    causal), at the served prompt (S 500), and at a ragged S of 1000 with a
-    256 window in f32; K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
+    causal; its tensor-core path), at the served prompt (S 500), at S 1000
+    with a 256 window (bf16 and f32) and at ragged small shapes, timed at
+    S 2048 and S 500 beside SDPA; K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
     N 128, chunk 256, bf16) and at a ragged L of 1000 in f32."""
     import torch.nn.functional as F
 
@@ -695,29 +740,62 @@ def lm_kernel_checks(torch, dev):
         k, v = (torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt) for _ in range(2))
         return q, k, v
 
-    err6 = 0.0
+    err6 = err6_p = 0.0
     for b, hq, hkv, s, d, window, dt in ((1, 32, 8, 2048, 128, None, torch.bfloat16),
                                          (1, 32, 8, 500, 128, None, torch.bfloat16),
+                                         (1, 32, 8, 1000, 128, 256, torch.bfloat16),
+                                         (2, 8, 2, 333, 64, None, torch.bfloat16),
                                          (1, 32, 8, 1000, 128, 256, torch.float32),
                                          (2, 4, 2, 77, 32, None, torch.float32)):
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt)
-        e = max_err(ops.flash_attention(q, k, v, causal=True, window=window),
-                    ref.flash_attention_ref(q, k, v, causal=True, window=window))
+        ops.reset_launch_counts()
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        tc = ops.launch_counts()["flash_attention_tc"]
+        check(tc == (dt == torch.bfloat16), f"K6 {(b, hq, hkv, s, d, window, dt)}: {tc} "
+              "tensor-core launches")
+        e = max_err(out, ref.flash_attention_ref(q, k, v, causal=True, window=window))
         check(e <= FLASH_TOL[names[dt]], f"K6 {(b, hq, hkv, s, d, window, dt)}: max |err| {e}")
-        log(f"K6 check {(b, hq, hkv, s, d, window, names[dt])}: max |err| {e:.3e}")
+        msg = f"K6 check {(b, hq, hkv, s, d, window, names[dt])}: max |err| {e:.3e}"
+        if dt == torch.bfloat16:
+            # against the plain version that rounds P to bf16 as the kernel does
+            model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                            p_dtype=torch.bfloat16).float()
+            over = float(((out.float() - model).abs() - flash_p_tol(torch, model)).max())
+            e_p = max_err(out, model)
+            check(over <= 0.0, f"K6 {(b, hq, hkv, s, d, window)}: max |err| {e_p} against the "
+                  f"bf16-P plain version, {over} beyond one bf16 ulp + 2^-8")
+            msg += (f" (f32 oracle, limit {FLASH_TOL['bfloat16']}); {e_p:.3e} against the bf16-P "
+                    f"plain version (limit one bf16 ulp of it + 2^-8; margin {-over:.3e}); "
+                    "tensor cores")
+            err6_p = max(err6_p, e_p)
+            del model
+        log(msg)
         err6 = max(err6, e)
-        del q, k, v
-    q, k, v = attn_inputs(1, 32, 8, 2048, 128, torch.bfloat16)
-    nb, fl = flash_cost(1, 32, 8, 2048, 2048, 128, None, 2)
-    b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-    e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=True))
-    check(e_lib <= FLASH_TOL["bfloat16"], f"SDPA disagrees with the plain version: {e_lib}")
+        del q, k, v, out
+
+    def k6_times(s):
+        """K6 (bf16, causal) at Qwen3-8B's heads and S: CUDA-event ms per call
+        back to back, device ms (profiler), and the same for SDPA."""
+        q, k, v = attn_inputs(1, 32, 8, s, 128, torch.bfloat16)
+        nb, fl = flash_cost(1, 32, 8, s, s, 128, None, 2)
+        b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=True))
+        check(e_lib <= FLASH_TOL["bfloat16"], f"SDPA disagrees with the plain version: {e_lib}")
+        kern = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        t = dict(ms=time_ms(torch, kern, iters=20), device_ms=device_ms(torch, kern),
+                 plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                                  iters=3),
+                 library_ms=time_ms(torch, lib, iters=20), library_device_ms=device_ms(torch, lib),
+                 bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6)
+        return t
+
+    full = k6_times(2048)
+    served = k6_times(500)
     rows["flash_attention"] = dict(
         shape=[1, 32, 8, 2048, 128], dtype="bfloat16", max_abs_err=err6,
-        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=3),
-        library_ms=time_ms(torch, lib), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err_p_bf16=err6_p, **full,
+        served_shape=[1, 32, 8, 500, 128], **{f"served_{k_}": v_ for k_, v_ in served.items()},
         f32_window_ms=None,
     )
     q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
@@ -896,11 +974,14 @@ def collective_kernel_checks(torch, dev, rows):
         one_row_ms=time_ms(torch, lambda: ops.row_absmax(x, res), iters=20),
         one_row_bound_ms=b2_ms,
         one_row_plain_ms=time_ms(torch, lambda: ref.row_absmax_ref(x, res), iters=3),
-        one_row_no_residual_ms=time_ms(torch, lambda: ops.row_absmax(x), iters=20),
+        # the fair pair over one m: K2 without the residual, vector_norm
+        one_row_no_residual_ms=time_ms(torch, lambda: ops.row_absmax(m), iters=20),
         one_row_no_residual_bound_ms=b20_ms,
-        # one call over the precomputed m = x + r (the add is not timed)
         one_row_library_ms=time_ms(
             torch, lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1), iters=20),
+        one_row_no_residual_device_ms=device_ms(torch, lambda: ops.row_absmax(m)),
+        one_row_library_device_ms=device_ms(
+            torch, lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1)),
     )
     del x, res, am, m
     torch.cuda.empty_cache()
@@ -941,10 +1022,13 @@ def serve_run(torch, dev, label, bundle, fleet, mode="admit", count=True):
     return engine, rep, {r.rid: list(r.tokens) for r in rep.requests}, (counts if count else None)
 
 
-def serve_report(torch, dev, label, engine, rep, card):
+def serve_report(torch, dev, label, engine, rep, card, kernel=None):
     """The path's end-to-end numbers, with decode ms per step measured over
     steps of the full slot batch after the run, then one traced prefill
-    and four traced decode steps (device busy share, heaviest device ops)."""
+    and four traced decode steps (device busy share, heaviest device ops).
+    ``kernel`` = (name, substring of its device symbol): its share of the
+    traced prefill's device time is logged too."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks = [0] * engine.n_slots
@@ -965,8 +1049,14 @@ def serve_report(torch, dev, label, engine, rep, card):
         log(f"profile {label} {what}: window {window / 1e3 / n:.3f} ms per call, device busy "
             f"{100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), "
             f"device time {busy / 1e3 / n:.3f} ms per call")
-        for name, us in top:
+        for name, us in top[:10]:
             log(f"profile {label} {what}:   {us / 1e3 / n:8.3f} ms  {name[:100]}")
+        if kernel is not None and what == "prefill":
+            k_us = sum(us for name, us in top if kernel[1] in name)
+            k_n = sum(1 for e in prof.events() if kernel[1] in e.name and e.device_type
+                      == DeviceType.CUDA)
+            log(f"profile {label} prefill: {kernel[0]} {k_us / 1e3:.3f} ms in {k_n} launches, "
+                f"{100.0 * k_us / busy:.1f}% of the prefill's {busy / 1e3:.3f} ms device time")
     log(f"path {label}: {rep.total_tokens} tokens from {len(rep.requests)} requests, "
         f"{rep.tokens_per_s:.3f} tokens/s, p50 {1e3 * rep.p50_s:.3f} ms, "
         f"p99 {1e3 * rep.p99_s:.3f} ms, prefill {1e3 * rep.mean('prefill_s'):.3f} ms/request, "
@@ -1001,11 +1091,13 @@ def serve_paths(torch, dev, card):
         f"{fleet.nbytes() / 1e9:.3f} GB vs {fleet.naive_nbytes() / 1e9:.3f} GB naive")
     engine, rep, tokens, counts = serve_run(torch, dev, label, bundle, fleet)
     n_attn = bundle.cfg.layer_kinds().count("attn")
-    check(counts["flash_attention"] == n_attn * len(rep.requests),
-          f"{label}: {counts['flash_attention']} K6 launches for {len(rep.requests)} admissions")
+    for name in ("flash_attention", "flash_attention_tc"):  # bf16: every K6 on the tensor cores
+        check(counts[name] == n_attn * len(rep.requests),
+              f"{label}: {counts[name]} {name} launches for {len(rep.requests)} admissions")
     launches["flash_attention"] = counts["flash_attention"]
-    log(f"{label}: launches {counts} ({n_attn} K6 per admitted request)")
-    serve_report(torch, dev, label, engine, rep, card)
+    log(f"{label}: launches {counts} ({n_attn} K6 per admitted request, "
+        f"{counts['flash_attention_tc']} of {counts['flash_attention']} on the tensor cores)")
+    serve_report(torch, dev, label, engine, rep, card, kernel=("K6", "flash_fwd"))
     first = min(rep.requests, key=lambda r: r.rid)
     kern = engine.admit(0, first.agent_id, first.prompt)
     plain = engine.admit(0, first.agent_id, first.prompt, use_kernels=False)
@@ -1265,7 +1357,7 @@ def _collective_run(torch, spec, dev, label, full):
                 sync()
             window, busy, top = device_share(prof, label)
             out["profile"] = dict(window_ms=window / 1e3, busy_ms=busy / 1e3,
-                                  top=[(name[:90], us / 1e3) for name, us in top])
+                                  top=[(name[:90], us / 1e3) for name, us in top[:10]])
         dist.barrier()
         # ring gossip preserves the mean over ranks (checks, not the main path):
         # x through the round's fused candidate combine, y through the mixer,
@@ -1511,7 +1603,8 @@ def main() -> int:
     log(f"build: {len(build.SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "Used" in line:
+            if "Used" in line or "Performance" in line or (
+                    name == "flash_attention" and "Compiling entry" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
     rows = kernel_checks(torch, dev)

@@ -41,7 +41,8 @@ NVCC_FLAGS = [
 
 SOURCES = ("gt_update", "quantize", "sparse_mix", "flash_attention", "ssd_scan")
 
-# name -> launches since the last reset; one entry per ported kernel
+# name -> launches since the last reset; one entry per ported kernel, and
+# one for the bf16 path of K6
 LAUNCHES: Dict[str, int] = {
     "fused_local_step": 0,
     "row_absmax": 0,
@@ -49,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "sparse_mix": 0,
     "sparse_compressed_mix": 0,
     "flash_attention": 0,
+    "flash_attention_tc": 0,  # K6's tensor-core (bf16) launches, also counted above
     "ssd_scan": 0,
     "fused_mix_combine": 0,
     "rowwise_quant_dequant": 0,

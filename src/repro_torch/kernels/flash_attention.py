@@ -9,12 +9,15 @@ is contiguous.
 
 Tensors on the CPU go through the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`; tensors on a CUDA
-device launch the kernel (or raise).
+device launch the kernel (or raise).  The library holds two kernels behind
+one entry point: bfloat16 inputs run on the tensor cores (``wgmma`` fed by
+TMA, counted also under ``flash_attention_tc``), float32 inputs on the f32
+SIMT kernel that their 2e-6 tolerance needs.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +25,28 @@ from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+
+
+def tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    """The (batch, head, sequence) strides, in elements, through which the
+    tensor-core kernel's TMA maps read the bf16 (B, H, S, D) view ``t``.
+
+    TMA needs the base address and every stride but the innermost to be a
+    multiple of 16 bytes.  A dimension of size 1 is never stepped over, so
+    its stride is replaced by the head dim (always a valid one).  Raises
+    ``ValueError`` naming the offending stride; nothing is copied."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name}'s base address is not 16-byte aligned (TMA)")
+    out = []
+    for dim, what in ((0, "batch"), (1, "head"), (2, "sequence")):
+        st = t.stride(dim)
+        if t.shape[dim] == 1:
+            st = t.shape[3]
+        elif (st * t.element_size()) % 16:
+            raise ValueError(f"flash_attention: {name}.stride({dim}) ({what}) is {st} elements, "
+                             f"{st * t.element_size()} bytes: TMA needs a multiple of 16 bytes")
+        out.append(st)
+    return out[0], out[1], out[2]
 
 
 def flash_attention(
@@ -54,13 +79,19 @@ def flash_attention(
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
     q, k, v = (build.last_dim_contiguous(t) for t in (q, k, v))
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        qs, ks, vs = (tma_strides(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    else:
+        qs, ks, vs = (t.stride()[:3] for t in (q, k, v))
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     err = build.library("flash_attention").launch_flash_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, hq, hkv, sq, k.shape[2], d,
-        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(d), int(causal),
-        0 if window is None else int(window), _DTYPES[q.dtype], build.stream_of(q),
+        *qs, *ks, *vs, 1.0 / math.sqrt(d), int(causal), 0 if window is None else int(window),
+        _DTYPES[q.dtype], build.stream_of(q),
     )
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
+    if tc:
+        build.LAUNCHES["flash_attention_tc"] += 1
     return out

@@ -165,11 +165,17 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    p_dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Masked softmax attention with GQA (query head h reads KV head
     ``h // group``), all in float32, output in ``q``'s dtype.  Query and key
     positions both start at 0; the causal mask keeps ``k <= q`` and the
-    window ``k > q - window``."""
+    window ``k > q - window``.
+
+    ``p_dtype`` other than float32 models the tensor-core kernel's rounding:
+    the unnormalised probabilities exp(s - max) are rounded to it before
+    P·V, while their row sum stays float32 (the kernel rounds against its
+    running max, so the model is close, not exact)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -184,8 +190,12 @@ def flash_attention_ref(
     if window is not None:
         mask = mask & (kpos > qpos - window)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+    if p_dtype == torch.float32:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", _f32(p.to(p_dtype)), vf)
+    return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 def _segsum(a: Tensor) -> Tensor:

@@ -134,19 +134,69 @@ def test_short_run_gpu_matches_cpu(cuda, kw):
 
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype", [
-    (1, 32, 8, 300, 128, None, torch.bfloat16), (2, 4, 2, 77, 32, None, torch.float32),
-    (1, 8, 8, 130, 64, 50, torch.float32), (1, 4, 1, 64, 128, 16, torch.bfloat16)])
-def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype):
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (2^(e - 7) for |x| in [2^e, 2^(e + 1)))."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype,cache", [
+    (1, 32, 8, 300, 128, None, torch.bfloat16, None), (2, 4, 2, 77, 32, None, torch.float32, None),
+    (1, 8, 8, 130, 64, 50, torch.float32, None), (1, 4, 1, 64, 128, 16, torch.bfloat16, None),
+    # the tensor-core path: ragged lengths around its 128-row tiles ...
+    (1, 8, 2, 1, 128, None, torch.bfloat16, None), (1, 8, 2, 63, 128, None, torch.bfloat16, None),
+    (1, 8, 2, 127, 128, None, torch.bfloat16, None), (1, 8, 2, 129, 128, None, torch.bfloat16, None),
+    (1, 32, 8, 500, 128, None, torch.bfloat16, None),
+    (1, 32, 8, 2048, 128, None, torch.bfloat16, None),
+    # ... head dims 32 and 64; MHA, GQA by 4, MQA by 8
+    (1, 8, 8, 200, 32, None, torch.bfloat16, None), (1, 8, 2, 200, 64, None, torch.bfloat16, None),
+    (2, 8, 1, 150, 128, None, torch.bfloat16, None),
+    # windows of 16 and of 256 at S = 1000
+    (1, 8, 2, 300, 128, 16, torch.bfloat16, None), (1, 8, 2, 1000, 128, 256, torch.bfloat16, None),
+    # k and v the first 500 positions of a 700-long cache
+    (1, 8, 2, 500, 128, None, torch.bfloat16, 700), (2, 4, 4, 333, 64, 100, torch.bfloat16, 400),
+])
+def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype, cache):
+    # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
     q = torch.randn(b, s, hq, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
-    k, v = (torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hkv, cache or s, d, generator=gen, device=cuda).to(dtype)[:, :, :s]
+            for _ in range(2))
     ops.reset_launch_counts()
     out = ops.flash_attention(q, k, v, causal=True, window=window)
-    assert ops.launch_counts()["flash_attention"] == 1
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_tc"] == (1 if dtype == torch.bfloat16 else 0)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     # f32: the ROADMAP's 2e-6; bf16: the output's rounding, 2e-2
     tol = 2e-6 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        # against the plain version that rounds P to bf16 as the kernel does:
+        # one bf16 ulp (the two outputs may round apart) plus 2^-8 (P rounded
+        # against the running max, not the final one)
+        model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                        p_dtype=torch.bfloat16).float()
+        assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
+def test_k6_raises_on_strides_tma_cannot_take(cuda, gen):
+    # (B, S, H, D) rows padded to 132 elements: positions 264 bytes apart
+    x = torch.randn(1, 40, 4 * 132, generator=gen, device=cuda).to(torch.bfloat16)
+    q = x.view(1, 40, 4, 132)[..., :128].transpose(1, 2)
+    k, v = (torch.randn(1, 2, 40, 128, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"q\.stride\(1\)"):
+        ops.flash_attention(q, k, v)
+    # k's positions 2 * 128 + 4 elements (520 bytes) apart, heads 256 bytes
+    kbuf = torch.randn(40, 260, generator=gen, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match=r"k\.stride\(2\)"):
+        ops.flash_attention(q.contiguous(), kbuf.as_strided((1, 2, 40, 128), (0, 128, 260, 1)), v)
+    assert ops.launch_counts()["flash_attention"] == 0
+    # the same values through an aligned copy launch the tensor-core kernel
+    out = ops.flash_attention(q.contiguous(), k, v)
+    assert ops.launch_counts()["flash_attention_tc"] == 1
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v).float(), rtol=0,
+                               atol=2e-2)
 
 
 @pytest.mark.parametrize("b,l,h,p,g,n,dtype", [

@@ -173,6 +173,38 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
+def queued_ms(torch, fn, iters: int = 100) -> float:
+    """Mean device milliseconds per call of ``fn``: CUDA events around
+    ``iters`` calls queued behind a ~20 ms sleep kernel, so the host has
+    enqueued them all before the device reaches the first and the events
+    time the kernels back to back, not the host's dispatch."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def l2_read_rate(torch, gen, dev) -> float:
+    """Bytes per second of a streaming read from L2: ``torch.mv`` over an
+    8 MiB and a 24 MiB float32 matrix (each stays in the 50 MB L2 from call
+    to call), the 16 MiB between them over the difference of their device
+    times, so the fixed cost of a launch cancels."""
+    v = torch.randn(1024, generator=gen, device=dev)
+    t = {}
+    for mib in (8, 24):
+        a = torch.randn(mib * 256, 1024, generator=gen, device=dev)
+        t[mib] = queued_ms(torch, lambda: torch.mv(a, v))
+        del a
+    check(t[24] > t[8], f"L2 probe: torch.mv took {t} ms at 8 and 24 MiB")
+    return 16 * 2**20 / (1e-3 * (t[24] - t[8]))
+
+
 def flash_p_tol(torch, model):
     """Elementwise limit of |K6 - plain(p_dtype=bf16)| at the plain values:
     one bf16 ulp of each (2^(e - 7) for |x| in [2^e, 2^(e+1))) + FLASH_P_ATOL."""
@@ -295,17 +327,31 @@ def kernel_checks(torch, dev):
                 torch.as_tensor(topo.data, dtype=torch.float32, device=dev),
                 torch.as_tensor(topo.self_weight, dtype=torch.float32, device=dev))
 
+    # the 16-byte path (d % 4 == 0, aligned rows) and the 4-byte one: ragged
+    # d, and rows whose base sits 4 bytes past a 16-byte boundary
     err4 = 0.0
-    for n_ag, d, name in ((10000, 25088, "random_regular"), (10000, 10, "random_regular"),
-                          (1024, 320, "random_regular"), (7, 3, "ring"), (1, 5, "ring")):
+    for n_ag, d, name, unaligned in ((10000, 25088, "random_regular", False),
+                                     (10000, 10, "random_regular", False),
+                                     (1024, 320, "random_regular", False),
+                                     (1024, 1001, "random_regular", True),
+                                     (1024, 1000, "random_regular", True),
+                                     (7, 3, "ring", False), (1, 5, "ring", False)):
         topo = make_sparse_topology(name, n_ag)
         csr = csr_on(topo)
-        x = randn(n_ag, d)
+        x = randn(n_ag * d + 1)[1:].view(n_ag, d) if unaligned else randn(n_ag, d)
         e4 = max_err(ops.sparse_mix_csr(x, *csr), ref.sparse_mix_csr_ref(x, *csr))
-        check(e4 <= MIX_TOL * (1.0 + float(x.abs().max())), f"K4 ({n_ag}, {d}): max |err| {e4}")
+        check(e4 <= MIX_TOL * (1.0 + float(x.abs().max())),
+              f"K4 ({n_ag}, {d}, unaligned={unaligned}): max |err| {e4}")
         err4 = max(err4, e4)
         if n_ag == 10000 and d == 25088:
             big, big_csr, big_topo = x, csr, topo
+    # a receiver with no in-edges: its output is self_w x alone
+    x = randn(3, 9)
+    empty = (torch.tensor([0, 0, 2, 3], device=dev), torch.tensor([0, 2, 1], device=dev),
+             torch.tensor([0.3, 0.2, 0.5], device=dev), torch.tensor([1.0, 0.5, 0.5], device=dev))
+    out = ops.sparse_mix_csr(x, *empty)
+    check(torch.equal(out[0], x[0]) and max_err(out, ref.sparse_mix_csr_ref(x, *empty))
+          <= MIX_TOL * (1.0 + float(x.abs().max())), "K4: a receiver without in-edges")
     x, csr, topo = big, big_csr, big_topo
     nnz = int(topo.indptr[-1])
     n_ag = n_ag_big = topo.n_agents
@@ -322,12 +368,17 @@ def kernel_checks(torch, dev):
     check(e_lib <= MIX_TOL * (1.0 + float(x.abs().max())), f"torch.sparse.mm disagrees: {e_lib}")
     b_ms, b_by = bound_ms(2 * 4 * x.numel() + 8 * (n_ag + 1) + 12 * nnz + 4 * n_ag,
                           2 * (nnz + n_ag) * x.shape[1])
+    # K4's L2 floor: every gathered row (deg + 1 per output) passes through L2
+    l2_rate = l2_read_rate(torch, gen, dev)
     rows["sparse_mix"] = dict(
         shape=[n_ag, x.shape[1]], max_abs_err=err4,
         ms=timer(lambda: ops.sparse_mix_csr(x, *csr)),
+        device_ms=device_ms(torch, lambda: ops.sparse_mix_csr(x, *csr)),
         plain_ms=timer(lambda: ref.sparse_mix_csr_ref(x, *csr), iters=5),
         library_ms=timer(lambda: torch.sparse.mm(w_csr, x)),
-        bound_ms=b_ms, bound_by=b_by,
+        library_device_ms=device_ms(torch, lambda: torch.sparse.mm(w_csr, x)),
+        bound_ms=b_ms, bound_by=b_by, l2_read_tb_s=l2_rate / 1e12,
+        l2_floor_ms=1e3 * 4 * (nnz + n_ag) * x.shape[1] / l2_rate,
     )
     del x, big, w_csr
     torch.cuda.empty_cache()
@@ -811,20 +862,35 @@ def lm_kernel_checks(torch, dev):
         bm, cm = (torch.randn(b, l, g, n, generator=gen, device=dev).to(dt) for _ in range(2))
         return x, dtt, a, bm, cm
 
+    # "strong": dt = 0.1 and A = -16, so a 64-step chunk decays by e^-102
+    # (exp(-cum) overflows f32); L = 1 and 65 sit at the kernel's 64-step chunk
     err7 = 0.0
-    for b, l, h, p, g, n, dt in ((1, 2048, 32, 64, 1, 128, torch.bfloat16),
-                                 (1, 1000, 32, 64, 1, 128, torch.bfloat16),
-                                 (1, 1000, 32, 64, 1, 128, torch.float32),
-                                 (2, 77, 8, 32, 2, 16, torch.float32)):
+    for b, l, h, p, g, n, dt, strong in ((1, 2048, 32, 64, 1, 128, torch.bfloat16, False),
+                                         (1, 1000, 32, 64, 1, 128, torch.bfloat16, False),
+                                         (1, 1000, 32, 64, 1, 128, torch.float32, False),
+                                         (2, 77, 8, 32, 2, 16, torch.float32, False),
+                                         (2, 77, 8, 32, 2, 16, torch.bfloat16, False),
+                                         (1, 1, 32, 64, 1, 128, torch.bfloat16, False),
+                                         (1, 65, 32, 64, 1, 128, torch.bfloat16, False),
+                                         (1, 1000, 32, 64, 1, 128, torch.bfloat16, True),
+                                         (1, 1000, 32, 64, 1, 128, torch.float32, True)):
         args = ssd_inputs(b, l, h, p, g, n, dt)
+        if strong:
+            args = (args[0], torch.full_like(args[1], 0.1), torch.full_like(args[2], -16.0),
+                    *args[3:])
+        ops.reset_launch_counts()
         y, hf = ops.ssd_scan(*args, chunk=256)
+        check(ops.launch_counts()["ssd_scan"] == 1, "K7: one launch counted per call")
         y2, hf2 = ref.ssd_scan_ref(*args, chunk=256)
+        check(bool(torch.isfinite(y.float()).all() and torch.isfinite(hf).all()),
+              f"K7 {(b, l, h, p, g, n, dt, strong)}: non-finite output")
         ey = max_err(y, y2) / (1.0 + float(y2.float().abs().max()))
         eh = max_err(hf, hf2) / (1.0 + float(hf2.abs().max()))
         check(ey <= SSD_TOL[names[dt]] and eh <= SSD_TOL["float32"],
-              f"K7 {(b, l, h, p, g, n, dt)}: scaled max |err| y {ey}, state {eh}")
-        log(f"K7 check {(b, l, h, p, g, n, names[dt])}: max |err| / (1 + max |plain|) "
-            f"y {ey:.3e}, state {eh:.3e}")
+              f"K7 {(b, l, h, p, g, n, dt, strong)}: scaled max |err| y {ey}, state {eh}")
+        log(f"K7 check {(b, l, h, p, g, n, names[dt])}{' strong decay' if strong else ''}: "
+            f"max |err| / (1 + max |plain|) y {ey:.3e} (limit {SSD_TOL[names[dt]]:.3e}), "
+            f"state {eh:.3e}")
         err7 = max(err7, max_err(y, y2), max_err(hf, hf2))
         del args, y, hf, y2, hf2
     args = ssd_inputs(1, 2048, 32, 64, 1, 128, torch.bfloat16)
@@ -833,6 +899,7 @@ def lm_kernel_checks(torch, dev):
     rows["ssd_scan"] = dict(
         shape=[1, 2048, 32, 64, 1, 128], dtype="bfloat16", max_abs_err=err7,
         ms=time_ms(torch, lambda: ops.ssd_scan(*args, chunk=256)),
+        device_ms=device_ms(torch, lambda: ops.ssd_scan(*args, chunk=256)),
         plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=256), iters=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
@@ -1055,8 +1122,9 @@ def serve_report(torch, dev, label, engine, rep, card, kernel=None):
             k_us = sum(us for name, us in top if kernel[1] in name)
             k_n = sum(1 for e in prof.events() if kernel[1] in e.name and e.device_type
                       == DeviceType.CUDA)
-            log(f"profile {label} prefill: {kernel[0]} {k_us / 1e3:.3f} ms in {k_n} launches, "
-                f"{100.0 * k_us / busy:.1f}% of the prefill's {busy / 1e3:.3f} ms device time")
+            log(f"profile {label} prefill: {kernel[0]} {k_us / 1e3:.3f} ms in {k_n} kernel "
+                f"launches, {100.0 * k_us / busy:.1f}% of the prefill's {busy / 1e3:.3f} ms "
+                "device time")
     log(f"path {label}: {rep.total_tokens} tokens from {len(rep.requests)} requests, "
         f"{rep.tokens_per_s:.3f} tokens/s, p50 {1e3 * rep.p50_s:.3f} ms, "
         f"p99 {1e3 * rep.p99_s:.3f} ms, prefill {1e3 * rep.mean('prefill_s'):.3f} ms/request, "
@@ -1133,7 +1201,7 @@ def serve_paths(torch, dev, card):
           f"{label}: {counts['ssd_scan']} K7 launches for {len(rep.requests)} admissions")
     launches["ssd_scan"] = counts["ssd_scan"]
     log(f"{label}: launches {counts} ({n_ssm} K7 per admitted request)")
-    serve_report(torch, dev, label, engine, rep, card)
+    serve_report(torch, dev, label, engine, rep, card, kernel=("K7", "ssd_"))
     del engine
     _, rep_step, tokens_step, _ = serve_run(torch, dev, label, bundle, fleet, "step", False)
     dense = materialize_fleet(fleet)

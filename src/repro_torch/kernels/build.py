@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: no multiply-add contraction, so the elementwise arithmetic
 # (K1, K8, the K3/K5/K9 quantizer grid, K4's and K5's products) rounds exactly as
 # the plain PyTorch versions do; the contractions of K3, K6 and K7 ask for
-# FMA explicitly (fmaf).
+# FMA explicitly (fmaf) or run on the tensor cores.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -84,8 +84,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                    I32, I32, I32, P],
     },
     "ssd_scan": {
-        "launch_ssd_scan": [P, P, P, P, P, P, P, *[I32] * 6, *[I64] * 12, I32, I32, P],
-        "ssd_scan_smem_bytes": [I32, I32],
+        "launch_ssd_scan": [P, P, P, P, P, P, P, P, P, *[I32] * 6, *[I64] * 12, I32, I32, P],
+        "ssd_scan_smem_bytes": [I32, I32, I32],
     },
 }
 

@@ -9,22 +9,33 @@
 // directed-edge order (src/repro/core/topology.py:489-495).  The TPU kernel
 // scatter-accumulated edge blocks into a VMEM-resident output block across a
 // sequential grid axis; blocks on the GPU run in no order, so this kernel
-// gathers instead: one thread owns one (receiver, column) output, walks the
-// receiver's CSR row in edge order and adds the self term last, exactly as
-// tree_agent_mix_sparse (src/repro/utils/pytree.py:98-103) does.  No float
-// atomics, so the result is deterministic.
+// gathers instead: each output walks its receiver's CSR row in edge order
+// and adds the self term last, exactly as tree_agent_mix_sparse
+// (src/repro/utils/pytree.py:98-103) does.  No float atomics, so the result
+// is deterministic.  Built with -fmad=false so each product is rounded
+// before it is added, as in the plain version.
 //
 // Bound on the H100: bytes.  The floor is one read of x and one write of
 // out (2 n d floats), but each output gathers deg(i) + 1 rows of x, and on
-// an expander those rows are spread over the whole fleet: if the blocks in
-// flight covered all columns of a few receivers, every gather would miss L2
-// and x would stream from device memory deg + 1 times.  So blockIdx.x walks
-// the receivers and blockIdx.y the 256-wide column tiles: the blocks in
-// flight share one column tile, whose slice of x (n x 256 floats, 10 MB at
-// n = 10^4) stays in the 50 MB L2 while every receiver gathers from it.
-// Neighbouring threads take neighbouring columns, so every gathered row is
-// read coalesced.  Built with -fmad=false so each product is rounded before
-// it is added, as in the plain version.
+// an expander those rows are spread over the whole fleet, so every row of x
+// passes through L2 deg + 1 times.  The design:
+//   - one warp per receiver, four receivers per block, so the 10-, 32- and
+//     320-wide leaves of the MLP fill the card as the 25,088-wide one does;
+//   - a warp covers a 256-column tile of its receiver: each lane 8 columns,
+//     as two 16-byte loads (d % 4 == 0 and x, out 16-byte aligned) or eight
+//     4-byte loads (any other d or base), chosen per launch: one kernel,
+//     two load widths;
+//   - the warp loads 32 of the row's (index, weight) pairs with one
+//     coalesced access and hands them out by shuffle, so no lane rereads
+//     them and they sit off the gathers' critical path;
+//   - the self row and each edge's gathers are issued before the ordered
+//     adds; the compiler unrolls the edge loop and keeps several edges'
+//     gathers in flight (an explicit batch of 2 or 4 edges held more
+//     registers and ran no faster on the card: tools/k4_ablation.py);
+//   - the grid is 1-D with the column tile as the slow index: the blocks in
+//     flight share one or two tiles, whose slice of x (n x 256 floats,
+//     10 MB at n = 10^4) stays in the 50 MB L2 while every receiver gathers
+//     from it.
 //
 // K5: compressed sparse gossip, for the same CSR.  Replaces the Pallas kernel
 // src/repro/kernels/sparse_mix.py:161 `sparse_compressed_mix` (pallas_call at
@@ -54,32 +65,110 @@
 // stages its row's sender offsets, weights and scales in shared memory once,
 // so a gathered element costs one division (m / s), not two.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "quant.cuh"
+#include "vec.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int MAX_GRID_Y = 65535;
 constexpr int CMIX_THREADS = 128;  // K5 column tile; also the edges staged per chunk
 
-__global__ void sparse_mix_csr_kernel(const float* __restrict__ x,
-                                      const int64_t* __restrict__ indptr,
-                                      const int64_t* __restrict__ indices,
-                                      const float* __restrict__ data,
-                                      const float* __restrict__ self_w,
-                                      float* __restrict__ out, int64_t n, int64_t d) {
-  const int64_t i = blockIdx.x;  // receiver
-  const int64_t beg = indptr[i], end = indptr[i + 1];
-  for (int64_t c = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; c < d;
-       c += (int64_t)gridDim.y * blockDim.x) {
-    float acc = 0.0f;
-    for (int64_t e = beg; e < end; ++e) {
-      acc = __fadd_rn(acc, __fmul_rn(data[e], x[indices[e] * d + c]));
+constexpr int MIX_WARPS = 4;               // receivers per block, one warp each
+constexpr int MIX_VEC = 2;                 // 16-byte loads per lane and row
+constexpr int MIX_COLS = 4 * MIX_VEC;      // columns per lane
+constexpr int MIX_TILE = 32 * MIX_COLS;    // columns per warp: the column tile
+constexpr int MIX_BATCH = 1;               // edges whose gathers are issued before their adds
+constexpr unsigned FULL = 0xffffffffu;
+
+// The lane's MIX_COLS columns of the tile at c0 in one row: with VEC, two
+// runs of four (c0 + 128 k + 4 lane + q), else stride 32 (c0 + 32 k + lane);
+// columns at or past d read as 0 and are never stored.
+template <bool VEC>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row, int64_t c0, int lane,
+                                          int64_t d, float v[MIX_COLS]) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < MIX_VEC; ++k) {
+      const int64_t c = c0 + 128 * k + 4 * lane;
+      const float4 a = c < d ? __ldg(reinterpret_cast<const float4*>(row + c))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * k] = a.x; v[4 * k + 1] = a.y; v[4 * k + 2] = a.z; v[4 * k + 3] = a.w;
     }
-    out[i * d + c] = __fadd_rn(__fmul_rn(self_w[i], x[i * d + c]), acc);
+  } else {
+#pragma unroll
+    for (int k = 0; k < MIX_COLS; ++k) {
+      const int64_t c = c0 + 32 * k + lane;
+      v[k] = c < d ? __ldg(row + c) : 0.f;
+    }
   }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_cols(float* __restrict__ row, int64_t c0, int lane,
+                                           int64_t d, const float v[MIX_COLS]) {
+  if (VEC) {
+#pragma unroll
+    for (int k = 0; k < MIX_VEC; ++k) {
+      const int64_t c = c0 + 128 * k + 4 * lane;
+      if (c < d)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < MIX_COLS; ++k) {
+      const int64_t c = c0 + 32 * k + lane;
+      if (c < d) row[c] = v[k];
+    }
+  }
+}
+
+// Block b serves column tile b / recv_blocks and receivers
+// (b % recv_blocks) * MIX_WARPS + warp.
+template <bool VEC>
+__global__ void __launch_bounds__(32 * MIX_WARPS)
+sparse_mix_csr_kernel(const float* __restrict__ x, const int64_t* __restrict__ indptr,
+                      const int64_t* __restrict__ indices, const float* __restrict__ data,
+                      const float* __restrict__ self_w, float* __restrict__ out, int64_t n,
+                      int64_t d, int64_t recv_blocks) {
+  const int lane = threadIdx.x & 31;
+  const int64_t tile = blockIdx.x / recv_blocks;
+  const int64_t i = (blockIdx.x - tile * recv_blocks) * MIX_WARPS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp: i is uniform across it
+  const int64_t c0 = tile * MIX_TILE;
+  const int64_t beg = indptr[i], end = indptr[i + 1];
+  float self[MIX_COLS], acc[MIX_COLS];
+  load_cols<VEC>(x + i * d, c0, lane, d, self);
+#pragma unroll
+  for (int q = 0; q < MIX_COLS; ++q) acc[q] = 0.f;
+  for (int64_t e0 = beg; e0 < end; e0 += 32) {
+    const int cnt = end - e0 < 32 ? (int)(end - e0) : 32;
+    const int64_t my_j = lane < cnt ? indices[e0 + lane] : 0;
+    const float my_w = lane < cnt ? data[e0 + lane] : 0.f;
+    for (int k0 = 0; k0 < cnt; k0 += MIX_BATCH) {
+      float v[MIX_BATCH][MIX_COLS];
+#pragma unroll
+      for (int u = 0; u < MIX_BATCH; ++u) {  // every gather first ...
+        const int64_t j = __shfl_sync(FULL, my_j, k0 + u);  // lane k0 + u mod 32
+        if (k0 + u < cnt) load_cols<VEC>(x + j * d, c0, lane, d, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < MIX_BATCH; ++u) {  // ... then the adds, in edge order
+        const float w = __shfl_sync(FULL, my_w, k0 + u);
+        if (k0 + u < cnt) {
+#pragma unroll
+          for (int q = 0; q < MIX_COLS; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(w, v[u][q]));
+        }
+      }
+    }
+  }
+  const float sw = self_w[i];
+#pragma unroll
+  for (int q = 0; q < MIX_COLS; ++q) acc[q] = __fadd_rn(__fmul_rn(sw, self[q]), acc[q]);
+  store_cols<VEC>(out + i * d, c0, lane, d, acc);
 }
 
 __global__ void __launch_bounds__(CMIX_THREADS)
@@ -140,11 +229,15 @@ extern "C" int launch_sparse_mix_csr(const void* x, const void* indptr, const vo
                                      const void* data, const void* self_w, void* out,
                                      long long n, long long d, void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  const long long tiles = (d + THREADS - 1) / THREADS;
-  const dim3 grid((unsigned)n, (unsigned)(tiles < MAX_GRID_Y ? tiles : MAX_GRID_Y));
-  sparse_mix_csr_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const long long recv_blocks = (n + MIX_WARPS - 1) / MIX_WARPS;
+  const long long tiles = (d + MIX_TILE - 1) / MIX_TILE;
+  if (recv_blocks > INT_MAX / tiles) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(recv_blocks * tiles);
+  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(out);
+  auto kernel = vec ? sparse_mix_csr_kernel<true> : sparse_mix_csr_kernel<false>;
+  kernel<<<grid, 32 * MIX_WARPS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const int64_t*)indptr, (const int64_t*)indices, (const float*)data,
-      (const float*)self_w, (float*)out, n, d);
+      (const float*)self_w, (float*)out, n, d, recv_blocks);
   return (int)cudaGetLastError();
 }
 

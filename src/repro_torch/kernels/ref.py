@@ -270,3 +270,107 @@ def ssd_scan_ref(
     y in ``x``'s dtype, the final state in float32."""
     y, fin = ssd_chunked_ref(_f32(x), _f32(dt), _f32(a), _f32(b_mat), _f32(c_mat), chunk)
     return y.to(x.dtype), fin
+
+
+# K7's chunk-parallel decomposition (csrc/ssd_scan.cu), one plain function
+# per pass, in float32 with the chunk's cumsum in float64 (exponents are
+# differences of cums; the kernel forms them so, and carries its sums in
+# float64 too).  With ``bf16_split`` the operands the kernel forms in float32
+# (G, w∘X and h_in) are rounded as its bf16 tensor-core path rounds them: a
+# sum of three bf16 terms, each the rounding of what the ones before leave.
+
+
+def _bf16_split(v: Tensor) -> Tensor:
+    out = torch.zeros_like(v)
+    for _ in range(3):
+        out = out + (v - out).to(torch.bfloat16).float()
+    return out
+
+
+def _chunks(t: Tensor, chunk: int) -> Tensor:
+    """(B, L, ...) float32, zero-padded to a multiple of ``chunk`` and cut
+    into (B, nc, chunk, ...)."""
+    t = _f32(t)
+    pad = -t.shape[1] % chunk
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape(t.shape[0], -1, chunk, *t.shape[2:])
+
+
+def _chunk_cum(dt: Tensor, a: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+    """(dt (B, nc, c, H), cum = cumsum(dt·a) within each chunk, float64)."""
+    dtc = _chunks(dt, chunk)
+    return dtc, torch.cumsum(dtc.double() * a.double(), dim=2)
+
+
+def _expd(c: Tensor) -> Tensor:
+    """exp of a cum or a difference of cums (float64), in float32."""
+    return torch.exp(c.float())
+
+
+def _heads(m: Tensor, chunk: int, h: int) -> Tensor:
+    """B or C (B, L, G, N) as (B, nc, c, H, N): head h reads group h / (H/G)."""
+    mc = _chunks(m, chunk)
+    return torch.repeat_interleave(mc, h // mc.shape[3], dim=3)
+
+
+def ssd_chunk_states_ref(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, chunk: int, bf16_split: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Pass (a): each chunk's local state from a zero state,
+    ``S_z = Σ_s dt_s exp(cum_last - cum_s) x_s ⊗ B_s`` (B, nc, H, P, N), and
+    its decay ``exp(cum_last)`` (B, nc, H); ``cum = cumsum(dt·a)`` within
+    the chunk.  A ragged tail is padded with dt = 0 (exact no-ops)."""
+    dtc, cum = _chunk_cum(dt, a, chunk)
+    wx = (dtc * _expd(cum[:, :, -1:] - cum))[..., None] * _chunks(x, chunk)
+    if bf16_split:
+        wx = _bf16_split(wx)
+    states = torch.einsum("bzshp,bzshn->bzhpn", wx, _heads(b_mat, chunk, x.shape[2]))
+    return states, _expd(cum[:, :, -1])
+
+
+def ssd_state_scan_ref(states: Tensor, decay: Tensor) -> Tuple[Tensor, Tensor]:
+    """Pass (b): the state entering each chunk, ``h_in(z)`` (B, nc, H, P, N),
+    from ``h_in(0) = 0``, ``h_in(z+1) = decay_z h_in(z) + S_z``, and the
+    final state."""
+    carry = torch.zeros_like(states[:, 0])
+    prev = []
+    for z in range(states.shape[1]):
+        prev.append(carry)
+        carry = carry * decay[:, z, :, None, None] + states[:, z]
+    return torch.stack(prev, dim=1), carry
+
+
+def ssd_chunk_output_ref(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, h_in: Tensor, chunk: int,
+    bf16_split: bool = False,
+) -> Tensor:
+    """Pass (c): ``y = G·X + exp(cum_l) C_l·h_inᵀ`` (B, L, H, P) float32,
+    with ``G_ls = (C_l·B_s) exp(cum_l - cum_s) dt_s`` for s <= l."""
+    l, h = x.shape[1], x.shape[2]
+    dtc, cum = _chunk_cum(dt, a, chunk)
+    cc = _heads(c_mat, chunk, h)
+    ch = cum.movedim(-1, 2)  # (B, nc, H, c)
+    diff = ch[..., :, None] - ch[..., None, :]  # cum_l - cum_s, never exp(cum_l)·exp(-cum_s)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(causal, _expd(torch.where(causal, diff, 0.0)), 0.0)
+    gm = torch.einsum("bzlhn,bzshn->bzhls", cc, _heads(b_mat, chunk, h)) * seg \
+        * dtc.movedim(-1, 2)[..., None, :]
+    hs = h_in
+    if bf16_split:
+        gm, hs = _bf16_split(gm), _bf16_split(h_in)
+    y = torch.einsum("bzhls,bzshp->bzlhp", gm, _chunks(x, chunk)) \
+        + torch.einsum("bzlhn,bzhpn->bzlhp", cc, hs) * _expd(cum)[..., None]
+    return y.reshape(x.shape[0], -1, h, x.shape[3])[:, :l]
+
+
+def ssd_scan_chunks_ref(
+    x: Tensor, dt: Tensor, a: Tensor, b_mat: Tensor, c_mat: Tensor, chunk: int = 64,
+    bf16_split: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """The three passes composed, as K7 runs them (its chunk is 64): y in
+    ``x``'s dtype and the final state in float32."""
+    states, decay = ssd_chunk_states_ref(x, dt, a, b_mat, chunk, bf16_split)
+    h_in, final = ssd_state_scan_ref(states, decay)
+    y = ssd_chunk_output_ref(x, dt, a, b_mat, c_mat, h_in, chunk, bf16_split)
+    return y.to(x.dtype), final

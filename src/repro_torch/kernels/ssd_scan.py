@@ -5,8 +5,12 @@ signature: x (B, L, H, P), dt (B, L, H), a (H,), B and C (B, L, G, N);
 returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) float32).
 Unlike the Pallas kernel, any L is taken: the ragged last chunk is masked,
 its missing steps exact no-ops as in the reference's zero padding.  The
-kernel walks 64-step chunks whatever ``chunk`` says (the recurrence is the
-same for every chunk length; ``chunk`` sets the plain version's).
+kernel cuts the sequence into 64-step chunks whatever ``chunk`` says (the
+recurrence is the same for every chunk length; ``chunk`` sets the plain
+version's) and runs three passes, parallel over chunks: chunk-local states,
+the scan over chunk states, and y (the plain twins of the passes are
+``ref.ssd_chunk_states_ref``, ``ref.ssd_state_scan_ref`` and
+``ref.ssd_chunk_output_ref``).  One call counts one launch.
 
 Tensors on the CPU go through the plain version
 :func:`repro_torch.kernels.ref.ssd_scan_ref`; tensors on a CUDA device
@@ -22,6 +26,7 @@ from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448  # bytes of shared memory one block may use on the H100
+KERNEL_CHUNK = 64  # steps per chunk of the kernel (csrc/ssd_scan.cu, T)
 
 
 def ssd_scan(
@@ -50,15 +55,19 @@ def ssd_scan(
     if not build.on_cuda(x, dt, a, b_mat, c_mat):
         return ref.ssd_scan_ref(x, dt, a, b_mat, c_mat, chunk)
     lib = build.library("ssd_scan")
-    if lib.ssd_scan_smem_bytes(p, n) > MAX_SMEM:
+    if lib.ssd_scan_smem_bytes(p, n, _DTYPES[x.dtype]) > MAX_SMEM:
         raise ValueError(f"ssd_scan kernel: P={p}, N={n} need more shared memory than a block has")
     x, dt, b_mat, c_mat = (build.last_dim_contiguous(t) for t in (x, dt, b_mat, c_mat))
     a = a.to(torch.float32).contiguous()
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     hfin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    nc = -(-l // KERNEL_CHUNK)
+    # scratch: each chunk's local state, then (in place) the state entering it
+    states = torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((bsz, h, nc), dtype=torch.float32, device=x.device)
     err = lib.launch_ssd_scan(
         build.ptr(x), build.ptr(dt), build.ptr(a), build.ptr(b_mat), build.ptr(c_mat),
-        build.ptr(y), build.ptr(hfin), bsz, l, h, g, p, n,
+        build.ptr(y), build.ptr(hfin), build.ptr(states), build.ptr(decay), bsz, l, h, g, p, n,
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
         b_mat.stride(0), b_mat.stride(1), b_mat.stride(2),
         c_mat.stride(0), c_mat.stride(1), c_mat.stride(2),

@@ -67,7 +67,11 @@ def test_k2_k3_q_grid_exact_mix_within_tolerance(cuda, gen, n, d, bits, gamma, n
     torch.testing.assert_close(out, out2, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name,n,d", [("random_regular", 300, 517), ("ring", 7, 3)])
+# d % 4 != 0 and d < 4 take K4's 4-byte loads, d % 4 == 0 its 16-byte ones;
+# n = 1 is a fleet of one agent (self weight only)
+@pytest.mark.parametrize("name,n,d", [("random_regular", 300, 517), ("ring", 7, 3),
+                                      ("random_regular", 1024, 320), ("ring", 5, 2),
+                                      ("ring", 1, 5)])
 def test_k4_within_tolerance(cuda, gen, name, n, d):
     topo = make_sparse_topology(name, n)
     csr = (torch.as_tensor(topo.indptr, device=cuda), torch.as_tensor(topo.indices, device=cuda),
@@ -76,6 +80,33 @@ def test_k4_within_tolerance(cuda, gen, name, n, d):
     x = torch.randn(n, d, generator=gen, device=cuda)
     # the plain version's index_add_ adds with atomics, in no fixed order
     torch.testing.assert_close(ops.sparse_mix_csr(x, *csr), ref.sparse_mix_csr_ref(x, *csr),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_k4_unaligned_base_and_receiver_without_in_edges(cuda, gen):
+    """Rows of a view whose base is 4 bytes past a 16-byte boundary (d % 4
+    == 0, so only the base forbids 16-byte loads), and a CSR whose first
+    receiver has no in-edges (its output is self_w x alone), against the
+    plain version; one launch each."""
+    n, d = 300, 256
+    topo = make_sparse_topology("random_regular", n)
+    csr = (torch.as_tensor(topo.indptr, device=cuda), torch.as_tensor(topo.indices, device=cuda),
+           torch.as_tensor(topo.data, dtype=torch.float32, device=cuda),
+           torch.as_tensor(topo.self_weight, dtype=torch.float32, device=cuda))
+    x = torch.randn(n * d + 1, generator=gen, device=cuda)[1:].view(n, d)
+    assert x.data_ptr() % 16 == 4
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.sparse_mix_csr(x, *csr), ref.sparse_mix_csr_ref(x, *csr),
+                               rtol=1e-6, atol=1e-6)
+    indptr = torch.tensor([0, 0, 2, 3], device=cuda)
+    indices = torch.tensor([0, 2, 1], device=cuda)
+    data = torch.tensor([0.3, 0.2, 0.5], device=cuda)
+    self_w = torch.tensor([1.0, 0.5, 0.5], device=cuda)
+    x = torch.randn(3, 9, generator=gen, device=cuda)
+    out = ops.sparse_mix_csr(x, indptr, indices, data, self_w)
+    assert ops.launch_counts()["sparse_mix"] == 2
+    assert torch.equal(out[0], x[0])
+    torch.testing.assert_close(out, ref.sparse_mix_csr_ref(x, indptr, indices, data, self_w),
                                rtol=1e-6, atol=1e-6)
 
 
@@ -199,22 +230,67 @@ def test_k6_raises_on_strides_tma_cannot_take(cuda, gen):
                                atol=2e-2)
 
 
+def _k7_check(x, dt, a, bm, cm):
+    """K7 against its plain version, one launch counted per call: the
+    ROADMAP's 5e-4 scaled by the output's size; bf16 y is rounded to bf16
+    (one bf16 ulp, 2^-8 relative)."""
+    ops.reset_launch_counts()
+    y, hfin = ops.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    y2, h2 = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+    assert y.shape == y2.shape and y.dtype == x.dtype
+    assert torch.isfinite(y.float()).all() and torch.isfinite(hfin).all()
+    ymax = 1.0 + float(y2.float().abs().max())
+    ytol = 5e-4 if x.dtype == torch.float32 else 2.0 ** -8
+    assert float((y.float() - y2.float()).abs().max()) <= ytol * ymax
+    assert float((hfin - h2).abs().max()) <= 5e-4 * (1.0 + float(h2.abs().max()))
+
+
+# L = 1 and 65: one step, and one step past the kernel's 64-step chunk
 @pytest.mark.parametrize("b,l,h,p,g,n,dtype", [
     (1, 300, 32, 64, 1, 128, torch.bfloat16), (2, 77, 8, 32, 2, 16, torch.float32),
-    (1, 1000, 4, 64, 1, 128, torch.float32), (1, 3, 2, 16, 1, 8, torch.float32)])
+    (1, 1000, 4, 64, 1, 128, torch.float32), (1, 3, 2, 16, 1, 8, torch.float32),
+    (1, 1, 4, 64, 1, 128, torch.bfloat16), (1, 65, 4, 64, 1, 128, torch.bfloat16),
+    (2, 77, 8, 32, 2, 16, torch.bfloat16), (1, 65, 2, 16, 1, 8, torch.float32)])
 def test_k7_within_tolerance(cuda, gen, b, l, h, p, g, n, dtype):
     x = torch.randn(b, l, h, p, generator=gen, device=cuda).to(dtype)
     dt = (0.1 * torch.rand(b, l, h, generator=gen, device=cuda)).to(dtype)
     a = -0.5 - 4 * torch.rand(h, generator=gen, device=cuda)
     bm, cm = (torch.randn(b, l, g, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
-    y, hfin = ops.ssd_scan(x, dt, a, bm, cm, chunk=256)
-    y2, h2 = ref.ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
-    # the ROADMAP's 5e-4 scaled by the output's size; bf16 y is rounded to
-    # bf16 (one bf16 ulp, 2^-8 relative)
-    ymax = 1.0 + float(y2.float().abs().max())
-    ytol = 5e-4 if dtype == torch.float32 else 2.0 ** -8
-    assert float((y.float() - y2.float()).abs().max()) <= ytol * ymax
-    assert float((hfin - h2).abs().max()) <= 5e-4 * (1.0 + float(h2.abs().max()))
+    _k7_check(x, dt, a, bm, cm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k7_strong_decay(cuda, gen, dtype):
+    """dt = 0.1, A = -16: a 64-step chunk decays by e^-102, past where
+    exp(-cum) overflows f32; y and the state stay finite and within
+    tolerance."""
+    b, l, h, p, g, n = 1, 1000, 8, 64, 1, 128
+    x = torch.randn(b, l, h, p, generator=gen, device=cuda).to(dtype)
+    dt = torch.full((b, l, h), 0.1, device=cuda).to(dtype)
+    a = torch.full((h,), -16.0, device=cuda)
+    bm, cm = (torch.randn(b, l, g, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    _k7_check(x, dt, a, bm, cm)
+
+
+# offset 1 puts every row 2 bytes past a 16-byte boundary: the kernel
+# stages those tiles through registers instead of cp.async
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k7_reads_the_prefills_split_views(cuda, gen, offset):
+    """x, B and C as the prefill hands them over: reshaped column slices of
+    one (B, L, d_in + 2 G N) conv output, read through their strides with no
+    copy, and dt a column slice of a wider projection."""
+    b, l, h, p, g, n = 2, 200, 8, 64, 2, 128
+    w = h * p + 2 * g * n
+    flat = torch.randn(b * l * w + offset, generator=gen, device=cuda).to(torch.bfloat16)
+    xbc = flat[offset:].view(b, l, w)
+    xs, bs, cs = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    x, bm, cm = xs.reshape(b, l, h, p), bs.reshape(b, l, g, n), cs.reshape(b, l, g, n)
+    assert x.data_ptr() == xbc.data_ptr() and not bm.is_contiguous()
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    dt = (0.1 * torch.rand(b, l, h + 5, generator=gen, device=cuda)).to(torch.bfloat16)[..., :h]
+    a = -1.0 - 15.0 * torch.rand(h, generator=gen, device=cuda)
+    _k7_check(x, dt, a, bm, cm)
 
 
 @pytest.mark.parametrize("shape,dtype,wire,has_y,has_right", [

@@ -5,8 +5,9 @@
 
 on a machine with one NVIDIA H100 and the CUDA toolkit.  It
 
-1. builds the nine hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+1. builds the hand-written Hopper kernels from ``src/repro_torch/kernels/csrc``
+   (K1-K9 and the codes pass that K3 and K5 run first; one ``nvcc`` per
+   source, all started together);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at ragged shapes, and times kernel,
    plain version and (where one PyTorch call computes the same function) the
@@ -77,6 +78,9 @@ KERNELS = (
      "src/repro/kernels/sparse_mix.py:144"),
     ("sparse_compressed_mix", "src/repro_torch/kernels/csrc/sparse_mix.cu",
      "src/repro/kernels/sparse_mix.py:188"),
+    # the first pass of K3 and K5: the quantiser inside both Pallas calls
+    ("quant_codes", "src/repro_torch/kernels/csrc/quantize.cu",
+     "src/repro/kernels/quantize.py:145"),
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:117"),
     ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -89,7 +93,8 @@ KERNELS = (
 
 # Tolerances of the on-card kernel checks.  K1 and K2 compute the same
 # roundings as their plain versions and must match exactly, as must the
-# quantizer grid of K3 and K5 (checked through the residual r' = m - q).
+# codes pass and the quantizer grid of K3 and K5 (checked through the
+# residual r' = m - q).
 # K3's W^T q and the neighbour sums of K4 and K5 add in another order than
 # cuBLAS / index_add_ (whose atomics have no fixed order):
 # max |err| <= TOL * (1 + max |input|).
@@ -111,6 +116,9 @@ SSD_TOL = {"float32": 5e-4, "bfloat16": 2.0 ** -8}
 # 1 + max |logit| (a few bf16 ulps; attention outputs may round one ulp
 # apart and that carries through the residual stream)
 PREFILL_LOGIT_TOL = 5e-2
+# K3's contraction on the tensor cores against an f64 contraction of the
+# same q: its max |err| at most this many times cuBLAS's f32 w.T @ q's
+K3_F64_ERR_RATIO = 4.0
 
 # Path sizes: the paper's quickstart fleet, the largest dense fleet (n = 512,
 # topology.SPARSE_AUTO_MIN_AGENTS) and the documented large-fleet deployment
@@ -261,12 +269,24 @@ def kernel_checks(torch, dev):
     )
     del x, y, gn, go
 
-    # K2 + K3 — dense-q8's w1 leaf (512 agents x 25,088) with residual and
-    # noise (stochastic int8 + error feedback), plus ragged and int4/gamma cases
+    # K2 + K3 (the codes pass, then the contraction on the tensor cores) —
+    # dense-q8's w1 leaf (512 agents x 25,088) with residual and noise
+    # (stochastic int8 + error feedback), plus ragged and int4/gamma cases
     w512 = torch.as_tensor(
         make_topology("erdos_renyi", 512, prob=0.3, seed=7).w, dtype=torch.float32, device=dev
     )
-    err2 = err3 = 0.0
+    def codes_check(x, r, am, bits, noise, label):
+        """The codes pass against its plain version: codes and r' exact."""
+        codes, r_c = ops.quant_codes(x, am, bits=bits, residual=r, noise=noise)
+        codes_p, r_c_p = ref.quant_codes_ref(x, r, am, bits, noise)
+        e = max_err(codes, codes_p)
+        if r is not None:
+            e = max(e, max_err(r_c, r_c_p))
+        check(e == 0.0 and (r_c is None) == (r is None),
+              f"quant_codes {label} q{bits}: max |err| {e} (must be exact)")
+        return e
+
+    err2 = err3 = err_codes = 0.0
     cases = [(512, 25088, 8, 1.0, True, True), (512, 32, 8, 1.0, True, True),
              (512, 320, 4, 0.5, True, False), (512, 10, 8, 1.0, False, False),
              (37, 1000, 4, 0.5, True, True), (3, 5, 8, 1.0, False, True)]
@@ -278,6 +298,7 @@ def kernel_checks(torch, dev):
         am = ops.row_absmax(x, r)
         e2 = max_err(am, ref.row_absmax_ref(x, r))
         check(e2 == 0.0, f"K2 ({n_rows}, {d}): max |err| {e2} (must be exact)")
+        err_codes = max(err_codes, codes_check(x, r, am, bits, noise, f"K3 ({n_rows}, {d})"))
         out, r_new = ops.compressed_mix(x, r, w, am, bits=bits, gamma=gamma, noise=noise)
         out_p, r_new_p = ref.compressed_mix_ref(x, r, w, am, bits, gamma, noise)
         if with_res:
@@ -312,14 +333,43 @@ def kernel_checks(torch, dev):
             torch, lambda: torch.linalg.vector_norm(m, ord=float("inf"), dim=1), iters=50),
         bound_ms=b_ms, bound_by=b_by,
     )
-    b_ms, b_by = bound_ms(5 * 4 * nd + 4 * 512 * 512 + 4 * 512, 2 * 512 * nd + 12 * nd)
+    # K3's contraction alone (x = 0: out = W'^T c - q) against an f64
+    # contraction of the same q, beside cuBLAS's f32 w.T @ q - q
+    codes, _ = ops.quant_codes(x, am, bits=8, residual=r, noise=noise)
+    q = codes.float() * (am.clamp_min(1e-12) / torch.full_like(am, 127.0))[:, None]
+    exact = w512.double().T @ q.double() - q.double()
+    tc = ops.code_mix(torch.zeros_like(x), codes, w512, am, bits=8) - exact
+    lib = (w512.T @ q - q) - exact
+    k3_f64 = dict(max=float(tc.abs().max()), mean=float(tc.abs().mean()),
+                  cublas_max=float(lib.abs().max()), cublas_mean=float(lib.abs().mean()))
+    log(f"K3 check: W'^T c - q against f64 at (512, 25088): max |err| {k3_f64['max']:.3e} "
+        f"(mean {k3_f64['mean']:.3e}), cuBLAS f32 w.T @ q - q {k3_f64['cublas_max']:.3e} "
+        f"(mean {k3_f64['cublas_mean']:.3e}); limit {K3_F64_ERR_RATIO}x cuBLAS's max")
+    check(k3_f64["max"] <= K3_F64_ERR_RATIO * k3_f64["cublas_max"],
+          f"K3 against f64: {k3_f64} beyond {K3_F64_ERR_RATIO}x cuBLAS's")
+    del q, exact, tc, lib
+    # bound: x, r, noise, W read and out, r' written once (the tensor cores'
+    # 3 x 2 n^2 d bf16 flops take half as long); the f32-FMA floor of one
+    # contraction beside it, and the two passes' bytes (the codes pass reads
+    # x, r, noise and writes codes and r'; the contraction reads the codes,
+    # x and W, writes and reads W' in fragment order, writes out)
+    b_ms, b_by = bound_ms(5 * 4 * nd + 4 * 512 * 512 + 4 * 512, 3 * 2 * 512 * nd,
+                          BF16_FLOP_PER_S)
     rows["compressed_mix"] = dict(
         shape=[512, 25088], max_abs_err=err3,
         ms=timer(lambda: ops.compressed_mix(x, r, w512, am, bits=8, noise=noise), iters=20),
+        device_ms=device_ms(torch, lambda: ops.compressed_mix(x, r, w512, am, bits=8,
+                                                              noise=noise)),
+        pass1_device_ms=device_ms(
+            torch, lambda: ops.quant_codes(x, am, bits=8, residual=r, noise=noise)),
+        pass2_device_ms=device_ms(torch, lambda: ops.code_mix(x, codes, w512, am, bits=8)),
         plain_ms=timer(lambda: ref.compressed_mix_ref(x, r, w512, am, 8, 1.0, noise), iters=20),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        f32_fma_bound_ms=bound_ms(0, 2 * 512 * nd)[0],
+        two_pass_floor_ms=bound_ms(26 * nd + 16 * 512 * 512 + 4 * 512, 0)[0],
+        f64_err=k3_f64,
     )
-    del x, r, noise, m
+    del x, r, noise, m, codes
 
     # K4 — sparse-10k's w1 leaf over the degree-4 expander, plus ragged cases
     def csr_on(topo):
@@ -398,6 +448,7 @@ def kernel_checks(torch, dev):
         r = 0.01 * randn(n_ag, d) if ef else None
         noise = torch.rand(n_ag, d, generator=gen, device=dev) if ef else None
         am = ops.row_absmax(x, r)
+        err_codes = max(err_codes, codes_check(x, r, am, bits, noise, f"K5 ({n_ag}, {d})"))
         out, r_new = ops.sparse_compressed_mix_csr(x, r, *c, am, bits=bits, gamma=gamma,
                                                    noise=noise)
         out_p, r_new_p = ref.sparse_compressed_mix_csr_ref(x, r, *c, am, bits, gamma, noise)
@@ -409,32 +460,85 @@ def kernel_checks(torch, dev):
         e5 = max_err(out, out_p)
         check(e5 <= MIX_TOL * (1.0 + float(x.abs().max())),
               f"K5 ({n_ag}, {d}, q{bits}, gamma={gamma}, ef={ef}): max |err| {e5}")
+        if n_ag <= 1024:  # the plain version on the CPU adds in edge order, as K5 does
+            cpu = [None if t is None else t.cpu() for t in (x, r, *c, am, noise)]
+            want, _ = ref.sparse_compressed_mix_csr_ref(*cpu[:7], bits, gamma, cpu[7])
+            check(torch.equal(out.cpu(), want),
+                  f"K5 ({n_ag}, {d}): not bit-equal to the plain version on the CPU")
         err5 = max(err5, e5)
         del x, r, noise, out, r_new, out_p, r_new_p
     torch.cuda.empty_cache()
+    # the small leaves of sparse-10k's MLP (b1, w2, b2), EF form: two launches each
+    small = {}
+    for d in (10, 32, 320):
+        x, r = randn(n_ag_big, d), 0.01 * randn(n_ag_big, d)
+        noise = torch.rand(n_ag_big, d, generator=gen, device=dev)
+        am = ops.row_absmax(x, r)
+        small[d] = device_ms(
+            torch, lambda: ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, noise=noise))
     x, r = randn(n_ag_big, d_big), 0.01 * randn(n_ag_big, d_big)
     noise = torch.rand(n_ag_big, d_big, generator=gen, device=dev)
     am, am0 = ops.row_absmax(x, r), ops.row_absmax(x)
     nd = x.numel()
     csr_bytes = 8 * (n_ag_big + 1) + 12 * nnz + 4 * n_ag_big
-    # EF form: read x, r, noise and write out, r'; stateless: read x, write out
+    # one-pass bounds: the EF form reads x, r, noise and writes out, r'; the
+    # stateless form reads x and writes out.  Two-pass floors: the codes pass
+    # reads x (r, noise) and writes the codes (and r'); the gather reads the
+    # codes and x and writes out.
     b_ms, b_by = bound_ms(5 * 4 * nd + csr_bytes + 4 * n_ag_big,
                           2 * (nnz + n_ag_big) * d_big + 10 * nd)
     b0_ms, b0_by = bound_ms(2 * 4 * nd + csr_bytes + 4 * n_ag_big,
                             2 * (nnz + n_ag_big) * d_big + 7 * nd)
+    codes, _ = ops.quant_codes(x, am, bits=8, residual=r, noise=noise)
+    ef = lambda: ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, noise=noise)  # noqa: E731
+    stateless = lambda: ops.sparse_compressed_mix_csr(x, None, *csr, am0, bits=8)  # noqa: E731
     rows["sparse_compressed_mix"] = dict(
         shape=[n_ag_big, d_big], max_abs_err=err5,
-        ms=timer(lambda: ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, noise=noise)),
+        ms=timer(ef), device_ms=device_ms(torch, ef),
+        pass1_device_ms=device_ms(
+            torch, lambda: ops.quant_codes(x, am, bits=8, residual=r, noise=noise)),
+        pass2_device_ms=device_ms(
+            torch, lambda: ops.sparse_code_mix_csr(x, codes, *csr, am, bits=8)),
         plain_ms=timer(lambda: ref.sparse_compressed_mix_csr_ref(x, r, *csr, am, 8, 1.0, noise),
                        iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        stateless_ms=timer(lambda: ops.sparse_compressed_mix_csr(x, None, *csr, am0, bits=8)),
+        two_pass_floor_ms=bound_ms(4 * (3 * nd + nd) + nd + nd + 4 * 2 * nd + csr_bytes, 0)[0],
+        stateless_ms=timer(stateless), stateless_device_ms=device_ms(torch, stateless),
+        stateless_pass1_device_ms=device_ms(torch, lambda: ops.quant_codes(x, am0, bits=8)),
         stateless_plain_ms=timer(
             lambda: ref.sparse_compressed_mix_csr_ref(x, None, *csr, am0, 8), iters=3),
         stateless_bound_ms=b0_ms, stateless_bound_by=b0_by,
+        stateless_two_pass_floor_ms=bound_ms(4 * nd + nd + nd + 4 * 2 * nd + csr_bytes, 0)[0],
+        small_leaf_device_ms={f"d{d}": v for d, v in small.items()},
         noise_ms=timer(lambda: torch.rand(n_ag_big, d_big, generator=gen, device=dev)),
     )
-    del x, r, noise, csr, big_csr
+    # the codes pass alone at the same leaf, EF form (what sparse-10k-q8 runs);
+    # its yardstick: torch.quantize_per_channel over the same m (the
+    # deterministic, no-residual form: int8 codes of each row on its scale)
+    m = x + r
+    scale = am.clamp_min(1e-12) / torch.full_like(am, 127.0)
+    zero = torch.zeros(n_ag_big, dtype=torch.int64, device=dev)
+    warnings.filterwarnings("ignore", message="torch.quantize_per_tensor")  # deprecation notice
+    lib_codes = torch.quantize_per_channel(m, scale, zero, 0, torch.qint8).int_repr()
+    own_codes, _ = ops.quant_codes(m, am, bits=8)
+    rows["quant_codes"] = dict(
+        shape=[n_ag_big, d_big], max_abs_err=err_codes,
+        ms=timer(lambda: ops.quant_codes(x, am, bits=8, residual=r, noise=noise)),
+        device_ms=device_ms(torch, lambda: ops.quant_codes(x, am, bits=8, residual=r,
+                                                           noise=noise)),
+        plain_ms=timer(lambda: ref.quant_codes_ref(x, r, am, 8, noise), iters=3),
+        bound_ms=bound_ms(4 * 4 * nd + nd + 4 * n_ag_big, 5 * nd)[0], bound_by="bytes",
+        no_residual_ms=timer(lambda: ops.quant_codes(m, am, bits=8)),
+        no_residual_device_ms=device_ms(torch, lambda: ops.quant_codes(m, am, bits=8)),
+        no_residual_bound_ms=bound_ms(4 * nd + nd + 4 * n_ag_big, 2 * nd)[0],
+        library_ms=timer(
+            lambda: torch.quantize_per_channel(m, scale, zero, 0, torch.qint8)),
+        library_device_ms=device_ms(
+            torch, lambda: torch.quantize_per_channel(m, scale, zero, 0, torch.qint8)),
+        # codes that differ: quantize_per_channel multiplies by 1 / s
+        library_codes_differ=int((lib_codes != own_codes).sum()),
+    )
+    del x, r, noise, csr, big_csr, codes, m, lib_codes, own_codes
     torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"kernel {name}: {json.dumps(row)}")
@@ -668,7 +772,7 @@ def main_path(torch, dev):
                          mlp_eval(dev, data))
     add(counts)
     check_run(torch, "dense-q8", hist, spec.rounds, n_dense, mlp0)
-    for k in ("fused_local_step", "row_absmax", "compressed_mix"):
+    for k in ("fused_local_step", "row_absmax", "quant_codes", "compressed_mix"):
         check(counts[k] > 0, f"dense-q8: {k} not launched")
     log(f"dense-q8: loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}, "
         f"gossip bytes/round {hist.byte_model.gossip_round_bytes}, "
@@ -706,7 +810,7 @@ def main_path(torch, dev):
                          mlp_eval(dev, data))
     add(counts)
     check_run(torch, "sparse-10k-q8", hist, spec_q8.rounds, n_sparse, mlp0)
-    for k in ("fused_local_step", "row_absmax", "sparse_compressed_mix"):
+    for k in ("fused_local_step", "row_absmax", "quant_codes", "sparse_compressed_mix"):
         check(counts[k] > 0, f"sparse-10k-q8: {k} not launched")
     log(f"sparse-10k-q8: {1e3 * hist.wall_time_s / spec_q8.rounds:.3f} ms/round, "
         f"loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}, "
@@ -722,11 +826,13 @@ def main_path(torch, dev):
                          data, 16)
     add(counts)
     check_run(torch, "dsgt-sparse-10k-q8d", hist, spec_dsgt.rounds, n_sparse, mlp0)
-    for k in ("row_absmax", "sparse_compressed_mix"):
+    for k in ("row_absmax", "quant_codes", "sparse_compressed_mix"):
         check(counts[k] > 0, f"dsgt-sparse-10k-q8d: {k} not launched")
     log(f"dsgt-sparse-10k-q8d: {1e3 * hist.wall_time_s / spec_dsgt.rounds:.3f} ms/round, "
         f"loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}")
-    del data, hist
+    del hist
+    profile_rounds(torch, dev, "dsgt-sparse-10k-q8d", spec_dsgt, models.mlp_loss, mlp0, data, 16)
+    del data
 
     n_cmp = SIZES["compare_agents"]
     x, y = synthetic_mnist(n_cmp * 20, seed=1)

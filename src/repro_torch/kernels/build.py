@@ -49,6 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "compressed_mix": 0,
     "sparse_mix": 0,
     "sparse_compressed_mix": 0,
+    "quant_codes": 0,  # the first pass of K3 and K5
     "flash_attention": 0,
     "flash_attention_tc": 0,  # K6's tensor-core (bf16) launches, also counted above
     "ssd_scan": 0,
@@ -72,12 +73,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "quantize": {
         "launch_row_absmax": [P, P, P, I64, I64, I32, I32, P],
         "launch_quant_dequant": [P, P, P, P, P, P, I64, I64, F32, I32, P],
-        "launch_compressed_mix": [P, P, P, P, P, P, P, I32, I64, F32, F32, I32, P],
+        "launch_quant_codes": [P, P, P, P, P, P, I64, I64, F32, P],
+        "launch_compressed_mix": [P, P, P, P, P, P, I32, I64, F32, F32, I32, P],
+        "compressed_mix_frag_bytes": [I32],
     },
     "sparse_mix": {
         "launch_sparse_mix_csr": [P, P, P, P, P, P, I64, I64, P],
-        "launch_sparse_compressed_mix_csr": [P, P, P, P, P, P, P, P, P, P, I64, I64, F32, F32,
-                                             I32, P],
+        "launch_sparse_code_mix_csr": [P, P, P, P, P, P, P, P, I64, I64, F32, F32, I32, P],
     },
     "flash_attention": {
         "launch_flash_attention": [P, P, P, P, I64, I32, I32, I32, I32, I32, *[I64] * 9, F32,
@@ -90,7 +92,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
 }
 
 # entry points returning something other than a cudaError_t
-RESTYPES = {"ssd_scan_smem_bytes": I64}
+RESTYPES = {"ssd_scan_smem_bytes": I64, "compressed_mix_frag_bytes": I64}
 
 
 def reset_launches() -> None:

@@ -49,21 +49,40 @@
 //   r'  = m - q                                  (when r is given)
 //
 // grouped as CompressedGossip groups it (x + (mixed - q) when gamma == 1),
-// not as the Pallas kernel (x + gamma (self_w - 1) q + gamma sum).  The layout
-// is K4's: one thread per (receiver, column) output, the CSR row walked in
-// edge order, the self term added last, no atomics.  q never touches device
-// memory: every gathered neighbour value is re-quantised from x, r and noise
-// with the neighbour's own scale.  That is exact, because the noise tensor
-// fixes every sender's q whoever reads it.  Only the self element writes r'.
+// not as the Pallas kernel (x + gamma (self_w - 1) q + gamma sum).
 //
-// Bound on the H100: bytes.  The EF form reads x, r and noise and writes out
-// and r' (5 n d floats, 1.50 ms at n = 10^4, d = 25,088); the stateless form
-// reads x and writes out (0.60 ms, as K4).  Each output gathers deg + 1 rows
-// of three arrays, so the column tile is 128 wide, not K4's 256: the tile's
-// slice of x, r and noise (3 x n x 128 floats, 15 MB at n = 10^4) stays in
-// the 50 MB L2 while the receivers in flight gather from it.  Each block
-// stages its row's sender offsets, weights and scales in shared memory once,
-// so a gathered element costs one division (m / s), not two.
+// It runs as two passes.  The first is the codes pass of quantize.cu
+// (quant_codes): each row's int8 codes c and, with a residual, r' = m - c s.
+// The second, below, is K4's gather over the codes: out needs q_j = c_j s_j
+// of every sender, and a code is one byte where re-quantising it from x, r
+// and noise read twelve and a true division.  Its layout is K4's:
+//   - one warp per receiver, four receivers per block;
+//   - a 1-D grid with the column tile as the slow index, so the tile's slice
+//     of the codes (n x 256 bytes, 2.5 MB at n = 10^4) stays in L2;
+//   - the row's (index, weight) pairs, and the senders' scales s_j, loaded
+//     once per warp and handed out by shuffle;
+//   - a 256-column tile per warp (128 for rows of up to 1,024 columns, so a
+//     short row still spreads over the lanes), in K4's interleaved layout:
+//     each lane runs of four columns, one 4-byte load of codes and one
+//     16-byte load of x or out each, where d % 4 == 0 and the bases align,
+//     else one element a load at a stride of 32 (one kernel, the width
+//     chosen per launch);
+//   - four edges' codes gathered before their ordered adds, so a warp keeps
+//     four loads in flight (the CSR row of the degree-4 expander is four
+//     edges);
+//   - the codes become floats through integer and float adds (quant.cuh
+//     code_at), not conversion instructions.
+// The arithmetic is the plain version's, in its order: acc = sum_e
+// data_e (c_j s_j) in edge order with _rn products and adds, the self term
+// last, out = x + ((self_w q_i + acc) - q_i).  No atomics.
+//
+// Bound on the H100: bytes.  The one-pass floor: the EF form reads x, r and
+// noise and writes out and r' (5 n d floats, 1.50 ms at n = 10^4, d =
+// 25,088), the stateless form reads x and writes out (0.60 ms).  The two
+// passes move more: the codes pass reads x (r, noise) and writes the codes
+// (and r'), the gather reads the codes and x and writes out: 6.52 GB (EF,
+// 1.95 ms) and 3.51 GB (stateless, 1.05 ms).  The gathered codes pass
+// through L2 deg + 1 times: 1.25 GB, 0.17 ms at 7.4 TB/s.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -73,15 +92,16 @@
 
 namespace {
 
-constexpr int MAX_GRID_Y = 65535;
-constexpr int CMIX_THREADS = 128;  // K5 column tile; also the edges staged per chunk
-
 constexpr int MIX_WARPS = 4;               // receivers per block, one warp each
 constexpr int MIX_VEC = 2;                 // 16-byte loads per lane and row
 constexpr int MIX_COLS = 4 * MIX_VEC;      // columns per lane
 constexpr int MIX_TILE = 32 * MIX_COLS;    // columns per warp: the column tile
 constexpr int MIX_BATCH = 1;               // edges whose gathers are issued before their adds
 constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int EDGE_BATCH = 4;       // K5: edges whose codes are gathered before their adds
+constexpr long long LANE_SWITCH = 1024;  // K5: the longest row that takes 4 codes a lane
+constexpr uint32_t SIGN_BITS = 0x80808080u;
 
 // The lane's MIX_COLS columns of the tile at c0 in one row: with VEC, two
 // runs of four (c0 + 128 k + 4 lane + q), else stride 32 (c0 + 32 k + lane);
@@ -171,56 +191,157 @@ sparse_mix_csr_kernel(const float* __restrict__ x, const int64_t* __restrict__ i
   store_cols<VEC>(out + i * d, c0, lane, d, acc);
 }
 
-__global__ void __launch_bounds__(CMIX_THREADS)
-sparse_compressed_mix_csr_kernel(const float* __restrict__ x, const float* __restrict__ r,
-                                 const float* __restrict__ noise,
-                                 const int64_t* __restrict__ indptr,
-                                 const int64_t* __restrict__ indices,
-                                 const float* __restrict__ data,
-                                 const float* __restrict__ self_w,
-                                 const float* __restrict__ absmax, float* __restrict__ out,
-                                 float* __restrict__ r_out, int64_t d, float qmax, float gamma,
-                                 int damped) {
-  __shared__ int64_t e_row[CMIX_THREADS];  // sender row offset j * d
-  __shared__ float e_w[CMIX_THREADS];
-  __shared__ float e_s[CMIX_THREADS];
-  const int64_t i = blockIdx.x;  // receiver
-  const int64_t beg = indptr[i], end = indptr[i + 1];
-  const float s_i = row_scale(absmax, i, qmax);
-  // c0 is uniform across the block, so every thread reaches each barrier
-  for (int64_t c0 = (int64_t)blockIdx.y * CMIX_THREADS; c0 < d;
-       c0 += (int64_t)gridDim.y * CMIX_THREADS) {
-    const int64_t c = c0 + threadIdx.x;
-    const bool live = c < d;
-    float acc = 0.0f;
-    for (int64_t e0 = beg; e0 < end; e0 += CMIX_THREADS) {
-      const int cnt = (int)(end - e0 < CMIX_THREADS ? end - e0 : CMIX_THREADS);
-      __syncthreads();  // the previous chunk is consumed
-      if (threadIdx.x < cnt) {
-        const int64_t j = indices[e0 + threadIdx.x];
-        e_row[threadIdx.x] = j * d;
-        e_w[threadIdx.x] = data[e0 + threadIdx.x];
-        e_s[threadIdx.x] = row_scale(absmax, j, qmax);
+// K5's second pass.  A lane's LANE columns of the tile at c0 (LANE = 4 or
+// 8, a tile of 32 LANE columns): with VEC, K4's interleaved layout, runs of
+// four at c0 + 128 q + 4 lane (q < LANE / 4), each one 4-byte load of codes
+// and one 16-byte load of floats, so every access of a warp is contiguous;
+// else stride 32 (c0 + 32 k + lane), one element a load.  Columns at or past
+// d read as 0 and are never stored.  The codes come packed four to a word
+// either way, the word q holding columns 4q .. 4q + 3 of the lane's LANE.
+__device__ __forceinline__ int64_t vec_col(int64_t c0, int lane, int q) {
+  return c0 + 128 * q + 4 * lane;
+}
+
+template <bool VEC, int LANE>
+__device__ __forceinline__ void load_codes(const int8_t* __restrict__ row, int64_t c0, int lane,
+                                           int64_t d, uint32_t w[LANE / 4]) {
+#pragma unroll
+  for (int q = 0; q < LANE / 4; ++q) {
+    if (VEC) {
+      const int64_t c = vec_col(c0, lane, q);
+      w[q] = c < d ? __ldg(reinterpret_cast<const uint32_t*>(row + c)) : 0u;
+    } else {
+      w[q] = 0u;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int64_t c = c0 + 32 * (4 * q + r) + lane;
+        if (c < d) w[q] |= (uint32_t)(uint8_t)__ldg(row + c) << (8 * r);
       }
-      __syncthreads();
-      if (live) {
-        for (int k = 0; k < cnt; ++k) {
-          const int64_t idx = e_row[k] + c;
-          const float m = r ? __fadd_rn(x[idx], r[idx]) : x[idx];
-          acc = __fadd_rn(acc, __fmul_rn(e_w[k], quant(m, e_s[k], qmax, noise, idx)));
+    }
+  }
+}
+
+// q = c s of LANE packed codes
+template <int LANE>
+__device__ __forceinline__ void codes_to_q(const uint32_t w[LANE / 4], float s, float q[LANE]) {
+#pragma unroll
+  for (int k = 0; k < LANE; ++k) q[k] = __fmul_rn(code_at(w[k / 4] ^ SIGN_BITS, k % 4), s);
+}
+
+template <bool VEC, int LANE>
+__device__ __forceinline__ void load_x(const float* __restrict__ row, int64_t c0, int lane,
+                                       int64_t d, float v[LANE]) {
+#pragma unroll
+  for (int q = 0; q < LANE / 4; ++q) {
+    if (VEC) {
+      const int64_t c = vec_col(c0, lane, q);
+      const float4 a = c < d ? __ldg(reinterpret_cast<const float4*>(row + c))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * q] = a.x; v[4 * q + 1] = a.y; v[4 * q + 2] = a.z; v[4 * q + 3] = a.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int64_t c = c0 + 32 * (4 * q + r) + lane;
+        v[4 * q + r] = c < d ? __ldg(row + c) : 0.f;
+      }
+    }
+  }
+}
+
+template <bool VEC, int LANE>
+__device__ __forceinline__ void store_x(float* __restrict__ row, int64_t c0, int lane, int64_t d,
+                                        const float v[LANE]) {
+#pragma unroll
+  for (int q = 0; q < LANE / 4; ++q) {
+    if (VEC) {
+      const int64_t c = vec_col(c0, lane, q);
+      if (c < d)
+        *reinterpret_cast<float4*>(row + c) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int64_t c = c0 + 32 * (4 * q + r) + lane;
+        if (c < d) row[c] = v[4 * q + r];
+      }
+    }
+  }
+}
+
+// Block b serves column tile b / recv_blocks and receivers
+// (b % recv_blocks) * MIX_WARPS + warp, as K4.  EDGE_BATCH edges' codes are
+// gathered before their ordered adds, so a warp keeps that many loads in
+// flight.
+template <bool VEC, int LANE>
+__global__ void __launch_bounds__(32 * MIX_WARPS)
+sparse_code_mix_csr_kernel(const float* __restrict__ x, const int8_t* __restrict__ codes,
+                           const int64_t* __restrict__ indptr,
+                           const int64_t* __restrict__ indices, const float* __restrict__ data,
+                           const float* __restrict__ self_w, const float* __restrict__ absmax,
+                           float* __restrict__ out, int64_t n, int64_t d, int64_t recv_blocks,
+                           float qmax, float gamma, int damped) {
+  const int lane = threadIdx.x & 31;
+  const int64_t tile = blockIdx.x / recv_blocks;
+  const int64_t i = (blockIdx.x - tile * recv_blocks) * MIX_WARPS + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp: i is uniform across it
+  const int64_t c0 = tile * (32 * LANE);
+  const int64_t beg = indptr[i], end = indptr[i + 1];
+  float xs[LANE], qs[LANE], acc[LANE];
+  uint32_t ws[LANE / 4];
+  load_x<VEC, LANE>(x + i * d, c0, lane, d, xs);
+  load_codes<VEC, LANE>(codes + i * d, c0, lane, d, ws);
+#pragma unroll
+  for (int k = 0; k < LANE; ++k) acc[k] = 0.f;
+  for (int64_t e0 = beg; e0 < end; e0 += 32) {
+    const int cnt = end - e0 < 32 ? (int)(end - e0) : 32;
+    const int64_t my_j = lane < cnt ? indices[e0 + lane] : 0;
+    const float my_w = lane < cnt ? data[e0 + lane] : 0.f;
+    const float my_s = lane < cnt ? row_scale(absmax, my_j, qmax) : 1.f;
+    for (int k0 = 0; k0 < cnt; k0 += EDGE_BATCH) {
+      uint32_t w[EDGE_BATCH][LANE / 4];
+#pragma unroll
+      for (int u = 0; u < EDGE_BATCH; ++u) {  // every gather first ...
+        const int64_t j = __shfl_sync(FULL, my_j, k0 + u);  // lane k0 + u mod 32
+        if (k0 + u < cnt) load_codes<VEC, LANE>(codes + j * d, c0, lane, d, w[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < EDGE_BATCH; ++u) {  // ... then the adds, in edge order
+        const float wt = __shfl_sync(FULL, my_w, k0 + u), s = __shfl_sync(FULL, my_s, k0 + u);
+        if (k0 + u < cnt) {
+          float q[LANE];
+          codes_to_q<LANE>(w[u], s, q);
+#pragma unroll
+          for (int k = 0; k < LANE; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wt, q[k]));
         }
       }
     }
-    if (live) {
-      const int64_t idx = i * d + c;
-      const float xv = x[idx];
-      const float m = r ? __fadd_rn(xv, r[idx]) : xv;
-      const float q = quant(m, s_i, qmax, noise, idx);
-      const float diff = __fsub_rn(__fadd_rn(__fmul_rn(self_w[i], q), acc), q);
-      out[idx] = damped ? __fadd_rn(xv, __fmul_rn(gamma, diff)) : __fadd_rn(xv, diff);
-      if (r_out) r_out[idx] = __fsub_rn(m, q);
-    }
   }
+  codes_to_q<LANE>(ws, row_scale(absmax, i, qmax), qs);
+  const float sw = self_w[i];
+#pragma unroll
+  for (int k = 0; k < LANE; ++k) {
+    const float diff = __fsub_rn(__fadd_rn(__fmul_rn(sw, qs[k]), acc[k]), qs[k]);
+    acc[k] = damped ? __fadd_rn(xs[k], __fmul_rn(gamma, diff)) : __fadd_rn(xs[k], diff);
+  }
+  store_x<VEC, LANE>(out + i * d, c0, lane, d, acc);
+}
+
+template <int LANE>
+int launch_code_mix(const void* x, const void* codes, const void* indptr, const void* indices,
+                    const void* data, const void* self_w, const void* absmax, void* out,
+                    long long n, long long d, float qmax, float gamma, int damped,
+                    cudaStream_t stream) {
+  const long long recv_blocks = (n + MIX_WARPS - 1) / MIX_WARPS;
+  const long long tiles = (d + 32 * LANE - 1) / (32 * LANE);
+  if (recv_blocks > INT_MAX / tiles) return (int)cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(codes);
+  auto kernel = vec ? sparse_code_mix_csr_kernel<true, LANE>
+                    : sparse_code_mix_csr_kernel<false, LANE>;
+  kernel<<<(unsigned)(recv_blocks * tiles), 32 * MIX_WARPS, 0, stream>>>(
+      (const float*)x, (const int8_t*)codes, (const int64_t*)indptr, (const int64_t*)indices,
+      (const float*)data, (const float*)self_w, (const float*)absmax, (float*)out, n, d,
+      recv_blocks, qmax, gamma, damped);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -241,19 +362,16 @@ extern "C" int launch_sparse_mix_csr(const void* x, const void* indptr, const vo
   return (int)cudaGetLastError();
 }
 
-// r, noise and r_out may be null.  damped = (gamma != 1).
-extern "C" int launch_sparse_compressed_mix_csr(const void* x, const void* r, const void* noise,
-                                                const void* indptr, const void* indices,
-                                                const void* data, const void* self_w,
-                                                const void* absmax, void* out, void* r_out,
-                                                long long n, long long d, float qmax,
-                                                float gamma, int damped, void* stream) {
+// K5's second pass over the codes of quant_codes.  damped = (gamma != 1).
+// Rows of up to LANE_SWITCH columns take four codes a lane, longer ones
+// eight (tools/k3_k5_ablation.py times both, and 16, at every leaf).
+extern "C" int launch_sparse_code_mix_csr(const void* x, const void* codes, const void* indptr,
+                                          const void* indices, const void* data,
+                                          const void* self_w, const void* absmax, void* out,
+                                          long long n, long long d, float qmax, float gamma,
+                                          int damped, void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  const long long tiles = (d + CMIX_THREADS - 1) / CMIX_THREADS;
-  const dim3 grid((unsigned)n, (unsigned)(tiles < MAX_GRID_Y ? tiles : MAX_GRID_Y));
-  sparse_compressed_mix_csr_kernel<<<grid, CMIX_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)r, (const float*)noise, (const int64_t*)indptr,
-      (const int64_t*)indices, (const float*)data, (const float*)self_w, (const float*)absmax,
-      (float*)out, (float*)r_out, d, qmax, gamma, damped);
-  return (int)cudaGetLastError();
+  auto launch = d <= LANE_SWITCH ? launch_code_mix<4> : launch_code_mix<8>;
+  return launch(x, codes, indptr, indices, data, self_w, absmax, out, n, d, qmax, gamma, damped,
+                (cudaStream_t)stream);
 }

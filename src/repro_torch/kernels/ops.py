@@ -20,9 +20,16 @@ from repro_torch.kernels.gt_update import (
     fused_track_step,
     mix_combine_half,
 )
-from repro_torch.kernels.quantize import compressed_mix, row_absmax, rowwise_quant_dequant
+from repro_torch.kernels.quantize import (
+    code_mix,
+    compressed_mix,
+    quant_codes,
+    row_absmax,
+    rowwise_quant_dequant,
+)
 from repro_torch.kernels.sparse_mix import (
     csr_from_edges,
+    sparse_code_mix_csr,
     sparse_compressed_mix,
     sparse_compressed_mix_csr,
     sparse_mix,
@@ -39,10 +46,13 @@ __all__ = [
     "row_absmax",
     "rowwise_quant_dequant",
     "compressed_mix",
+    "quant_codes",
+    "code_mix",
     "sparse_mix",
     "sparse_mix_csr",
     "sparse_compressed_mix",
     "sparse_compressed_mix_csr",
+    "sparse_code_mix_csr",
     "csr_from_edges",
     "topology_edge_arrays",
     "flash_attention",

@@ -1,5 +1,5 @@
-"""K2, K3 and K9 — the phases of compressed gossip (CUDA source
-``csrc/quantize.cu``).
+"""K2, K3, K9 and the codes pass — the phases of compressed gossip (CUDA
+source ``csrc/quantize.cu``).
 
 * :func:`row_absmax` (K2, port of ``repro.kernels.quantize._row_scales``):
   ``max_j |x_ij + r_ij|`` per agent row, the residual optional; float32 or
@@ -9,7 +9,11 @@
   ``repro.kernels.quantize.fused_compressed_mix`` extended to the error-
   feedback and damped form of ``CompressedGossip.__call__``):
   ``m = x + r``, ``q = q_bits(m)``, ``out = x + gamma (W^T q - q)``,
-  ``r' = m - q``.
+  ``r' = m - q``.  On the card it runs as two passes:
+  :func:`quant_codes` and :func:`code_mix`, the contraction of the codes
+  on the tensor cores.
+* :func:`quant_codes`, the first pass of K3 and K5: each row's int8 codes
+  ``c`` (``c * s`` is the q grid) and the residual ``r' = m - c s``.
 
 * :func:`rowwise_quant_dequant` (K9, port of
   ``repro.kernels.quantize.rowwise_quant_dequant``): the per-row int8/int4
@@ -120,6 +124,83 @@ def rowwise_quant_dequant(
     return q, r_out
 
 
+def quant_codes(
+    x: torch.Tensor,
+    absmax: torch.Tensor,
+    *,
+    bits: int,
+    residual: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(codes, new_residual)``: the (n, d) int8 codes ``c`` of ``m = x (+
+    residual)`` (float32) on the int-``bits`` grid of each row's ``absmax``
+    (K2's of m), ``s = max(absmax, 1e-12) / qmax``; ``noise`` (uniform [0,
+    1), float32) selects stochastic rounding.  ``new_residual = m - c s``
+    with a residual, else None."""
+    qmax = qmax_of(bits)
+    _check_rows("quant_codes", x, residual, noise)
+    n, d = x.shape
+    if absmax.shape != (n,) or absmax.dtype != torch.float32:
+        raise ValueError(f"quant_codes: absmax must be ({n},) float32")
+    if not build.on_cuda(x, residual, absmax, noise):
+        return ref.quant_codes_ref(x, residual, absmax, bits, noise)
+    x, residual, absmax, noise = (_contig(t) for t in (x, residual, absmax, noise))
+    codes = torch.empty(n, d, dtype=torch.int8, device=x.device)
+    r_out = None if residual is None else torch.empty_like(x)
+    err = build.library("quantize").launch_quant_codes(
+        build.ptr(x), build.ptr(residual), build.ptr(absmax), build.ptr(noise),
+        build.ptr(codes), build.ptr(r_out), n, d, qmax, build.stream_of(x),
+    )
+    build.check(err, "quant_codes")
+    build.LAUNCHES["quant_codes"] += 1
+    return codes, r_out
+
+
+def _check_codes(name: str, x: torch.Tensor, codes: torch.Tensor,
+                 absmax: torch.Tensor) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: x must be (n, d) float32, got {tuple(x.shape)} {x.dtype}")
+    if codes.shape != x.shape or codes.dtype != torch.int8:
+        raise ValueError(f"{name}: codes must be {tuple(x.shape)} int8, got "
+                         f"{tuple(codes.shape)} {codes.dtype}")
+    if absmax.shape != (x.shape[0],) or absmax.dtype != torch.float32:
+        raise ValueError(f"{name}: absmax must be ({x.shape[0]},) float32")
+
+
+def code_mix(
+    x: torch.Tensor,
+    codes: torch.Tensor,
+    w: torch.Tensor,
+    absmax: torch.Tensor,
+    *,
+    bits: int,
+    gamma: float = 1.0,
+) -> torch.Tensor:
+    """K3's second pass: ``x + gamma (W'^T c - q)`` over the dense ``w`` (n,
+    n) from the codes of :func:`quant_codes`, ``W'[j, i] = W[j, i] s_j``,
+    ``q = c s``; on the tensor cores with W' as three bf16 terms (the CPU
+    runs the plain version with that rounding, ``bf16_split=True``)."""
+    qmax = qmax_of(bits)
+    _check_codes("code_mix", x, codes, absmax)
+    n = x.shape[0]
+    if w.shape != (n, n) or w.dtype != torch.float32:
+        raise ValueError(f"code_mix: w must be ({n}, {n}) float32, got {tuple(w.shape)}")
+    if not build.on_cuda(x, codes, w, absmax):
+        return ref.code_mix_ref(x, codes, w, absmax, bits, gamma, bf16_split=True)
+    x, codes, w, absmax = (t.contiguous() for t in (x, codes, w, absmax))
+    lib = build.library("quantize")
+    frag = torch.empty(lib.compressed_mix_frag_bytes(n), dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    err = lib.launch_compressed_mix(
+        build.ptr(x), build.ptr(codes), build.ptr(w), build.ptr(absmax), build.ptr(frag),
+        build.ptr(out), n, x.shape[1], qmax, float(gamma), int(gamma != 1.0),
+        build.stream_of(x),
+    )
+    build.check(err, "compressed_mix")
+    build.LAUNCHES["compressed_mix"] += 1
+    return out
+
+
 def compressed_mix(
     x: torch.Tensor,
     residual: Optional[torch.Tensor],
@@ -134,8 +215,9 @@ def compressed_mix(
 
     ``absmax`` is K2's row abs-max of ``x + residual``; ``noise`` (uniform
     [0, 1), same shape as x) selects stochastic rounding.  Without a residual
-    the second output is None (the stateless form)."""
-    qmax = qmax_of(bits)
+    the second output is None (the stateless form).  On the card:
+    :func:`quant_codes`, then :func:`code_mix`."""
+    qmax_of(bits)
     _check_rows("compressed_mix", x, residual, noise)
     n = x.shape[0]
     if w.shape != (n, n) or w.dtype != torch.float32:
@@ -144,16 +226,5 @@ def compressed_mix(
         raise ValueError(f"compressed_mix: absmax must be ({n},) float32")
     if not build.on_cuda(x, residual, w, absmax, noise):
         return ref.compressed_mix_ref(x, residual, w, absmax, bits, gamma, noise)
-    x, residual, w, absmax, noise = (
-        _contig(t) for t in (x, residual, w, absmax, noise)
-    )
-    out = torch.empty_like(x)
-    r_out = None if residual is None else torch.empty_like(x)
-    err = build.library("quantize").launch_compressed_mix(
-        build.ptr(x), build.ptr(residual), build.ptr(w), build.ptr(absmax),
-        build.ptr(noise), build.ptr(out), build.ptr(r_out), n, x.shape[1],
-        qmax, float(gamma), int(gamma != 1.0), build.stream_of(x),
-    )
-    build.check(err, "compressed_mix")
-    build.LAUNCHES["compressed_mix"] += 1
-    return out, r_out
+    codes, r_out = quant_codes(x, absmax, bits=bits, residual=residual, noise=noise)
+    return code_mix(x, codes, w, absmax, bits=bits, gamma=gamma), r_out

@@ -77,14 +77,43 @@ def quantize_rows_ref(
     """The q grid: per-row symmetric int-``bits`` round trip of ``m`` (n, d)
     with the row abs-max ``absmax`` (n,).  Round half to even, or
     ``floor(u + noise)`` when ``noise`` (uniform [0, 1)) is given."""
+    scale = _row_scales(absmax, bits)
+    return _codes(m, scale, bits, noise) * scale
+
+
+def _row_scales(absmax: Tensor, bits: int) -> Tensor:
+    """(n, 1): ``s = max(absmax, 1e-12) / qmax``."""
     qmax = float(2 ** (bits - 1) - 1)
     # a tensor divisor: PyTorch turns division by a Python scalar into a
     # multiply by its reciprocal, which can differ in the last bit
     amax = torch.clamp_min(absmax, 1e-12)
-    scale = (amax / torch.full_like(amax, qmax))[:, None]
+    return (amax / torch.full_like(amax, qmax))[:, None]
+
+
+def _codes(m: Tensor, scale: Tensor, bits: int, noise: Optional[Tensor]) -> Tensor:
+    """The integer codes ``clip(round(m / s), -qmax, qmax)`` (or ``floor(m /
+    s + noise)``), as float32."""
+    qmax = float(2 ** (bits - 1) - 1)
     u = m / scale
     q = torch.floor(u + noise) if noise is not None else torch.round(u)
-    return torch.clamp(q, -qmax, qmax) * scale
+    return torch.clamp(q, -qmax, qmax)
+
+
+def quant_codes_ref(
+    x: Tensor,
+    residual: Optional[Tensor],
+    absmax: Tensor,
+    bits: int,
+    noise: Optional[Tensor] = None,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """The codes pass of K3 and K5: the int8 codes ``c`` of ``m = x (+ r)``
+    (n, d) on each row's grid, ``s = max(absmax, 1e-12) / qmax``, and with a
+    residual ``r' = m - c s`` (None without r).  ``c * s`` is
+    :func:`quantize_rows_ref`'s q bit for bit."""
+    m = x if residual is None else x + residual
+    scale = _row_scales(absmax, bits)
+    c = _codes(m, scale, bits, noise)
+    return c.to(torch.int8), (None if residual is None else m - c * scale)
 
 
 def rowwise_quant_dequant_ref(
@@ -122,6 +151,29 @@ def compressed_mix_ref(
     return out, (None if residual is None else m - q)
 
 
+def code_mix_ref(
+    x: Tensor,
+    codes: Tensor,
+    w: Tensor,
+    absmax: Tensor,
+    bits: int,
+    gamma: float = 1.0,
+    bf16_split: bool = False,
+) -> Tensor:
+    """K3's second pass: ``out = x + gamma*(W'^T c - q)`` from the codes c of
+    the codes pass, with ``W'[j, i] = W[j, i] s_j`` (rounded once to f32) and
+    ``q = c s``, grouped as ``x + (W'^T c - q)`` when gamma == 1.  With
+    ``bf16_split`` W' is held as the tensor-core kernel holds it: three bf16
+    terms, each the rounding of what the ones before leave."""
+    scale = _row_scales(absmax, bits)
+    c = _f32(codes)
+    wp = w * scale
+    if bf16_split:
+        wp = _bf16_split(wp)
+    diff = wp.T @ c - c * scale
+    return x + diff if gamma == 1.0 else x + gamma * diff
+
+
 def sparse_mix_csr_ref(
     x: Tensor, indptr: Tensor, indices: Tensor, data: Tensor, self_w: Tensor
 ) -> Tensor:
@@ -156,6 +208,26 @@ def sparse_compressed_mix_csr_ref(
     diff = sparse_mix_csr_ref(q, indptr, indices, data, self_w) - q
     out = x + diff if gamma == 1.0 else x + gamma * diff
     return out, (None if residual is None else m - q)
+
+
+def sparse_code_mix_csr_ref(
+    x: Tensor,
+    codes: Tensor,
+    indptr: Tensor,
+    indices: Tensor,
+    data: Tensor,
+    self_w: Tensor,
+    absmax: Tensor,
+    bits: int,
+    gamma: float = 1.0,
+) -> Tensor:
+    """K5's second pass: ``out = x + gamma*((self_w q + sum_row data
+    q[indices]) - q)`` with ``q = c s`` of the codes pass, grouped as ``x +
+    (mixed - q)`` when gamma == 1.  Composed with :func:`quant_codes_ref` it
+    is :func:`sparse_compressed_mix_csr_ref` bit for bit."""
+    q = _f32(codes) * _row_scales(absmax, bits)
+    diff = sparse_mix_csr_ref(q, indptr, indices, data, self_w) - q
+    return x + diff if gamma == 1.0 else x + gamma * diff
 
 
 def flash_attention_ref(

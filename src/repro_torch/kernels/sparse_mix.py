@@ -25,7 +25,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.quantize import _check_rows, _contig, qmax_of, row_absmax
+from repro_torch.kernels.quantize import (
+    _check_rows,
+    _check_codes,
+    qmax_of,
+    quant_codes,
+    row_absmax,
+)
 
 
 def csr_from_edges(
@@ -98,6 +104,43 @@ def sparse_mix(
     return sparse_mix_csr(x, indptr, indices, data, self_w.to(torch.float32))
 
 
+def sparse_code_mix_csr(
+    x: torch.Tensor,
+    codes: torch.Tensor,
+    indptr: torch.Tensor,
+    indices: torch.Tensor,
+    data: torch.Tensor,
+    self_w: torch.Tensor,
+    absmax: torch.Tensor,
+    *,
+    bits: int,
+    gamma: float = 1.0,
+) -> torch.Tensor:
+    """K5's second pass: ``x + gamma ((self_w q + sum_{e in row} data_e
+    q_{indices_e}) - q)`` over the CSR W, from the codes of
+    :func:`~repro_torch.kernels.quantize.quant_codes` (``q = c s``)."""
+    qmax = qmax_of(bits)
+    _check_codes("sparse_code_mix", x, codes, absmax)
+    n = x.shape[0]
+    _check_csr("sparse_code_mix", n, indptr, indices, data, self_w)
+    if not build.on_cuda(x, codes, indptr, indices, data, self_w, absmax):
+        return ref.sparse_code_mix_csr_ref(
+            x, codes, indptr, indices, data, self_w, absmax, bits, gamma
+        )
+    x, codes, indptr, indices, data, self_w, absmax = (
+        t.contiguous() for t in (x, codes, indptr, indices, data, self_w, absmax)
+    )
+    out = torch.empty_like(x)
+    err = build.library("sparse_mix").launch_sparse_code_mix_csr(
+        build.ptr(x), build.ptr(codes), build.ptr(indptr), build.ptr(indices),
+        build.ptr(data), build.ptr(self_w), build.ptr(absmax), build.ptr(out), n,
+        x.shape[1], qmax, float(gamma), int(gamma != 1.0), build.stream_of(x),
+    )
+    build.check(err, "sparse_compressed_mix")
+    build.LAUNCHES["sparse_compressed_mix"] += 1
+    return out
+
+
 def sparse_compressed_mix_csr(
     x: torch.Tensor,
     residual: Optional[torch.Tensor],
@@ -118,8 +161,10 @@ def sparse_compressed_mix_csr(
     ``absmax`` is K2's row abs-max of ``x + residual``; ``noise`` (uniform
     [0, 1), same shape as x) selects stochastic rounding.  Without a residual
     the second output is None (the stateless form, the reference kernel's
-    function when ``noise`` is None too)."""
-    qmax = qmax_of(bits)
+    function when ``noise`` is None too).  On the card: the codes pass
+    (:func:`~repro_torch.kernels.quantize.quant_codes`), then
+    :func:`sparse_code_mix_csr`."""
+    qmax_of(bits)
     _check_rows("sparse_compressed_mix", x, residual, noise)
     n = x.shape[0]
     _check_csr("sparse_compressed_mix", n, indptr, indices, data, self_w)
@@ -129,19 +174,9 @@ def sparse_compressed_mix_csr(
         return ref.sparse_compressed_mix_csr_ref(
             x, residual, indptr, indices, data, self_w, absmax, bits, gamma, noise
         )
-    x, residual, indptr, indices, data, self_w, absmax, noise = (
-        _contig(t) for t in (x, residual, indptr, indices, data, self_w, absmax, noise)
-    )
-    out = torch.empty_like(x)
-    r_out = None if residual is None else torch.empty_like(x)
-    err = build.library("sparse_mix").launch_sparse_compressed_mix_csr(
-        build.ptr(x), build.ptr(residual), build.ptr(noise), build.ptr(indptr),
-        build.ptr(indices), build.ptr(data), build.ptr(self_w), build.ptr(absmax),
-        build.ptr(out), build.ptr(r_out), n, x.shape[1], qmax, float(gamma),
-        int(gamma != 1.0), build.stream_of(x),
-    )
-    build.check(err, "sparse_compressed_mix")
-    build.LAUNCHES["sparse_compressed_mix"] += 1
+    codes, r_out = quant_codes(x, absmax, bits=bits, residual=residual, noise=noise)
+    out = sparse_code_mix_csr(x, codes, indptr, indices, data, self_w, absmax, bits=bits,
+                              gamma=gamma)
     return out, r_out
 
 

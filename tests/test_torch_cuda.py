@@ -1,7 +1,8 @@
-"""The nine Hopper kernels against their plain PyTorch versions on a card,
-short PISCO and baseline runs on the GPU against the CPU, greedy serving of
-both reduced LMs on the GPU against the CPU, and a two-rank gloo round of
-reduced Mamba2-370m training on the card against the same ranks on the CPU.
+"""The Hopper kernels (K1-K9 and the codes pass of K3 and K5) against their
+plain PyTorch versions on a card, short PISCO and baseline runs on the GPU
+against the CPU, greedy serving of both reduced LMs on the GPU against the
+CPU, and a two-rank gloo round of reduced Mamba2-370m training on the card
+against the same ranks on the CPU.
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips without one.  The file imports no JAX, so on a GPU machine without JAX
@@ -130,6 +131,92 @@ def test_k5_q_grid_exact_mix_within_tolerance(cuda, gen, n, d, bits, gamma, ef):
         assert res is None and res2 is None
     # the plain version's index_add_ adds with atomics, in no fixed order
     torch.testing.assert_close(out, out2, rtol=1e-5, atol=1e-5)
+
+
+# The codes pass: codes and r' exact; d % 8 == 0 with aligned bases takes
+# the 16-byte path, ragged d or a base 4 bytes past a 16-byte boundary the
+# one-element path
+@pytest.mark.parametrize("n,d,bits,res,noise,unaligned", [
+    (300, 517, 8, True, True, False), (64, 320, 4, True, False, False),
+    (3, 5, 8, False, True, False), (64, 256, 8, True, True, True), (1, 8, 8, False, False, False)])
+def test_quant_codes_exact(cuda, gen, n, d, bits, res, noise, unaligned):
+    x = torch.randn(n * d + 1, generator=gen, device=cuda)[1:].view(n, d) if unaligned else \
+        torch.randn(n, d, generator=gen, device=cuda)
+    r = 0.01 * torch.randn(n, d, generator=gen, device=cuda) if res else None
+    u = torch.rand(n, d, generator=gen, device=cuda) if noise else None
+    am = ops.row_absmax(x, r)
+    ops.reset_launch_counts()
+    codes, r_new = ops.quant_codes(x, am, bits=bits, residual=r, noise=u)
+    assert ops.launch_counts()["quant_codes"] == 1
+    codes_p, r_p = ref.quant_codes_ref(x, r, am, bits, u)
+    assert codes.dtype == torch.int8 and torch.equal(codes, codes_p)
+    assert (r_new is None and r_p is None) if r is None else torch.equal(r_new, r_p)
+
+
+def _k5_csr(topo, device):
+    return (torch.as_tensor(topo.indptr, device=device),
+            torch.as_tensor(topo.indices, device=device),
+            torch.as_tensor(topo.data, dtype=torch.float32, device=device),
+            torch.as_tensor(topo.self_weight, dtype=torch.float32, device=device))
+
+
+# K5's two passes against the plain version on the CPU, which adds in edge
+# order as the kernel does: bit for bit.  d = 2048 takes 8 codes a lane,
+# d <= 1024 four, d % 4 != 0 the one-element path.
+@pytest.mark.parametrize("n,d,gamma,ef", [(300, 517, 1.0, True), (1024, 320, 0.5, True),
+                                          (300, 2048, 1.0, False), (7, 10, 0.5, False),
+                                          (1, 5, 1.0, True)])
+def test_k5_two_passes_bit_equal_to_cpu_plain(cuda, gen, n, d, gamma, ef):
+    topo = make_sparse_topology("random_regular" if n > 7 else "ring", n)
+    csr, csr_cpu = _k5_csr(topo, cuda), _k5_csr(topo, "cpu")
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    r = 0.01 * torch.randn(n, d, generator=gen, device=cuda) if ef else None
+    u = torch.rand(n, d, generator=gen, device=cuda) if ef else None
+    am = ops.row_absmax(x, r)
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    ops.reset_launch_counts()
+    out, res = ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, gamma=gamma, noise=u)
+    counts = ops.launch_counts()
+    assert counts["quant_codes"] == 1 and counts["sparse_compressed_mix"] == 1
+    want, res_want = ref.sparse_compressed_mix_csr_ref(cpu(x), cpu(r), *csr_cpu, cpu(am), 8, gamma,
+                                                       cpu(u))
+    assert torch.equal(out.cpu(), want)
+    assert (res is None and res_want is None) if r is None else torch.equal(res.cpu(), res_want)
+    codes, _ = ops.quant_codes(x, am, bits=8, residual=r, noise=u)
+    alone = ops.sparse_code_mix_csr(x, codes, *csr, am, bits=8, gamma=gamma)
+    assert torch.equal(alone.cpu(), ref.sparse_code_mix_csr_ref(
+        cpu(x), codes.cpu(), *csr_cpu, cpu(am), 8, gamma))
+
+
+# K3's contraction on the tensor cores against its plain version with W' as
+# three bf16 terms (the kernel's rounding model); ragged n and d included
+@pytest.mark.parametrize("n,d,gamma", [(37, 1000, 0.5), (64, 300, 1.0), (512, 256, 1.0),
+                                       (3, 5, 1.0), (200, 4096, 1.0)])
+def test_k3_second_pass_within_tolerance(cuda, gen, n, d, gamma):
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    w = torch.softmax(torch.randn(n, n, generator=gen, device=cuda), dim=0)
+    am = ops.row_absmax(x)
+    codes, _ = ops.quant_codes(x, am, bits=8)
+    ops.reset_launch_counts()
+    out = ops.code_mix(x, codes, w, am, bits=8, gamma=gamma)
+    assert ops.launch_counts()["compressed_mix"] == 1
+    torch.testing.assert_close(out, ref.code_mix_ref(x, codes, w, am, 8, gamma, bf16_split=True),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_k3_contraction_as_accurate_as_cublas(cuda, gen):
+    """W'^T c - q (x = 0) against an f64 contraction of the same q: max
+    |err| within chip_smoke's 4x of cuBLAS's f32 w.T @ q - q."""
+    n, d = 512, 2048
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    w = torch.softmax(torch.randn(n, n, generator=gen, device=cuda), dim=0)
+    am = ops.row_absmax(x)
+    codes, _ = ops.quant_codes(x, am, bits=8)
+    q = codes.float() * (am / torch.full_like(am, 127.0))[:, None]
+    exact = w.double().T @ q.double() - q.double()
+    err = (ops.code_mix(torch.zeros_like(x), codes, w, am, bits=8) - exact).abs().max()
+    lib = ((w.T @ q - q) - exact).abs().max()
+    assert 0 < lib and err <= 4.0 * lib, (float(err), float(lib))
 
 
 @pytest.mark.parametrize("kw", [{"topology": "erdos_renyi", "compression": "q8d"},

@@ -2,7 +2,7 @@
 the paper's baselines, the round drivers and the experiment API."""
 from repro_torch.core.algorithms import get_algorithm, registered_algorithms
 from repro_torch.core.baselines import GTState, ScaffoldState, SGDState
-from repro_torch.core.experiment import Experiment, ExperimentSpec
+from repro_torch.core.experiment import Experiment, ExperimentSpec, run_experiment
 from repro_torch.core.pisco import PiscoConfig, PiscoState
 from repro_torch.core.trainer import History
 
@@ -17,4 +17,5 @@ __all__ = [
     "ScaffoldState",
     "get_algorithm",
     "registered_algorithms",
+    "run_experiment",
 ]

@@ -1,8 +1,9 @@
-"""Compressed gossip: per-agent-row quantization for the communication path.
+"""Compressed gossip: per-agent-row quantization or sparsification for the
+communication path.
 
 * :class:`Compressor` — per-agent-message lossy codecs (symmetric int8/int4
-  quantization, identity) that also *price* themselves
-  (:meth:`Compressor.wire_bits`) for the byte-level accounting.
+  quantization, top-k sparsification, identity) that also *price*
+  themselves (:meth:`Compressor.wire_bits`) for the byte-level accounting.
 * :class:`CompressedGossip` — gossip over the dense W, the sparse CSR W or a
   collective mixer in the **mean-preserving difference form**
 
@@ -22,17 +23,18 @@
   Stochastic rounding draws uniform noise on the state's device from a
   ``torch.Generator`` seeded from the spec (and the rank, over a collective
   mixer) and carried in the state (it cannot reproduce JAX's PRNG bits; the
-  rounding rule is the same).
+  rounding rule is the same).  Top-k gossip keeps the reference's form:
+  ``q = topk(m)`` per agent row, then ``x + gamma (W q - q)`` through the
+  base mixer's own gossip (``torch.matmul`` over the dense W, the sparse
+  gossip kernel K4 over the CSR, the exchange over a collective mixer).
 * :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
   dense, sparse or collective mixing ops, and build the closed-form
   :class:`RoundByteModel`.
-
-Top-k sparsification is not ported yet (it raises ``NotImplementedError``,
-ROADMAP A5).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -45,12 +47,13 @@ from repro_torch.kernels.quantize import (
     row_absmax,
     rowwise_quant_dequant,
 )
-from repro_torch.kernels.sparse_mix import sparse_compressed_mix_csr
-from repro_torch.utils.pytree import tree_leaves, tree_zeros_like
+from repro_torch.kernels.sparse_mix import sparse_compressed_mix_csr, sparse_mix_csr
+from repro_torch.utils.pytree import tree_agent_mix, tree_leaves, tree_zeros_like
 
 Tree = Dict[str, torch.Tensor]
 
 SCALE_BITS = 32  # one fp32 scale per (leaf, agent) message row
+INDEX_BITS = 32  # one int32 coordinate per surviving top-k entry
 
 
 class Compressor:
@@ -121,6 +124,44 @@ class StochasticQuantizer(Compressor):
         return n_elements * self.bits + SCALE_BITS
 
 
+@dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    """Keep the ``fraction`` largest-magnitude coordinates per agent row
+    (contractive: ||x - q(x)||² <= (1 - k/d) ||x||²).  Wire format: (value,
+    index) pairs.  Ties at the k-th magnitude keep the lower index, as
+    ``jax.lax.top_k`` does, so the kept set is the reference's on every
+    input and does not depend on the order ``torch.topk`` returns."""
+
+    fraction: float = 0.1
+
+    def __post_init__(self):
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(f"top-k fraction must be in (0, 1], got {self.fraction}")
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"top{self.fraction:g}"
+
+    def k_for(self, n_elements: int) -> int:
+        return max(1, int(math.ceil(self.fraction * n_elements)))
+
+    def compress(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        rows = x.reshape(x.shape[0], -1)
+        mag = rows.abs()
+        k = self.k_for(rows.shape[1])
+        kth = torch.topk(mag, k, dim=1).values[:, -1:]
+        above = mag > kth
+        # of the entries tied at the k-th magnitude, the lowest-indexed fill
+        # the places left
+        tied = mag == kth
+        left = k - above.sum(dim=1, keepdim=True)
+        mask = above | (tied & (torch.cumsum(tied, dim=1) <= left))
+        return torch.where(mask, rows, torch.zeros_like(rows)).reshape(x.shape)
+
+    def wire_bits(self, n_elements: int, itemsize_bits: int = 32) -> int:
+        return self.k_for(n_elements) * (itemsize_bits + INDEX_BITS)
+
+
 _REGISTRY: dict = {
     "none": lambda: IdentityCompressor(),
     "fp32": lambda: IdentityCompressor(),
@@ -130,16 +171,25 @@ _REGISTRY: dict = {
     "q4d": lambda: StochasticQuantizer(bits=4, stochastic=False),
 }
 
-TOPK_NOT_PORTED = "top-k compression is not ported yet (ROADMAP A5)"
-
 
 def make_compressor(spec: str) -> Compressor:
-    """Parse 'none' | 'fp32' | 'q8' | 'q4' | 'q8d' | 'q4d'."""
+    """Parse 'none' | 'fp32' | 'q8' | 'q4' | 'q8d' | 'q4d' | 'topK' (K a
+    fraction)."""
     if spec in _REGISTRY:
         return _REGISTRY[spec]()
     if spec.startswith("top"):
-        raise NotImplementedError(TOPK_NOT_PORTED)
-    raise ValueError(f"unknown compressor spec {spec!r}; options: {sorted(_REGISTRY)}")
+        try:
+            fraction = float(spec[3:])
+        except ValueError:
+            raise ValueError(
+                f"unknown compressor spec {spec!r} (top-k needs a fraction, "
+                f"e.g. 'top0.1')"
+            ) from None
+        return TopKCompressor(fraction=fraction)
+    raise ValueError(
+        f"unknown compressor spec {spec!r}; options: "
+        f"{sorted(_REGISTRY)} or 'top<fraction>'"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,9 +201,13 @@ class CompressedGossip:
     :meth:`__call__` threads an error-feedback residual and a generator
     through the round function; :meth:`stateless` is the generator-free,
     residual-free variant installed as ``MixingOps.gossip``.  Both preserve
-    the agent mean exactly, for any ``gamma`` (W is doubly stochastic)."""
+    the agent mean exactly, for any ``gamma`` (W is doubly stochastic).
 
-    compressor: StochasticQuantizer
+    A quantiser runs the fused kernels over ``w`` and ``csr``; any other
+    compressor (top-k) writes ``q`` and mixes it with the same operator's
+    plain gossip: ``torch.matmul`` over ``w``, K4 over ``csr``."""
+
+    compressor: Compressor
     w: Optional[torch.Tensor] = None
     csr: Optional[Tuple[torch.Tensor, ...]] = None
     base_gossip: Optional[Callable[[Tree], Tree]] = None
@@ -183,27 +237,42 @@ class CompressedGossip:
             "gen": gen,
         }
 
+    def _gossip_leaf(self, q: torch.Tensor) -> torch.Tensor:
+        """``W q`` for one leaf through the operator's plain gossip."""
+        if self.w is not None:
+            return tree_agent_mix({"leaf": q}, self.w)["leaf"]
+        if self.csr is not None:
+            return sparse_mix_csr(q.reshape(q.shape[0], -1), *self.csr).reshape(q.shape)
+        return self.base_gossip({"leaf": q})["leaf"]
+
     def _mix_leaf(self, x, residual, gen) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # a collective mixer's leaf is one rank's own message: one row
         rows = x.reshape(1 if self.base_gossip is not None else x.shape[0], -1)
         res = None if residual is None else residual.reshape(rows.shape)
-        noise = None
-        if self.compressor.stochastic and gen is not None:
-            noise = torch.rand(rows.shape, generator=gen, dtype=torch.float32,
-                               device=rows.device)
-        if self.base_gossip is not None:
+        if isinstance(self.compressor, StochasticQuantizer):
+            noise = None
+            if self.compressor.stochastic and gen is not None:
+                noise = torch.rand(rows.shape, generator=gen, dtype=torch.float32,
+                                   device=rows.device)
+            if self.base_gossip is None:
+                kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
+                absmax = row_absmax(rows, res)
+                if self.w is not None:
+                    out, new_res = compressed_mix(rows, res, self.w, absmax, **kw)
+                else:
+                    out, new_res = sparse_compressed_mix_csr(rows, res, *self.csr, absmax, **kw)
+                return out.reshape(x.shape), (None if new_res is None
+                                              else new_res.reshape(x.shape))
             q, new_res = self.compressor.quantize(rows, res, noise)
-            q = q.reshape(x.shape)
-            diff = self.base_gossip({"leaf": q})["leaf"] - q
-            out = x + diff if self.gamma == 1.0 else x + self.gamma * diff
-            return out, (None if new_res is None else new_res.reshape(x.shape))
-        kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
-        absmax = row_absmax(rows, res)
-        if self.w is not None:
-            out, new_res = compressed_mix(rows, res, self.w, absmax, **kw)
         else:
-            out, new_res = sparse_compressed_mix_csr(rows, res, *self.csr, absmax, **kw)
-        return out.reshape(x.shape), (None if new_res is None else new_res.reshape(x.shape))
+            m = rows if res is None else rows + res
+            q = self.compressor.compress(m)
+            new_res = None if res is None else m - q
+        # q crosses the wire: the difference form through the plain gossip
+        q = q.reshape(x.shape)
+        diff = self._gossip_leaf(q) - q
+        out = x + diff if self.gamma == 1.0 else x + self.gamma * diff
+        return out, (None if new_res is None else new_res.reshape(x.shape))
 
     def __call__(self, tree: Tree, residual: Any, gen) -> Tuple[Tree, Any]:
         mixed, new_res = {}, {}
@@ -223,12 +292,17 @@ def compress_mixing(
     *,
     error_feedback: bool = True,
     seed: int = 0,
-    gamma: float = 1.0,
+    gamma: Optional[float] = None,
 ) -> MixingOps:
     """Attach a compressor to dense, sparse or collective mixing ops.
-    ``global_avg`` (the server round) stays full precision."""
+    ``global_avg`` (the server round) stays full precision.  ``gamma=None``
+    chooses the consensus step as the reference does: 0.5 for top-k (a
+    contractive sparsifier diverges undamped under large local steps), 1.0
+    for the quantisers."""
     if isinstance(compressor, IdentityCompressor):
         return base
+    if gamma is None:
+        gamma = 0.5 if isinstance(compressor, TopKCompressor) else 1.0
     if base.w is None and base.csr is None and base.mesh is None:
         raise NotImplementedError(
             f"compressed gossip over {base.name!r} is not ported: only over the "

@@ -12,12 +12,15 @@ spec is built; that is a refusal, not a fallback.
     exp = Experiment(spec, loss_fn=loss_fn, params0=params0,
                      sampler_factory=make_sampler, eval_fn=eval_fn)
     hist = exp.run()                    # on the GPU; device="cpu" to opt out
+    hists = exp.sweep(seeds=[0, 1, 2])  # one History per seed
+    runs = exp.sweep(grid={"p": [0.0, 0.1, 1.0]})  # [(spec, History), ...]
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,7 +79,7 @@ class ExperimentSpec:
     async_: Optional[str] = None
     adversary: Optional[str] = None
     robust_agg: str = "mean"
-    compression: Optional[str] = None  # None | "q8" | "q4" | "q8d" | "q4d"
+    compression: Optional[str] = None  # None | "q8" | "q4" | "q8d" | "q4d" | "top<f>"
     error_feedback: bool = True
     optimizer: Optional[str] = None
     server_optimizer: Optional[str] = None
@@ -101,7 +104,7 @@ class ExperimentSpec:
             if getattr(self, name) != defaults.get(name):
                 raise _not_ported(f"{name}={getattr(self, name)!r}", item)
         if self.compression is not None:
-            make_compressor(self.compression)  # fail fast (top-k: ROADMAP A5)
+            make_compressor(self.compression)  # fail fast on a malformed spec
         if isinstance(self.topology_kwargs, dict):
             object.__setattr__(
                 self, "topology_kwargs", tuple(sorted(self.topology_kwargs.items()))
@@ -210,6 +213,19 @@ class Experiment:
         self._mixing = mixing
         self.stop_when = stop_when
 
+    def _pieces(self) -> dict:
+        return dict(
+            loss_fn=self.loss_fn,
+            params0=self._params0,
+            x0=self._x0,
+            sampler=self._sampler,
+            sampler_factory=self._sampler_factory,
+            eval_fn=self.eval_fn,
+            mixing=self._mixing,
+            stop_when=self.stop_when,
+            device=self.device,
+        )
+
     def _make_sampler(self, spec: ExperimentSpec) -> Sampler:
         if self._sampler_factory is not None:
             return self._sampler_factory(spec)
@@ -223,21 +239,33 @@ class Experiment:
     def _bind(self, mixing: MixingOps) -> BoundAlgorithm:
         return get_algorithm(self.spec.algo).bind(self.loss_fn, self.spec.config, mixing)
 
-    def run(self) -> History:
-        spec = self.spec
-        mixing = self._mixing if self._mixing is not None else spec.make_mixing(self.device)
-        bound = self._bind(mixing)
-        sampler = self._make_sampler(spec)
-        _, comm0 = sampler(-1)
-        x0 = self._x0_stacked()
-        state = bound.init(self.loss_fn, x0, comm0)
-        hist = History(
+    def _fresh_history(self, mixing: MixingOps, bound: BoundAlgorithm, x0: Tree) -> History:
+        return History(
             byte_model=make_byte_model(
-                mixing, x0, spec.config.n_agents,
+                mixing, x0, self.spec.config.n_agents,
                 mixes_per_round=bound.comm.mixes_per_round,
                 server_payloads=bound.comm.server_payloads,
             )
         )
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self) -> History:
+        mixing = self._mixing if self._mixing is not None else self.spec.make_mixing(self.device)
+        return self._run(mixing, self._make_sampler(self.spec))
+
+    def _run(self, mixing: MixingOps, sampler: Sampler) -> History:
+        """One run over ``mixing`` with ``sampler``.  Binding builds the
+        schedule afresh from the spec's seed, so every call draws the same
+        flags."""
+        spec = self.spec
+        bound = self._bind(mixing)
+        _, comm0 = sampler(-1)
+        x0 = self._x0_stacked()
+        state = bound.init(self.loss_fn, x0, comm0)
+        hist = self._fresh_history(mixing, bound, x0)
         drive = drive_scan if spec.driver == "scan" else drive_loop
         kw = {"block_size": spec.block_size} if spec.driver == "scan" else {}
         with record_wall_time(hist):
@@ -246,11 +274,42 @@ class Experiment:
                 eval_fn=self.eval_fn, eval_every=spec.eval_every,
                 stop_when=self.stop_when, **kw,
             )
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._synchronize()
         hist.final_state = state
         return hist
 
-    def sweep(self, seeds=None, grid=None):
-        raise _not_ported("Experiment.sweep", "A7 (seed and grid sweeps)")
+    def sweep(
+        self,
+        seeds: Optional[Sequence[int]] = None,
+        grid: Optional[Dict[str, Sequence[Any]]] = None,
+    ):
+        """Either a multi-seed run (``seeds=[...]`` -> one History per seed)
+        or a sequential hyper-parameter grid (``grid={"p": [...], ...}`` ->
+        ``(spec, History)`` over the cartesian product, in order)."""
+        if (seeds is None) == (grid is None):
+            raise ValueError("pass exactly one of seeds or grid")
+        if grid is not None:
+            out = []
+            for combo in itertools.product(*grid.values()):
+                spec = self.spec.replace(**dict(zip(grid.keys(), combo)))
+                out.append((spec, Experiment(spec, **self._pieces()).run()))
+            return out
+        return self._sweep_seeds(list(seeds))
 
+    def _sweep_seeds(self, seeds: List[int]) -> List[History]:
+        """All seeds advance through one Bernoulli(p) schedule drawn from the
+        spec's seed, with the same block cuts and eval points; each seed has
+        its own sampler (built from ``spec.replace(seed=s)``), state and
+        History.  The reference vmaps the seeds; the rounds here launch
+        hand-written kernels that ``torch.func.vmap`` cannot batch, so the
+        seeds run one after another, each through :meth:`run`'s driver.  A
+        seed equal to the spec's reproduces :meth:`run` exactly."""
+        if self._sampler_factory is None:
+            raise ValueError("sweep(seeds=...) needs a sampler_factory")
+        mixing = self._mixing if self._mixing is not None else self.spec.make_mixing(self.device)
+        return [self._run(mixing, self._make_sampler(self.spec.replace(seed=s))) for s in seeds]
+
+
+def run_experiment(spec: ExperimentSpec, **pieces) -> History:
+    """One-shot convenience: ``run_experiment(spec, loss_fn=..., ...)``."""
+    return Experiment(spec, **pieces).run()

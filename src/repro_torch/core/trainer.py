@@ -47,6 +47,45 @@ class History:
         """Simulated seconds per executed round (the accountant's ledger)."""
         return self.accountant.per_round_seconds
 
+    def agent_params(self) -> Any:
+        """The agent-stacked per-agent parameters ``x`` of the finished run
+        (the first field of every algorithm state)."""
+        st = self.final_state
+        if st is None:
+            raise ValueError(
+                "History has no final_state — run the experiment first "
+                "(final_state is set by the drivers on completion)"
+            )
+        x = getattr(st, "x", None)
+        if x is None and isinstance(st, (tuple, list)) and len(st) > 0:
+            x = st[0]
+        if x is None:
+            raise ValueError(f"cannot locate agent-stacked params in {type(st).__name__}")
+        return x
+
+    def running_mean_eval(self, key: str) -> np.ndarray:
+        """Running mean of one eval metric over the eval points (float64)."""
+        vals = np.array([m[key] for m in self.eval_metrics], dtype=np.float64)
+        return np.cumsum(vals) / (np.arange(len(vals)) + 1)
+
+    def rounds_to_threshold(
+        self, key: str, threshold: float, mode: str = "running_le"
+    ) -> Optional[int]:
+        """First eval index where the metric crosses ``threshold`` — its
+        running mean at or below it (``"running_le"``, the paper's Fig. 4
+        criterion) or the metric itself at or above it (``"ge"``).  None if
+        never reached."""
+        if not self.eval_metrics:
+            return None
+        if mode == "running_le":
+            hits = np.nonzero(self.running_mean_eval(key) <= threshold)[0]
+        elif mode == "ge":
+            series = np.array([m[key] for m in self.eval_metrics])
+            hits = np.nonzero(series >= threshold)[0]
+        else:
+            raise ValueError(mode)
+        return int(hits[0]) if hits.size else None
+
     def to_dict(self) -> dict:
         """JSON-serializable view for the benchmark writers (``final_state``
         is device data and is deliberately left out)."""

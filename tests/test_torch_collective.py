@@ -9,7 +9,8 @@ the tests below compare:
 
 * each collective mixer (global mean, ring shift in both wire dtypes, 2 x 2
   torus, hierarchical, dense W from an Erdos-Renyi graph, compressed int8
-  gossip with and without error feedback) on one agent-stacked tree;
+  gossip and top-k gossip, each with and without error feedback) on one
+  agent-stacked tree;
 * the fused candidate combine (K8) of the ring's x-gossip against the
   reference's candidate pushed through its ring gossip, and in bfloat16
   against the plain combine of the float32 candidates (port only);
@@ -70,7 +71,7 @@ _PORT = _TREE + textwrap.dedent("""
     from repro_torch.configs import get_reduced
     from repro_torch.configs.shapes import InputShape
     from repro_torch.core import mixing as M
-    from repro_torch.core.compression import StochasticQuantizer, compress_mixing
+    from repro_torch.core.compression import StochasticQuantizer, TopKCompressor, compress_mixing
     from repro_torch.core.pisco import (PiscoConfig, init_compression_state, init_rank_state,
                                         make_rank_round_fn)
     from repro_torch.core.topology import make_topology
@@ -121,6 +122,11 @@ _PORT = _TREE + textwrap.dedent("""
     mixed, new_res = noisy(x, mine(resid, ring, ("data",)), noisy.init_ef(x)["gen"])
     keep("q8-ef", mixed)
     keep("q8-ef-res", new_res)
+    top = compress_mixing(M.collective_shift_mixing(ring, ("data",), shifts), TopKCompressor(0.25))
+    keep("top-stateless", top.gossip(x))
+    mixed, new_res = top.compression(x, mine(resid, ring, ("data",)), None)
+    keep("top-ef", mixed)
+    keep("top-ef-res", new_res)
 
     # PISCO on reduced Mamba2-370m, one agent per rank
     cfg = get_reduced("mamba2-370m")
@@ -166,6 +172,7 @@ _JAX = _TREE + textwrap.dedent("""
 
     from repro.configs import get_reduced
     from repro.core import mixing as M
+    from repro.core.compression import TopKCompressor, compress_mixing
     from repro.core.pisco import (PiscoConfig, init_compression_state, init_state,
                                   make_round_fn, replicate_params)
     from repro.core.topology import make_topology
@@ -226,6 +233,13 @@ _JAX = _TREE + textwrap.dedent("""
         tree, {k: jnp.asarray(v) for k, v in resid.items()}, jax.random.PRNGKey(0))
     keep("q8d-ef", mixed)
     keep("q8d-ef-res", new_res)
+    top = compress_mixing(M.collective_shift_mixing(ring, ("data",), spec, shifts),
+                          TopKCompressor(0.25))
+    keep("top-stateless", jax.jit(top.gossip)(tree))
+    mixed, new_res = jax.jit(top.compression.__call__)(
+        tree, {k: jnp.asarray(v) for k, v in resid.items()}, jax.random.PRNGKey(0))
+    keep("top-ef", mixed)
+    keep("top-ef-res", new_res)
 
     cfg = get_reduced("mamba2-370m")
     bundle = get_bundle(cfg)
@@ -337,7 +351,7 @@ def _compare(results, name, tol=F32_TOL, scale_of=None, flips=0.0):
 
 @pytest.mark.parametrize("case", ["global", "ring-None", "ring-float32", "torus", "hier-gossip",
                                   "hier-global", "dense", "q8d-stateless", "q8d-ef",
-                                  "q8d-ef-res"])
+                                  "q8d-ef-res", "top-stateless", "top-ef", "top-ef-res"])
 def test_collective_mixer_matches_jax(results, case):
     _compare(results, case, scale_of="q8d-ef" if case == "q8d-ef-res" else None)
 

@@ -252,6 +252,64 @@ def test_short_run_gpu_matches_cpu(cuda, kw):
 
 
 
+@pytest.mark.parametrize("sparse", [False, True])
+def test_topk_gossip_gpu_matches_cpu(cuda, sparse):
+    """Top-k gossip (stateless and with error feedback) on the card against
+    the CPU: the kept coordinates and the residual bit-equal, the mixed
+    output within 1e-5 (W q summed in another order); over the sparse mixer
+    W q runs K4."""
+    from repro_torch.core.compression import compress_mixing, make_compressor
+    from repro_torch.core.mixing import dense_mixing, sparse_mixing
+    from repro_torch.core.topology import make_topology
+
+    n = 64
+    rng = np.random.default_rng(0)
+    tree = {"w1": rng.normal(size=(n, 32, 25)).astype(np.float32),
+            "b1": rng.normal(size=(n, 10)).astype(np.float32)}
+    res = {k: (0.1 * rng.normal(size=v.shape)).astype(np.float32) for k, v in tree.items()}
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        base = (sparse_mixing(make_sparse_topology("random_regular", n), dev) if sparse else
+                dense_mixing(make_topology("erdos_renyi", n, prob=0.3, seed=7), dev))
+        mixing = compress_mixing(base, make_compressor("top0.1"))
+        t = {k: torch.as_tensor(v, device=dev) for k, v in tree.items()}
+        r = {k: torch.as_tensor(v, device=dev) for k, v in res.items()}
+        ops.reset_launch_counts()
+        mixed, new_res = mixing.compression(t, r, None)
+        stateless = mixing.gossip(t)
+        counts = ops.launch_counts()
+        outs[dev.type] = (mixed, new_res, stateless)
+        if dev.type == "cuda":
+            assert counts.get("sparse_mix", 0) == (4 if sparse else 0), counts
+    (mg, rg, sg), (mc, rc, sc) = outs["cuda"], outs["cpu"]
+    for k in tree:
+        assert torch.equal(rg[k].cpu(), rc[k])
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(sg[k].cpu(), sc[k], rtol=1e-5, atol=1e-5)
+
+
+def test_seed_sweep_seed0_equals_run_on_the_card(cuda):
+    n = 16
+    x, y = synthetic_mnist(n * 20, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n).to(cuda)
+    xt, yt = data.x_test, data.y_test
+    spec = ExperimentSpec.create(n_agents=n, t_o=2, eta_l=0.1, p=0.3, rounds=6, eval_every=3,
+                                 block_size=4, compression="q8")
+    exp = Experiment(
+        spec, loss_fn=mlp_loss, params0=mlp_init(0), device=cuda,
+        eval_fn=lambda p: {"loss": float(mlp_loss(p, (xt, yt)))},
+        sampler_factory=lambda s: RoundSampler(data, 16, s.config.t_o, s.config.seed, device=cuda),
+    )
+    ops.reset_launch_counts()
+    hists = exp.sweep(seeds=[0, 1])
+    assert ops.launch_counts()["compressed_mix"] > 0
+    single = exp.run()
+    assert hists[0].loss == single.loss and hists[0].eval_metrics == single.eval_metrics
+    assert hists[1].loss != single.loss and hists[1].is_global == single.is_global
+    for k in single.final_state.x:
+        assert torch.equal(hists[0].final_state.x[k], single.final_state.x[k])
+
+
 def _bf16_ulp(x):
     """One bf16 ulp at |x| (2^(e - 7) for |x| in [2^e, 2^(e + 1)))."""
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)

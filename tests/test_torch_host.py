@@ -91,7 +91,8 @@ def _template(n):
 
 @pytest.mark.parametrize("sparse,compression", [(False, None), (True, None),
                                                 (False, "q8"), (False, "q4d"),
-                                                (True, "q8"), (True, "q4d")])
+                                                (True, "q8"), (True, "q4d"),
+                                                (False, "top0.1"), (True, "top0.25")])
 def test_round_byte_model_equal(sparse, compression):
     n = 12
     tmpl = _template(n)
@@ -124,7 +125,7 @@ def test_spec_json_round_trips_across_packages():
     ("network", "bernoulli:0.1"), ("participation", 0.5), ("cohort", 0.5),
     ("systems", "uniform"), ("adversary", "signflip:f=0.2"), ("robust_agg", "median"),
     ("optimizer", "momentum"), ("server_optimizer", "fedadam"),
-    ("lr_schedule", "cosine"), ("compression", "top0.1"), ("driver", "events"),
+    ("lr_schedule", "cosine"), ("opt_policy", "sync"), ("driver", "events"),
     ("async_", "constant"),
 ])
 def test_unported_spec_fields_raise(field, value):
@@ -134,13 +135,25 @@ def test_unported_spec_fields_raise(field, value):
 
 
 def test_compression_over_sparse_mixer_raises():
-    """Quantized gossip over the sparse mixer builds (K5); top-k over it is
-    still refused, as over the dense mixer."""
+    """Quantized gossip over the sparse mixer builds (K5), and so does top-k
+    over it and over the dense mixer (gamma 0.5 chosen as the reference
+    chooses it, the byte model equal to the reference's); a malformed top-k
+    spec raises the reference's ValueError."""
     spec = texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="q8")
     mixing = spec.make_mixing(CPU)
     assert mixing.csr is not None and mixing.compression.csr is mixing.csr
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="top0.1")
+    n, tmpl = 16, _template(16)
+    for sparse in (True, False):
+        spec = texp.ExperimentSpec.create(n_agents=n, sparse=sparse, compression="top0.1")
+        tm = spec.make_mixing(CPU)
+        jm = jexp.ExperimentSpec.from_json(spec.to_json()).make_mixing()
+        assert tm.compression.gamma == jm.compression.gamma == 0.5
+        assert (tm.csr is not None) == sparse and tm.name == jm.name
+        jb = j_byte_model(jm, {k: jnp.asarray(v) for k, v in tmpl.items()}, n)
+        tb = tcomp.make_byte_model(tm, {k: torch.from_numpy(v) for k, v in tmpl.items()}, n)
+        assert dataclasses.asdict(jb) == dataclasses.asdict(tb)
+    with pytest.raises(ValueError, match="top-k needs a fraction"):
+        texp.ExperimentSpec.create(n_agents=16, sparse=True, compression="topk")
 
 
 def test_identity_mixing_holds_iterates():

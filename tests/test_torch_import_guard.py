@@ -27,14 +27,19 @@ def test_importing_every_port_module_loads_no_jax():
                  "configs.qwen3_8b", "configs.mamba2_370m", "serve", "serve.delta",
                  "serve.engine", "serve.batcher", "serve.load", "serve.__main__",
                  "configs.shapes", "launch", "launch.mesh", "launch.steps", "launch.train",
-                 "launch.input_specs"):
+                 "launch.input_specs", "figures.common", "figures.run", "figures.fig4_p_sweep",
+                 "figures.fig5_local_updates", "figures.fig6_topology", "figures.fig7_cnn",
+                 "figures.table2_complexity", "figures.fig_compression",
+                 "figures.ablation_eta_c", "figures.fig_sparse", "examples.quickstart",
+                 "examples.semi_decentralized_cnn"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'repro' or m.startswith('repro.')"
+        " or m == 'benchmarks' or m.startswith('benchmarks.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -46,7 +51,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+    return name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_sources():

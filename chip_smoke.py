@@ -28,6 +28,15 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    with the bytes held to the byte model; the paper spec's 3-seed
    ``Experiment.sweep``, seed 0 bit-equal to ``run()``; and the sparse-fleet
    scaling (K4, 64 to 10,000 agents at d = 256, dense/sparse parity at 64);
+   then dynamic networks and update rules ("dynamic"): sparse-10k under
+   Bernoulli(0.3) link failures with half participation (K4 over each
+   round's CSR weights), sparse-10k-q8 over neighbour-sampled cohorts (K5
+   the same), dense-q8 over random matchings with half participation (K3
+   over a new W_k every round), the paper spec over the static process
+   (bit-equal to the paper path), fig_dynamic's ring cell and
+   fig_optimizers' Adam + FedAdam cell card against CPU, and the paper spec
+   with optimizer="sgd" (bit-equal to the inline path); each with its host
+   time of the per-block draws;
 4. serves the two decoder-only models that fit the card at full width, in
    bf16, through ``FleetDelta.synthetic`` -> ``DecodeEngine`` ->
    ``ContinuousBatcher`` -> ``run_load``: Qwen3-8B ("serve-qwen3-8b": flash
@@ -142,7 +151,9 @@ SERVER_BASED = ("fedavg", "scaffold")
 # per-round losses within this relative deviation; flags and bytes equal.
 # Deterministic rounding (q8d) may flip at ties, hence the looser limit.
 PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4,
-                  "sparse-1024-q8d": 1e-3, "baselines-paper": 1e-4}
+                  "sparse-1024-q8d": 1e-3, "baselines-paper": 1e-4, "paper-static-process": 1e-4,
+                  "sparse-1024-bern": 1e-4, "sparse-1024-q8d-cohort": 1e-3,
+                  "dense-q8d-matching": 1e-3, "sparse-1024-momentum": 1e-4}
 
 
 def log(*a):
@@ -563,13 +574,13 @@ def kernel_checks(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def run_path(torch, dev, spec, loss_fn, params0, data, batch, eval_fn=None):
+def run_path(torch, dev, spec, loss_fn, params0, data, batch, eval_fn=None, mixing=None):
     from repro_torch.core import Experiment
     from repro_torch.data import RoundSampler
 
     resident = data.to(dev)
     return Experiment(
-        spec, loss_fn=loss_fn, params0=params0, eval_fn=eval_fn, device=dev,
+        spec, loss_fn=loss_fn, params0=params0, eval_fn=eval_fn, device=dev, mixing=mixing,
         sampler_factory=lambda s: RoundSampler(
             resident, batch, s.config.t_o, s.config.seed, device=dev
         ),
@@ -1165,6 +1176,274 @@ def figures_paths(torch, dev):
     summary["fig-sparse-full/n=10000"] = 1e3 * payload["results"]["n=10000"]["per_round_s"]
     log(f"figures: {time.perf_counter() - t_phase:.1f} s; ms/round on the card {summary}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: dynamic networks and update rules
+# ---------------------------------------------------------------------------
+
+DYN_SIZES = dict(rounds=20, fig_dynamic_rounds=600, fig_optimizers_rounds=500)
+
+
+def drive_dynamic(torch, dev, label, spec, *args, **kw):
+    """``drive`` over the spec's own mixing, kept to read its network's host
+    draw time; logs the draws' seconds and their share of the run."""
+    mixing = spec.make_mixing(dev)
+    hist, counts = drive(torch, dev, label, spec, *args, mixing=mixing, **kw)
+    rounds = len(hist.loss)
+    draw = mixing.network.draw_s if mixing.network is not None else 0.0
+    log(f"path {label}: host draws of the network {1e3 * draw / rounds:.3f} ms/round "
+        f"({100.0 * draw / hist.wall_time_s:.1f}% of the run)")
+    return hist, counts, mixing
+
+
+def first_difference(a, b):
+    """Index of the first round whose losses differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def check_bit_equal(torch, label, hist, want, what):
+    diff = first_difference(hist.loss, want.loss)
+    same_x = all(torch.equal(hist.final_state.x[k], want.final_state.x[k])
+                 for k in want.final_state.x)
+    if diff is not None or not same_x or hist.is_global != want.is_global:
+        log(f"{label}: differs from {what} first at round {diff} "
+            f"({hist.loss[diff] if diff is not None else None} against "
+            f"{want.loss[diff] if diff is not None else None}); final x equal: {same_x}")
+    check(diff is None and same_x and hist.is_global == want.is_global,
+          f"{label}: not bit-equal to {what}")
+    log(f"{label}: bit-equal to {what} on the card ({len(hist.loss)} rounds, final x equal)")
+
+
+def dynamic_paths(torch, dev):
+    """Dynamic networks and update rules at full width: three paths over
+    per-round weights (K4, K5, K3), the sgd and momentum rules at sparse-10k
+    against its inline path, the static process against the paper path, and
+    one cell each of fig_dynamic and fig_optimizers, card against CPU."""
+    from repro_torch.core import ExperimentSpec
+    from repro_torch.data import FederatedDataset
+    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
+    from repro_torch.figures import fig_dynamic, fig_optimizers
+    from repro_torch.figures.common import make_logreg_workload, run_pisco_variant
+    from repro_torch.models import simple as models
+
+    cpu = torch.device("cpu")
+    launches, summary = {}, {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    mlp0 = models.mlp_init(0)
+    rounds = DYN_SIZES["rounds"]
+
+    # -- sparse-10k-bern: link failures q = 0.3, half participation --------
+    n_sparse = SIZES["sparse_agents"]
+    x, y = synthetic_mnist(n_sparse * 20, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
+    spec = ExperimentSpec.create(
+        algo="pisco", n_agents=n_sparse, t_o=2, eta_l=0.1, p=0.05, seed=0,
+        topology="random_regular", topology_kwargs={"degree": 4}, sparse=True,
+        network="bernoulli:0.3", participation=0.5, rounds=rounds,
+    )
+    label = "sparse-10k-bern"
+    hist, counts, mixing = drive_dynamic(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16)
+    add(counts)
+    check_run(torch, label, hist, rounds, n_sparse, mlp0)
+    n_gossip = rounds - sum(hist.is_global)
+    check(counts.get("sparse_mix", 0) == 2 * 4 * n_gossip and counts["fused_local_step"] > 0,
+          f"{label}: K4 launches {counts.get('sparse_mix')} for {n_gossip} gossip rounds "
+          f"(2 mixes x 4 leaves each), K1 {counts.get('fused_local_step')}")
+    acct = hist.accountant
+    base_msgs = 2 * mixing.network.process.base.n_edges
+    log(f"{label}: {1e3 * hist.wall_time_s / rounds:.3f} ms/round, loss {hist.loss[0]:.6f} -> "
+        f"{hist.loss[-1]:.6f}, realized gossip bytes {acct.agent_to_agent_bytes} against the "
+        f"static {n_gossip * hist.byte_model.gossip_round_bytes} ({base_msgs} directed base "
+        f"edges), server bytes {acct.agent_to_server_bytes}")
+    check(0 < acct.agent_to_agent_bytes < n_gossip * hist.byte_model.gossip_round_bytes,
+          f"{label}: realized gossip bytes {acct.agent_to_agent_bytes}")
+    summary[label] = 1e3 * hist.wall_time_s / rounds
+    profile_rounds(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16)
+    del hist
+
+    # -- sparse-10k-q8-cohort: stochastic int8 + EF over sampled cohorts ---
+    spec_q8 = spec.replace(network=None, participation=1.0, cohort=0.25, compression="q8")
+    label = "sparse-10k-q8-cohort"
+    hist, counts, _ = drive_dynamic(torch, dev, label, spec_q8, models.mlp_loss, mlp0, data, 16)
+    add(counts)
+    check_run(torch, label, hist, rounds, n_sparse, mlp0)
+    n_gossip = rounds - sum(hist.is_global)
+    for k in ("fused_local_step", "row_absmax", "quant_codes"):
+        check(counts.get(k, 0) > 0, f"{label}: {k} not launched")
+    check(counts.get("sparse_compressed_mix", 0) == 2 * 4 * n_gossip,
+          f"{label}: K5 launches {counts.get('sparse_compressed_mix')} for {n_gossip} gossip "
+          "rounds")
+    log(f"{label}: {1e3 * hist.wall_time_s / rounds:.3f} ms/round, loss {hist.loss[0]:.6f} -> "
+        f"{hist.loss[-1]:.6f}, realized gossip bytes {hist.accountant.agent_to_agent_bytes}")
+    summary[label] = 1e3 * hist.wall_time_s / rounds
+    profile_rounds(torch, dev, label, spec_q8, models.mlp_loss, mlp0, data, 16)
+    del hist
+
+    # -- sparse-10k rules: the inline step (K1) against the rule path ------
+    # The rule path takes the (3a)/(3c) steps in plain PyTorch, as the
+    # reference's takes them in plain jnp: sgd is bit-equal to the inline
+    # run and launches no K1; momentum's trace moves through K4 as a third
+    # mix (the "mix" policy), four leaves each.
+    static = spec.replace(network=None, participation=1.0)
+    want, counts = drive(torch, dev, "sparse-10k-inline", static, models.mlp_loss, mlp0, data,
+                         16)
+    add(counts)
+    summary["sparse-10k-inline"] = 1e3 * want.wall_time_s / rounds
+    profile_rounds(torch, dev, "sparse-10k-inline", static, models.mlp_loss, mlp0, data, 16)
+    for label, rule, mixes in (("sparse-10k-sgd-rule", "sgd", 2),
+                               ("sparse-10k-momentum", "momentum:lr=0.1", 3)):
+        rspec = static.replace(optimizer=rule)
+        hist, counts = drive(torch, dev, label, rspec, models.mlp_loss, mlp0, data, 16)
+        add(counts)
+        check_run(torch, label, hist, rounds, n_sparse, mlp0)
+        n_gossip = rounds - sum(hist.is_global)
+        check(counts.get("fused_local_step", 0) == 0
+              and counts.get("sparse_mix", 0) == mixes * 4 * n_gossip,
+              f"{label}: K1 launches {counts.get('fused_local_step')}, K4 "
+              f"{counts.get('sparse_mix')} for {n_gossip} gossip rounds ({mixes} mixes x 4 leaves)")
+        if rule == "sgd":
+            check_bit_equal(torch, label, hist, want, "the inline path")
+        summary[label] = 1e3 * hist.wall_time_s / rounds
+        log(f"{label}: {summary[label]:.3f} ms/round against the inline path's "
+            f"{summary['sparse-10k-inline']:.3f}, loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}")
+        profile_rounds(torch, dev, label, rspec, models.mlp_loss, mlp0, data, 16)
+        del hist
+    del want, data
+
+    n_cmp = SIZES["compare_agents"]
+    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
+    for label, cspec in (("sparse-1024-bern", spec),
+                         ("sparse-1024-q8d-cohort", spec_q8.replace(compression="q8d")),
+                         ("sparse-1024-momentum", static.replace(optimizer="momentum:lr=0.1"))):
+        short = cspec.replace(n_agents=n_cmp, rounds=3, p=0.3)
+        gpu_h = run_path(torch, dev, short, models.mlp_loss, mlp0, small, 16)
+        cpu_h = run_path(torch, cpu, short, models.mlp_loss, mlp0, small, 16)
+        check(gpu_h.accountant.per_round_bytes == cpu_h.accountant.per_round_bytes,
+              f"{label}: realized bytes differ")
+        compare_cpu(torch, label, gpu_h, cpu_h)
+
+    # -- dense-q8-matching: K3 over a new W_k every round ------------------
+    n_dense = SIZES["dense_agents"]
+    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
+    spec = ExperimentSpec.create(
+        algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
+        topology="erdos_renyi", topology_kwargs={"prob": 0.3, "seed": 7}, compression="q8",
+        network="matching", participation=0.5, rounds=rounds,
+    )
+    label = "dense-q8-matching"
+    hist, counts, mixing = drive_dynamic(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16)
+    add(counts)
+    check_run(torch, label, hist, rounds, n_dense, mlp0)
+    gossip = [k for k, g in enumerate(hist.is_global) if not g]
+    check(counts.get("compressed_mix", 0) == 2 * 4 * len(gossip)
+          and counts.get("quant_codes", 0) == counts["compressed_mix"],
+          f"{label}: K3 launches {counts.get('compressed_mix')} for {len(gossip)} gossip rounds")
+    ws, _ = mixing.network.process.draw_block(0, rounds)
+    distinct = len({ws[k].tobytes() for k in gossip})
+    check(distinct == len(gossip), f"{label}: {distinct} distinct W_k in {len(gossip)} rounds")
+    log(f"{label}: {1e3 * hist.wall_time_s / rounds:.3f} ms/round, {len(gossip)} gossip rounds "
+        f"over {distinct} distinct matchings, loss {hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}")
+    summary[label] = 1e3 * hist.wall_time_s / rounds
+    profile_rounds(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16)
+    short = spec.replace(compression="q8d", rounds=3)
+    compare_cpu(torch, "dense-q8d-matching",
+                run_path(torch, dev, short, models.mlp_loss, mlp0, data, 16),
+                run_path(torch, cpu, short, models.mlp_loss, mlp0, data, 16))
+    del hist, data, mixing
+
+    # -- paper-static-process: the static process is the frozen W ----------
+    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=10)
+    paper = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1,
+                                  seed=0, topology="ring", rounds=SIZES["paper_rounds"],
+                                  eval_every=10)
+    loss = lambda p, b: models.logreg_loss(p, b, rho=0.01)  # noqa: E731
+    params0 = models.logreg_init(124)
+    want = run_path(torch, dev, paper, loss, params0, data, 128)
+    label = "paper-static-process"
+    static = paper.replace(network="static")
+    hist, counts, _ = drive_dynamic(torch, dev, label, static, loss, params0, data, 128)
+    add(counts)
+    check(counts.get("fused_local_step", 0) > 0, f"{label}: K1 not launched")
+    check_bit_equal(torch, label, hist, want, "the paper path")
+    summary[label] = 1e3 * hist.wall_time_s / len(hist.loss)
+    profile_rounds(torch, dev, label, static, loss, params0, data, 128)
+    compare_cpu(torch, label, hist, run_path(torch, cpu, static, loss, params0, data, 128))
+    label = "paper-sgd-rule"
+    hist, counts = drive(torch, dev, label, paper.replace(optimizer="sgd"), loss, params0, data,
+                         128)
+    check_bit_equal(torch, label, hist, want, "the inline path")
+
+    # -- fig-dynamic: ring, q = 0.3, half participation, 600 rounds -------
+    work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
+    n_test = len(work[cpu][0].y_test)
+
+    def fig_run(d, **kw):
+        data_, loss_fn, eval_fn, p0 = work[d]
+        return run_pisco_variant(data=data_, loss_fn=loss_fn, eval_fn=eval_fn, params0=p0,
+                                 seed=0, device=d, **kw)[0]
+
+    label = "fig-dynamic/ring,q=0.3,part=0.5"
+    cell = dict(topology_name="ring", p=0.1, t_o=1, eta_l=0.5,
+                rounds=DYN_SIZES["fig_dynamic_rounds"], **fig_dynamic.cell_spec(0.3, 0.5))
+    gpu_h, counts, secs = counted(torch, dev, label, lambda: fig_run(dev, **cell))
+    add(counts)
+    t0 = time.perf_counter()
+    cpu_h = fig_run(cpu, **cell)
+    cpu_s = time.perf_counter() - t0
+    got = fig_dynamic.cell_readout(gpu_h, fig_dynamic.GRAD_TARGET)
+    want_r = fig_dynamic.cell_readout(cpu_h, fig_dynamic.GRAD_TARGET)
+    log(f"readout {label}: card {got}, CPU {want_r}; card {1e3 * secs / len(gpu_h.loss):.3f} "
+        f"ms/round, CPU {1e3 * cpu_s / len(cpu_h.loss):.3f}")
+    compare_figure_run(torch, label, gpu_h, cpu_h, n_test)
+    check(got["gossip_bytes"] == want_r["gossip_bytes"]
+          and got["server_bytes"] == want_r["server_bytes"], f"{label}: bytes differ")
+    check_readout_tie(label, gpu_h, cpu_h, got, want_r, fig_dynamic.GRAD_TARGET)
+    summary[label] = 1e3 * secs / len(gpu_h.loss)
+
+    # -- fig-optimizers: Adam (lr 0.05) + FedAdam at p = 0.2, 500 rounds ---
+    label = "fig-optimizers/adam+fedadam,p=0.2"
+    cell = dict(p=0.2, t_o=2, eta_l=0.3, rounds=DYN_SIZES["fig_optimizers_rounds"],
+                optimizer="adam:lr=0.05", server_optimizer="fedadam")
+    gpu_h, counts, secs = counted(torch, dev, label, lambda: fig_run(dev, **cell))
+    add(counts)
+    t0 = time.perf_counter()
+    cpu_h = fig_run(cpu, **cell)
+    cpu_s = time.perf_counter() - t0
+    got = fig_optimizers.cell_readout(gpu_h, 0.002)
+    want_r = fig_optimizers.cell_readout(cpu_h, 0.002)
+    log(f"readout {label}: card {got}, CPU {want_r}; card {1e3 * secs / len(gpu_h.loss):.3f} "
+        f"ms/round, CPU {1e3 * cpu_s / len(cpu_h.loss):.3f}")
+    compare_figure_run(torch, label, gpu_h, cpu_h, n_test)
+    check_readout_tie(label, gpu_h, cpu_h, got, want_r, 0.002)
+    summary[label] = 1e3 * secs / len(gpu_h.loss)
+    log(f"dynamic: {time.perf_counter() - t_phase:.1f} s; ms/round on the card {summary}")
+    return launches
+
+
+def check_readout_tie(label, gpu, cpu, got, want, target):
+    """The rounds to the gradient target equal on card and CPU, or else a
+    tie: both running means within FIG_GRAD_RTOL of the target where the
+    first of them crosses it."""
+    if got["rounds_to_target"] == want["rounds_to_target"]:
+        check(got == dict(want, final_grad_sq=got["final_grad_sq"],
+                          **({"final_loss": got["final_loss"]} if "final_loss" in got else {})),
+              f"{label}: readouts differ at equal rounds: {got} vs {want}")
+        return
+    first = min(r for r in (got["rounds_to_target"], want["rounds_to_target"]) if r) - 1
+    margins = {name: float(h.running_mean_eval("grad_sq")[first] - target)
+               for name, h in (("card", gpu), ("CPU", cpu))}
+    log(f"readout {label}: rounds differ; margins from {target} at eval {first}: {margins}")
+    check(all(abs(v) <= FIG_GRAD_RTOL * target for v in margins.values()),
+          f"{label}: rounds to the target differ beyond a tie")
 
 
 # ---------------------------------------------------------------------------
@@ -2105,6 +2384,8 @@ def main() -> int:
     collective_kernel_checks(torch, dev, rows)
     launches = main_path(torch, dev)
     for k, v in figures_paths(torch, dev).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in dynamic_paths(torch, dev).items():
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
     for k, v in collective_paths(torch, dev, card).items():

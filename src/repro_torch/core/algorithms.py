@@ -7,7 +7,9 @@ Each protocol (PISCO and the paper's six baselines) is one
 * a declarative **default schedule** (``"bernoulli"`` / ``"never"`` /
   ``"always"`` / ``"periodic"`` — line 8 of Algorithm 1 and its degenerate
   cases), and
-* a :class:`CommProfile` pricing its traffic as data.
+* a :class:`CommProfile` pricing its traffic as data, re-priced at bind
+  time when update rules are bound (a server rule ships one more payload,
+  the "mix" policy moves each params-shaped rule buffer with the model).
 
 Round-function contract::
 
@@ -34,9 +36,12 @@ from repro_torch.core.schedule import (
     PeriodicSchedule,
     make_schedule,
 )
+from repro_torch.optim.update_rules import OPT_POLICIES, UpdateRule, parse_update_rule
 
-# builder(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0)
-#   -> (init, gossip_round, global_round)
+# builder(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0
+#         [, local_opt=None, server_opt=None, opt_policy="..."])
+#   -> (init, gossip_round, global_round); the rule kwargs are passed only
+# when rules are bound
 Builder = Callable[..., Tuple[Callable, Callable, Callable]]
 
 SCHEDULE_KINDS = ("bernoulli", "never", "always", "periodic")
@@ -72,6 +77,14 @@ class BoundAlgorithm:
     global_round: Callable
     schedule: Callable[[int], bool]
     comm: CommProfile
+    # the mixer's NetworkContext on a dynamic network (the drivers draw and
+    # stage each round's operands through it); None: a frozen network
+    network: Optional[Any] = None
+    # the update rules this binding runs (None/None: the inline SGD) and the
+    # opt-state communication policy
+    local_opt: Optional[UpdateRule] = None
+    server_opt: Optional[UpdateRule] = None
+    opt_policy: str = "mix"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +102,17 @@ class Algorithm:
     schedule: str = "bernoulli"
     avg_period: int = 10
     description: str = ""
+    # default update rules as strings parsed at bind time (None: the inline
+    # SGD), and what the rule buffers do at communication rounds
+    local_opt: Optional[str] = None
+    server_opt: Optional[str] = None
+    opt_policy: str = "mix"
 
     def __post_init__(self):
         if self.schedule not in SCHEDULE_KINDS:
             raise ValueError(f"schedule {self.schedule!r} not in {SCHEDULE_KINDS}")
+        if self.opt_policy not in OPT_POLICIES:
+            raise ValueError(f"opt_policy {self.opt_policy!r} not in {OPT_POLICIES}")
 
     def make_default_schedule(self, cfg: PiscoConfig):
         if self.schedule == "never":
@@ -114,18 +134,55 @@ class Algorithm:
         eta: Optional[float] = None,
         eta_g: float = 1.0,
         schedule: Optional[Callable[[int], bool]] = None,
+        local_opt: Optional[Any] = None,
+        server_opt: Optional[Any] = None,
+        opt_policy: Optional[str] = None,
     ) -> BoundAlgorithm:
         """Close the algorithm over a concrete problem; ``eta`` overrides the
         baselines' step size (default ``cfg.eta_l``), ``eta_g`` is SCAFFOLD's
-        server step, and ``schedule`` overrides the declarative default."""
-        init, gossip, glob = self.build(loss_fn, cfg, mixing, eta=eta, eta_g=eta_g)
+        server step, and ``schedule`` overrides the declarative default.
+
+        ``local_opt`` / ``server_opt`` (an :class:`UpdateRule` or its string)
+        override the entry's default rules; with neither, the inline SGD
+        runs.  Bound rules re-price the comm profile: a server rule ships
+        one more payload per direction, and under the "mix" policy each
+        params-shaped rule buffer adds a mix and a server payload."""
+        lo = local_opt if local_opt is not None else self.local_opt
+        so = server_opt if server_opt is not None else self.server_opt
+        policy = opt_policy if opt_policy is not None else self.opt_policy
+        if policy not in OPT_POLICIES:
+            raise ValueError(f"opt_policy {policy!r} not in {OPT_POLICIES}")
+        lr = cfg.eta_l if eta is None else eta
+        if isinstance(lo, str):
+            lo = parse_update_rule(lo, lr=lr)
+        if isinstance(so, str):
+            so = parse_update_rule(so, lr=eta_g)
+        if so is not None and lo is None:
+            # a server rule alone runs the rule path with the default local rule
+            lo = parse_update_rule("sgd", lr=lr)
+        opt_kw, comm = {}, self.comm
+        if lo is not None or so is not None:
+            opt_kw = dict(local_opt=lo, server_opt=so, opt_policy=policy)
+            if so is not None:
+                comm = dataclasses.replace(comm, server_payloads=comm.server_payloads + 1)
+            if lo.n_buffers and policy == "mix":
+                comm = dataclasses.replace(
+                    comm,
+                    mixes_per_round=comm.mixes_per_round + lo.n_buffers,
+                    server_payloads=comm.server_payloads + lo.n_buffers,
+                )
+        init, gossip, glob = self.build(loss_fn, cfg, mixing, eta=eta, eta_g=eta_g, **opt_kw)
         return BoundAlgorithm(
             name=self.name,
             init=init,
             gossip_round=gossip,
             global_round=glob,
             schedule=schedule if schedule is not None else self.make_default_schedule(cfg),
-            comm=self.comm,
+            comm=comm,
+            network=mixing.network,
+            local_opt=lo,
+            server_opt=so,
+            opt_policy=policy,
         )
 
 
@@ -141,10 +198,14 @@ def register_algorithm(
     uses_local_updates: bool = True,
     schedule: str = "bernoulli",
     avg_period: int = 10,
+    local_opt: Optional[str] = None,
+    server_opt: Optional[str] = None,
+    opt_policy: str = "mix",
     description: str = "",
 ) -> Callable[[Builder], Builder]:
     """Decorator registering a builder under ``name``; ``server_payloads``
-    defaults to ``mixes_per_round``."""
+    defaults to ``mixes_per_round``; ``local_opt`` / ``server_opt`` are
+    default rule strings and ``opt_policy`` the entry's buffer policy."""
 
     def deco(build: Builder) -> Builder:
         if name in _REGISTRY:
@@ -162,11 +223,19 @@ def register_algorithm(
             ),
             schedule=schedule,
             avg_period=avg_period,
+            local_opt=local_opt,
+            server_opt=server_opt,
+            opt_policy=opt_policy,
             description=description or (build.__doc__ or "").strip(),
         )
         return build
 
     return deco
+
+
+def unregister_algorithm(name: str) -> None:
+    """Remove a registry entry (tests, plugin reload)."""
+    _REGISTRY.pop(name, None)
 
 
 def get_algorithm(name: str) -> Algorithm:
@@ -187,16 +256,23 @@ def registered_algorithms() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
+def _rule_kw(local_opt, server_opt, opt_policy) -> dict:
+    return dict(local_opt=local_opt, server_opt=server_opt, opt_policy=opt_policy)
+
+
 @register_algorithm(
     "pisco",
     mixes_per_round=2,
     description="PISCO (Algorithm 1): tracked local updates + Bernoulli(p) server",
 )
-def _build_pisco(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+def _build_pisco(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                 local_opt=None, server_opt=None, opt_policy="mix"):
+    kw = _rule_kw(local_opt, server_opt, opt_policy)
     return (
-        lambda lf, x0, b0: init_compression_state(init_state(lf, x0, b0), mixing),
-        make_round_fn(loss_fn, cfg, mixing, global_round=False),
-        make_round_fn(loss_fn, cfg, mixing, global_round=True),
+        lambda lf, x0, b0: init_compression_state(
+            init_state(lf, x0, b0, local_opt, server_opt), mixing),
+        make_round_fn(loss_fn, cfg, mixing, global_round=False, **kw),
+        make_round_fn(loss_fn, cfg, mixing, global_round=True, **kw),
     )
 
 
@@ -206,9 +282,11 @@ def _build_pisco(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
     schedule="never",
     description="Periodical-GT [LLKS24]: PISCO with p = 0 (gossip every round)",
 )
-def _build_periodical_gt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
-    fn = B.make_periodical_gt_round_fn(loss_fn, cfg, mixing)
-    return init_state, fn, fn
+def _build_periodical_gt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                         local_opt=None, server_opt=None, opt_policy="mix"):
+    fn = B.make_periodical_gt_round_fn(loss_fn, cfg, mixing,
+                                       **_rule_kw(local_opt, server_opt, opt_policy))
+    return lambda lf, x0, b0: init_state(lf, x0, b0, local_opt, server_opt), fn, fn
 
 
 @register_algorithm(
@@ -217,21 +295,25 @@ def _build_periodical_gt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
     uses_local_updates=False,
     description="DSGT [PN21]: gradient tracking, one step per round",
 )
-def _build_dsgt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+def _build_dsgt(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                local_opt=None, server_opt=None, opt_policy="mix"):
     eta = cfg.eta_l if eta is None else eta
+    kw = _rule_kw(local_opt, server_opt, opt_policy)
     return (
-        B.dsgt_init,
-        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=False),
-        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=True),
+        lambda lf, x0, b0: B.dsgt_init(lf, x0, b0, local_opt, server_opt),
+        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=False, **kw),
+        B.make_dsgt_round_fn(loss_fn, eta, mixing, global_round=True, **kw),
     )
 
 
-def _build_dsgd_family(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+def _build_dsgd_family(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                       local_opt=None, server_opt=None, opt_policy="mix"):
     eta = cfg.eta_l if eta is None else eta
+    kw = _rule_kw(local_opt, server_opt, opt_policy)
     return (
-        B.dsgd_init,
-        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=False, t_o=cfg.t_o),
-        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o),
+        lambda lf, x0, b0: B.dsgd_init(lf, x0, b0, local_opt, server_opt),
+        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=False, t_o=cfg.t_o, **kw),
+        B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o, **kw),
     )
 
 
@@ -258,12 +340,15 @@ register_algorithm(
     mixes_per_round=1,
     server_based=True,
     schedule="always",
+    opt_policy="reset",
     description="FedAvg [MMR+17]: local SGD + server averaging every round",
 )
-def _build_fedavg(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
+def _build_fedavg(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                  local_opt=None, server_opt=None, opt_policy="reset"):
     eta = cfg.eta_l if eta is None else eta
-    fn = B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o)
-    return B.dsgd_init, fn, fn
+    fn = B.make_dsgd_round_fn(loss_fn, eta, mixing, global_round=True, t_o=cfg.t_o,
+                              **_rule_kw(local_opt, server_opt, opt_policy))
+    return lambda lf, x0, b0: B.dsgd_init(lf, x0, b0, local_opt, server_opt), fn, fn
 
 
 @register_algorithm(
@@ -271,8 +356,11 @@ def _build_fedavg(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
     mixes_per_round=2,
     server_based=True,
     schedule="always",
+    opt_policy="reset",
     description="SCAFFOLD [KKM+20]: model + control variate per server exchange",
 )
-def _build_scaffold(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0):
-    fn = B.make_scaffold_round_fn(loss_fn, cfg.eta_l, eta_g, cfg.t_o, mixing)
-    return B.scaffold_init, fn, fn
+def _build_scaffold(loss_fn, cfg, mixing, *, eta=None, eta_g=1.0,
+                    local_opt=None, server_opt=None, opt_policy="reset"):
+    fn = B.make_scaffold_round_fn(loss_fn, cfg.eta_l, eta_g, cfg.t_o, mixing,
+                                  **_rule_kw(local_opt, server_opt, opt_policy))
+    return lambda lf, x0, b0: B.scaffold_init(lf, x0, b0, local_opt, server_opt), fn, fn

@@ -4,8 +4,9 @@ communication path.
 * :class:`Compressor` — per-agent-message lossy codecs (symmetric int8/int4
   quantization, top-k sparsification, identity) that also *price*
   themselves (:meth:`Compressor.wire_bits`) for the byte-level accounting.
-* :class:`CompressedGossip` — gossip over the dense W, the sparse CSR W or a
-  collective mixer in the **mean-preserving difference form**
+* :class:`CompressedGossip` — gossip over the dense W, the sparse CSR W (a
+  dynamic network's W_k or CSR with the round's weights, read at each call)
+  or a collective mixer in the **mean-preserving difference form**
 
       out_i = x_i + gamma (sum_j W_ji q(m_j) - q(m_i)),     m_i = x_i (+ e_i)
 
@@ -28,14 +29,14 @@ communication path.
   base mixer's own gossip (``torch.matmul`` over the dense W, the sparse
   gossip kernel K4 over the CSR, the exchange over a collective mixer).
 * :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
-  dense, sparse or collective mixing ops, and build the closed-form
+  dense, sparse, dynamic or collective mixing ops, and build the closed-form
   :class:`RoundByteModel`.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -197,6 +198,8 @@ class CompressedGossip:
     """Difference-form compressed gossip over the dense ``w``, the sparse
     ``csr`` = (indptr, indices, data, self_w), or the gossip of a collective
     mixer ``base_gossip`` (trees of one rank's own leaves) — exactly one.
+    Over a dynamic network ``w`` or ``csr`` is a callable that returns the
+    operand the driver staged for the round.
 
     :meth:`__call__` threads an error-feedback residual and a generator
     through the round function; :meth:`stateless` is the generator-free,
@@ -205,11 +208,13 @@ class CompressedGossip:
 
     A quantiser runs the fused kernels over ``w`` and ``csr``; any other
     compressor (top-k) writes ``q`` and mixes it with the same operator's
-    plain gossip: ``torch.matmul`` over ``w``, K4 over ``csr``."""
+    plain gossip: ``torch.matmul`` over ``w``, K4 over ``csr``.  K3 builds
+    its W' fragments from the W it is given at every call, so a new W_k
+    each round needs nothing invalidated."""
 
     compressor: Compressor
-    w: Optional[torch.Tensor] = None
-    csr: Optional[Tuple[torch.Tensor, ...]] = None
+    w: Union[torch.Tensor, Callable[[], torch.Tensor], None] = None
+    csr: Union[Tuple[torch.Tensor, ...], Callable[[], Tuple[torch.Tensor, ...]], None] = None
     base_gossip: Optional[Callable[[Tree], Tree]] = None
     error_feedback: bool = True
     seed: int = 0
@@ -222,6 +227,10 @@ class CompressedGossip:
         if sum(b is not None for b in (self.w, self.csr, self.base_gossip)) != 1:
             raise ValueError("CompressedGossip needs exactly one of w (dense), csr (sparse) "
                              "or base_gossip (collective)")
+
+    def _operands(self) -> Tuple[Optional[torch.Tensor], Optional[Tuple[torch.Tensor, ...]]]:
+        """``(w, csr)`` of this call: the frozen operand, or the round's."""
+        return tuple(op() if callable(op) else op for op in (self.w, self.csr))
 
     def init_ef(self, template: Tree) -> dict:
         """Per-stream residuals (X and Y are mixed separately each round) and
@@ -239,11 +248,12 @@ class CompressedGossip:
 
     def _gossip_leaf(self, q: torch.Tensor) -> torch.Tensor:
         """``W q`` for one leaf through the operator's plain gossip."""
-        if self.w is not None:
-            return tree_agent_mix({"leaf": q}, self.w)["leaf"]
-        if self.csr is not None:
-            return sparse_mix_csr(q.reshape(q.shape[0], -1), *self.csr).reshape(q.shape)
-        return self.base_gossip({"leaf": q})["leaf"]
+        if self.base_gossip is not None:
+            return self.base_gossip({"leaf": q})["leaf"]
+        w, csr = self._operands()
+        if w is not None:
+            return tree_agent_mix({"leaf": q}, w)["leaf"]
+        return sparse_mix_csr(q.reshape(q.shape[0], -1), *csr).reshape(q.shape)
 
     def _mix_leaf(self, x, residual, gen) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # a collective mixer's leaf is one rank's own message: one row
@@ -257,10 +267,11 @@ class CompressedGossip:
             if self.base_gossip is None:
                 kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
                 absmax = row_absmax(rows, res)
-                if self.w is not None:
-                    out, new_res = compressed_mix(rows, res, self.w, absmax, **kw)
+                w, csr = self._operands()
+                if w is not None:
+                    out, new_res = compressed_mix(rows, res, w, absmax, **kw)
                 else:
-                    out, new_res = sparse_compressed_mix_csr(rows, res, *self.csr, absmax, **kw)
+                    out, new_res = sparse_compressed_mix_csr(rows, res, *csr, absmax, **kw)
                 return out.reshape(x.shape), (None if new_res is None
                                               else new_res.reshape(x.shape))
             q, new_res = self.compressor.quantize(rows, res, noise)
@@ -294,7 +305,7 @@ def compress_mixing(
     seed: int = 0,
     gamma: Optional[float] = None,
 ) -> MixingOps:
-    """Attach a compressor to dense, sparse or collective mixing ops.
+    """Attach a compressor to dense, sparse, dynamic or collective mixing ops.
     ``global_avg`` (the server round) stays full precision.  ``gamma=None``
     chooses the consensus step as the reference does: 0.5 for top-k (a
     contractive sparsifier diverges undamped under large local steps), 1.0
@@ -303,14 +314,18 @@ def compress_mixing(
         return base
     if gamma is None:
         gamma = 0.5 if isinstance(compressor, TopKCompressor) else 1.0
-    if base.w is None and base.csr is None and base.mesh is None:
+    w, csr, net = base.w, base.csr, base.network
+    if net is not None:
+        staged = lambda: net.gossip_w  # noqa: E731
+        w, csr = (None, staged) if net.sparse else (staged, None)
+    if w is None and csr is None and base.mesh is None:
         raise NotImplementedError(
             f"compressed gossip over {base.name!r} is not ported: only over the "
-            "static dense and sparse mixers and the collective mixers"
+            "dense, sparse, dynamic and collective mixers"
         )
     cg = CompressedGossip(
-        compressor=compressor, w=base.w, csr=base.csr,
-        base_gossip=base.gossip if base.w is None and base.csr is None else None,
+        compressor=compressor, w=w, csr=csr,
+        base_gossip=base.gossip if w is None and csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
         stream=base.mesh.rank if base.mesh is not None else 0,
     )

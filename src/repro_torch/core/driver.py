@@ -12,6 +12,13 @@ and return the final algorithm state:
   Blocks are cut at eval boundaries, so eval-at-x̄ matches the loop round
   for round.  (PyTorch runs eagerly; the block replaces ``lax.scan``'s one
   device program by one host sync.)
+
+On a dynamic network (``bound.network``) the scan driver also draws the
+block's gossip and server operands on the host once per block
+(:meth:`~repro_torch.core.mixing.NetworkContext.device_block`, one copy to
+the device per array) and stages round k's slices in the network context
+before the round runs; the loop driver does the same per round.  Bytes are
+then priced by the realized messages and participants.
 """
 from __future__ import annotations
 
@@ -60,15 +67,24 @@ def block_bounds(
     return bounds
 
 
-def record_flags(hist, flags: np.ndarray) -> None:
-    """Record schedule flags and per-round bytes in the accountant."""
-    for f in flags:
+def record_flags(hist, flags: np.ndarray, realized=None) -> None:
+    """Record schedule flags and per-round bytes in the accountant.
+    ``realized`` is an optional ``(messages, participants)`` pair of
+    per-round counts of a dynamic network: bytes are then priced per
+    realized edge and participant instead of the static round constants."""
+    for i, f in enumerate(flags):
         f = bool(f)
         hist.is_global.append(f)
-        hist.accountant.record(f, hist.byte_model.round_bytes(f))
+        if realized is None:
+            nbytes = hist.byte_model.round_bytes(f)
+        else:
+            messages, participants = realized
+            nbytes = hist.byte_model.realized_round_bytes(
+                f, int(messages[i]), int(participants[i]))
+        hist.accountant.record(f, nbytes)
 
 
-def record_block(hist, metrics: RoundMetrics, flags: np.ndarray) -> None:
+def record_block(hist, metrics: RoundMetrics, flags: np.ndarray, realized=None) -> None:
     """One history append for a block of executed rounds: ``metrics`` leaves
     carry a leading round axis; this is the block's one device→host sync."""
     host = torch.stack(
@@ -77,7 +93,7 @@ def record_block(hist, metrics: RoundMetrics, flags: np.ndarray) -> None:
     hist.loss.extend(host[0].tolist())
     hist.grad_sq_norm.extend(host[1].tolist())
     hist.consensus_err.extend(host[2].tolist())
-    record_flags(hist, flags)
+    record_flags(hist, flags, realized)
 
 
 def eval_boundary(k: int, rounds: int, eval_every: int) -> bool:
@@ -118,15 +134,22 @@ def drive_scan(
         eval_every=eval_every if eval_fn is not None else 0,
         block_size=block_size,
     )
+    net = bound.network
     for start, stop in cuts:
         flags = predraw_schedule(bound.schedule, start, stop)
+        realized = None
+        if net is not None:
+            operands, messages, participants = net.device_block(start, stop)
+            realized = (messages, participants)
         per_round = []
-        for k, is_global in zip(range(start, stop), flags):
+        for i, (k, is_global) in enumerate(zip(range(start, stop), flags)):
             local, comm = sampler(k)  # one round's batches at a time
+            if net is not None:
+                net.stage(operands, i)
             fn = bound.global_round if is_global else bound.gossip_round
             state, metrics = fn(state, local, comm)
             per_round.append(metrics)
-        record_block(hist, _stack_metrics(per_round), flags)
+        record_block(hist, _stack_metrics(per_round), flags, realized)
         maybe_eval(hist, eval_fn, eval_every, rounds, state, stop - 1)
         if stop_when is not None and stop_when(hist):
             break
@@ -145,12 +168,18 @@ def drive_loop(
     stop_when: Optional[Callable] = None,
 ):
     """The per-round host loop (reference semantics)."""
+    net = bound.network
     for k in range(rounds):
         local, comm = sampler(k)
         is_global = bool(bound.schedule(k))
+        realized = None
+        if net is not None:
+            operands, messages, participants = net.device_block(k, k + 1)
+            net.stage(operands, 0)
+            realized = (messages, participants)
         fn = bound.global_round if is_global else bound.gossip_round
         state, metrics = fn(state, local, comm)
-        record_block(hist, _stack_metrics([metrics]), np.array([is_global]))
+        record_block(hist, _stack_metrics([metrics]), np.array([is_global]), realized)
         maybe_eval(hist, eval_fn, eval_every, rounds, state, k)
         if stop_when is not None and stop_when(hist):
             break

@@ -27,11 +27,22 @@ import torch
 from repro_torch.core.algorithms import BoundAlgorithm, get_algorithm
 from repro_torch.core.compression import compress_mixing, make_byte_model, make_compressor
 from repro_torch.core.driver import DEFAULT_BLOCK_SIZE, DRIVERS, drive_loop, drive_scan
-from repro_torch.core.mixing import MixingOps, dense_mixing, sparse_mixing
+from repro_torch.core.mixing import MixingOps, make_network_mixing, make_sparse_network_mixing
 from repro_torch.core.pisco import LossFn, PiscoConfig, replicate_params
-from repro_torch.core.topology import make_sparse_topology, make_topology, use_sparse_topology
+from repro_torch.core.topology import (
+    make_sparse_topology,
+    make_topology,
+    parse_process_spec,
+    use_sparse_topology,
+)
 from repro_torch.core.trainer import History, record_wall_time
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim.update_rules import (
+    OPT_POLICIES,
+    make_lr_schedule,
+    parse_update_rule,
+    resolve_update_rules,
+)
 from repro_torch.weights import from_jax
 
 Tree = Dict[str, torch.Tensor]
@@ -42,17 +53,10 @@ _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(PiscoConfig))
 
 # spec field -> the ROADMAP item that ports its feature
 _NOT_PORTED = {
-    "network": "A2/A5 (dynamic networks: TopologyProcess and dynamic mixers)",
-    "participation": "A2/A5 (partial participation: ParticipationProcess)",
-    "cohort": "A2/A5 (neighbor-sampled cohorts)",
     "systems": "A10 (sim/: systems-cost profiles)",
     "async_": "A11 (events/: asynchronous execution)",
     "adversary": "A12 (Byzantine fault injection)",
     "robust_agg": "A12 (robust server aggregation)",
-    "optimizer": "A9 (optim/: update rules)",
-    "server_optimizer": "A9 (optim/: server update rules)",
-    "lr_schedule": "A9 (optim/: learning-rate schedules)",
-    "opt_policy": "A9 (optim/: opt-state communication policy)",
 }
 
 
@@ -99,10 +103,27 @@ class ExperimentSpec:
             raise ValueError(
                 f"participation must be in (0, 1], got {self.participation}"
             )
-        defaults = {"participation": 1.0, "robust_agg": "mean"}
         for name, item in _NOT_PORTED.items():
-            if getattr(self, name) != defaults.get(name):
+            if getattr(self, name) != ("mean" if name == "robust_agg" else None):
                 raise _not_ported(f"{name}={getattr(self, name)!r}", item)
+        # fail fast on malformed optimizer, network and compression specs
+        if self.optimizer is not None:
+            parse_update_rule(self.optimizer)
+        if self.server_optimizer is not None:
+            parse_update_rule(self.server_optimizer)
+        if self.lr_schedule is not None:
+            make_lr_schedule(self.lr_schedule, 1.0, 1)
+        if self.opt_policy is not None and self.opt_policy not in OPT_POLICIES:
+            raise ValueError(f"opt_policy {self.opt_policy!r} not in {OPT_POLICIES}")
+        if self.cohort is not None:
+            if not 0.0 < self.cohort <= 1.0:
+                raise ValueError(f"cohort must be in (0, 1], got {self.cohort}")
+            if self.network is not None:
+                raise ValueError(
+                    "cohort is sugar for network='cohort:<frac>'; pass one, not both"
+                )
+        if self.network is not None:
+            parse_process_spec(self.network)
         if self.compression is not None:
             make_compressor(self.compression)  # fail fast on a malformed spec
         if isinstance(self.topology_kwargs, dict):
@@ -151,19 +172,32 @@ class ExperimentSpec:
     # -- derived pieces -----------------------------------------------------
 
     @property
+    def effective_network(self) -> Optional[str]:
+        """The network process spec after ``cohort`` sugar is expanded."""
+        if self.cohort is not None:
+            return f"cohort:{self.cohort:g}"
+        return self.network
+
+    @property
     def use_sparse(self) -> bool:
         """Whether this spec routes through the sparse CSR mixer."""
         return use_sparse_topology(self.sparse, self.config.n_agents)
 
     def make_mixing(self, device: torch.device) -> MixingOps:
+        """The spec's mixers: dense or sparse, over a frozen or a dynamic
+        network (its draws seeded with ``config.seed``), optionally
+        compressed."""
         kw = dict(self.topology_kwargs)
+        n = self.config.n_agents
         if self.use_sparse:
-            mixing = sparse_mixing(
-                make_sparse_topology(self.topology, self.config.n_agents, **kw), device
+            mixing = make_sparse_network_mixing(
+                make_sparse_topology(self.topology, n, **kw), device,
+                self.effective_network, self.participation, seed=self.config.seed,
             )
         else:
-            mixing = dense_mixing(
-                make_topology(self.topology, self.config.n_agents, **kw), device
+            mixing = make_network_mixing(
+                make_topology(self.topology, n, **kw), device,
+                self.effective_network, self.participation, seed=self.config.seed,
             )
         if self.compression is not None:
             mixing = compress_mixing(
@@ -237,7 +271,12 @@ class Experiment:
         return replicate_params(self._params0, self.spec.config.n_agents)
 
     def _bind(self, mixing: MixingOps) -> BoundAlgorithm:
-        return get_algorithm(self.spec.algo).bind(self.loss_fn, self.spec.config, mixing)
+        spec = self.spec
+        opt_kw = resolve_update_rules(
+            spec.optimizer, spec.server_optimizer, spec.lr_schedule, spec.opt_policy,
+            eta_l=spec.config.eta_l, rounds=spec.rounds, t_o=spec.config.t_o,
+        )
+        return get_algorithm(spec.algo).bind(self.loss_fn, spec.config, mixing, **opt_kw)
 
     def _fresh_history(self, mixing: MixingOps, bound: BoundAlgorithm, x0: Tree) -> History:
         return History(
@@ -300,10 +339,13 @@ class Experiment:
         """All seeds advance through one Bernoulli(p) schedule drawn from the
         spec's seed, with the same block cuts and eval points; each seed has
         its own sampler (built from ``spec.replace(seed=s)``), state and
-        History.  The reference vmaps the seeds; the rounds here launch
-        hand-written kernels that ``torch.func.vmap`` cannot batch, so the
-        seeds run one after another, each through :meth:`run`'s driver.  A
-        seed equal to the spec's reproduces :meth:`run` exactly."""
+        History.  The seeds share one mixing, so on a dynamic network every
+        seed sees the same realized graphs and participants (the draws are
+        pure in the spec's seed and the round).  The reference vmaps the
+        seeds; the rounds here launch hand-written kernels that
+        ``torch.func.vmap`` cannot batch, so the seeds run one after another,
+        each through :meth:`run`'s driver.  A seed equal to the spec's
+        reproduces :meth:`run` exactly."""
         if self._sampler_factory is None:
             raise ValueError("sweep(seeds=...) needs a sampler_factory")
         mixing = self._mixing if self._mixing is not None else self.spec.make_mixing(self.device)

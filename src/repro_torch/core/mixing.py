@@ -13,6 +13,22 @@ dicts of tensors:
   compressed sparse-gossip kernel over it.
 * :func:`identity_mixing` — no communication.
 
+Dynamic networks (time-varying W_k, partial participation): the drivers
+draw a block of rounds' operands on the host through a
+:class:`NetworkContext` (its :class:`~repro_torch.core.topology.TopologyProcess`
+and :class:`~repro_torch.core.topology.ParticipationProcess`), copy them to
+the device once per block and, before each round, stage that round's
+tensors in the context; the mixers read them from it when they are called.
+
+* :func:`dynamic_dense_mixing` / :func:`make_network_mixing` — gossip with
+  the round's W_k (``torch.matmul``), the server round the exact mean or,
+  under partial participation, the sampled-to-sampled S_k (``torch.matmul``,
+  as the reference's ``einsum``);
+* :func:`dynamic_sparse_mixing` / :func:`make_sparse_network_mixing` — the
+  sparse-gossip kernel (K4) over the base CSR with the round's weights
+  (dropped edges kept at weight 0, so every round has the same shape), the
+  server round :func:`~repro_torch.utils.pytree.tree_agent_masked_mean`.
+
 Collective mixers (the twins of the reference's ``shard_map`` mixers) run
 with one agent per rank of a :class:`repro_torch.launch.mesh.RankMesh`; a
 rank's tree holds its own agent's leaves, with no agent axis:
@@ -27,22 +43,31 @@ rank's tree holds its own agent's leaves, with no agent axis:
 * :func:`collective_dense_mixing` — any W: a gather over the agent axes,
   then this rank's row of W;
 * :func:`hierarchical_mixing` and :func:`compressed_mixing` on top.
-
-Dynamic networks (time-varying W_k, partial participation) are not ported
-yet (ROADMAP A2/A5).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.topology import SparseTopology, Topology
+from repro_torch.core.topology import (
+    ParticipationProcess,
+    SparseTopology,
+    Topology,
+    TopologyProcess,
+    make_topology_process,
+)
 from repro_torch.kernels.gt_update import mix_combine_half
 from repro_torch.kernels.sparse_mix import sparse_mix_csr
-from repro_torch.utils.pytree import tree_agent_mean, tree_agent_mix, tree_map
+from repro_torch.utils.pytree import (
+    tree_agent_masked_mean,
+    tree_agent_mean,
+    tree_agent_mix,
+    tree_map,
+)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -74,6 +99,10 @@ class MixingOps:
     mesh: Optional[Any] = None
     shifts: Optional[Dict[str, list]] = None
     wire_dtype: Optional[torch.dtype] = None
+    # NetworkContext of a dynamic network: the drivers draw each round's
+    # operands through it and stage them there, where ``gossip`` and
+    # ``global_avg`` read them.  None: the operands above are frozen.
+    network: Optional["NetworkContext"] = None
 
 
 def dense_mixing(topology: Topology, device: torch.device) -> MixingOps:
@@ -95,34 +124,232 @@ def identity_mixing(n_agents: int) -> MixingOps:
     )
 
 
-def sparse_mixing(topology: SparseTopology, device: torch.device) -> MixingOps:
-    """Static sparse mixers: gossip runs the CSR sparse-gossip kernel over
-    the topology's precomputed triple (rows by receiver, each row in
-    directed-edge order, self term added last) — numerically the reference's
-    ``segment_sum`` gossip, never materialising n×n."""
+def _csr_of(topology: SparseTopology, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """(indptr, indices, data, self_w) of a SparseTopology on the device,
+    after checking the triple (the kernel gathers through it unchecked)."""
     n, nnz = topology.n_agents, len(topology.indices)
     if not (len(topology.indptr) == n + 1 and topology.indptr[0] == 0
             and topology.indptr[-1] == nnz and np.all(np.diff(topology.indptr) >= 0)
             and (nnz == 0 or 0 <= topology.indices.min() <= topology.indices.max() < n)):
         raise ValueError(f"malformed CSR triple for {n} agents")
-    csr = (
+    return (
         torch.as_tensor(topology.indptr, dtype=torch.int64, device=device),
         torch.as_tensor(topology.indices, dtype=torch.int64, device=device),
         torch.as_tensor(topology.data, dtype=torch.float32, device=device),
         torch.as_tensor(topology.self_weight, dtype=torch.float32, device=device),
     )
 
-    def mix(x: torch.Tensor) -> torch.Tensor:
-        flat = x.reshape(x.shape[0], -1)
-        return sparse_mix_csr(flat, *csr).reshape(x.shape)
 
+def _csr_gossip(csr_of: Callable[[], Tuple[torch.Tensor, ...]]) -> Callable[[Tree], Tree]:
+    """Gossip leaf by leaf through the sparse-gossip kernel (K4) over the
+    CSR that ``csr_of()`` returns when called."""
+    def gossip(tree: Tree) -> Tree:
+        csr = csr_of()
+
+        def mix(x: torch.Tensor) -> torch.Tensor:
+            return sparse_mix_csr(x.reshape(x.shape[0], -1), *csr).reshape(x.shape)
+
+        return tree_map(mix, tree)
+
+    return gossip
+
+
+def sparse_mixing(topology: SparseTopology, device: torch.device) -> MixingOps:
+    """Static sparse mixers: gossip runs the CSR sparse-gossip kernel over
+    the topology's precomputed triple (rows by receiver, each row in
+    directed-edge order, self term added last) — numerically the reference's
+    ``segment_sum`` gossip, never materialising n×n."""
+    csr = _csr_of(topology, device)
     return MixingOps(
-        gossip=lambda tree: tree_map(mix, tree),
+        gossip=_csr_gossip(lambda: csr),
         global_avg=tree_agent_mean,
         name=f"sparse/{topology.name}",
         gossip_edges=topology.n_edges,
         csr=csr,
     )
+
+
+# ---------------------------------------------------------------------------
+# Dynamic mixers: each round brings its own operands
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class NetworkContext:
+    """Host-side bundle the drivers realize a dynamic network through: the
+    gossip-graph process, optional partial participation, the device the
+    operands go to and the round's operands, which the mixers read.
+
+    :meth:`draw_block` is the reference's host draw for rounds ``[start,
+    stop)``; :meth:`device_block` copies it to the device
+    once (the sparse edge weights permuted from directed-edge order into the
+    base CSR's order, ``csr_order``) and :meth:`stage` sets round i's slices
+    as ``gossip_w`` and ``server_w``.  ``draw_s`` sums the host seconds of
+    both.
+
+    The staged operands: dense, ``gossip_w`` is W_k (n, n) and ``server_w``
+    S_k (n, n) or None; sparse, ``gossip_w`` is the CSR (indptr, indices,
+    data_k, self_w_k) and ``server_w`` the (n,) participant mask or None."""
+
+    process: TopologyProcess
+    device: torch.device
+    participation: Optional[ParticipationProcess] = None
+    sparse: bool = False
+    # sparse mode: (indptr, indices) of the base CSR on the device, and the
+    # permutation of the directed base edges (both orientations, as
+    # concat([e, e]) orders them) into that CSR's order
+    csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    csr_order: Optional[np.ndarray] = None
+    draw_s: float = 0.0
+    gossip_w: Any = None
+    server_w: Optional[torch.Tensor] = None
+
+    @property
+    def n_agents(self) -> int:
+        return self.process.n_agents
+
+    def draw_block(self, start: int, stop: int):
+        """``(w_gossip, w_server, messages, participants)`` for rounds
+        ``[start, stop)`` as the reference draws them, on the host: dense, W
+        (block, n, n) and S (block, n, n); sparse, ``{'edge_w': (block, 2m),
+        'self_w': (block, n)}`` in directed base-edge order and the (block,
+        n) participant mask; ``w_server`` None under full participation (the
+        reference's placeholder); message and participant counts as ints."""
+        block = stop - start
+        if self.sparse:
+            edge_w, self_w, messages = self.process.draw_sparse_block(start, stop)
+            w_gossip = {"edge_w": np.concatenate([edge_w, edge_w], axis=1), "self_w": self_w}
+        else:
+            w_gossip, messages = self.process.draw_block(start, stop)
+        if self.participation is None:
+            return w_gossip, None, messages, np.full(block, self.n_agents, dtype=int)
+        draw = self.participation.draw_mask_block if self.sparse else self.participation.draw_block
+        w_server, participants = draw(start, stop)
+        return w_gossip, w_server, messages, participants
+
+    def device_block(self, start: int, stop: int):
+        """``(operands, messages, participants)`` for rounds ``[start,
+        stop)``: the block's draws on the device, one copy per array."""
+        t0 = time.perf_counter()
+        w_gossip, w_server, messages, participants = self.draw_block(start, stop)
+        put = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,  # noqa: E731
+                                        device=self.device)
+        if self.sparse:
+            gossip = (put(w_gossip["edge_w"][:, self.csr_order]), put(w_gossip["self_w"]))
+        else:
+            gossip = put(w_gossip)
+        server = None if w_server is None else put(w_server)
+        self.draw_s += time.perf_counter() - t0
+        return (gossip, server), messages, participants
+
+    def stage(self, operands, i: int) -> None:
+        """Stage round ``i`` of a block's device operands for the mixers."""
+        gossip, server = operands
+        if self.sparse:
+            self.gossip_w = (*self.csr, gossip[0][i], gossip[1][i])
+        else:
+            self.gossip_w = gossip[i]
+        self.server_w = None if server is None else server[i]
+
+
+def dynamic_dense_mixing(
+    process: TopologyProcess,
+    device: torch.device,
+    *,
+    participation: float = 1.0,
+) -> MixingOps:
+    """Dense mixers over a time-varying network: ``gossip`` applies the W_k
+    staged for the round; ``global_avg`` is the exact mean under full
+    participation, else the doubly stochastic S_k (participants average
+    among themselves, absentees hold: the mean is preserved, so Lemma 1
+    survives)."""
+    part = (None if participation >= 1.0
+            else ParticipationProcess(process.n_agents, participation, seed=process.seed))
+    net = NetworkContext(process=process, device=torch.device(device), participation=part)
+    base = process.base
+    name = f"dynamic/{process.spec()}/{base.name}"
+    if part is not None:
+        name += f"/m{part.m}of{part.n_agents}"
+    return MixingOps(
+        gossip=lambda tree: tree_agent_mix(tree, net.gossip_w),
+        global_avg=(tree_agent_mean if part is None
+                    else lambda tree: tree_agent_mix(tree, net.server_w)),
+        name=name,
+        gossip_edges=int(base.adj.sum()) // 2,
+        network=net,
+    )
+
+
+def make_network_mixing(
+    topology: Topology,
+    device: torch.device,
+    network: Optional[str] = None,
+    participation: float = 1.0,
+    *,
+    seed: int = 0,
+) -> MixingOps:
+    """Dense mixers for an optionally dynamic network: ``network=None`` with
+    full participation is the frozen-W path (:func:`dense_mixing`); anything
+    else runs :func:`dynamic_dense_mixing` over the parsed process."""
+    if network is None and participation >= 1.0:
+        return dense_mixing(topology, device)
+    process = make_topology_process(network, topology, seed=seed)
+    return dynamic_dense_mixing(process, device, participation=participation)
+
+
+def directed_csr_order(edges: np.ndarray) -> np.ndarray:
+    """The permutation taking the directed expansion ``concat([e, e])`` of an
+    undirected edge list (senders ``concat([e0, e1])``) into CSR order: a
+    stable sort by receiver, as ``sparse_topology_from_edges`` builds the
+    CSR."""
+    receivers = np.concatenate([edges[:, 1], edges[:, 0]]) if len(edges) else np.zeros(0, int)
+    return np.argsort(receivers, kind="stable")
+
+
+def dynamic_sparse_mixing(
+    process: TopologyProcess,
+    device: torch.device,
+    *,
+    participation: float = 1.0,
+) -> MixingOps:
+    """Sparse mixers over a time-varying network: K4 over the base CSR with
+    the round's weights (zero on dropped edges) and self weights; the server
+    round under partial participation is the O(n) masked mean."""
+    base = process.base
+    if not isinstance(base, SparseTopology):
+        raise TypeError(f"dynamic sparse mixing needs a SparseTopology base, got {type(base)}")
+    part = (None if participation >= 1.0
+            else ParticipationProcess(process.n_agents, participation, seed=process.seed))
+    indptr, indices, _, _ = _csr_of(base, device)
+    net = NetworkContext(process=process, device=torch.device(device), participation=part,
+                         sparse=True, csr=(indptr, indices),
+                         csr_order=directed_csr_order(base.edges))
+    name = f"sparse-dynamic/{process.spec()}/{base.name}"
+    if part is not None:
+        name += f"/m{part.m}of{part.n_agents}"
+    return MixingOps(
+        gossip=_csr_gossip(lambda: net.gossip_w),
+        global_avg=(tree_agent_mean if part is None
+                    else lambda tree: tree_agent_masked_mean(tree, net.server_w)),
+        name=name,
+        gossip_edges=base.n_edges,
+        network=net,
+    )
+
+
+def make_sparse_network_mixing(
+    topology: SparseTopology,
+    device: torch.device,
+    network: Optional[str] = None,
+    participation: float = 1.0,
+    *,
+    seed: int = 0,
+) -> MixingOps:
+    """Sparse counterpart of :func:`make_network_mixing`."""
+    if network is None and participation >= 1.0:
+        return sparse_mixing(topology, device)
+    process = make_topology_process(network, topology, seed=seed)
+    return dynamic_sparse_mixing(process, device, participation=participation)
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,17 @@ Stage 1 runs on the fused track-step kernel
 (3a), each step's (3c) is fused with the next step's (3a), and the last one
 leaves exactly the ``X^{T_o} - eta_l Y^{T_o}`` term of (4a).
 
-The W^k draw is made by the host driver; the round functions here are the
-legacy (hardcoded-SGD) form.  State invariant (Lemma 1):
+The W^k draw is made by the host driver.  State invariant (Lemma 1):
 mean_i y_i == mean_i g_i at every round.
+
+Update rules: with ``local_opt`` / ``server_opt`` bound
+(:mod:`repro_torch.optim`), the tracker Y is the descent direction of a
+pluggable rule (momentum, Adam, clipped or scheduled chains) in plain tensor
+code, and a server rule makes global rounds FedOpt updates from the averaged
+previous iterate.  ``sgd`` reproduces the inline arithmetic bit for bit
+(``x + (-eta_l y)`` is ``x - eta_l y``: K1 rounds the product before the
+subtraction).  Without rules the state's ``opt`` slot is ``()`` and the
+round is the inline form above.
 
 Two layouts.  :func:`make_round_fn` runs every agent in one process over
 agent-stacked leaves (the per-agent gradients vmapped).
@@ -35,13 +43,21 @@ compressed gossip use the mixer's own combine, as the reference does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core.mixing import MixingOps, mix_candidate, ring_of
 from repro_torch.kernels.gt_update import fused_track_step
+from repro_torch.optim.update_rules import (
+    UpdateRule,
+    apply_updates,
+    comm_opt_state,
+    init_opt_state,
+    server_step,
+)
+from repro_torch.optim.update_rules import sgd as sgd_rule
 from repro_torch.utils.pytree import tree_add, tree_map, tree_sq_norm, tree_sub
 
 Tree = Dict[str, torch.Tensor]
@@ -77,6 +93,9 @@ class PiscoState(NamedTuple):
     # () when compression is off, else {"x": residual, "y": residual,
     # "gen": torch.Generator} from CompressedGossip.init_ef.
     ef: Any = ()
+    # () without update rules, else {"local": agent-stacked rule state,
+    # "server": server-rule state or ()} from optim.init_opt_state.
+    opt: Any = ()
 
 
 class RoundMetrics(NamedTuple):
@@ -97,12 +116,15 @@ def make_stacked_value_and_grad(loss_fn: LossFn) -> Callable:
     return vg
 
 
-def init_state(loss_fn: LossFn, x0: Tree, batch0: Any) -> PiscoState:
+def init_state(loss_fn: LossFn, x0: Tree, batch0: Any,
+               local_opt: Optional[UpdateRule] = None,
+               server_opt: Optional[UpdateRule] = None) -> PiscoState:
     """Line 2: draw Z^0 and set Y^0 = G^0 = grads(X^0; Z^0).  ``x0`` must
-    already be agent-stacked."""
+    already be agent-stacked; bound rules attach their state up front."""
     _, g0 = make_stacked_value_and_grad(loss_fn)(x0, batch0)
     step = torch.zeros((), dtype=torch.int32, device=next(iter(x0.values())).device)
-    return PiscoState(x=x0, y=g0, g=g0, step=step)
+    return PiscoState(x=x0, y=g0, g=g0, step=step,
+                      opt=init_opt_state(x0, local_opt, server_opt))
 
 
 def init_compression_state(state: PiscoState, mixing: MixingOps) -> PiscoState:
@@ -137,9 +159,7 @@ def _local_phase(
     x = tree_map(lambda xi, yi: xi - eta_l * yi, state.x, state.y)  # first (3a)
     y, g = state.y, state.g
     losses = []
-    first = next(iter(local_batches.values())) if isinstance(local_batches, dict) \
-        else local_batches[0]
-    for t in range(first.shape[0]):
+    for t in range(_n_steps(local_batches)):
         loss, g_new = stacked_vg(x, _batch_at(local_batches, t))  # (3b)
         losses.append(torch.mean(loss))
         # (3c) of step t fused with (3a) of step t+1
@@ -151,6 +171,30 @@ def _local_phase(
         y = {k: v[1] for k, v in stepped.items()}
         g = g_new
     return x, y, g, torch.mean(torch.stack(losses))
+
+
+def _local_phase_rule(
+    stacked_vg: Callable, state: PiscoState, local_batches, rule: UpdateRule, opt0: Any
+) -> Tuple[Tree, Tree, Tree, Any, torch.Tensor]:
+    """Stage 1 with an update rule: the tracker Y is the descent direction
+    of (3a), the rule turns it into a step.  Returns ``(X^{T_o}, Y^{T_o},
+    G^{T_o}, rule state, mean loss)``."""
+    x, y, g, opt = state.x, state.y, state.g, opt0
+    losses = []
+    for t in range(_n_steps(local_batches)):
+        upd, opt = rule.update(y, opt, x)  # (3a): direction = tracker
+        x = apply_updates(x, upd)
+        loss, g_new = stacked_vg(x, _batch_at(local_batches, t))  # (3b)
+        losses.append(torch.mean(loss))
+        y = tree_add(y, tree_sub(g_new, g))  # (3c)
+        g = g_new
+    return x, y, g, opt, torch.mean(torch.stack(losses))
+
+
+def _n_steps(local_batches) -> int:
+    first = next(iter(local_batches.values())) if isinstance(local_batches, dict) \
+        else local_batches[0]
+    return first.shape[0]
 
 
 def _consensus_error(x: Tree) -> torch.Tensor:
@@ -177,9 +221,19 @@ def make_round_fn(
     *,
     global_round: bool,
     use_ef: bool = True,
+    local_opt: Optional[UpdateRule] = None,
+    server_opt: Optional[UpdateRule] = None,
+    opt_policy: str = "mix",
 ) -> Callable[[PiscoState, Any, Any], Tuple[PiscoState, RoundMetrics]]:
     """One PISCO round for a fixed W^k kind (the driver dispatches between
     the gossip and the global form per its host-side Bernoulli(p) draw).
+
+    ``local_opt`` / ``server_opt`` bind update rules: the local rule steps
+    along the tracker, ``opt_policy`` ("mix", "keep", "reset") decides what
+    its agent-stacked buffers do at this round, and on global rounds the
+    server rule turns the averaged iterate into a FedOpt update.  Both None
+    runs the inline arithmetic with an empty ``opt`` slot; otherwise
+    ``state`` must come from :func:`init_state` with the same rules.
 
     With a compressor attached, a gossip round's two mixes go through the
     stateful error-feedback path (residuals and generator in ``state.ef``).
@@ -195,16 +249,15 @@ def make_round_fn(
     stacked_vg = make_stacked_value_and_grad(loss_fn)
     mix = mixing.global_avg if global_round else mixing.gossip
     compressed = mixing.compression is not None and not global_round and use_ef
+    has_rules = local_opt is not None or server_opt is not None
+    if has_rules and local_opt is None:
+        local_opt = sgd_rule(cfg.eta_l)
 
-    def round_fn(state: PiscoState, local_batches, comm_batch):
-        x_half, y_to, g_to, mean_loss = _local_phase(
-            stacked_vg, state, local_batches, cfg.eta_l
-        )
-        # (4a): X^{k+1} = ((1-eta_c) X^k + eta_c (X^{T_o} - eta_l Y^{T_o})) W^k
-        cand = tree_map(
-            lambda xk, h: (1.0 - cfg.eta_c) * xk + cfg.eta_c * h, state.x, x_half
-        )
-        ef = state.ef
+    def mix_streams(state, cand, y_to, g_to, comm_batch, server=None):
+        """(4a)-(4c) from the candidate: ``(x_new, y_new, g_new, loss_c,
+        ef, server state)``; ``server`` is ``(rule, state)`` on a FedOpt
+        server round, else None (and so is the state returned)."""
+        ef, sopt = state.ef, None
         if compressed:
             cg = mixing.compression
             x_new, res_x = cg(cand, ef["x"], ef["gen"])
@@ -214,13 +267,49 @@ def make_round_fn(
             y_new, res_y = cg(tree_add(y_to, tree_sub(g_new, g_to)), ef["y"], ef["gen"])
             ef = {"x": res_x, "y": res_y, "gen": ef["gen"]}
         else:
-            x_new = mix(cand)
+            if server is not None:
+                # FedOpt: descend from the averaged previous iterate along
+                # the round pseudo-gradient
+                x_new, sopt = server_step(server[0], server[1], mix(state.x), mix(cand))
+            else:
+                x_new = mix(cand)
             loss_c, g_new = stacked_vg(x_new, comm_batch)  # (4b)
             y_new = mix(tree_add(y_to, tree_sub(g_new, g_to)))  # (4c)
-        new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef)
+        return x_new, y_new, g_new, loss_c, ef, sopt
+
+    def legacy_round_fn(state: PiscoState, local_batches, comm_batch):
+        x_half, y_to, g_to, mean_loss = _local_phase(
+            stacked_vg, state, local_batches, cfg.eta_l
+        )
+        # (4a): X^{k+1} = ((1-eta_c) X^k + eta_c (X^{T_o} - eta_l Y^{T_o})) W^k
+        cand = tree_map(
+            lambda xk, h: (1.0 - cfg.eta_c) * xk + cfg.eta_c * h, state.x, x_half
+        )
+        x_new, y_new, g_new, loss_c, ef, _ = mix_streams(state, cand, y_to, g_to, comm_batch)
+        new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef,
+                               opt=state.opt)
         return new_state, _round_metrics(cfg, mean_loss, loss_c, g_new, x_new)
 
-    return round_fn
+    def rule_round_fn(state: PiscoState, local_batches, comm_batch):
+        lopt, sopt = state.opt["local"], state.opt["server"]
+        x_to, y_to, g_to, lopt, mean_loss = _local_phase_rule(
+            stacked_vg, state, local_batches, local_opt, lopt
+        )
+        # (4a) generalized: one more rule step along the tracker gives the
+        # communicated point; eta_c interpolates against X^k as before
+        upd, lopt = local_opt.update(y_to, lopt, x_to)
+        half = apply_updates(x_to, upd)
+        cand = tree_map(lambda xk, h: (1.0 - cfg.eta_c) * xk + cfg.eta_c * h, state.x, half)
+        server = (server_opt, sopt) if global_round and server_opt is not None else None
+        x_new, y_new, g_new, loss_c, ef, stepped = mix_streams(
+            state, cand, y_to, g_to, comm_batch, server)
+        sopt = sopt if server is None else stepped
+        lopt = comm_opt_state(lopt, mix, cfg.n_agents, opt_policy, is_global=global_round)
+        new_state = PiscoState(x=x_new, y=y_new, g=g_new, step=state.step + 1, ef=ef,
+                               opt={"local": lopt, "server": sopt})
+        return new_state, _round_metrics(cfg, mean_loss, loss_c, g_new, x_new)
+
+    return rule_round_fn if has_rules else legacy_round_fn
 
 
 # ---------------------------------------------------------------------------

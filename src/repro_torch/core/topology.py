@@ -1,11 +1,13 @@
-"""Communication graphs and mixing matrices (paper §2.1) — static part.
+"""Communication graphs and mixing matrices (paper §2.1), static and dynamic.
 
 Host-side numpy, a copy of the reference ``repro.core.topology`` (the port
 imports nothing of the JAX package): graph constructors, Metropolis and
 best-constant weightings, spectral quantities, :class:`Topology` and the
 edge-list/CSR :class:`SparseTopology`.  W and the CSR arrays are bit-equal
-to the reference.  The dynamic processes (``TopologyProcess``,
-``ParticipationProcess``) are not ported yet.
+to the reference.  The dynamic processes (:class:`TopologyProcess` and its
+five kinds, :class:`ParticipationProcess`) draw each round's graph and
+participants on the host, pure in ``(seed, tag, k)``: every realization is
+bit-equal to the reference's.
 
 Definition 1 of the paper: ``W`` is nonnegative, doubly stochastic, with
 ``w_ij = 0`` iff ``{i,j}`` is not an edge (i != j), and the mixing rate is
@@ -569,6 +571,32 @@ def make_sparse_topology(
     return sparse_topology_from_edges(name, n_agents, edges)
 
 
+def topology_edges(topo) -> np.ndarray:
+    """Canonical undirected edge list of a :class:`Topology` or
+    :class:`SparseTopology` — O(m) for sparse, O(n^2) extraction for dense."""
+    edges = getattr(topo, "edges", None)
+    if edges is not None:
+        return edges
+    return edge_list(topo.adj)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic networks: per-round topology processes (time-varying W_k)
+# ---------------------------------------------------------------------------
+
+# Domain-separation tags so link draws and participation draws at the same
+# (seed, round) never correlate.
+_LINK_TAG = 0x11AA
+_PART_TAG = 0x77EE
+
+
+def _round_rng(seed: int, tag: int, k: int) -> np.random.Generator:
+    """Per-round RNG that is a *pure function* of ``(seed, tag, k)``: every
+    driver (legacy per-round loop, chunked scan, vmapped sweep) sees the
+    identical realization for round ``k`` regardless of block boundaries."""
+    return np.random.default_rng((int(seed), int(tag), int(k)))
+
+
 def edge_list(adj: np.ndarray) -> np.ndarray:
     """Undirected edges (i < j) of ``adj`` in deterministic row-major order,
     as an (m, 2) int array."""
@@ -582,3 +610,400 @@ def _adj_from_edges(n: int, edges: np.ndarray) -> np.ndarray:
         adj[edges[:, 0], edges[:, 1]] = True
         adj[edges[:, 1], edges[:, 0]] = True
     return adj
+
+
+class TopologyProcess:
+    """A sequence of per-round gossip graphs over a fixed base :class:`Topology`.
+
+    Each round ``k`` realizes an edge subset of the base graph and re-weights
+    it with Metropolis–Hastings weights (:func:`metropolis_weights`), whose
+    diagonal fill is exactly the *self-weight absorption* a dropped link
+    requires: the mass a failed edge would have carried moves onto ``w_ii``,
+    keeping every realization symmetric and doubly stochastic.
+
+    Realizations are drawn **host-side** and are pure functions of
+    ``(seed, k)`` — the same contract as the Bernoulli(p) schedule in
+    :mod:`repro_torch.core.driver` — so the scan driver can pre-draw a whole block
+    (:meth:`draw_block`) and still agree round-for-round with the legacy loop.
+    """
+
+    kind = "abstract"
+
+    def __init__(self, base, seed: int = 0):
+        self.base = base  # Topology or SparseTopology
+        self.seed = int(seed)
+        self._edges = topology_edges(base)
+        self._edge_index = None  # lazy (i, j) -> base row map (mask fallback)
+
+    # -- interface ----------------------------------------------------------
+
+    @property
+    def n_agents(self) -> int:
+        return self.base.n_agents
+
+    @property
+    def static(self) -> bool:
+        return False
+
+    def spec(self) -> str:
+        """Round-trippable string form (parsed by :func:`make_topology_process`)."""
+        return self.kind
+
+    def edges_at(self, k: int) -> np.ndarray:
+        """(m_k, 2) realized undirected edges for round ``k``."""
+        raise NotImplementedError
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        """Round-``k`` realization as a bool mask over the *base* edge list.
+
+        The sparse drivers thread fixed-shape per-edge operands through
+        ``lax.scan``, so realizations must be expressed in base-edge order
+        with dropped edges zeroed, not as variable-length subsets.  Subclasses
+        override with an O(m) draw; this generic fallback matches
+        :meth:`edges_at` rows back to base indices.
+        """
+        if self._edge_index is None:
+            self._edge_index = {
+                (int(i), int(j)): t for t, (i, j) in enumerate(self._edges)
+            }
+        mask = np.zeros(len(self._edges), dtype=bool)
+        for i, j in self.edges_at(k):
+            mask[self._edge_index[(min(int(i), int(j)), max(int(i), int(j)))]] = True
+        return mask
+
+    # -- derived ------------------------------------------------------------
+
+    def realize(self, k: int):
+        """``(W_k, directed_messages)`` from one edge realization."""
+        edges = self.edges_at(k)
+        w = metropolis_weights(_adj_from_edges(self.n_agents, edges))
+        return w, 2 * len(edges)
+
+    def adjacency_at(self, k: int) -> np.ndarray:
+        return _adj_from_edges(self.n_agents, self.edges_at(k))
+
+    def weights_at(self, k: int) -> np.ndarray:
+        """The round-``k`` mixing matrix W_k (symmetric, doubly stochastic)."""
+        return self.realize(k)[0]
+
+    def messages_at(self, k: int) -> int:
+        """Directed neighbor messages one gossip mix moves in round ``k``."""
+        return self.realize(k)[1]
+
+    def draw_block(self, start: int, stop: int):
+        """Stacked ``(W, messages)`` for rounds ``[start, stop)``: W is
+        (block, n, n) float32 (a ``lax.scan`` operand), messages (block,) int
+        (what the byte accountant prices)."""
+        realized = [self.realize(k) for k in range(start, stop)]
+        ws = np.stack([w for w, _ in realized]).astype(np.float32)
+        msgs = np.array([m for _, m in realized])
+        return ws, msgs
+
+    # -- sparse realizations (edge sets instead of matrices) ----------------
+
+    def realize_sparse(self, k: int):
+        """``(edge_w, self_w, directed_messages)`` for round ``k`` in *base*
+        edge order: ``edge_w`` is (m,) with zeros on dropped edges, ``self_w``
+        is the (n,) Metropolis diagonal of the realized subgraph.  Same
+        re-weighting as :meth:`realize` — :func:`metropolis_edge_weights` over
+        the kept edges — without touching n×n."""
+        mask = self.edge_mask_at(k)
+        m = len(self._edges)
+        edge_w = np.zeros(m, dtype=np.float64)
+        kept = int(mask.sum())
+        if kept:
+            sub_w, self_w = metropolis_edge_weights(
+                self._edges[mask], self.n_agents
+            )
+            edge_w[mask] = sub_w
+        else:
+            self_w = np.ones(self.n_agents, dtype=np.float64)
+        return edge_w, self_w, 2 * kept
+
+    def draw_sparse_block(self, start: int, stop: int):
+        """Stacked ``(edge_w, self_w, messages)`` for rounds ``[start, stop)``:
+        edge_w (block, m) and self_w (block, n) float32 scan operands over the
+        base edge order, messages (block,) host ints for the byte accountant
+        — the sparse analogue of :meth:`draw_block`."""
+        realized = [self.realize_sparse(k) for k in range(start, stop)]
+        edge_w = np.stack([r[0] for r in realized]).astype(np.float32)
+        self_w = np.stack([r[1] for r in realized]).astype(np.float32)
+        msgs = np.array([r[2] for r in realized])
+        return edge_w, self_w, msgs
+
+
+class StaticProcess(TopologyProcess):
+    """The degenerate process: the base topology's W every round (this is the
+    frozen-matrix behavior every pre-dynamic experiment had)."""
+
+    kind = "static"
+
+    @property
+    def static(self) -> bool:
+        return True
+
+    def edges_at(self, k: int) -> np.ndarray:
+        return self._edges
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        return np.ones(len(self._edges), dtype=bool)
+
+    def realize(self, k: int):
+        # keep the base weighting (may be best_constant), skip re-realization
+        w = getattr(self.base, "w", None)
+        if w is None:  # SparseTopology base: materialize the implicit W
+            return self.base.dense_w(), 2 * len(self._edges)
+        return w, 2 * len(self._edges)
+
+    def realize_sparse(self, k: int):
+        ew = getattr(self.base, "edge_weight", None)
+        if ew is not None:  # SparseTopology base: weights are precomputed
+            return (
+                np.asarray(ew, dtype=np.float64),
+                np.asarray(self.base.self_weight, dtype=np.float64),
+                2 * len(self._edges),
+            )
+        return super().realize_sparse(k)
+
+
+class LinkFailureProcess(TopologyProcess):
+    """I.i.d. Bernoulli link failures: each base edge drops independently with
+    probability ``failure_prob`` each round (FedDec / sampled-link regime)."""
+
+    kind = "bernoulli"
+
+    def __init__(self, base: Topology, failure_prob: float = 0.2, seed: int = 0):
+        super().__init__(base, seed)
+        assert 0.0 <= failure_prob <= 1.0
+        self.failure_prob = float(failure_prob)
+
+    def spec(self) -> str:
+        return f"bernoulli:{self.failure_prob:g}"
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        if self.failure_prob <= 0.0:
+            return np.ones(len(self._edges), dtype=bool)
+        rng = _round_rng(self.seed, _LINK_TAG, k)
+        return rng.random(len(self._edges)) >= self.failure_prob
+
+    def edges_at(self, k: int) -> np.ndarray:
+        return self._edges[self.edge_mask_at(k)]
+
+
+class RandomMatchingProcess(TopologyProcess):
+    """One random maximal matching of the base graph per round: every agent
+    talks to at most one neighbor (the classic gossip-pairing model), so each
+    realized W_k is a disjoint union of 1/2–1/2 edge blocks."""
+
+    kind = "matching"
+
+    def _picked_at(self, k: int) -> np.ndarray:
+        """Base-edge indices of the round-``k`` matching, in greedy pick
+        order (the order :meth:`edges_at` has always returned)."""
+        rng = _round_rng(self.seed, _LINK_TAG, k)
+        order = rng.permutation(len(self._edges))
+        matched = np.zeros(self.n_agents, dtype=bool)
+        picked = []
+        for t in order:
+            i, j = int(self._edges[t, 0]), int(self._edges[t, 1])
+            if not matched[i] and not matched[j]:
+                matched[i] = matched[j] = True
+                picked.append(int(t))
+        return np.array(picked, dtype=int)
+
+    def edges_at(self, k: int) -> np.ndarray:
+        picked = self._picked_at(k)
+        return self._edges[picked] if len(picked) else np.zeros((0, 2), int)
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        mask = np.zeros(len(self._edges), dtype=bool)
+        mask[self._picked_at(k)] = True
+        return mask
+
+
+class RoundRobinProcess(TopologyProcess):
+    """Deterministic cycle over ``n_parts`` edge subsets of the base graph:
+    round ``k`` gossips over part ``k % n_parts``.  One full cycle touches
+    every base edge exactly once (B-connectivity with period ``n_parts``)."""
+
+    kind = "roundrobin"
+
+    def __init__(self, base: Topology, n_parts: int = 2, seed: int = 0):
+        super().__init__(base, seed)
+        assert n_parts >= 1
+        self.n_parts = int(n_parts)
+        self._parts = [self._edges[i :: self.n_parts] for i in range(self.n_parts)]
+
+    def spec(self) -> str:
+        return f"roundrobin:{self.n_parts}"
+
+    def edges_at(self, k: int) -> np.ndarray:
+        return self._parts[k % self.n_parts]
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        mask = np.zeros(len(self._edges), dtype=bool)
+        mask[k % self.n_parts :: self.n_parts] = True
+        return mask
+
+
+class NeighborSampleProcess(TopologyProcess):
+    """Neighbor-sampled cohorts: round ``k`` activates only the subgraph
+    incident to a uniform sample of ``ceil(fraction * n)`` seed agents.
+
+    Sampled agents gossip with *all* their base-graph neighbors (so the seed
+    set's whole one-hop neighborhood participates); everyone else holds.
+    This is the client-sampling analogue for decentralized rounds — the
+    sampled-to-sampled analysis (PAPERS.md) shows doubly stochastic
+    re-weighting over the active subgraph preserves the network mean, which
+    the Metropolis re-realization here provides.  Only the active subgraph's
+    edges carry nonzero weight per round, so with the sparse mixers the
+    materialized per-round state is O(edges incident to the cohort).
+    """
+
+    kind = "cohort"
+
+    def __init__(self, base, fraction: float = 0.25, seed: int = 0):
+        super().__init__(base, seed)
+        assert 0.0 < fraction <= 1.0
+        self.fraction = float(fraction)
+        self.m_seeds = max(1, min(self.n_agents, int(round(fraction * self.n_agents))))
+
+    def spec(self) -> str:
+        return f"cohort:{self.fraction:g}"
+
+    def seeds_at(self, k: int) -> np.ndarray:
+        """Sorted seed-agent indices for round ``k``."""
+        if self.m_seeds >= self.n_agents:
+            return np.arange(self.n_agents)
+        rng = _round_rng(self.seed, _LINK_TAG, k)
+        return np.sort(rng.choice(self.n_agents, size=self.m_seeds, replace=False))
+
+    def edge_mask_at(self, k: int) -> np.ndarray:
+        active = np.zeros(self.n_agents, dtype=bool)
+        active[self.seeds_at(k)] = True
+        e = self._edges
+        if len(e) == 0:
+            return np.zeros(0, dtype=bool)
+        return active[e[:, 0]] | active[e[:, 1]]
+
+    def edges_at(self, k: int) -> np.ndarray:
+        return self._edges[self.edge_mask_at(k)]
+
+
+TOPOLOGY_PROCESSES = ("static", "bernoulli", "matching", "roundrobin", "cohort")
+
+
+def parse_process_spec(spec: Optional[str]):
+    """Validate a declarative network spec and return ``(kind, arg)``.
+
+    ``spec`` is ``'static'`` | ``'bernoulli[:failure_prob]'`` | ``'matching'``
+    | ``'roundrobin[:n_parts]'`` | ``'cohort[:fraction]'`` (``None`` means
+    static).  ExperimentSpec calls this at construction so a typo fails
+    fast, not mid-run."""
+    kind, _, arg = (spec or "static").partition(":")
+    if kind not in TOPOLOGY_PROCESSES:
+        raise ValueError(
+            f"unknown topology process {spec!r}; options: {TOPOLOGY_PROCESSES}"
+            f" (e.g. 'bernoulli:0.3', 'roundrobin:2', 'cohort:0.25')"
+        )
+    if arg:
+        if kind == "bernoulli":
+            q = float(arg)
+            if not 0.0 <= q <= 1.0:
+                raise ValueError(f"failure prob must be in [0, 1], got {arg}")
+            return kind, q
+        if kind == "roundrobin":
+            n = int(arg)
+            if n < 1:
+                raise ValueError(f"roundrobin needs n_parts >= 1, got {arg}")
+            return kind, n
+        if kind == "cohort":
+            f = float(arg)
+            if not 0.0 < f <= 1.0:
+                raise ValueError(f"cohort fraction must be in (0, 1], got {arg}")
+            return kind, f
+        raise ValueError(f"topology process {kind!r} takes no argument: {spec!r}")
+    return kind, None
+
+
+def make_topology_process(
+    spec: Optional[str], base, *, seed: int = 0
+) -> TopologyProcess:
+    """Parse a declarative network spec into a :class:`TopologyProcess`
+    (see :func:`parse_process_spec` for the grammar).  ``base`` may be a
+    :class:`Topology` or a :class:`SparseTopology`."""
+    kind, arg = parse_process_spec(spec)
+    if kind == "static":
+        return StaticProcess(base, seed=seed)
+    if kind == "bernoulli":
+        return LinkFailureProcess(
+            base, failure_prob=0.2 if arg is None else arg, seed=seed
+        )
+    if kind == "matching":
+        return RandomMatchingProcess(base, seed=seed)
+    if kind == "cohort":
+        return NeighborSampleProcess(
+            base, fraction=0.25 if arg is None else arg, seed=seed
+        )
+    return RoundRobinProcess(base, n_parts=2 if arg is None else arg, seed=seed)
+
+
+class ParticipationProcess:
+    """Uniform m-of-n partial participation for server rounds.
+
+    Round ``k`` samples ``m = max(1, round(fraction * n))`` participants
+    without replacement; the server exchange is expressed as the doubly
+    stochastic *sampled-to-sampled* matrix
+
+        S_k[i, j] = 1/m  if i, j both participate;   S_k[i, i] = 1 otherwise.
+
+    Participants average among themselves, absentees keep their iterate.
+    Because S_k is doubly stochastic the network mean is invariant — no
+    re-scaling needed for unbiasedness: for a uniform sample,
+    ``E[(1/m) sum_{i in S} x_i] = x_bar`` exactly.  Draws are pure functions
+    of ``(seed, k)``, like :class:`TopologyProcess` realizations.
+    """
+
+    def __init__(self, n_agents: int, fraction: float, seed: int = 0):
+        assert 0.0 < fraction <= 1.0
+        self.n_agents = int(n_agents)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+        self.m = max(1, min(self.n_agents, int(round(fraction * n_agents))))
+
+    def participants_at(self, k: int) -> np.ndarray:
+        """Sorted participant indices for round ``k``."""
+        if self.m >= self.n_agents:
+            return np.arange(self.n_agents)
+        rng = _round_rng(self.seed, _PART_TAG, k)
+        return np.sort(rng.choice(self.n_agents, size=self.m, replace=False))
+
+    def server_matrix_at(self, k: int) -> np.ndarray:
+        part = self.participants_at(k)
+        s = np.eye(self.n_agents, dtype=np.float64)
+        s[np.ix_(part, part)] = 1.0 / len(part)
+        return s
+
+    def draw_block(self, start: int, stop: int):
+        """Stacked ``(S, participants)`` for rounds ``[start, stop)``."""
+        ss = np.stack(
+            [self.server_matrix_at(k) for k in range(start, stop)]
+        ).astype(np.float32)
+        counts = np.full(stop - start, self.m, dtype=int)
+        return ss, counts
+
+    def participant_mask_at(self, k: int) -> np.ndarray:
+        """Round-``k`` participation as a (n,) float32 0/1 mask — the O(n)
+        operand form the sparse mixers consume instead of the n×n S_k."""
+        mask = np.zeros(self.n_agents, dtype=np.float32)
+        mask[self.participants_at(k)] = 1.0
+        return mask
+
+    def draw_mask_block(self, start: int, stop: int):
+        """Stacked ``(mask, participants)`` for rounds ``[start, stop)`` —
+        the sparse analogue of :meth:`draw_block`."""
+        masks = np.stack(
+            [self.participant_mask_at(k) for k in range(start, stop)]
+        )
+        counts = np.full(stop - start, self.m, dtype=int)
+        return masks, counts

@@ -14,11 +14,12 @@ import time
 
 from repro_torch.device import resolve_device
 
-PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "ablation", "sparse")
+PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "dynamic", "optimizers",
+          "ablation", "sparse")
 # the reference's other figures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "dynamic": "A2/A5", "optimizers": "A9", "timecost": "A10", "async": "A11",
-    "robust": "A12", "serve": "A16", "roofline": "A17", "driver": "A13",
+    "timecost": "A10", "async": "A11", "robust": "A12", "serve": "A16", "roofline": "A17",
+    "driver": "A13",
 }
 OPT_IN = ("ablation",)
 
@@ -81,6 +82,20 @@ def _compression(quick, dev, out):
     return f"gossip_byte_savings_vs_fp32={saving:.1f}x" if saving else "n/a"
 
 
+def _dynamic(quick, dev, out):
+    from repro_torch.figures import fig_dynamic
+
+    saving = fig_dynamic.run(quick=quick, device=dev, out_dir=out)["participation_byte_savings"]
+    return f"server_byte_savings_half_part={saving:.2f}x" if saving else "n/a"
+
+
+def _optimizers(quick, dev, out):
+    from repro_torch.figures import fig_optimizers
+
+    s = fig_optimizers.run(quick=quick, device=dev, out_dir=out)["best_adaptive_speedup"]
+    return f"best_adaptive_speedup={s:.2f}x" if s else "n/a"
+
+
 def _table2(quick, dev, out):
     from repro_torch.figures import table2_complexity
 
@@ -115,6 +130,8 @@ FIGURES = (
     ("fig6", "fig6_topology", _fig6),
     ("fig7", "fig7_cnn", _fig7),
     ("compression", "fig_compression", _compression),
+    ("dynamic", "fig_dynamic", _dynamic),
+    ("optimizers", "fig_optimizers", _optimizers),
     ("table2", "table2_complexity", _table2),
     ("ablation", "ablation_eta_c", _ablation),
     ("sparse", "fig_sparse", _sparse),

@@ -72,6 +72,40 @@ def tree_agent_mix(tree: Tree, w: torch.Tensor) -> Tree:
     return tree_map(mix, tree)
 
 
+def _agent_col(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An (n,) per-agent vector shaped to broadcast over leaf ``x``."""
+    return v.reshape(v.shape + (1,) * (x.dim() - 1))
+
+
+def tree_agent_masked_mean(tree: Tree, mask: torch.Tensor) -> Tree:
+    """Sampled-to-sampled server round in O(n): participants (``mask`` 1.0)
+    average among themselves in float32, absentees hold — the dense doubly
+    stochastic S_k of ``ParticipationProcess.server_matrix_at``."""
+    count = torch.clamp_min(mask.sum(), 1.0)
+
+    def leaf(x):
+        xf = x.to(torch.float32)
+        m = _agent_col(mask, x)
+        avg = (m * xf).sum(dim=0, keepdim=True) / count
+        return (m * avg + (1.0 - m) * xf).to(x.dtype)
+
+    return tree_map(leaf, tree)
+
+
+def tree_agent_weighted_mean(tree: Tree, w: torch.Tensor, keep: torch.Tensor) -> Tree:
+    """Weighted server round in O(n): ``out_i = keep_i x_i + (1 - keep_i)
+    sum_j w_j x_j`` in float32 (``w`` sums to one over the participants,
+    ``keep`` is 1.0 for agents holding their iterate)."""
+
+    def leaf(x):
+        xf = x.to(torch.float32)
+        kv = _agent_col(keep, x)
+        avg = (_agent_col(w, x) * xf).sum(dim=0, keepdim=True)
+        return (kv * xf + (1.0 - kv) * avg).to(x.dtype)
+
+    return tree_map(leaf, tree)
+
+
 def tree_agent_mix_sparse(tree: Tree, senders, receivers, edge_w, self_w) -> Tree:
     """Sparse gossip over directed edges without materialising W:
 

@@ -21,7 +21,8 @@ from repro_torch.device import DeviceLike
 
 Tree = Dict[str, torch.Tensor]
 
-# tree fields of each state type; ``step`` (and PISCO's ``ef``) cross apart
+# tree fields of each state type; ``step``, PISCO's ``ef`` and every
+# state's ``opt`` cross apart
 _TREE_FIELDS = {
     "PiscoState": ("x", "y", "g"),
     "GTState": ("x", "y", "g"),
@@ -64,12 +65,10 @@ def state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> Any:
     algorithm: ``PiscoState`` (``x``, ``y``, ``g``, ``step``, optionally
     ``ef``), ``GTState``, ``ScaffoldState`` or ``SGDState``.  Error-feedback
     residuals carry across; the JAX PRNG key cannot, so a compressed state
-    gets a fresh generator seeded with ``seed``.  The reference's update-rule
-    state (``opt``) is not ported (ROADMAP A9) and must be empty."""
+    gets a fresh generator seeded with ``seed``.  The update-rule state
+    (``opt``: the rules' buffers and step counts) carries across as it is."""
     from repro_torch.core import baselines, pisco
 
-    if getattr(state, "opt", ()):
-        raise NotImplementedError("update-rule state is not ported yet (ROADMAP A9)")
     kind = _state_kind(state)
     cls = pisco.PiscoState if kind == "PiscoState" else getattr(baselines, kind)
     fields = {f: from_jax(getattr(state, f), device) for f in _TREE_FIELDS[kind]}
@@ -84,6 +83,7 @@ def state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> Any:
                 "gen": torch.Generator(device=dev).manual_seed(seed),
             }
         fields["ef"] = ef
+    fields["opt"] = tree_from_jax(getattr(state, "opt", ()), device)
     return cls(**fields)
 
 
@@ -93,6 +93,8 @@ def state_to_numpy(state: Any) -> Dict[str, Any]:
     out["step"] = int(state.step)
     if getattr(state, "ef", ()):
         out["ef"] = {k: to_numpy(state.ef[k]) if state.ef[k] else () for k in ("x", "y")}
+    if state.opt:
+        out["opt"] = tree_to_numpy(state.opt)
     return out
 
 
@@ -172,19 +174,30 @@ def lm_state_from_jax(state: Any, device: DeviceLike, *, seed: int = 0) -> Any:
     residuals) are agent-stacked LM trees, as the port's ``PiscoState`` over
     flat dicts keyed by leaf path (what the collective round carries).  The
     JAX PRNG key does not cross: a compressed state gets a fresh generator
-    seeded with ``seed``."""
+    seeded with ``seed``.  In the update-rule state, each buffer shaped like
+    the parameters (a dict with the LM tree's top-level keys) is flattened
+    the same way; step counts cross as they are."""
     from repro_torch.core.pisco import PiscoState
     from repro_torch.utils.pytree import flatten_paths
 
-    if getattr(state, "opt", ()):
-        raise NotImplementedError("update-rule state is not ported yet (ROADMAP A9)")
+    top = sorted(state.x)
+
+    def opt_leaves(tree):
+        if isinstance(tree, dict):
+            if sorted(tree) == top:
+                return flatten_paths(tree_from_jax(tree, device))
+            return {k: opt_leaves(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(opt_leaves(x) for x in tree)
+        return _leaf_from_numpy(tree, device)
+
     fields = {f: flatten_paths(tree_from_jax(getattr(state, f), device)) for f in ("x", "y", "g")}
     ef = getattr(state, "ef", ())
     if ef:
         ef = {k: flatten_paths(tree_from_jax(ef[k], device)) if ef[k] else () for k in ("x", "y")}
         ef["gen"] = torch.Generator(device=torch.device(device)).manual_seed(seed)
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
-    return PiscoState(step=step, ef=ef, **fields)
+    return PiscoState(step=step, ef=ef, opt=opt_leaves(getattr(state, "opt", ())), **fields)
 
 
 def split_state(state: Any) -> List[Any]:

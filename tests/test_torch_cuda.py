@@ -252,6 +252,109 @@ def test_short_run_gpu_matches_cpu(cuda, kw):
 
 
 
+# Dynamic networks: K4 and K5 over each round's CSR weights (zeros on
+# dropped edges; "bernoulli:1.0" drops every edge, where both must return x
+# exactly), K3 over a new matching W_k each round
+@pytest.mark.parametrize("kind", ["bernoulli:0.5", "cohort:0.25", "bernoulli:1.0"])
+def test_k4_k5_over_per_round_weights(cuda, gen, kind):
+    from repro_torch.core.mixing import make_sparse_network_mixing
+
+    n, d = 300, 517
+    mixing = make_sparse_network_mixing(make_sparse_topology("random_regular", n), cuda, kind,
+                                        seed=3)
+    net = mixing.network
+    operands, messages, _ = net.device_block(0, 4)
+    for i in range(4):
+        net.stage(operands, i)
+        csr = net.gossip_w
+        csr_cpu = tuple(t.cpu() for t in csr)
+        x = torch.randn(n, d, generator=gen, device=cuda)
+        r = 0.01 * torch.randn(n, d, generator=gen, device=cuda)
+        u = torch.rand(n, d, generator=gen, device=cuda)
+        am = ops.row_absmax(x, r)
+        ops.reset_launch_counts()
+        mixed = ops.sparse_mix_csr(x, *csr)
+        out, res = ops.sparse_compressed_mix_csr(x, r, *csr, am, bits=8, noise=u)
+        counts = ops.launch_counts()
+        assert counts["sparse_mix"] == 1 and counts["sparse_compressed_mix"] == 1
+        torch.testing.assert_close(mixed, ref.sparse_mix_csr_ref(x, *csr), rtol=1e-6, atol=1e-6)
+        want, res_want = ref.sparse_compressed_mix_csr_ref(x.cpu(), r.cpu(), *csr_cpu, am.cpu(), 8,
+                                                           1.0, u.cpu())
+        assert torch.equal(out.cpu(), want) and torch.equal(res.cpu(), res_want)
+        if messages[i] == 0:
+            assert torch.equal(mixed, x) and torch.equal(out, x)
+
+
+def test_k3_over_a_new_matching_w_each_round(cuda, gen):
+    from repro_torch.core.mixing import make_network_mixing
+    from repro_torch.core.topology import make_topology
+
+    n, d = 64, 300
+    mixing = make_network_mixing(make_topology("erdos_renyi", n, prob=0.3, seed=7), cuda,
+                                 "matching", seed=2)
+    net = mixing.network
+    operands, _, _ = net.device_block(0, 3)
+    for i in range(3):
+        net.stage(operands, i)
+        w = net.gossip_w
+        x = torch.randn(n, d, generator=gen, device=cuda)
+        am = ops.row_absmax(x)
+        codes, _ = ops.quant_codes(x, am, bits=8)
+        ops.reset_launch_counts()
+        out = ops.code_mix(x, codes, w, am, bits=8)
+        assert ops.launch_counts()["compressed_mix"] == 1
+        torch.testing.assert_close(out, ref.code_mix_ref(x, codes, w, am, 8, 1.0, bf16_split=True),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    {"topology": "erdos_renyi", "compression": "q8d", "network": "matching",
+     "participation": 0.5},
+    {"topology": "random_regular", "sparse": True, "network": "bernoulli:0.3",
+     "participation": 0.5},
+    {"topology": "random_regular", "sparse": True, "compression": "q8d", "cohort": 0.25},
+    {"algo": "dsgt", "topology": "ring", "network": "roundrobin:2", "optimizer": "momentum:lr=0.1"},
+    {"topology": "ring", "optimizer": "adam:lr=0.05", "server_optimizer": "fedadam"},
+])
+def test_dynamic_and_rule_runs_gpu_match_cpu(cuda, kw):
+    n = 32
+    x, y = synthetic_mnist(n * 20, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n)
+    spec = ExperimentSpec.create(n_agents=n, t_o=2, eta_l=0.1, p=0.3, rounds=4, **kw)
+    hists = []
+    for dev in (cuda, torch.device("cpu")):
+        resident = data.to(dev)
+        hists.append(Experiment(
+            spec, loss_fn=mlp_loss, params0=mlp_init(0), device=dev,
+            sampler_factory=lambda s: RoundSampler(resident, 16, 2, s.config.seed, device=dev),
+        ).run())
+    gpu, cpu = hists
+    assert gpu.is_global == cpu.is_global
+    assert gpu.accountant.per_round_bytes == cpu.accountant.per_round_bytes
+    # deterministic rounding may round a near-tie a step apart (chip_smoke's q8d limit)
+    np.testing.assert_allclose(gpu.loss, cpu.loss, rtol=1e-3 if kw.get("compression") else 1e-4)
+
+
+def test_static_process_and_sgd_rule_bit_equal_on_the_card(cuda):
+    """network="static" realizes the base W every round and optimizer="sgd"
+    is the inline step (K1 rounds eta*y before subtracting, as the rule's
+    x + (-eta*y) does): both bit-equal to the plain spec on the card."""
+    n = 10
+    x, y = synthetic_mnist(n * 20, seed=0)
+    resident = FederatedDataset.from_arrays(x, y, n).to(cuda)
+    spec = ExperimentSpec.create(n_agents=n, t_o=2, eta_l=0.1, p=0.3, rounds=6, topology="ring")
+
+    def run(s):
+        return Experiment(s, loss_fn=mlp_loss, params0=mlp_init(0), device=cuda,
+                          sampler_factory=lambda s_: RoundSampler(resident, 16, 2, s_.config.seed,
+                                                                  device=cuda)).run()
+
+    base = run(spec)
+    for other in (run(spec.replace(network="static")), run(spec.replace(optimizer="sgd"))):
+        assert other.loss == base.loss
+        assert all(torch.equal(other.final_state.x[k], base.final_state.x[k]) for k in base.final_state.x)
+
+
 @pytest.mark.parametrize("sparse", [False, True])
 def test_topk_gossip_gpu_matches_cpu(cuda, sparse):
     """Top-k gossip (stateless and with error feedback) on the card against

@@ -31,7 +31,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "figures.fig5_local_updates", "figures.fig6_topology", "figures.fig7_cnn",
                  "figures.table2_complexity", "figures.fig_compression",
                  "figures.ablation_eta_c", "figures.fig_sparse", "examples.quickstart",
-                 "examples.semi_decentralized_cnn"):
+                 "examples.semi_decentralized_cnn", "figures.fig_dynamic",
+                 "figures.fig_optimizers", "optim", "optim.update_rules", "optim.schedules",
+                 "optim.optimizers"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -1,6 +1,6 @@
 """Round drivers: how communication rounds get executed on the device.
 
-Two drivers, one contract — fill a :class:`~repro_torch.core.trainer.History`
+Three drivers, one contract — fill a :class:`~repro_torch.core.trainer.History`
 and return the final algorithm state:
 
 * **loop** — one round-function call per round and one device→host sync per
@@ -18,7 +18,8 @@ block's gossip and server operands on the host once per block
 (:meth:`~repro_torch.core.mixing.NetworkContext.device_block`, one copy to
 the device per array) and stages round k's slices in the network context
 before the round runs; the loop driver does the same per round.  Bytes are
-then priced by the realized messages and participants.
+then priced by the realized messages and participants, and, with a systems
+profile, each round's simulated seconds by the history's ``time_model``.
 """
 from __future__ import annotations
 
@@ -67,11 +68,16 @@ def block_bounds(
     return bounds
 
 
-def record_flags(hist, flags: np.ndarray, realized=None) -> None:
-    """Record schedule flags and per-round bytes in the accountant.
-    ``realized`` is an optional ``(messages, participants)`` pair of
-    per-round counts of a dynamic network: bytes are then priced per
-    realized edge and participant instead of the static round constants."""
+def record_flags(hist, flags: np.ndarray, realized=None, start: int = 0, seconds=None) -> None:
+    """Record schedule flags, per-round bytes and, when the history carries a
+    ``time_model``, simulated seconds in the accountant.  ``realized`` is an
+    optional ``(messages, participants)`` pair of per-round counts of a
+    dynamic network: bytes are then priced per realized edge and participant
+    instead of the static round constants.  ``start`` is the absolute index
+    of the block's first round (the time model's draws are pure in the
+    round); ``seconds`` overrides the time model with per-round seconds (the
+    events driver's event clock)."""
+    time_model = getattr(hist, "time_model", None)
     for i, f in enumerate(flags):
         f = bool(f)
         hist.is_global.append(f)
@@ -81,19 +87,27 @@ def record_flags(hist, flags: np.ndarray, realized=None) -> None:
             messages, participants = realized
             nbytes = hist.byte_model.realized_round_bytes(
                 f, int(messages[i]), int(participants[i]))
-        hist.accountant.record(f, nbytes)
+        if seconds is not None:
+            sec = float(seconds[i])
+        elif time_model is not None:
+            sec = time_model.round_time(start + i, f)
+        else:
+            sec = None
+        hist.accountant.record(f, nbytes, seconds=sec)
 
 
-def record_block(hist, metrics: RoundMetrics, flags: np.ndarray, realized=None) -> None:
+def record_block(hist, metrics: RoundMetrics, flags: np.ndarray, realized=None, *,
+                 start: int = 0, seconds=None) -> None:
     """One history append for a block of executed rounds: ``metrics`` leaves
-    carry a leading round axis; this is the block's one device→host sync."""
+    carry a leading round axis; this is the block's one device→host sync.
+    Flags, bytes and seconds go through :func:`record_flags`."""
     host = torch.stack(
         [metrics.loss, metrics.grad_sq_norm, metrics.consensus_err]
     ).to(torch.float64).cpu().numpy()
     hist.loss.extend(host[0].tolist())
     hist.grad_sq_norm.extend(host[1].tolist())
     hist.consensus_err.extend(host[2].tolist())
-    record_flags(hist, flags, realized)
+    record_flags(hist, flags, realized, start=start, seconds=seconds)
 
 
 def eval_boundary(k: int, rounds: int, eval_every: int) -> bool:
@@ -115,6 +129,30 @@ def _stack_metrics(per_round: List[RoundMetrics]) -> RoundMetrics:
     return RoundMetrics(*(torch.stack(v) for v in zip(*per_round)))
 
 
+def run_block(bound: BoundAlgorithm, state, sampler: Sampler, start: int,
+              flags: np.ndarray):
+    """Rounds ``[start, start + len(flags))`` with the given flags — the block
+    body every block driver shares.  On a dynamic network the block's
+    operands are copied to the device once and round i's staged before it
+    runs.  Returns ``(state, stacked metrics, realized)``, ``realized`` the
+    ``(messages, participants)`` counts or None on a frozen network."""
+    net = bound.network
+    stop = start + len(flags)
+    realized = None
+    if net is not None:
+        operands, messages, participants = net.device_block(start, stop)
+        realized = (messages, participants)
+    per_round = []
+    for i, (k, is_global) in enumerate(zip(range(start, stop), flags)):
+        local, comm = sampler(k)  # one round's batches at a time
+        if net is not None:
+            net.stage(operands, i)
+        fn = bound.global_round if is_global else bound.gossip_round
+        state, metrics = fn(state, local, comm)
+        per_round.append(metrics)
+    return state, _stack_metrics(per_round), realized
+
+
 def drive_scan(
     bound: BoundAlgorithm,
     state,
@@ -134,22 +172,10 @@ def drive_scan(
         eval_every=eval_every if eval_fn is not None else 0,
         block_size=block_size,
     )
-    net = bound.network
     for start, stop in cuts:
         flags = predraw_schedule(bound.schedule, start, stop)
-        realized = None
-        if net is not None:
-            operands, messages, participants = net.device_block(start, stop)
-            realized = (messages, participants)
-        per_round = []
-        for i, (k, is_global) in enumerate(zip(range(start, stop), flags)):
-            local, comm = sampler(k)  # one round's batches at a time
-            if net is not None:
-                net.stage(operands, i)
-            fn = bound.global_round if is_global else bound.gossip_round
-            state, metrics = fn(state, local, comm)
-            per_round.append(metrics)
-        record_block(hist, _stack_metrics(per_round), flags, realized)
+        state, metrics, realized = run_block(bound, state, sampler, start, flags)
+        record_block(hist, metrics, flags, realized, start=start)
         maybe_eval(hist, eval_fn, eval_every, rounds, state, stop - 1)
         if stop_when is not None and stop_when(hist):
             break
@@ -179,8 +205,22 @@ def drive_loop(
             realized = (messages, participants)
         fn = bound.global_round if is_global else bound.gossip_round
         state, metrics = fn(state, local, comm)
-        record_block(hist, _stack_metrics([metrics]), np.array([is_global]), realized)
+        record_block(hist, _stack_metrics([metrics]), np.array([is_global]), realized, start=k)
         maybe_eval(hist, eval_fn, eval_every, rounds, state, k)
         if stop_when is not None and stop_when(hist):
             break
     return state
+
+
+def get_driver(name: str) -> Callable:
+    """The driver function registered under ``name`` (one of ``DRIVERS``)."""
+    if name == "scan":
+        return drive_scan
+    if name == "loop":
+        return drive_loop
+    if name == "events":
+        # local import: the event-queue subsystem builds on this module
+        from repro_torch.events.driver import drive_events
+
+        return drive_events
+    raise ValueError(f"unknown driver {name!r}; options: {DRIVERS}")

@@ -1,9 +1,9 @@
 """Declarative experiments: ``ExperimentSpec`` + ``Experiment``.
 
 :class:`ExperimentSpec` has every field of the reference spec and the same
-JSON, so one payload loads in both packages.  A field whose feature is not
-ported yet raises ``NotImplementedError`` naming its ROADMAP item when the
-spec is built; that is a refusal, not a fallback.
+JSON, so one payload loads in both packages.  ``adversary`` and a robust
+``robust_agg`` are not ported yet: they raise ``NotImplementedError`` naming
+ROADMAP A12 when the spec is built; that is a refusal, not a fallback.
 
 ::
 
@@ -14,6 +14,11 @@ spec is built; that is a refusal, not a fallback.
     hist = exp.run()                    # on the GPU; device="cpu" to opt out
     hists = exp.sweep(seeds=[0, 1, 2])  # one History per seed
     runs = exp.sweep(grid={"p": [0.0, 0.1, 1.0]})  # [(spec, History), ...]
+
+With ``systems="<profile>"`` every round is also priced in simulated seconds
+(``History.sim_time_s``, :mod:`repro_torch.sim`); ``driver="events"`` (which
+needs a profile) runs the rounds on the asynchronous event clock of
+:mod:`repro_torch.events`, configured by ``async_``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,13 @@ import torch
 
 from repro_torch.core.algorithms import BoundAlgorithm, get_algorithm
 from repro_torch.core.compression import compress_mixing, make_byte_model, make_compressor
-from repro_torch.core.driver import DEFAULT_BLOCK_SIZE, DRIVERS, drive_loop, drive_scan
+from repro_torch.core.driver import (
+    DEFAULT_BLOCK_SIZE,
+    DRIVERS,
+    drive_loop,
+    drive_scan,
+    predraw_schedule,
+)
 from repro_torch.core.mixing import MixingOps, make_network_mixing, make_sparse_network_mixing
 from repro_torch.core.pisco import LossFn, PiscoConfig, replicate_params
 from repro_torch.core.topology import (
@@ -53,8 +64,6 @@ _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(PiscoConfig))
 
 # spec field -> the ROADMAP item that ports its feature
 _NOT_PORTED = {
-    "systems": "A10 (sim/: systems-cost profiles)",
-    "async_": "A11 (events/: asynchronous execution)",
     "adversary": "A12 (Byzantine fault injection)",
     "robust_agg": "A12 (robust server aggregation)",
 }
@@ -91,14 +100,12 @@ class ExperimentSpec:
     opt_policy: Optional[str] = None
     rounds: int = 100
     eval_every: int = 1
-    driver: str = "scan"  # "scan" (block driver) | "loop"
+    driver: str = "scan"  # "scan" (block driver) | "loop" | "events" (async clock)
     block_size: int = DEFAULT_BLOCK_SIZE
 
     def __post_init__(self):
         if self.driver not in DRIVERS:
             raise ValueError(f"driver {self.driver!r} not in {DRIVERS}")
-        if self.driver == "events":
-            raise _not_ported("driver='events'", "A11 (events/)")
         if not 0.0 < self.participation <= 1.0:
             raise ValueError(
                 f"participation must be in (0, 1], got {self.participation}"
@@ -124,6 +131,25 @@ class ExperimentSpec:
                 )
         if self.network is not None:
             parse_process_spec(self.network)
+        if self.systems is not None:
+            # local import: repro_torch.sim imports the Experiment API
+            from repro_torch.sim.profiles import parse_systems_spec
+
+            parse_systems_spec(self.systems)  # fail fast on bad profiles
+        if self.async_ is not None:
+            from repro_torch.events.staleness import parse_async_spec
+
+            parse_async_spec(self.async_)  # fail fast on bad async specs
+            if self.driver != "events":
+                raise ValueError(
+                    "async_ only applies to driver='events' "
+                    f"(got driver={self.driver!r})"
+                )
+        if self.driver == "events" and self.systems is None:
+            raise ValueError(
+                "driver='events' needs a systems profile (spec.systems) — "
+                "the event clock is drawn from the fleet realization"
+            )
         if self.compression is not None:
             make_compressor(self.compression)  # fail fast on a malformed spec
         if isinstance(self.topology_kwargs, dict):
@@ -279,13 +305,20 @@ class Experiment:
         return get_algorithm(spec.algo).bind(self.loss_fn, spec.config, mixing, **opt_kw)
 
     def _fresh_history(self, mixing: MixingOps, bound: BoundAlgorithm, x0: Tree) -> History:
-        return History(
+        hist = History(
             byte_model=make_byte_model(
                 mixing, x0, self.spec.config.n_agents,
                 mixes_per_round=bound.comm.mixes_per_round,
                 server_payloads=bound.comm.server_payloads,
             )
         )
+        if self.spec.systems is not None and self.spec.driver != "events":
+            # local import: repro_torch.sim imports the Experiment API
+            from repro_torch.sim.costmodel import make_time_model
+
+            hist.time_model = make_time_model(self.spec, hist.byte_model,
+                                              network=mixing.network)
+        return hist
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -300,6 +333,8 @@ class Experiment:
         schedule afresh from the spec's seed, so every call draws the same
         flags."""
         spec = self.spec
+        if spec.driver == "events":
+            return self._run_events(mixing, sampler)
         bound = self._bind(mixing)
         _, comm0 = sampler(-1)
         x0 = self._x0_stacked()
@@ -312,6 +347,41 @@ class Experiment:
                 bound, state, sampler, spec.rounds, hist,
                 eval_fn=self.eval_fn, eval_every=spec.eval_every,
                 stop_when=self.stop_when, **kw,
+            )
+            self._synchronize()
+        hist.final_state = state
+        return hist
+
+    def _run_events(self, mixing: MixingOps, sampler: Sampler) -> History:
+        """The events driver's run (the reference's ``_run_events``).
+
+        The event clock needs the whole flag sequence up front, so the
+        Bernoulli(p) schedule is drawn once, in round order (the draws the
+        sync drivers make).  When the realized fleet makes the run trivial
+        (no staleness drops, exactly uniform weights) the spec's own mixing
+        stays bound and the rounds are those of ``driver="scan"``, bit for
+        bit; otherwise :func:`~repro_torch.events.driver.make_async_mixing`
+        carries the engine's per-round decisions into the numerics."""
+        from repro_torch.events.clock import make_event_engine
+        from repro_torch.events.driver import drive_events, make_async_mixing
+
+        spec = self.spec
+        bound = self._bind(mixing)
+        flags = predraw_schedule(bound.schedule, 0, spec.rounds)
+        x0 = self._x0_stacked()
+        hist = self._fresh_history(mixing, bound, x0)
+        engine = make_event_engine(spec, hist.byte_model, flags, network=mixing.network)
+        if not engine.trivial:
+            mixing = make_async_mixing(spec, self.device)
+            bound = self._bind(mixing)
+        _, comm0 = sampler(-1)
+        state = bound.init(self.loss_fn, x0, comm0)
+        hist.event_trace = engine.trace
+        with record_wall_time(hist):
+            state = drive_events(
+                bound, state, sampler, spec.rounds, hist, engine=engine,
+                eval_fn=self.eval_fn, eval_every=spec.eval_every,
+                stop_when=self.stop_when, block_size=spec.block_size,
             )
             self._synchronize()
         hist.final_state = state
@@ -348,6 +418,11 @@ class Experiment:
         reproduces :meth:`run` exactly."""
         if self._sampler_factory is None:
             raise ValueError("sweep(seeds=...) needs a sampler_factory")
+        if self.spec.driver == "events":
+            raise ValueError(
+                "sweep(seeds=...) does not support driver='events'; "
+                "run per-seed via sweep(grid={'seed': [...]}) instead"
+            )
         mixing = self._mixing if self._mixing is not None else self.spec.make_mixing(self.device)
         return [self._run(mixing, self._make_sampler(self.spec.replace(seed=s))) for s in seeds]
 

@@ -1,8 +1,8 @@
 """History record of a training run, and the wall-clock helper.
 
 :class:`History` keeps the reference's ``to_dict``/``from_dict`` schema key
-for key (the simulated-seconds, staleness and adversary series stay empty
-until those subsystems are ported), so one JSON reader serves both packages.
+for key (the adversary series stay empty until that subsystem is ported), so
+one JSON reader serves both packages.
 """
 from __future__ import annotations
 
@@ -20,9 +20,11 @@ from repro_torch.core.schedule import CommAccountant, RoundByteModel
 class History:
     """Per-round records, numpy-backed for the benchmark harness.
 
-    ``wall_time_s`` is the *real* host seconds the run took, set only by
-    :func:`record_wall_time`.  ``sim_time_s`` (simulated seconds under a
-    systems model) stays empty until that subsystem is ported.
+    Two clocks, never to be confused: ``wall_time_s`` is the *real* host
+    seconds the run took, set only by :func:`record_wall_time`;
+    ``sim_time_s`` the *simulated* seconds per round under the spec's
+    systems profile, recorded by the drivers through ``time_model`` (or the
+    events driver's event clock), empty without a profile.
     """
 
     loss: List[float] = dataclasses.field(default_factory=list)
@@ -36,8 +38,15 @@ class History:
     # Final algorithm state (agent-stacked pytree NamedTuple), set by the
     # drivers when the run completes.  Excluded from to_dict().
     final_state: Any = None
-    # Events driver only (not ported): per-round per-agent staleness.
+    # RoundTimeModel (repro_torch.sim.costmodel) when the spec carries a
+    # systems profile; holds live process objects, so excluded from to_dict().
+    time_model: Any = None
+    # Events driver only: per-round per-agent staleness counters (one
+    # length-n list per executed round).  Empty for the sync drivers.
     staleness: List[List[int]] = dataclasses.field(default_factory=list)
+    # Events driver only: the frozen event trace (repro_torch.events.clock),
+    # read by ``price_history`` to reprice the run.  Excluded from to_dict().
+    event_trace: Any = None
     # Byzantine runs only (not ported): fault mask and per-group eval series.
     adversary_mask: Optional[List[bool]] = None
     eval_per_agent: List[Dict[str, float]] = dataclasses.field(default_factory=list)

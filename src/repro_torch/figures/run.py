@@ -4,7 +4,9 @@
     python -m repro_torch.figures.run [--full] [--only fig4 ...] [--out DIR] [--device cpu]
 
 Quick sizes by default; ``--full`` runs the paper's.  ``ablation`` is opt-in,
-as in the reference.  A figure whose subsystem is not ported raises an error
+as in the reference.  ``timecost`` and ``async`` (simulated wall-clock and
+asynchronous execution) run with the rest.  A figure whose subsystem is not
+ported (``robust``, ``serve``, ``roofline``, ``driver``) raises an error
 naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -15,12 +17,9 @@ import time
 from repro_torch.device import resolve_device
 
 PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "dynamic", "optimizers",
-          "ablation", "sparse")
+          "timecost", "async", "ablation", "sparse")
 # the reference's other figures -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "timecost": "A10", "async": "A11", "robust": "A12", "serve": "A16", "roofline": "A17",
-    "driver": "A13",
-}
+NOT_PORTED = {"robust": "A12", "serve": "A16", "roofline": "A17", "driver": "A13"}
 OPT_IN = ("ablation",)
 
 
@@ -96,6 +95,23 @@ def _optimizers(quick, dev, out):
     return f"best_adaptive_speedup={s:.2f}x" if s else "n/a"
 
 
+def _timecost(quick, dev, out):
+    from repro_torch.figures import fig_timecost
+
+    flip = fig_timecost.tuner_flip(
+        fig_timecost.run(quick=quick, device=dev, out_dir=out)["profiles"])
+    return f"best_p_lan={flip[0]:g};best_p_wan={flip[1]:g}" if flip else "n/a"
+
+
+def _async(quick, dev, out):
+    from repro_torch.figures import fig_async
+
+    payload = fig_async.run(quick=quick, device=dev, out_dir=out)
+    speed = fig_async.async_flip(payload["profiles"])
+    return (f"free_bit_identical={payload['profiles']['free']['bit_identical_loss']}"
+            + "".join(f";{k}_speedup={v:.2f}x" for k, v in speed.items() if k != "free"))
+
+
 def _table2(quick, dev, out):
     from repro_torch.figures import table2_complexity
 
@@ -132,6 +148,8 @@ FIGURES = (
     ("compression", "fig_compression", _compression),
     ("dynamic", "fig_dynamic", _dynamic),
     ("optimizers", "fig_optimizers", _optimizers),
+    ("timecost", "fig_timecost", _timecost),
+    ("async", "fig_async", _async),
     ("table2", "table2_complexity", _table2),
     ("ablation", "ablation_eta_c", _ablation),
     ("sparse", "fig_sparse", _sparse),

@@ -307,6 +307,64 @@ def test_k3_over_a_new_matching_w_each_round(cuda, gen):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _event_block(spec, device):
+    """An engine block for ``spec`` staged through its async mixing's
+    ``EventNetwork`` on ``device``: (mixing, operands, engine)."""
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.core.compression import make_byte_model
+    from repro_torch.core.driver import predraw_schedule
+    from repro_torch.events import make_async_mixing, make_event_engine
+
+    n = spec.config.n_agents
+    base = spec.make_mixing(torch.device("cpu"))
+    flags = predraw_schedule(get_algorithm(spec.algo).make_default_schedule(spec.config), 0,
+                             spec.rounds)
+    engine = make_event_engine(spec, make_byte_model(base, {"w": torch.zeros(n, 8)}, n), flags,
+                               network=base.network)
+    assert not engine.trivial
+    mixing = make_async_mixing(spec, device)
+    mixing.network.engine = engine
+    operands, _, _ = mixing.network.device_block(0, spec.rounds)
+    return mixing, operands, engine
+
+
+# The async mixers: K4 over an event engine's CSR weights (stragglers dropped
+# past the staleness bound) and K3 over its W_k, against the plain versions
+def test_k4_k3_over_an_event_engine_block(cuda, gen):
+    sparse = ExperimentSpec.create(
+        algo="pisco", n_agents=300, p=0.2, seed=0, topology="random_regular", sparse=True,
+        rounds=6, driver="events", systems="lognormal-stragglers",
+        async_="poly:alpha=0.5,bound=1,buffer=150")
+    mixing, operands, engine = _event_block(sparse, cuda)
+    net = mixing.network
+    for i in np.nonzero(~engine.flags)[0]:
+        net.stage(operands, i)
+        x = torch.randn(300, 517, generator=gen, device=cuda)
+        ops.reset_launch_counts()
+        mixed = ops.sparse_mix_csr(x, *net.gossip_w)
+        assert ops.launch_counts()["sparse_mix"] == 1
+        torch.testing.assert_close(mixed, ref.sparse_mix_csr_ref(x, *net.gossip_w), rtol=1e-6,
+                                   atol=1e-6)
+    dense = ExperimentSpec.create(
+        algo="pisco", n_agents=64, p=0.2, seed=0, topology="erdos_renyi",
+        topology_kwargs={"prob": 0.3, "seed": 7}, rounds=6, driver="events",
+        systems="wan-gossip", async_="poly:alpha=0.5,bound=1,buffer=32", compression="q8")
+    mixing, operands, engine = _event_block(dense, cuda)
+    net = mixing.network
+    for i in np.nonzero(~engine.flags)[0]:
+        net.stage(operands, i)
+        w = net.gossip_w
+        assert mixing.compression._operands()[0] is w
+        x = torch.randn(64, 300, generator=gen, device=cuda)
+        am = ops.row_absmax(x)
+        codes, _ = ops.quant_codes(x, am, bits=8)
+        ops.reset_launch_counts()
+        out = ops.code_mix(x, codes, w, am, bits=8)
+        assert ops.launch_counts()["compressed_mix"] == 1
+        torch.testing.assert_close(out, ref.code_mix_ref(x, codes, w, am, 8, 1.0, bf16_split=True),
+                                   rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("kw", [
     {"topology": "erdos_renyi", "compression": "q8d", "network": "matching",
      "participation": 0.5},

@@ -511,14 +511,58 @@ def test_fig_sparse_quick_parity(tmp_path):
     assert written["device"] == "cpu" and written["card"] is None
 
 
+def test_fig_timecost_quick_run(tmp_path):
+    """The fig_timecost twin at its quick size on the CPU: the reference's
+    grids and readout, the free profile's time ranking equal to its rounds
+    ranking, wan-gossip's best p above lan-gossip's, the payload written
+    (its cells against the reference: tests/test_torch_sim.py)."""
+    from benchmarks import fig_timecost as jfig
+    from repro_torch.figures import fig_timecost as tfig
+
+    payload = tfig.run(quick=True, device=CPU, out_dir=str(tmp_path))
+    assert list(payload["profiles"]) == [label for label, _ in jfig.PROFILES_SWEPT[:3]]
+    flip = tfig.tuner_flip(payload["profiles"])
+    assert flip == jfig.tuner_flip(payload["profiles"]) and flip[1] > flip[0]
+    free = payload["profiles"]["free"]["tuner"]
+    by_rounds = sorted(free["points"], key=lambda pt: (
+        pt["rounds_to_target"] is None, pt["rounds_to_target"] or 0, pt["final_loss"]))
+    assert payload["consistency"]["free_time_ranking"] == [[pt["p"], pt["t_o"]]
+                                                          for pt in by_rounds]
+    for cell in payload["profiles"].values():
+        assert set(cell["baselines"]) == {"fedavg", "dsgt"} and len(cell["curves"]) == 3
+    written = json.loads((tmp_path / "BENCH_timecost.json").read_text())
+    assert written["bench"] == "fig_timecost" and written["device"] == "cpu"
+    assert written["rounds"] == 5 * 150 and len(written["source_digest"]) == 64
+
+
+def test_fig_async_quick_run(tmp_path):
+    """The fig_async twin at its quick size on the CPU: the free fleet
+    bit-identical to the scan driver, async faster under stragglers, the
+    wan-gossip trace repriced to its own ledger exactly."""
+    from benchmarks import fig_async as jfig
+    from repro_torch.figures import fig_async as tfig
+
+    payload = tfig.run(quick=True, device=CPU, out_dir=str(tmp_path))
+    profiles = payload["profiles"]
+    assert list(profiles) == [label for label, _ in jfig.PROFILES_SWEPT]
+    assert payload["async_config"] == "poly:alpha=0.5,bound=2,buffer=5"
+    assert profiles["free"]["bit_identical_loss"]
+    assert not profiles["lognormal-stragglers"]["bit_identical_loss"]
+    assert profiles["lognormal-stragglers"]["async"]["peak_staleness"] > 0
+    speed = tfig.async_flip(profiles)
+    assert speed == jfig.async_flip(profiles) and speed["lognormal-stragglers"] > 1.0
+    assert payload["reprice"]["self_exact"]
+    written = json.loads((tmp_path / "BENCH_async.json").read_text())
+    assert written["bench"] == "fig_async" and written["rounds"] == 6 * 200
+
+
 def test_figures_run_cli(tmp_path, capsys):
     trun.main(["--only", "table2", "--device", "cpu", "--out", str(tmp_path)])
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,seconds,derived"
     assert out[1].startswith("table2_complexity,") and out[1].endswith(
         "lam1e-4_sqrtp_dependency=9.8e+03")
-    for name, item in (("timecost", "A10"),
-                       ("async", "A11"), ("robust", "A12"), ("serve", "A16"),
+    for name, item in (("robust", "A12"), ("serve", "A16"),
                        ("roofline", "A17"), ("driver", "A13")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             trun.main(["--only", name, "--device", "cpu"])

@@ -122,25 +122,33 @@ def test_spec_json_round_trips_across_packages():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("systems", "uniform"), ("adversary", "signflip:f=0.2"), ("robust_agg", "median"),
-    ("driver", "events"), ("async_", "constant"),
+    ("adversary", "signflip:f=0.2"), ("robust_agg", "median"),
 ])
 def test_unported_spec_fields_raise(field, value):
     kw = {"n_agents": 8, field: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         texp.ExperimentSpec.create(**kw)
+
+
+# the events driver needs a systems profile, async_ needs the events driver
+_EVENTS = {"driver": "events", "systems": "uniform"}
 
 
 @pytest.mark.parametrize("field,value", [
     ("network", "bernoulli:0.1"), ("participation", 0.5), ("cohort", 0.5),
     ("optimizer", "momentum"), ("server_optimizer", "fedadam"),
     ("lr_schedule", "cosine"), ("opt_policy", "keep"),
+    ("systems", "uniform"), ("driver", "events"), ("async_", "constant"),
 ])
 def test_ported_spec_fields_build(field, value):
-    """The dynamic-network and update-rule fields build in the port, and
-    their JSON loads in the reference unchanged."""
-    spec = texp.ExperimentSpec.create(n_agents=8, **{field: value})
+    """The dynamic-network, update-rule, systems and async fields build in
+    the port, and their JSON loads in the reference unchanged."""
+    kw = {field: value}
+    if field in ("driver", "async_"):
+        kw = dict(_EVENTS, **kw)
+    spec = texp.ExperimentSpec.create(n_agents=8, **kw)
     assert jexp.ExperimentSpec.from_json(spec.to_json()).to_json() == spec.to_json()
+    assert getattr(spec, field) == value
     mixing = spec.make_mixing(CPU)
     assert (mixing.network is not None) == (field in ("network", "participation", "cohort"))
 

@@ -33,7 +33,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "figures.ablation_eta_c", "figures.fig_sparse", "examples.quickstart",
                  "examples.semi_decentralized_cnn", "figures.fig_dynamic",
                  "figures.fig_optimizers", "optim", "optim.update_rules", "optim.schedules",
-                 "optim.optimizers"):
+                 "optim.optimizers", "sim", "sim.profiles", "sim.costmodel", "sim.tuner",
+                 "events", "events.staleness", "events.clock", "events.driver",
+                 "figures.fig_timecost", "figures.fig_async"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -44,7 +44,18 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    wan-gossip (K3 over the engine's W_k), the paper spec under the free and
    uniform fleets bit-equal to the scan driver, and fig_async's straggler
    cell and fig_timecost's tuner at full size, card against CPU; each with
-   its engine's host seconds and the share of its block draws;
+   its engine's host seconds and the share of its block draws; then
+   Byzantine agents and robust server rules ("robust"): sparse-10k under a
+   sign flip of 2,000 agents with the trimmed mean (K4 over the CSR with the
+   flip folded into its weights, bytes equal to the clean run's),
+   sparse-10k-q8 under the same flip (K5 over the folded CSR), dense-q8
+   under collusion with the median (K2 and K9 on the written-out q, then
+   torch.matmul: K3 launches 0), the paper spec under random noise with
+   Krum through the loop, block and events drivers (bit-equal), the four
+   server rules timed over sparse-10k's state and held against the CPU on
+   a 1,024-agent slice, fig_robust at full size card against CPU, and a
+   checkpoint of the collusion run restored onto the card whose next round
+   is bit-equal to continuing from memory;
 4. serves the two decoder-only models that fit the card at full width, in
    bf16, through ``FleetDelta.synthetic`` -> ``DecodeEngine`` ->
    ``ContinuousBatcher`` -> ``run_load``: Qwen3-8B ("serve-qwen3-8b": flash
@@ -163,7 +174,9 @@ PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4,
                   "sparse-1024-bern": 1e-4, "sparse-1024-q8d-cohort": 1e-3,
                   "dense-q8d-matching": 1e-3, "sparse-1024-momentum": 1e-4,
                   "sparse-1024-async": 1e-4, "sparse-1024-q8d-async": 1e-3,
-                  "dense-q8d-async": 1e-3, "fig-async-full": 1e-4, "fig-timecost-cell": 1e-4}
+                  "dense-q8d-async": 1e-3, "fig-async-full": 1e-4, "fig-timecost-cell": 1e-4,
+                  "sparse-1024-signflip": 1e-4, "sparse-1024-q8d-signflip": 1e-3,
+                  "dense-q8d-collusion": 1e-3}
 
 
 def log(*a):
@@ -192,21 +205,61 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Mean device milliseconds per call of ``fn`` over ``iters`` calls: the
-    time of the kernels, copies and fills it launched, from a
-    ``torch.profiler`` trace (CUDA activity only).  Host launch costs are
-    left out: at small shapes a wrapper's host time exceeds its kernel's,
-    and ``time_ms`` then measures the host."""
+    summed durations of every kernel, copy and fill in the ``torch.profiler``
+    trace of those calls (CUDA activity only), read from the exported trace
+    (:func:`trace_device_us`), not from ``key_averages``.  A trace that lacks
+    the device event of a launch it recorded is taken again, up to three
+    times; after three such traces the time is :func:`queued_ms`'s (CUDA
+    events around calls queued behind a sleep), and a line says so.  Host
+    launch costs are left out: at small shapes a wrapper's host time exceeds
+    its kernel's, and ``time_ms`` then measures the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+    for attempt in range(3):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        us, missing = trace_device_us(prof)
+        if not missing:
+            return us / iters / 1e3
+        log(f"device_ms: the trace lacks the device events of {missing} launches "
+            f"(attempt {attempt + 1} of 3)")
+    ms = queued_ms(torch, fn, iters=iters)
+    log(f"device_ms: three traces lacked device events ({missing} launches); {ms:.6f} ms "
+        f"from CUDA events around {iters} calls queued behind a sleep instead")
+    return ms
+
+
+# the device activity of a kineto trace (kernels, copies and fills), and the
+# runtime and driver calls that launch it
+DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+
+
+def trace_device_us(prof):
+    """(summed microseconds of the device events, launches without a device
+    event) of a finished ``torch.profiler`` trace, from its exported Chrome
+    trace: each launching runtime or driver call is matched to its device
+    event by their correlation id."""
+    path = os.path.join(ROOT, "build", f"device_trace_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    device = [e for e in events if e.get("cat") in DEVICE_TRACE_CATS]
+    seen = {e.get("args", {}).get("correlation") for e in device}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and any(k in e.get("name", "") for k in LAUNCH_CALLS)]
+    missing = sum(1 for e in launches if e.get("args", {}).get("correlation") not in seen)
+    return float(sum(e.get("dur", 0.0) for e in device)), missing
 
 
 def queued_ms(torch, fn, iters: int = 100) -> float:
@@ -1464,7 +1517,7 @@ def check_readout_tie(label, gpu, cpu, got, want, target):
 # Phase 2d: simulated systems costs and asynchronous execution
 # ---------------------------------------------------------------------------
 
-ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=600, fig_timecost_rounds=600)
+ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=600, fig_timecost_rounds=200)
 # fig_async's rule at n agents: poly decay, staleness bound 2, a server
 # buffer of half the fleet
 ASYNC_RULE = "poly:alpha=0.5,bound=2,buffer={}"
@@ -1811,6 +1864,482 @@ def async_paths(torch, dev):
         f"card ({1e3 * secs / n_rounds:.3f} ms/round), CPU {1e3 * cpu_s / n_rounds:.3f} ms/round")
     summary[label] = 1e3 * secs / n_rounds
     log(f"async: {time.perf_counter() - t_phase:.1f} s; ms/round on the card {summary}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 2e: Byzantine agents and robust server rules
+# ---------------------------------------------------------------------------
+
+# paper-random-krum: noise of scale 5 leaks into the ring's honest agents
+# through gossip (Krum guards the server rounds only), and the logreg loss
+# log1p(exp(-y a.x)) overflows float32 after a few tens of rounds: 12 rounds
+# (3 server rounds) keep it finite
+ROBUST_SIZES = dict(rounds=20, compare_rounds=6, paper_rounds=12)
+SIGNFLIP = "signflip:f=0.2"
+# fig-robust-full, card against CPU: each row's smoothed final loss within
+# this relative deviation, its test accuracy within FIG_ACC_SAMPLES test
+# samples, and the flags equal.  Krum's row selects one agent's whole vector
+# each server round; where the card and the CPU select different agents it
+# is held to this deviation up to that round (the selected submissions), and
+# each device's scores to their float32 rounding bound (krum_exact_and_bound)
+FIG_ROBUST_RTOL = 1e-4
+# a near-tie of two agents' Krum scores on the 1,024-agent slice of the
+# rule check (random submissions, no cancellation in the Gram form):
+# relative difference of their CPU scores where card and CPU part
+KRUM_TIE_RTOL = 1e-5
+
+
+class KrumProbe:
+    """Records, while open, every Krum selection: the agents' scores and
+    submissions (on the host, float64) and the selected agent, the first
+    minimum as the rule takes it (``repro_torch.utils.pytree.krum_scores``
+    wrapped, and restored on close).  Keeps every submission: for small
+    fleets only."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.utils import pytree
+
+        self.calls = []
+        self._saved = scores_of = pytree.krum_scores
+
+        def krum_scores(tree, n_byz):
+            scores = scores_of(tree, n_byz)
+            self.calls.append({
+                "scores": scores.to(device="cpu", dtype=torch.float64),
+                "pick": int(torch.argmin(scores)), "n_byz": int(n_byz),
+                "leaves": [x.to(device="cpu", dtype=torch.float64)
+                           for x in pytree.tree_leaves(tree)]})
+            return scores
+
+        pytree.krum_scores = krum_scores
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.utils import pytree
+
+        pytree.krum_scores = self._saved
+        return False
+
+
+def krum_exact_and_bound(call):
+    """(exact, bound) for one recorded Krum call: each agent's score in
+    float64 from direct differences, and a bound on the error of the
+    float32 Gram form the rule computes.  Per leaf of width d, the pair term
+    sq_i + sq_j - 2 x_i.x_j errs by at most gamma(d + 2) (sq_i + sq_j +
+    2 |x_i| |x_j|) (Higham's dot-product bound, gamma(k) = k u / (1 - k u),
+    u = 2^-24); a sum of the m smallest of a row moves by at most m times
+    the largest entry error, and the m-term sum adds gamma(m + leaves)."""
+    import torch
+
+    leaves = [x.reshape(x.shape[0], -1) for x in call["leaves"]]
+    n = leaves[0].shape[0]
+    m = max(1, n - call["n_byz"] - 2)
+    gamma = lambda k: k * 2.0 ** -24 / (1 - k * 2.0 ** -24)  # noqa: E731
+    d2 = torch.zeros((n, n), dtype=torch.float64)
+    err = torch.zeros((n, n), dtype=torch.float64)
+    for x in leaves:
+        sq, norm = (x * x).sum(1), x.norm(dim=1)
+        d2 += ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+        err += gamma(x.shape[1] + 2) * (sq[:, None] + sq[None, :]
+                                         + 2 * norm[:, None] * norm[None, :])
+    d2.fill_diagonal_(float("inf"))
+    err.fill_diagonal_(0.0)
+    exact = torch.sort(d2, dim=1).values[:, :m].sum(1)
+    moved = m * err.max(dim=1).values
+    return exact, moved + gamma(m + len(leaves)) * (exact + moved)
+
+
+def check_krum_row(label, got, want, card_calls, cpu_calls, rounds):
+    """Krum's fig_robust row, card against CPU, up to the first server round
+    where the selections part: the selections equal, the selected
+    submissions within FIG_ROBUST_RTOL, and each device's scores within
+    their float32 rounding bound of the exact scores of its own submissions
+    (:func:`krum_exact_and_bound`), the parting round included; there the
+    gap of the two agents' exact CPU scores within their float32 errors on
+    both devices and the drift of their exact scores.  True when the
+    selections never part (the caller then holds the final readouts as the
+    other rows')."""
+    check(len(card_calls) == len(cpu_calls) > 0 and len(cpu_calls) % rounds == 0,
+          f"{label}: {len(card_calls)} Krum selections on the card, {len(cpu_calls)} on the CPU "
+          f"over {rounds} server rounds")
+    per_round = len(cpu_calls) // rounds
+    first = next((i for i, (a, b) in enumerate(zip(card_calls, cpu_calls))
+                  if a["pick"] != b["pick"]), None)
+    upto = len(cpu_calls) if first is None else first
+    dev, rounding = 0.0, 0.0
+    for i in range(min(upto + 1, len(cpu_calls))):
+        for calls in (card_calls, cpu_calls):
+            exact, bound = krum_exact_and_bound(calls[i])
+            rounding = max(rounding, float(((calls[i]["scores"] - exact).abs() / bound).max()))
+        if i < upto:
+            pick = cpu_calls[i]["pick"]
+            dev = max([dev] + [float((a[pick] - b[pick]).abs().max() / b[pick].abs().max())
+                               for a, b in zip(card_calls[i]["leaves"], cpu_calls[i]["leaves"])])
+    log(f"readout {label}: Krum selects the same agent on card and CPU in the first "
+        f"{upto // per_round} of {rounds} server rounds; the selected submissions deviate by "
+        f"at most {dev:.3e} there; each device's scores err by at most {rounding:.3f} of "
+        f"their float32 rounding bound")
+    check(dev <= FIG_ROBUST_RTOL, f"{label}: the selected submissions deviate by {dev} "
+          f"before the selections part")
+    check(rounding <= 1.0, f"{label}: Krum's scores err beyond their float32 rounding bound "
+          f"({rounding:.3f} of it)")
+    if first is None:
+        return True
+    exact, bound = krum_exact_and_bound(cpu_calls[first])
+    a, b = card_calls[first]["pick"], cpu_calls[first]["pick"]
+    gap = float(abs(exact[a] - exact[b]))
+    # a tie within rounding: the exact gap is covered by the two agents'
+    # float32 errors on both devices and the drift of their exact scores
+    errs, reach = [], 0.0
+    exact_card = krum_exact_and_bound(card_calls[first])[0]
+    for calls, own in ((card_calls, exact_card), (cpu_calls, exact)):
+        for i in (a, b):
+            err = float(abs(calls[first]["scores"][i] - own[i]))
+            errs.append(err / float(own[i]))
+            reach += err
+    reach += sum(float(abs(exact_card[i] - exact[i])) for i in (a, b))
+    log(f"readout {label}: at server round {first // per_round} the card selects agent {a}, "
+        f"the CPU {b}; their exact CPU scores {float(exact[a]):.9e} and {float(exact[b]):.9e} "
+        f"differ by {gap / float(exact[b]):.3e} relative, {gap / float(bound[a] + bound[b]):.3f} "
+        f"of the two scores' float32 rounding bound; the float32 scores of these two agents "
+        f"err by up to {max(errs):.3e} relative on the two devices; final loss card "
+        f"{got['final_loss']:.6f}, CPU {want['final_loss']:.6f}")
+    check(gap <= reach, f"{label}: the selections part at round {first // per_round} by "
+          f"{gap:.3e}, beyond the scores' float32 errors and drift ({reach:.3e})")
+    return False
+
+
+def first_server_round(spec, horizon=10_000):
+    """The index of the spec's first server round in its Bernoulli(p) draw."""
+    from repro_torch.core.schedule import make_schedule
+
+    draw = make_schedule(spec.config.p, spec.config.seed)
+    return next(k for k in range(horizon) if draw(k))
+
+
+def with_server_round(spec, rounds):
+    """``spec`` over at least ``rounds`` rounds and at least one server round
+    (p unchanged): lengthened to the first server round if need be."""
+    k = first_server_round(spec)
+    return spec.replace(rounds=max(rounds, k + 1))
+
+
+def check_groups(label, hist, n_byz):
+    """The Byzantine mask's count and the per-group eval series."""
+    check(hist.adversary_mask is not None and sum(hist.adversary_mask) == n_byz,
+          f"{label}: mask has {sum(hist.adversary_mask or [])} Byzantine agents, not {n_byz}")
+    check(len(hist.eval_per_agent) == len(hist.eval_metrics) > 0 and all(
+        any(k.startswith("honest_") for k in e) and any(k.startswith("byz_") for k in e)
+        for e in hist.eval_per_agent), f"{label}: eval_per_agent lacks honest_/byz_ readouts")
+
+
+def robust_paths(torch, dev, card):
+    """Byzantine agents at full width: sparse-10k under a sign flip with the
+    trimmed mean (K4 over the folded CSR), sparse-10k-q8 under the same flip
+    (K5 over the folded CSR), dense-q8 under collusion with the median (K2
+    and K9 on the written-out q, then torch.matmul: no K3), the paper spec
+    under random noise with Krum through the loop, block and events drivers
+    (bit-equal), the four server rules timed at sparse-10k's state, fig_robust
+    at full size card against CPU, and a checkpoint of the collusion run
+    continued bit for bit on the card."""
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import ExperimentSpec, PiscoState, get_algorithm
+    from repro_torch.core.adversary import adversary_mask, parse_adversary_spec
+    from repro_torch.core.mixing import make_robust_agg
+    from repro_torch.data import FederatedDataset
+    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
+    from repro_torch.figures import fig_robust
+    from repro_torch.models import simple as models
+    from repro_torch.sim import FREE_NETWORK
+    from repro_torch.utils.pytree import krum_scores, tree_agent_mean
+
+    cpu = torch.device("cpu")
+    launches, summary = {}, {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    mlp0 = models.mlp_init(0)
+    rounds = ROBUST_SIZES["rounds"]
+
+    def mlp_eval(dev_, d):
+        xt, yt = (torch.as_tensor(a, device=dev_) for a in (d.x_test, d.y_test))
+        return lambda p: {"test_acc": float(models.mlp_accuracy(p, xt, yt))}
+
+    # -- sparse-10k-signflip-trimmed: K4 over the folded CSR ---------------
+    n_sparse = SIZES["sparse_agents"]
+    x, y = synthetic_mnist(n_sparse * 20, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
+    clean = with_server_round(ExperimentSpec.create(
+        algo="pisco", n_agents=n_sparse, t_o=2, eta_l=0.1, p=0.05, seed=0,
+        topology="random_regular", topology_kwargs={"degree": 4}, sparse=True,
+        rounds=rounds, eval_every=10,
+    ), rounds)
+    spec = clean.replace(adversary=SIGNFLIP, robust_agg="trimmed")
+    label = "sparse-10k-signflip-trimmed"
+    n_byz = parse_adversary_spec(SIGNFLIP, n_sparse).n_byz
+    hist, counts = drive(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16,
+                         mlp_eval(dev, data))
+    add(counts)
+    check_run(torch, label, hist, spec.rounds, n_sparse, mlp0, lemma1=False)
+    check_groups(label, hist, n_byz)
+    n_gossip = spec.rounds - sum(hist.is_global)
+    check(sum(hist.is_global) >= 1, f"{label}: no server round")
+    check(counts.get("sparse_mix", 0) == 2 * 4 * n_gossip and counts["fused_local_step"] > 0,
+          f"{label}: K4 launches {counts.get('sparse_mix')} for {n_gossip} gossip rounds "
+          f"(2 mixes x 4 leaves each), K1 {counts.get('fused_local_step')}")
+    want, _ = drive(torch, dev, "sparse-10k-clean", clean, models.mlp_loss, mlp0, data, 16)
+    check(hist.accountant.per_round_bytes == want.accountant.per_round_bytes,
+          f"{label}: bytes differ from the clean run's")
+    check(hist.adversary_mask == adversary_mask(SIGNFLIP, n_sparse, 0),
+          f"{label}: the mask is not the host draw's")
+    last = hist.eval_per_agent[-1]
+    log(f"{label}: {spec.rounds} rounds ({sum(hist.is_global)} server), "
+        f"{1e3 * hist.wall_time_s / spec.rounds:.3f} ms/round (the clean run "
+        f"{1e3 * want.wall_time_s / spec.rounds:.3f}), {n_byz} Byzantine, loss "
+        f"{hist.loss[0]:.6f} -> {hist.loss[-1]:.6f}; honest test acc "
+        f"{last['honest_test_acc']:.4f}, Byzantine {last['byz_test_acc']:.4f}; bytes equal to "
+        f"the clean run's ({hist.accountant.total_bytes})")
+    summary[label] = 1e3 * hist.wall_time_s / spec.rounds
+    state_x = hist.final_state.x
+    del hist, want
+
+    # -- per-rule server aggregation at sparse-10k's state -----------------
+    rules = {"mean": tree_agent_mean, "trimmed": make_robust_agg("trimmed", n_sparse),
+             "median": make_robust_agg("median", n_sparse),
+             "krum": make_robust_agg("krum", n_sparse)}
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    for name, rule in rules.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        # CUDA events around back-to-back calls (no host sync inside a rule),
+        # and the device time: CUDA events around calls queued behind a sleep,
+        # so the device runs them back to back (the profiler's trace of these
+        # calls drops device events of some launches, so it is not read here)
+        ms = time_ms(torch, lambda: rule(state_x), iters=3, warmup=1)
+        span = queued_ms(torch, lambda: rule(state_x), iters=3)
+        peak = torch.cuda.max_memory_allocated(dev) - base_mem
+        log(f"rule {name}: {ms:.3f} ms a call (device time {span:.3f} ms, calls queued "
+            f"behind a sleep) over {n_sparse} agents "
+            f"({sum(v[0].numel() for v in state_x.values())} coordinates each), "
+            f"peak {peak / 2**30:.3f} GiB over the state's; {card}")
+        summary[f"rule-{name}"] = ms
+    n_cmp = SIZES["compare_agents"]
+    part = {k: v[:n_cmp].contiguous() for k, v in state_x.items()}
+    part_cpu = {k: v.cpu() for k, v in part.items()}
+    for name in rules:
+        rule = tree_agent_mean if name == "mean" else make_robust_agg(name, n_cmp)
+        got, want = rule(part), rule(part_cpu)
+        if name == "median":
+            check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                  "rule median: the card's even-n median is not the CPU's")
+        elif name == "krum":
+            n_byz_cmp = int(np.ceil(0.2 * n_cmp))  # krum's default f = 0.2
+            sg, sc = krum_scores(part, n_byz_cmp).cpu(), krum_scores(part_cpu, n_byz_cmp)
+            ig, ic = int(torch.argmin(sg)), int(torch.argmin(sc))
+            if ig != ic:
+                margin = float(abs(sc[ig] - sc[ic]) / sc[ic])
+                log(f"rule krum: the card selects agent {ig}, the CPU {ic}; their CPU scores "
+                    f"differ by {margin:.3e} relative (a near-tie)")
+                check(margin <= KRUM_TIE_RTOL, "rule krum: selections differ beyond a near-tie")
+            else:
+                check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                      "rule krum: the same agent broadcasts other values")
+        else:
+            err = max(max_err(got[k].cpu(), want[k]) / (1 + float(want[k].abs().max()))
+                      for k in want)
+            check(err <= 1e-6, f"rule {name}: card against CPU off by {err}")
+        log(f"rule {name}: card against CPU on a {n_cmp}-agent slice: agree")
+    del state_x, part, part_cpu
+
+    # -- sparse-10k-q8-signflip: K5 over the folded CSR --------------------
+    clean_q8 = clean.replace(compression="q8")
+    spec_q8 = clean_q8.replace(adversary=SIGNFLIP)
+    label = "sparse-10k-q8-signflip"
+    hist, counts = drive(torch, dev, label, spec_q8, models.mlp_loss, mlp0, data, 16,
+                         mlp_eval(dev, data))
+    add(counts)
+    check_run(torch, label, hist, spec_q8.rounds, n_sparse, mlp0, lemma1=False)
+    check_groups(label, hist, n_byz)
+    n_gossip = spec_q8.rounds - sum(hist.is_global)
+    for k in ("fused_local_step", "row_absmax", "quant_codes"):
+        check(counts.get(k, 0) > 0, f"{label}: {k} not launched")
+    check(counts.get("sparse_compressed_mix", 0) == 2 * 4 * n_gossip
+          and counts.get("rowwise_quant_dequant", 0) == 0,
+          f"{label}: K5 launches {counts.get('sparse_compressed_mix')} for {n_gossip} gossip "
+          f"rounds, K9 {counts.get('rowwise_quant_dequant', 0)}")
+    log(f"{label}: {spec_q8.rounds} rounds ({sum(hist.is_global)} server), "
+        f"{1e3 * hist.wall_time_s / spec_q8.rounds:.3f} ms/round, loss {hist.loss[0]:.6f} -> "
+        f"{hist.loss[-1]:.6f}; K5 launches {counts.get('sparse_compressed_mix', 0)}, as "
+        f"sparse-10k-q8's for {n_gossip} gossip rounds")
+    summary[label] = 1e3 * hist.wall_time_s / spec_q8.rounds
+    del hist, data
+
+    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
+    for label, cspec in (("sparse-1024-signflip", spec),
+                         ("sparse-1024-q8d-signflip", spec_q8.replace(compression="q8d"))):
+        short = cspec.replace(n_agents=n_cmp, rounds=ROBUST_SIZES["compare_rounds"], p=0.3)
+        gpu_h = run_path(torch, dev, short, models.mlp_loss, mlp0, small, 16, mlp_eval(dev, small))
+        cpu_h = run_path(torch, cpu, short, models.mlp_loss, mlp0, small, 16, mlp_eval(cpu, small))
+        check(gpu_h.adversary_mask == cpu_h.adversary_mask, f"{label}: masks differ")
+        compare_cpu(torch, label, gpu_h, cpu_h)
+
+    # -- dense-q8-collusion-median: q written out, no K3 -------------------
+    n_dense = SIZES["dense_agents"]
+    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
+    spec = with_server_round(ExperimentSpec.create(
+        algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
+        topology="erdos_renyi", topology_kwargs={"prob": 0.3, "seed": 7}, compression="q8",
+        adversary="collusion:f=0.25", robust_agg="median", rounds=rounds, eval_every=10,
+    ), rounds)
+    label = "dense-q8-collusion-median"
+    mixing = spec.make_mixing(dev)
+    hist, counts = drive(torch, dev, label, spec, models.mlp_loss, mlp0, data, 16,
+                         mlp_eval(dev, data), mixing=mixing)
+    add(counts)
+    check_run(torch, label, hist, spec.rounds, n_dense, mlp0, lemma1=False)
+    check_groups(label, hist, n_dense // 4)
+    n_gossip = spec.rounds - sum(hist.is_global)
+    check(counts.get("compressed_mix", 0) == 0 and counts.get("quant_codes", 0) == 0,
+          f"{label}: K3 launched {counts.get('compressed_mix', 0)} times, the codes pass "
+          f"{counts.get('quant_codes', 0)}")
+    check(counts.get("row_absmax", 0) == counts.get("rowwise_quant_dequant", 0) == 2 * 4 * n_gossip,
+          f"{label}: K2 {counts.get('row_absmax')} and K9 {counts.get('rowwise_quant_dequant')} "
+          f"launches for {n_gossip} gossip rounds")
+    log(f"{label}: {spec.rounds} rounds ({sum(hist.is_global)} server), "
+        f"{1e3 * hist.wall_time_s / spec.rounds:.3f} ms/round, loss {hist.loss[0]:.6f} -> "
+        f"{hist.loss[-1]:.6f}; K3 launches 0")
+    summary[label] = 1e3 * hist.wall_time_s / spec.rounds
+    med_card = make_robust_agg("median", n_dense)(hist.final_state.x)
+    med_cpu = make_robust_agg("median", n_dense)({k: v.cpu() for k, v in
+                                                   hist.final_state.x.items()})
+    check(all(torch.equal(med_card[k].cpu(), med_cpu[k]) for k in med_cpu),
+          f"{label}: the card's median over {n_dense} agents is not the CPU's")
+    log(f"{label}: the even-n ({n_dense}) median on the card is the CPU's, bit for bit")
+    short = spec.replace(compression="q8d", rounds=ROBUST_SIZES["compare_rounds"], p=0.3)
+    compare_cpu(torch, "dense-q8d-collusion",
+                run_path(torch, dev, short, models.mlp_loss, mlp0, data, 16),
+                run_path(torch, cpu, short, models.mlp_loss, mlp0, data, 16))
+
+    # -- checkpoint: the collusion run saved, restored, one more round -----
+    bound = get_algorithm(spec.algo).bind(models.mlp_loss, spec.config, mixing)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    t0 = time.perf_counter()
+    path = save_checkpoint(ckpt_dir, spec.rounds, hist.final_state)
+    _, tree = restore_checkpoint(path, device=dev)
+    io_s = time.perf_counter() - t0
+    restored = PiscoState(*tree)
+    from repro_torch.data import RoundSampler
+
+    sampler = RoundSampler(data.to(dev), 16, spec.config.t_o, spec.config.seed, device=dev)
+    local, comm = sampler(spec.rounds)
+    mem, m1 = bound.gossip_round(hist.final_state, local, comm)
+    back, m2 = bound.gossip_round(restored, local, comm)
+    same = (torch.equal(m1.loss, m2.loss)
+            and all(torch.equal(mem.x[k], back.x[k]) and torch.equal(mem.y[k], back.y[k])
+                    and torch.equal(mem.ef["x"][k], back.ef["x"][k]) for k in mem.x)
+            and torch.equal(mem.ef["gen"].get_state(), back.ef["gen"].get_state()))
+    check(back.ef["gen"].device.type == "cuda", "checkpoint: the generator is not the card's")
+    check(same, "checkpoint: the restored state's next round differs from memory's")
+    log(f"checkpoint {label}: {os.path.getsize(path) / 2**20:.1f} MiB saved and restored onto "
+        f"the card in {io_s:.3f} s; the next round bit-equal to continuing from memory "
+        f"(x, y, residuals, generator)")
+    del hist, mem, back, restored, tree, data, mixing, bound
+
+    # -- paper-random-krum: loop, block (two sizes), events: bit-equal -----
+    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    data = FederatedDataset.from_arrays(x, y, n_agents=10)
+    loss = lambda p, b: models.logreg_loss(p, b, rho=0.01)  # noqa: E731
+    params0 = models.logreg_init(124)
+    paper = with_server_round(ExperimentSpec.create(
+        algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1, seed=0, topology="ring",
+        rounds=ROBUST_SIZES["paper_rounds"], adversary="random:f=0.1,scale=5",
+        robust_agg="krum", driver="loop"), ROBUST_SIZES["paper_rounds"])
+    label = "paper-random-krum"
+    want, counts = drive(torch, dev, f"{label}/loop", paper, loss, params0, data, 128)
+    add(counts)
+    check(counts.get("fused_local_step", 0) > 0, f"{label}: K1 not launched")
+    check_run(torch, label, want, paper.rounds, 10, params0, lemma1=False)
+    for name, variant in (("scan-7", paper.replace(driver="scan", block_size=7)),
+                          ("scan-32", paper.replace(driver="scan", block_size=32)),
+                          ("events-free", paper.replace(driver="events", systems=FREE_NETWORK))):
+        hist, counts = drive(torch, dev, f"{label}/{name}", variant, loss, params0, data, 128)
+        add(counts)
+        check_bit_equal(torch, f"{label}/{name}", hist, want, "the loop driver")
+    corrupt = parse_adversary_spec(paper.adversary, 10, 0).make_corrupt()
+    probe = {k: v.clone() for k, v in want.final_state.x.items()}
+    sent = corrupt(probe, 3)
+    mask = torch.as_tensor(corrupt.mask, device=dev)
+    check(all(torch.equal(sent[k][~mask], probe[k][~mask]) for k in probe)
+          and not any(torch.equal(sent[k][mask], probe[k][mask]) for k in probe),
+          f"{label}: the honest rows did not pass bit for bit")
+    cpu_h = run_path(torch, cpu, paper, loss, params0, data, 128)
+    check(cpu_h.is_global == want.is_global and cpu_h.adversary_mask == want.adversary_mask
+          and cpu_h.accountant.per_round_bytes == want.accountant.per_round_bytes
+          and np.all(np.isfinite(cpu_h.loss)), f"{label}: card and CPU differ in flags, "
+          "mask or bytes")
+    log(f"{label}: loop, scan at block sizes 7 and 32 and events (free fleet) bit-equal on "
+        f"the card over {paper.rounds} rounds ({sum(want.is_global)} server); honest rows pass "
+        f"bit for bit; card and CPU (noise drawn apart) agree in flags, mask and bytes; final "
+        f"loss card {want.loss[-1]:.6f}, CPU {cpu_h.loss[-1]:.6f}")
+    summary[label] = 1e3 * want.wall_time_s / paper.rounds
+    del data
+
+    # -- fig-robust-full: 300 rounds a row, card against CPU ---------------
+    label = "fig-robust-full"
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_fig_robust")
+    with KrumProbe() as card_krum:
+        got, counts, secs = counted(torch, dev, label, lambda: fig_robust.run(
+            quick=False, device=dev, out_dir=os.path.join(out_dir, "card")))
+    add(counts)
+    check(counts.get("fused_local_step", 0) > 0, f"{label}: K1 not launched")
+    t0 = time.perf_counter()
+    with KrumProbe() as cpu_krum:
+        want = fig_robust.run(quick=False, device=cpu, out_dir=os.path.join(out_dir, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    n_test = len(fig_robust.make_iid_workload(False, 0, cpu)[0].x_test)
+    ref_path = os.path.join(ROOT, "artifacts", "torch", "fig_robust_ref_full.json")
+    ref = json.load(open(ref_path)) if os.path.exists(ref_path) else None
+    flags = ("robustness_flip", "trimmed_within_10pct", "mean_within_10pct")
+    rows = dict(got["rows"], origin_trap=got["origin_trap"])
+    for row, g in rows.items():
+        c = want["origin_trap"] if row == "origin_trap" else want["rows"][row]
+        r = None if ref is None else (ref["origin_trap"] if row == "origin_trap"
+                                      else ref["rows"][row])
+        dev_loss = abs(g["final_loss"] - c["final_loss"]) / abs(c["final_loss"])
+        dev_acc = abs(g["final_test_acc"] - c["final_test_acc"]) / abs(c["final_test_acc"])
+        log(f"readout {label} {row}: final loss card {g['final_loss']:.6f}, CPU "
+            f"{c['final_loss']:.6f}, reference {r['final_loss'] if r else None}; test acc card "
+            f"{g['final_test_acc']:.4f}, CPU {c['final_test_acc']:.4f}; deviation "
+            f"{dev_loss:.3e} / {dev_acc:.3e}")
+        check(g["adversary_mask"] == c["adversary_mask"]
+              and g["total_bytes"] == c["total_bytes"], f"{label} {row}: mask or bytes differ")
+        if row != "signflip+krum" or check_krum_row(
+                f"{label} {row}", g, c, card_krum.calls, cpu_krum.calls, g["rounds"]):
+            check(dev_loss <= FIG_ROBUST_RTOL,
+                  f"{label} {row}: card against CPU off by {dev_loss}")
+            check(abs(g["final_test_acc"] - c["final_test_acc"]) * n_test
+                  <= FIG_ACC_SAMPLES + 1e-6, f"{label} {row}: test accuracy differs by more "
+                  f"than {FIG_ACC_SAMPLES} test samples")
+    check(all(got[f] == want[f] for f in flags), f"{label}: flags differ card against CPU")
+    log(f"readout {label}: flags card {[got[f] for f in flags]}, CPU "
+        f"{[want[f] for f in flags]}, reference {[ref[f] for f in flags] if ref else None}; "
+        f"card {secs:.1f} s ({1e3 * secs / got['rounds']:.3f} ms/round), CPU {cpu_s:.1f} s")
+    check(got["robustness_flip"], f"{label}: no robustness flip on the card")
+    summary[label] = 1e3 * secs / got["rounds"]
+    log(f"robust: {time.perf_counter() - t_phase:.1f} s; ms/round on the card (rules: ms a "
+        f"call) {summary}")
+    del got, want
+    torch.cuda.empty_cache()  # the 10⁴-agent sorts reserved ~30 GiB; the serve paths follow
     return launches
 
 
@@ -2756,6 +3285,8 @@ def main() -> int:
     for k, v in dynamic_paths(torch, dev).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in async_paths(torch, dev).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in robust_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
     for k, v in collective_paths(torch, dev, card).items():

@@ -31,6 +31,14 @@ communication path.
 * :func:`compress_mixing` / :func:`make_byte_model` — attach a compressor to
   dense, sparse, dynamic or collective mixing ops, and build the closed-form
   :class:`RoundByteModel`.
+
+Under a Byzantine adversary (:mod:`repro_torch.core.adversary`, wrapped
+before compression) the result is the reference's ``x + gamma (W corrupt(q)
+- q)``, the Byzantine agent's own self term included.  A sign flip is folded
+into the operand (W or the CSR weights), so the fused kernels run over it
+unchanged; ``random`` and ``collusion`` come as ``MixingOps.wire_corrupt``:
+q is written out (K2 and K9), corrupted, and mixed by the operator's plain
+gossip, with the clean path's rows, seed and noise stream.
 """
 from __future__ import annotations
 
@@ -222,6 +230,10 @@ class CompressedGossip:
     # collective mixers: this rank's noise stream (its global rank), so that
     # ranks round independently as the reference's agent rows do
     stream: int = 0
+    # Byzantine corruption of the sent q, ``corrupt(q, leaf index)``, that
+    # ``w`` / ``csr`` do not carry (MixingOps.wire_corrupt): q is written
+    # out, corrupted, then mixed by the plain gossip
+    corrupt: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
 
     def __post_init__(self):
         if sum(b is not None for b in (self.w, self.csr, self.base_gossip)) != 1:
@@ -255,7 +267,7 @@ class CompressedGossip:
             return tree_agent_mix({"leaf": q}, w)["leaf"]
         return sparse_mix_csr(q.reshape(q.shape[0], -1), *csr).reshape(q.shape)
 
-    def _mix_leaf(self, x, residual, gen) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _mix_leaf(self, x, residual, gen, i: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # a collective mixer's leaf is one rank's own message: one row
         rows = x.reshape(1 if self.base_gossip is not None else x.shape[0], -1)
         res = None if residual is None else residual.reshape(rows.shape)
@@ -264,7 +276,7 @@ class CompressedGossip:
             if self.compressor.stochastic and gen is not None:
                 noise = torch.rand(rows.shape, generator=gen, dtype=torch.float32,
                                    device=rows.device)
-            if self.base_gossip is None:
+            if self.base_gossip is None and self.corrupt is None:
                 kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
                 absmax = row_absmax(rows, res)
                 w, csr = self._operands()
@@ -281,20 +293,21 @@ class CompressedGossip:
             new_res = None if res is None else m - q
         # q crosses the wire: the difference form through the plain gossip
         q = q.reshape(x.shape)
-        diff = self._gossip_leaf(q) - q
+        diff = self._gossip_leaf(q if self.corrupt is None else self.corrupt(q, i)) - q
         out = x + diff if self.gamma == 1.0 else x + self.gamma * diff
         return out, (None if new_res is None else new_res.reshape(x.shape))
 
     def __call__(self, tree: Tree, residual: Any, gen) -> Tuple[Tree, Any]:
         mixed, new_res = {}, {}
-        for k in sorted(tree):
+        for i, k in enumerate(sorted(tree)):
             r = residual[k] if self.error_feedback else None
-            mixed[k], new_res[k] = self._mix_leaf(tree[k], r, gen)
+            mixed[k], new_res[k] = self._mix_leaf(tree[k], r, gen, i)
         return mixed, (new_res if self.error_feedback else residual)
 
     def stateless(self, tree: Tree) -> Tree:
         """Deterministic rounding, no error feedback — the baseline form."""
-        return {k: self._mix_leaf(tree[k], None, None)[0] for k in sorted(tree)}
+        return {k: self._mix_leaf(tree[k], None, None, i)[0]
+                for i, k in enumerate(sorted(tree))}
 
 
 def compress_mixing(
@@ -315,7 +328,9 @@ def compress_mixing(
     if gamma is None:
         gamma = 0.5 if isinstance(compressor, TopKCompressor) else 1.0
     w, csr, net = base.w, base.csr, base.network
-    if net is not None:
+    if net is not None and w is None and csr is None:
+        # a dynamic network's operand, staged for the round (an adversarial
+        # network over frozen operands stages the round index only)
         staged = lambda: net.gossip_w  # noqa: E731
         w, csr = (None, staged) if net.sparse else (staged, None)
     if w is None and csr is None and base.mesh is None:
@@ -328,6 +343,7 @@ def compress_mixing(
         base_gossip=base.gossip if w is None and csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
         stream=base.mesh.rank if base.mesh is not None else 0,
+        corrupt=base.wire_corrupt,
     )
     return dataclasses.replace(
         base,

@@ -116,13 +116,34 @@ def eval_boundary(k: int, rounds: int, eval_every: int) -> bool:
     return k % eval_every == 0 or k == rounds - 1
 
 
+def _eval_agent_groups(eval_fn: EvalFn, state, k: int, mask) -> Dict[str, float]:
+    """Eval-at-x̄ split by the Byzantine mask: the honest agents' mean point
+    (``honest_<key>``) and the Byzantine agents' (``byz_<key>``)."""
+    m = np.asarray(mask, dtype=bool)
+
+    def mean_of(rows: np.ndarray):
+        return {name: v[torch.as_tensor(rows, device=v.device)].mean(dim=0)
+                for name, v in sorted(state.x.items())}
+
+    out = {f"honest_{key}": val for key, val in eval_fn(mean_of(~m)).items()}
+    if m.any():
+        out.update({f"byz_{key}": val for key, val in eval_fn(mean_of(m)).items()})
+    out["round"] = k
+    return out
+
+
 def maybe_eval(hist, eval_fn: Optional[EvalFn], eval_every: int, rounds: int,
                state, k: int) -> None:
-    """Append the eval-at-x̄ readout when round ``k`` is an eval boundary."""
+    """Append the eval-at-x̄ readout when round ``k`` is an eval boundary;
+    a history carrying an ``adversary_mask`` also gets the honest and
+    Byzantine groups' readouts in ``eval_per_agent``."""
     if eval_fn is None or not eval_boundary(k, rounds, eval_every):
         return
     x_bar = {name: v.mean(dim=0) for name, v in sorted(state.x.items())}
     hist.eval_metrics.append(dict(eval_fn(x_bar), round=k))
+    mask = getattr(hist, "adversary_mask", None)
+    if mask is not None:
+        hist.eval_per_agent.append(_eval_agent_groups(eval_fn, state, k, mask))
 
 
 def _stack_metrics(per_round: List[RoundMetrics]) -> RoundMetrics:

@@ -1,9 +1,9 @@
 """Declarative experiments: ``ExperimentSpec`` + ``Experiment``.
 
 :class:`ExperimentSpec` has every field of the reference spec and the same
-JSON, so one payload loads in both packages.  ``adversary`` and a robust
-``robust_agg`` are not ported yet: they raise ``NotImplementedError`` naming
-ROADMAP A12 when the spec is built; that is a refusal, not a fallback.
+JSON, so one payload loads in both packages.  ``adversary`` puts Byzantine
+agents on the wire and ``robust_agg`` picks the server rule
+(:mod:`repro_torch.core.adversary`).
 
 ::
 
@@ -29,6 +29,12 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.adversary import (
+    adversary_mask,
+    make_adversarial_mixing,
+    parse_adversary_spec,
+    unwrap_network,
+)
 from repro_torch.core.algorithms import BoundAlgorithm, get_algorithm
 from repro_torch.core.compression import compress_mixing, make_byte_model, make_compressor
 from repro_torch.core.driver import (
@@ -38,7 +44,12 @@ from repro_torch.core.driver import (
     drive_scan,
     predraw_schedule,
 )
-from repro_torch.core.mixing import MixingOps, make_network_mixing, make_sparse_network_mixing
+from repro_torch.core.mixing import (
+    MixingOps,
+    make_network_mixing,
+    make_robust_agg,
+    make_sparse_network_mixing,
+)
 from repro_torch.core.pisco import LossFn, PiscoConfig, replicate_params
 from repro_torch.core.topology import (
     make_sparse_topology,
@@ -61,17 +72,6 @@ Sampler = Callable[[int], tuple]
 EvalFn = Callable[[Tree], Dict[str, float]]
 
 _CONFIG_FIELDS = tuple(f.name for f in dataclasses.fields(PiscoConfig))
-
-# spec field -> the ROADMAP item that ports its feature
-_NOT_PORTED = {
-    "adversary": "A12 (Byzantine fault injection)",
-    "robust_agg": "A12 (robust server aggregation)",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
@@ -110,9 +110,6 @@ class ExperimentSpec:
             raise ValueError(
                 f"participation must be in (0, 1], got {self.participation}"
             )
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) != ("mean" if name == "robust_agg" else None):
-                raise _not_ported(f"{name}={getattr(self, name)!r}", item)
         # fail fast on malformed optimizer, network and compression specs
         if self.optimizer is not None:
             parse_update_rule(self.optimizer)
@@ -144,6 +141,23 @@ class ExperimentSpec:
                 raise ValueError(
                     "async_ only applies to driver='events' "
                     f"(got driver={self.driver!r})"
+                )
+        if self.adversary is not None:
+            # the full probe: the grammar, and that f leaves an honest agent
+            parse_adversary_spec(self.adversary, self.config.n_agents, self.config.seed)
+        # robust rules replace the participation-aware server average
+        # wholesale: they need the synchronous full fleet
+        if make_robust_agg(self.robust_agg, self.config.n_agents) is not None:
+            if self.participation != 1.0:
+                raise ValueError(
+                    f"robust_agg={self.robust_agg!r} needs participation=1.0 "
+                    f"(got {self.participation}) — robust rules aggregate the "
+                    "full fleet"
+                )
+            if self.async_ is not None:
+                raise ValueError(
+                    f"robust_agg={self.robust_agg!r} needs synchronous server "
+                    f"rounds (async_=None, got {self.async_!r})"
                 )
         if self.driver == "events" and self.systems is None:
             raise ValueError(
@@ -211,8 +225,8 @@ class ExperimentSpec:
 
     def make_mixing(self, device: torch.device) -> MixingOps:
         """The spec's mixers: dense or sparse, over a frozen or a dynamic
-        network (its draws seeded with ``config.seed``), optionally
-        compressed."""
+        network (its draws seeded with ``config.seed``), with the adversary
+        and the server rule, optionally compressed."""
         kw = dict(self.topology_kwargs)
         n = self.config.n_agents
         if self.use_sparse:
@@ -225,6 +239,9 @@ class ExperimentSpec:
                 make_topology(self.topology, n, **kw), device,
                 self.effective_network, self.participation, seed=self.config.seed,
             )
+        # before compression, so the corruption rides the compressed wire
+        mixing = make_adversarial_mixing(mixing, self.adversary, self.robust_agg, n_agents=n,
+                                         seed=self.config.seed)
         if self.compression is not None:
             mixing = compress_mixing(
                 mixing,
@@ -316,8 +333,12 @@ class Experiment:
             # local import: repro_torch.sim imports the Experiment API
             from repro_torch.sim.costmodel import make_time_model
 
+            # pricing sees the base network: Byzantine agents send wrong
+            # bytes, not other byte or time counts
             hist.time_model = make_time_model(self.spec, hist.byte_model,
-                                              network=mixing.network)
+                                              network=unwrap_network(mixing.network))
+        hist.adversary_mask = adversary_mask(self.spec.adversary, self.spec.config.n_agents,
+                                             self.spec.config.seed)
         return hist
 
     def _synchronize(self) -> None:
@@ -370,7 +391,8 @@ class Experiment:
         flags = predraw_schedule(bound.schedule, 0, spec.rounds)
         x0 = self._x0_stacked()
         hist = self._fresh_history(mixing, bound, x0)
-        engine = make_event_engine(spec, hist.byte_model, flags, network=mixing.network)
+        engine = make_event_engine(spec, hist.byte_model, flags,
+                                   network=unwrap_network(mixing.network))
         if not engine.trivial:
             mixing = make_async_mixing(spec, self.device)
             bound = self._bind(mixing)

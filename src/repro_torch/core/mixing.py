@@ -43,10 +43,15 @@ rank's tree holds its own agent's leaves, with no agent axis:
 * :func:`collective_dense_mixing` — any W: a gather over the agent axes,
   then this rank's row of W;
 * :func:`hierarchical_mixing` and :func:`compressed_mixing` on top.
+
+The robust server rules (:func:`make_robust_agg`: trimmed mean, median,
+Krum) replace ``global_avg`` under a Byzantine adversary
+(:mod:`repro_torch.core.adversary`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -63,13 +68,70 @@ from repro_torch.core.topology import (
 from repro_torch.kernels.gt_update import mix_combine_half
 from repro_torch.kernels.sparse_mix import sparse_mix_csr
 from repro_torch.utils.pytree import (
+    tree_agent_krum,
     tree_agent_masked_mean,
     tree_agent_mean,
+    tree_agent_median,
     tree_agent_mix,
+    tree_agent_trimmed_mean,
     tree_map,
 )
 
 Tree = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# Robust server-averaging rules (Byzantine-tolerant global_avg variants)
+# ---------------------------------------------------------------------------
+
+ROBUST_RULES = ("mean", "trimmed", "median", "krum")
+
+
+def parse_robust_spec(spec: str):
+    """``(rule, f)`` from ``"mean"`` | ``"median"`` | ``"trimmed[:f=0.2]"`` |
+    ``"krum[:f=0.2]"``; ``f`` is the assumed Byzantine fraction, an agent
+    count ``ceil(f n)`` when the rule is built."""
+    head, _, tail = str(spec).partition(":")
+    rule = head.strip()
+    if rule not in ROBUST_RULES:
+        raise ValueError(
+            f"unknown robust_agg rule {rule!r}; options: {ROBUST_RULES}"
+        )
+    f = 0.2
+    if tail:
+        for item in tail.split(","):
+            k, _, v = item.partition("=")
+            if k.strip() != "f":
+                raise ValueError(
+                    f"robust_agg {rule!r} takes only 'f=<fraction>' "
+                    f"(got {item!r})"
+                )
+            f = float(v)
+    if rule in ("mean", "median") and tail:
+        raise ValueError(f"robust_agg {rule!r} takes no arguments")
+    if not 0.0 <= f < 0.5:
+        raise ValueError(f"robust_agg fraction must be in [0, 0.5), got {f}")
+    return rule, f
+
+
+def make_robust_agg(spec: str, n_agents: int) -> Optional[Callable[[Tree], Tree]]:
+    """The server rule of ``spec`` (tree -> tree, broadcast over the agents),
+    or None for ``"mean"``: the caller keeps its own ``global_avg``, so the
+    clean path is unchanged.  Checks that trimming leaves an agent."""
+    rule, f = parse_robust_spec(spec)
+    if rule == "mean":
+        return None
+    n_byz = int(np.ceil(f * n_agents))
+    if rule == "median":
+        return tree_agent_median
+    if rule == "trimmed":
+        if n_agents - 2 * n_byz < 1:
+            raise ValueError(
+                f"trimmed mean needs n - 2*ceil(f*n) >= 1 agents "
+                f"(n={n_agents}, f={f} trims {n_byz} per side)"
+            )
+        return functools.partial(tree_agent_trimmed_mean, trim=n_byz)
+    # krum: the neighbour count n - n_byz - 2 is floored at 1 inside the rule
+    return functools.partial(tree_agent_krum, n_byz=n_byz)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +165,12 @@ class MixingOps:
     # operands through it and stage them there, where ``gossip`` and
     # ``global_avg`` read them.  None: the operands above are frozen.
     network: Optional["NetworkContext"] = None
+    # Byzantine corruption that ``gossip`` puts on the wire but the operands
+    # above do not carry (repro_torch.core.adversary): ``corrupt(q, i)`` of
+    # leaf i (sorted-key order) of a payload.  Compressed gossip then writes
+    # q out and corrupts it before mixing.  None without an adversary, or
+    # when the operands carry it (a sign flip folded into the weights).
+    wire_corrupt: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
 
 
 def dense_mixing(topology: Topology, device: torch.device) -> MixingOps:

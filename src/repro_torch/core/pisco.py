@@ -383,3 +383,13 @@ def make_rank_round_fn(
         return new_state, (mean_loss * cfg.t_o + loss_c) / (cfg.t_o + 1)
 
     return round_fn
+
+
+def decentralized_config(cfg: PiscoConfig) -> PiscoConfig:
+    """Remark 1: p = 0, fully decentralized PISCO (gossip only)."""
+    return dataclasses.replace(cfg, p=0.0)
+
+
+def federated_config(cfg: PiscoConfig) -> PiscoConfig:
+    """Remark 2: p = 1, federated PISCO (a server round every round)."""
+    return dataclasses.replace(cfg, p=1.0)

@@ -1,8 +1,7 @@
 """History record of a training run, and the wall-clock helper.
 
 :class:`History` keeps the reference's ``to_dict``/``from_dict`` schema key
-for key (the adversary series stay empty until that subsystem is ported), so
-one JSON reader serves both packages.
+for key, so one JSON reader serves both packages.
 """
 from __future__ import annotations
 
@@ -47,7 +46,8 @@ class History:
     # Events driver only: the frozen event trace (repro_torch.events.clock),
     # read by ``price_history`` to reprice the run.  Excluded from to_dict().
     event_trace: Any = None
-    # Byzantine runs only (not ported): fault mask and per-group eval series.
+    # Byzantine runs only: the fault mask and the honest / Byzantine groups'
+    # eval series (repro_torch.core.adversary).
     adversary_mask: Optional[List[bool]] = None
     eval_per_agent: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 

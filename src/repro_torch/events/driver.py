@@ -34,6 +34,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.adversary import make_adversarial_mixing, unwrap_network
 from repro_torch.core.algorithms import BoundAlgorithm
 from repro_torch.core.compression import compress_mixing, make_compressor
 from repro_torch.core.driver import (
@@ -101,7 +102,8 @@ def make_async_mixing(spec: Any, device: torch.device) -> MixingOps:
     Gossip reads the W_k (dense, ``torch.matmul``) or the CSR weights
     (sparse, K4 over the base CSR) staged for the round; the server round
     averages participants with the staged staleness weights while absentees
-    hold.  Compression wraps on top as over any dynamic network."""
+    hold.  An adversary, then compression, wrap on top as over any dynamic
+    network."""
     n = spec.config.n_agents
     kw = dict(spec.topology_kwargs)
     device = torch.device(device)
@@ -131,9 +133,12 @@ def make_async_mixing(spec: Any, device: torch.device) -> MixingOps:
         gossip_edges=gossip_edges,
         network=net,
     )
-    if getattr(spec, "adversary", None) is not None:
-        raise NotImplementedError(
-            "an adversary over the async mixers is not ported yet (ROADMAP A12)")
+    if spec.adversary is not None:
+        # as ExperimentSpec.make_mixing: corruption before compression, over
+        # whatever operands the engine stages (robust rules are validated out
+        # for async specs, so robust_agg is "mean" here)
+        mixing = make_adversarial_mixing(mixing, spec.adversary, spec.robust_agg, n_agents=n,
+                                         seed=spec.config.seed)
     if spec.compression is not None:
         mixing = compress_mixing(
             mixing,
@@ -167,7 +172,7 @@ def drive_events(
     network context (the trivial case) from its own processes.  Per-round
     seconds come from the engine's availability clock, and the per-agent
     staleness series is appended to ``hist.staleness`` as rounds execute."""
-    net = bound.network
+    net = unwrap_network(bound.network)
     if isinstance(net, EventNetwork):
         net.engine = engine
     cuts = block_bounds(

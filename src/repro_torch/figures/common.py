@@ -144,9 +144,8 @@ def run_pisco_variant(
     mixing: Optional[MixingOps] = None,
 ):
     """One PISCO (or baseline) run of the figures: ``(History, Topology)``.
-    A keyword whose feature is not ported raises ``NotImplementedError``
-    from the spec, naming its ROADMAP item.  ``mixing`` replaces the
-    spec's operator, so that a caller can reach the one the run used."""
+    ``mixing`` replaces the spec's operator, so that a caller can reach the
+    one the run used."""
     dev = resolve_device(device)
     spec = ExperimentSpec.create(
         algo=algo, n_agents=data.n_agents, t_o=t_o, eta_l=eta_l, eta_c=eta_c, p=p,

@@ -5,9 +5,9 @@
 
 Quick sizes by default; ``--full`` runs the paper's.  ``ablation`` is opt-in,
 as in the reference.  ``timecost`` and ``async`` (simulated wall-clock and
-asynchronous execution) run with the rest.  A figure whose subsystem is not
-ported (``robust``, ``serve``, ``roofline``, ``driver``) raises an error
-naming its ROADMAP item.
+asynchronous execution) and ``robust`` (Byzantine agents) run with the rest.
+A figure whose subsystem is not ported (``serve``, ``roofline``, ``driver``)
+raises an error naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,9 +17,9 @@ import time
 from repro_torch.device import resolve_device
 
 PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "dynamic", "optimizers",
-          "timecost", "async", "ablation", "sparse")
+          "timecost", "async", "robust", "ablation", "sparse")
 # the reference's other figures -> the ROADMAP item that ports them
-NOT_PORTED = {"robust": "A12", "serve": "A16", "roofline": "A17", "driver": "A13"}
+NOT_PORTED = {"serve": "A16", "roofline": "A17", "driver": "A13"}
 OPT_IN = ("ablation",)
 
 
@@ -112,6 +112,17 @@ def _async(quick, dev, out):
             + "".join(f";{k}_speedup={v:.2f}x" for k, v in speed.items() if k != "free"))
 
 
+def _robust(quick, dev, out):
+    from repro_torch.figures import fig_robust
+
+    payload = fig_robust.run(quick=quick, device=dev, out_dir=out)
+    rows, clean = payload["rows"], payload["clean_final_loss"]
+    trim_ratio = rows["signflip+trimmed"]["final_loss"] / max(clean, 1e-12)
+    mean_ratio = rows["signflip+mean"]["final_loss"] / max(clean, 1e-12)
+    return (f"flip={payload['robustness_flip']};trimmed_vs_clean={trim_ratio:.2f}x"
+            f";mean_vs_clean={mean_ratio:.2f}x")
+
+
 def _table2(quick, dev, out):
     from repro_torch.figures import table2_complexity
 
@@ -150,6 +161,7 @@ FIGURES = (
     ("optimizers", "fig_optimizers", _optimizers),
     ("timecost", "fig_timecost", _timecost),
     ("async", "fig_async", _async),
+    ("robust", "fig_robust", _robust),
     ("table2", "table2_complexity", _table2),
     ("ablation", "ablation_eta_c", _ablation),
     ("sparse", "fig_sparse", _sparse),

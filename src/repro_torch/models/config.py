@@ -4,7 +4,9 @@ Only the fields the served decoder-only text models use are ported: dense
 GQA decoders with QK-norm (Qwen3) and attention-free Mamba-2 SSD stacks.
 The other families of the reference (MoE, MLA, hybrid, encoder-decoder,
 VLM) raise ``NotImplementedError`` in :mod:`repro_torch.models.transformer`,
-naming the ROADMAP item they wait for.
+naming the ROADMAP item they wait for.  :func:`config_to_dict` and
+:func:`config_from_dict` give the reference's JSON form (checkpoint
+manifests carry it).
 """
 from __future__ import annotations
 
@@ -103,3 +105,49 @@ class ModelConfig:
             if ffn == "dense":
                 n += (3 if self.mlp_type == "swiglu" else 2) * d * f
         return n
+
+
+# ---------------------------------------------------------------------------
+# JSON round trip (checkpoint manifests carry the model config)
+# ---------------------------------------------------------------------------
+
+
+def config_to_dict(cfg: ModelConfig) -> dict:
+    """JSON-serialisable form of a :class:`ModelConfig` (sub-configs become
+    dicts), the reference's key for key and in its order.  The port runs
+    only the reference's ``remat_policy="full"`` and no layer scan, so those
+    two keys are written as constants."""
+    out = {}
+    for key, value in dataclasses.asdict(cfg).items():
+        out[key] = value
+        if key == "remat":
+            out["remat_policy"] = "full"
+        elif key == "loss_chunk":
+            out["scan_unroll"] = False
+    return out
+
+
+def config_from_dict(d: dict) -> ModelConfig:
+    """Inverse of :func:`config_to_dict`: rebuilds the SSM sub-config and the
+    tuple fields JSON turned into lists.  MoE and MLA configs, and a
+    ``remat_policy`` other than ``"full"``, wait for ROADMAP A14; the
+    reference's ``scan_unroll`` (a dry-run flag of its layer scan) is
+    dropped."""
+    d = dict(d)
+    for key in ("moe", "mla"):
+        if d.get(key) is not None:
+            raise NotImplementedError(f"{key} configs are not ported yet (ROADMAP A14)")
+    policy = d.pop("remat_policy", "full")
+    if policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={policy!r} is not ported yet (ROADMAP A14); the port runs 'full'")
+    d.pop("scan_unroll", None)
+    if d.get("ssm") is not None:
+        s = dict(d["ssm"])
+        if s.get("a_init_range") is not None:
+            s["a_init_range"] = tuple(s["a_init_range"])
+        d["ssm"] = SSMConfig(**s)
+    for k in ("mrope_sections", "hybrid_period"):
+        if d.get(k) is not None:
+            d[k] = tuple(d[k])
+    return ModelConfig(**d)

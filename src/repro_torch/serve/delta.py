@@ -13,7 +13,7 @@ tree plus one compact **delta** per agent and leaf:
   (leaf, agent) row, added back.
 
 ``lowrank`` deltas and the checkpoint exporters (``from_history``,
-``from_checkpoint``, ``export_fleet``) wait for ROADMAP A15.
+``from_checkpoint``, ``export_fleet``) wait for ROADMAP A16.
 
 :meth:`FleetDelta.gather` builds the slot-stacked parameters of a few agents
 (what the step-mode engine does every step); :meth:`FleetDelta.gather_into`
@@ -46,7 +46,7 @@ class DeltaSpec:
 
     def __post_init__(self):
         if self.kind == "lowrank":
-            raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A15)")
+            raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A16)")
         if self.kind not in ("dense", "topk"):
             raise ValueError(f"unknown delta kind {self.kind!r}")
         if not 0.0 < self.fraction <= 1.0:
@@ -71,7 +71,7 @@ class DeltaSpec:
                 if k == "f":
                     kw["fraction"] = float(v)
                 elif k == "r" and name == "lowrank":
-                    raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A15)")
+                    raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A16)")
                 else:
                     raise ValueError(f"unknown delta spec key {k!r} in {spec!r}")
         return cls(**kw)

@@ -26,6 +26,16 @@ def tree_leaves(tree: Tree):
     return [tree[k] for k in sorted(tree)]
 
 
+def tree_stack(trees) -> Tree:
+    """Stack a list of identically keyed trees along a new axis 0."""
+    return {k: torch.stack([t[k] for t in trees], dim=0) for k in sorted(trees[0])}
+
+
+def tree_unstack(tree: Tree, n: int) -> list:
+    """Inverse of :func:`tree_stack`: split the leading axis into ``n`` trees."""
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(n)]
+
+
 def tree_zeros_like(tree: Tree) -> Tree:
     return tree_map(torch.zeros_like, tree)
 
@@ -36,6 +46,24 @@ def tree_add(a: Tree, b: Tree) -> Tree:
 
 def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x: Tree, y: Tree) -> Tree:
+    """alpha * x + y, leafwise."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_size(tree: Tree) -> int:
+    """Total number of scalar elements."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
@@ -118,6 +146,71 @@ def tree_agent_mix_sparse(tree: Tree, senders, receivers, edge_w, self_w) -> Tre
         return sparse_mix(flat, senders, receivers, edge_w, self_w).reshape(x.shape)
 
     return tree_map(mix, tree)
+
+
+# ---------------------------------------------------------------------------
+# Robust server rules: each aggregates over the agent axis in float32 on the
+# leaf's device and broadcasts the result back (materialised) in its dtype.
+# ---------------------------------------------------------------------------
+
+
+def _broadcast(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return m.to(x.dtype).expand(x.shape).contiguous()
+
+
+def tree_agent_trimmed_mean(tree: Tree, trim: int) -> Tree:
+    """Coordinate-wise trimmed mean over the agent axis, broadcast back: per
+    coordinate the ``trim`` smallest and ``trim`` largest agent values are
+    dropped and the rest averaged.  Callers guarantee ``n - 2 trim >= 1``."""
+    trim = int(trim)
+
+    def leaf(x):
+        n = x.shape[0]
+        s = torch.sort(x.to(torch.float32), dim=0).values
+        kept = s[trim:n - trim] if trim > 0 else s
+        return _broadcast(kept.mean(dim=0, keepdim=True), x)
+
+    return tree_map(leaf, tree)
+
+
+def tree_agent_median(tree: Tree) -> Tree:
+    """Coordinate-wise median over the agent axis, broadcast back.  As
+    ``jnp.median`` (its ``midpoint`` quantile): ``(lo + hi) * 0.5`` of the
+    two middle sorted values, which are one value when n is odd — not
+    ``torch.median``, whose even-n median is the lower middle value."""
+
+    def leaf(x):
+        n = x.shape[0]
+        s = torch.sort(x.to(torch.float32), dim=0).values
+        lo, hi = s[(n - 1) // 2:(n - 1) // 2 + 1], s[n // 2:n // 2 + 1]
+        return _broadcast((lo + hi) * 0.5, x)
+
+    return tree_map(leaf, tree)
+
+
+def krum_scores(tree: Tree, n_byz: int) -> torch.Tensor:
+    """(n,) Krum scores: each agent's summed squared distance (over all
+    leaves, Gram form ``|x_i|^2 + |x_j|^2 - 2 x_i . x_j`` clamped at 0) to
+    its ``max(1, n - n_byz - 2)`` closest peers, itself excluded."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    dev = leaves[0].device
+    d2 = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    for x in leaves:
+        xf = x.reshape(n, -1).to(torch.float32)
+        sq = torch.sum(xf * xf, dim=1)
+        d2 = d2 + torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (xf @ xf.T), 0.0)
+    m = max(1, n - int(n_byz) - 2)
+    d2 = d2 + torch.diag(torch.full((n,), float("inf"), device=dev))
+    return torch.sum(torch.sort(d2, dim=1).values[:, :m], dim=1)
+
+
+def tree_agent_krum(tree: Tree, n_byz: int) -> Tree:
+    """Krum-style selection over the agent axis: the agent with the lowest
+    :func:`krum_scores` (the first of equal scores, as ``jnp.argmin``), its
+    whole tree broadcast back — always one agent's actual submission."""
+    sel = torch.argmin(krum_scores(tree, n_byz)).reshape(1)
+    return tree_map(lambda x: _broadcast(x.index_select(0, sel), x), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -542,10 +542,14 @@ def test_spec_validation():
         _spec(driver="events")
     with pytest.raises(ValueError):
         _spec(driver="events", systems="uniform", async_="warp")
-    # the robust rules and the adversary stay refused, naming their item
-    for kw in (dict(robust_agg="median"), dict(adversary="signflip:f=0.2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            _spec(driver="events", systems="uniform", async_="constant", **kw)
+    # a robust rule needs synchronous server rounds, in both packages; an
+    # adversary runs under async
+    kw = dict(driver="events", systems="uniform", async_="constant")
+    with pytest.raises(ValueError, match="synchronous server rounds"):
+        _spec(robust_agg="median", **kw)
+    with pytest.raises(ValueError, match="synchronous server rounds"):
+        JSpec.create(**dict(algo="pisco", n_agents=N_AGENTS, robust_agg="median", **kw))
+    assert _spec(adversary="signflip:f=0.2", **kw).adversary == "signflip:f=0.2"
 
 
 def test_spec_async_json_round_trip_and_legacy_payload():
@@ -580,12 +584,55 @@ def test_tuner_sweeps_staleness_bound_for_events_specs():
              staleness_grid=[1], rounds=4)
 
 
-def test_adversary_over_the_async_mixers_is_refused():
-    # the spec itself refuses an adversary; set one past it to reach the mixer
-    spec = _spec(driver="events", systems="uniform")
-    object.__setattr__(spec, "adversary", "signflip:f=0.2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        make_async_mixing(spec, CPU)
+def _run_events_both(ts):
+    """``(port History, reference History)`` of one spec with a test-loss
+    eval (the per-group readouts of an adversarial run need one)."""
+    js = JSpec.from_json(ts.to_json())
+    n = ts.config.n_agents
+    x, y = synthetic_a9a(1600, d=24, seed=0)
+    jd, td = JData.from_arrays(x, y, n), FederatedDataset.from_arrays(x, y, n)
+    xa, ya = jnp.asarray(jd.x_test), jnp.asarray(jd.y_test)
+    xt, yt = torch.as_tensor(td.x_test), torch.as_tensor(td.y_test)
+    jh = JExperiment(js, loss_fn=J_LOSS, params0={"w": jnp.zeros(24)},
+                     eval_fn=lambda p: {"test_loss": float(J_LOSS(p, (xa, ya)))},
+                     sampler_factory=lambda s: JSampler(jd, 16, s.config.t_o, s.config.seed)).run()
+    th = Experiment(ts, loss_fn=T_LOSS, params0={"w": np.zeros(24, np.float32)},
+                    eval_fn=lambda p: {"test_loss": float(T_LOSS(p, (xt, yt)))},
+                    sampler_factory=lambda s: RoundSampler(td, 16, s.config.t_o, s.config.seed,
+                                                           device=CPU),
+                    device=CPU).run()
+    return th, jh
+
+
+def test_adversary_over_the_async_mixers_is_refused(monkeypatch):
+    """Once refused (ROADMAP A12), now ported: an adversary over the async
+    mixers, dense and sparse, held against ``repro.events`` (collusion with
+    the reference's direction): flags, seconds, staleness and bytes equal,
+    losses and the per-group eval within LOSS_RTOL."""
+    from _torch_adversary import ref_collusion_direction
+
+    from repro_torch.core.adversary import AdversaryProcess
+
+    monkeypatch.setattr(AdversaryProcess, "collusion_direction", ref_collusion_direction)
+    for adversary, sparse in (("signflip:f=0.2", False), ("signflip:f=0.2", True),
+                              ("collusion:f=0.3,scale=0.5", False),
+                              ("collusion:f=0.3,scale=0.5", True)):
+        spec = _spec(n_agents=10, driver="events", systems="lognormal-stragglers",
+                     sparse=sparse, adversary=adversary, eval_every=5, eta_l=0.3, p=0.3,
+                     async_="poly:alpha=0.5,bound=1,buffer=3")
+        mixing = make_async_mixing(spec, CPU)
+        assert "/adv:" in mixing.name and isinstance(
+            mixing.network.base if adversary.startswith("signflip") else mixing.network,
+            EventNetwork)
+        th, jh = _run_events_both(spec)
+        assert th.is_global == list(jh.is_global) and th.sim_time_s == list(jh.sim_time_s)
+        assert th.staleness == [list(r) for r in jh.staleness]
+        assert th.accountant.per_round_bytes == jh.accountant.per_round_bytes
+        np.testing.assert_allclose(th.loss, jh.loss, rtol=LOSS_RTOL)
+        assert th.adversary_mask == jh.adversary_mask
+        np.testing.assert_allclose([e["byz_test_loss"] for e in th.eval_per_agent],
+                                   [e["byz_test_loss"] for e in jh.eval_per_agent],
+                                   rtol=LOSS_RTOL)
 
 
 # ---------------------------------------------------------------------------

@@ -125,9 +125,13 @@ def test_spec_json_round_trips_across_packages():
     ("adversary", "signflip:f=0.2"), ("robust_agg", "median"),
 ])
 def test_unported_spec_fields_raise(field, value):
+    """Once refused (ROADMAP A12), now ported: a spec with an adversary or
+    a robust rule round-trips through both packages' JSON."""
     kw = {"n_agents": 8, field: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        texp.ExperimentSpec.create(**kw)
+    ts = texp.ExperimentSpec.create(**kw)
+    js = jexp.ExperimentSpec.from_json(ts.to_json())
+    assert getattr(js, field) == value and js.to_json() == ts.to_json()
+    assert texp.ExperimentSpec.from_json(js.to_json()) == ts
 
 
 # the events driver needs a systems profile, async_ needs the events driver

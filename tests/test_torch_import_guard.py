@@ -1,9 +1,13 @@
-"""The PyTorch port imports neither JAX nor the JAX package ``repro``."""
+"""The PyTorch port imports neither JAX nor the JAX package ``repro``, and
+exports the reference packages' public names (their ``__all__``), or lists
+here why a name has no counterpart."""
 import ast
 import os
 import pkgutil
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
@@ -35,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "figures.fig_optimizers", "optim", "optim.update_rules", "optim.schedules",
                  "optim.optimizers", "sim", "sim.profiles", "sim.costmodel", "sim.tuner",
                  "events", "events.staleness", "events.clock", "events.driver",
-                 "figures.fig_timecost", "figures.fig_async"):
+                 "figures.fig_timecost", "figures.fig_async", "core.adversary",
+                 "figures.fig_robust", "checkpoint", "checkpoint.checkpoint"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -80,3 +85,46 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
                 continue
             offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
     assert offenders == []
+
+
+# reference name -> why the port has no counterpart (never an alias to
+# something else); the ROADMAP item where one will come
+NO_COUNTERPART = {
+    "repro.core": {
+        "dynamic_round_fns": "jit wrappers staging a round's operands; the port's "
+                             "NetworkContext.stage does it eagerly",
+        "make_block_fn": "the lax.scan body; the port's block driver (run_block) is a "
+                         "Python loop, not its twin",
+        "run_training": "a deprecated shim over Experiment in the reference",
+        "make_algorithm_round_fns": "a deprecated shim over get_algorithm(...).bind",
+    },
+    "repro.models": {
+        "MLAConfig": "ROADMAP A14 (MLA attention)",
+        "MoEConfig": "ROADMAP A14 (MoE layers)",
+    },
+    "repro.kernels": {
+        "fused_compressed_mix": "K3's port is compressed_mix(x, residual, w, absmax, ...): "
+                                "the error-feedback form with K2's abs-max passed in",
+        "ssd_scan_kernel": "K7's port is ssd_scan(...), three chunk passes with "
+                           "another signature",
+    },
+    "repro.utils": {},
+    "repro.data": {},
+    "repro.checkpoint": {},
+}
+
+
+@pytest.mark.parametrize("package", sorted(NO_COUNTERPART))
+def test_public_surfaces_match_the_reference(package):
+    """Every name of the reference package's ``__all__`` is in the port's
+    twin (and its ``__all__``), or listed above with its reason."""
+    import importlib
+
+    ref = importlib.import_module(package)
+    port = importlib.import_module(package.replace("repro", "repro_torch", 1))
+    listed = NO_COUNTERPART[package]
+    missing = [n for n in ref.__all__ if n not in listed
+               and not (hasattr(port, n) and n in port.__all__)]
+    assert missing == []
+    assert all(not hasattr(port, n) for n in listed), "a listed name now exists"
+    assert set(listed) <= set(ref.__all__)

@@ -100,7 +100,7 @@ def test_spec_grammar_and_refusals():
     for bad in ("sparse", "topk:g=1", "dense,q8"):
         with pytest.raises(ValueError):
             S.DeltaSpec.parse(bad)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A16"):
         S.DeltaSpec.parse("lowrank:r=4")
     with pytest.raises(ValueError):
         S.ArrivalProcess.parse("uniform:rate=1")

@@ -65,6 +65,19 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    ("serve-mamba2-370m": the SSD scan, K7, 48 launches per request; admit,
    step and dense-fleet token streams bit-identical), then both models at
    their reduced widths on the card and on the CPU ("serve-reduced");
+   then the train -> checkpoint -> serve loop ("fleet"): the example twin
+   ``repro_torch.examples.train_federated_lm`` trains LM_100M at full width
+   (f32, 4 agents, K1 once a leaf and round) for a few rounds and writes its
+   final state checkpoint (its GiB, save and restore seconds); the launcher
+   ``repro_torch.launch.serve`` serves that checkpoint under dense,
+   top-k at f = 1 (both bit-identical to the dense baseline, admit and step
+   modes), q8 top-k and rank-4 deltas, with a Perfetto trace and a metrics
+   line each (K6 in f32, 12 launches a request); ``FleetDelta.from_history``,
+   ``from_checkpoint`` and ``export_fleet`` agree; fig_serve at full size
+   (K6 at head dim 16); recorders on the paper path under a systems profile
+   and on the free-fleet events path (round tables equal to the CPU's,
+   losses bit-identical to unrecorded runs); and the driver benchmark under
+   ``profile_capture`` (device kernels in its trace);
 5. trains across four ranks (spawned processes, one PISCO agent each, all on
    the one card and joined by gloo through pinned host memory, since NCCL
    refuses two ranks on one device): Mamba2-370m at full width in bf16 on a
@@ -2375,8 +2388,9 @@ def ssd_cost(b, l, h, p, g, n, chunk, itemsize):
 def lm_kernel_checks(torch, dev):
     """K6 at Qwen3-8B's prefill shape (B 1, Hq 32, Hkv 8, D 128, S 2048, bf16,
     causal; its tensor-core path), at the served prompt (S 500), at S 1000
-    with a 256 window (bf16 and f32) and at ragged small shapes, timed at
-    S 2048 and S 500 beside SDPA; K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
+    with a 256 window (bf16 and f32), at fig_serve's TINY prefill (f32, D 16)
+    and at ragged small shapes, timed at S 2048 and S 500 beside SDPA (and at
+    D 16 in f32); K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
     N 128, chunk 256, bf16) and at a ragged L of 1000 in f32."""
     import torch.nn.functional as F
 
@@ -2398,7 +2412,10 @@ def lm_kernel_checks(torch, dev):
                                          (1, 32, 8, 1000, 128, 256, torch.bfloat16),
                                          (2, 8, 2, 333, 64, None, torch.bfloat16),
                                          (1, 32, 8, 1000, 128, 256, torch.float32),
-                                         (2, 4, 2, 77, 32, None, torch.float32)):
+                                         (2, 4, 2, 77, 32, None, torch.float32),
+                                         # fig_serve's TINY prefill: f32 at head dim 16
+                                         (1, 4, 2, 16, 16, None, torch.float32),
+                                         (2, 4, 2, 77, 16, 20, torch.float32)):
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt)
         ops.reset_launch_counts()
         out = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -2424,6 +2441,15 @@ def lm_kernel_checks(torch, dev):
         log(msg)
         err6 = max(err6, e)
         del q, k, v, out
+    q, k, v = attn_inputs(1, 4, 2, 16, 16, torch.bfloat16)
+    try:
+        ops.flash_attention(q, k, v, causal=True)
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    check("TMA" in raised and "64 bytes" in raised, "K6: bf16 at head dim 16 did not raise "
+          "naming the TMA row size")
+    log(f"K6 check (bf16, head dim 16): raises ValueError: {raised}")
 
     def k6_times(s):
         """K6 (bf16, causal) at Qwen3-8B's heads and S: CUDA-event ms per call
@@ -2453,6 +2479,17 @@ def lm_kernel_checks(torch, dev):
     q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
     rows["flash_attention"]["f32_window_ms"] = time_ms(
         torch, lambda: ops.flash_attention(q, k, v, causal=True, window=256))
+    # f32 at head dim 16, fig_serve's TINY prefill shape (B 1, Hq 4, Hkv 2, S 16)
+    q, k, v = attn_inputs(1, 4, 2, 16, 16, torch.float32)
+    nb, fl = flash_cost(1, 4, 2, 16, 16, 16, None, 4)
+    b_ms, b_by = bound_ms(nb, fl, F32_FLOP_PER_S)
+    kern = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    rows["flash_attention"]["d16_f32"] = dict(
+        shape=[1, 4, 2, 16, 16], ms=time_ms(torch, kern, iters=50), device_ms=device_ms(torch, kern),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=20),
+        library_ms=time_ms(torch, lib, iters=50), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max_err(kern(), ref.flash_attention_ref(q, k, v, causal=True)))
     del q, k, v
 
     def ssd_inputs(b, l, h, p, g, n, dt):
@@ -2835,6 +2872,308 @@ def serve_paths(torch, dev, card):
         check(len(nest_leaves(base_cpu)) > 0, "serve-reduced: empty parameters")
         log(f"compare serve-reduced/{arch}: greedy token streams equal on GPU and CPU "
             f"({sum(map(len, streams[0].values()))} tokens)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the train -> checkpoint -> serve loop, observed ("fleet")
+# ---------------------------------------------------------------------------
+
+# The example's LM_100M at full width, its default arguments but the rounds;
+# the launcher's requests; the deltas served from the checkpoint (dense and
+# top-k at f = 1 are lossless, the other two lossy)
+FLEET = dict(rounds=50, requests=8, prompt_len=32, gen=16, slots=4,
+             lossless=("dense", "topk:f=1.0"), lossy=("topk:f=0.05,q8", "lowrank:r=4"))
+
+
+def _fleet_tokens(report):
+    return {r.rid: list(r.tokens) for r in report.requests}
+
+
+def _trees_equal(torch, a, b):
+    from repro_torch.utils.pytree import nest_leaves
+
+    la, lb = nest_leaves(a), nest_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def fleet_paths(torch, dev, card):
+    """The example twin trains LM_100M on the card and checkpoints it; the
+    launcher serves the checkpoint under four delta formats and the dense
+    baseline with a trace and a metrics line each; the exporters agree;
+    fig_serve at full size; recorders on the paper path and the free-fleet
+    events path; the driver benchmark under ``profile_capture``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core import Experiment, ExperimentSpec
+    from repro_torch.data import FederatedDataset, RoundSampler
+    from repro_torch.data.synthetic import synthetic_a9a
+    from repro_torch.examples import train_federated_lm as ex
+    from repro_torch.figures import bench_driver, fig_serve
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import simple as models
+    from repro_torch.obs import TraceRecorder, read_jsonl, to_chrome_trace, validate_chrome_trace
+    from repro_torch.models import get_bundle
+    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, DeltaSpec,
+                                   FleetDelta, export_fleet, make_requests, run_load)
+    from repro_torch.sim import FREE_NETWORK
+    from repro_torch.utils.pytree import flatten_paths, nest_leaves
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def counted_call(label, fn):
+        out, counts, seconds = counted(torch, dev, label, fn)
+        add(counts)
+        return out, counts, seconds
+
+    work = os.path.join(ROOT, "build", "chip_smoke_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        # -- train: the example twin at full width, then its checkpoint --------
+        cfg = ex.LM_100M
+        rounds = FLEET["rounds"]
+        args = ex.build_parser().parse_args(["--rounds", str(rounds), "--log-every", "5",
+                                             "--ckpt-dir", os.path.join(work, "ckpt")])
+        saves = []
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            path = ckpt.save_checkpoint(*a, **kw)
+            saves.append((path, time.perf_counter() - t0))
+            return path
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        ex.save_checkpoint = timed_save
+        try:
+            hist, counts, _ = counted_call("fleet-train", lambda: ex.train(cfg, args, device=dev))
+        finally:
+            ex.save_checkpoint = ckpt.save_checkpoint
+        (path, save_s), = saves
+        x = flatten_paths(hist.final_state.x)
+        n_leaves, n_agents = len(x), args.n_agents
+        check(len(hist.loss) == rounds and bool(np.all(np.isfinite(hist.loss))),
+              "fleet-train: losses")
+        check(hist.loss[-1] < hist.loss[0], f"fleet-train: loss {hist.loss[0]} -> {hist.loss[-1]}")
+        check(counts["fused_local_step"] == n_leaves * rounds * args.t_o,
+              f"fleet-train: {counts['fused_local_step']} K1 launches for {n_leaves} leaves x "
+              f"{rounds} rounds")
+        y, g = flatten_paths(hist.final_state.y), flatten_paths(hist.final_state.g)
+        for k in sorted(x):  # Lemma 1: mean_i y_i == mean_i g_i
+            check(tuple(x[k].shape[:1]) == (n_agents,) and bool(torch.isfinite(x[k]).all()),
+                  f"fleet-train: x {k}")
+            dev_l1 = float((y[k].mean(0) - g[k].mean(0)).abs().max())
+            check(dev_l1 <= 1e-4 * (1.0 + float(g[k].abs().max())),
+                  f"fleet-train: Lemma 1 off by {dev_l1} on {k}")
+        gib = os.path.getsize(path) / 2**30
+        t0 = time.perf_counter()
+        step, restored = ckpt.restore_checkpoint(path)
+        restore_s = time.perf_counter() - t0
+        check(step == rounds and _trees_equal(torch, restored[0], hist.final_state.x),
+              "fleet-train: the checkpoint's x is not the run's")
+        del restored
+        log(f"path fleet-train: {cfg.name} ({cfg.param_count() / 1e6:.1f} M parameters, "
+            f"{n_agents} agents, {n_leaves} leaves) {rounds} rounds, "
+            f"{1e3 * hist.wall_time_s / rounds:.3f} ms/round in the driver, loss "
+            f"{hist.loss[0]:.4f} -> {hist.loss[-1]:.4f}, Lemma 1 held, K1 "
+            f"{counts['fused_local_step']} launches ({n_leaves} a round), peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
+        log(f"fleet-train losses: {' '.join(f'{v:.4f}' for v in hist.loss)}")
+        # two more rounds of the same run under the profiler: where a round goes
+        from torch.profiler import ProfilerActivity, profile
+
+        short = ex.build_parser().parse_args(["--rounds", "2", "--log-every", "1"])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ex.train(cfg, short, device=dev)
+            torch.cuda.synchronize()
+        window, busy, top = device_share(prof, "fleet-train")
+        log(f"profile fleet-train (2 rounds with set-up): window {window / 2e3:.3f} ms/round, "
+            f"device busy {100.0 * busy / window:.1f}%, device time {busy / 2e3:.3f} ms/round")
+        for name, us in top[:8]:
+            log(f"profile fleet-train:   {us / 2e3:8.3f} ms/round  {name[:100]}")
+        log(f"checkpoint fleet-train: {gib:.3f} GiB (x, y, g) saved in {save_s:.3f} s, "
+            f"restored to the host in {restore_s:.3f} s")
+
+        # -- serve the checkpoint through the launcher -------------------------
+        base_args = ["--ckpt", path, "--requests", str(FLEET["requests"]),
+                     "--prompt-len", str(FLEET["prompt_len"]), "--gen", str(FLEET["gen"]),
+                     "--slots", str(FLEET["slots"]), "--arrival", "poisson:rate=4",
+                     "--device", str(dev)]
+        n_attn = cfg.layer_kinds().count("attn")
+
+        def serve(delta, *extra):
+            trace = os.path.join(work, "trace.json")
+            metrics = os.path.join(work, "metrics.jsonl")
+            for f in (trace, metrics):
+                if os.path.exists(f):
+                    os.remove(f)
+            label = f"fleet-serve/{delta}" + "".join(" " + e for e in extra)
+            (report, fleet), counts, seconds = counted_call(label, lambda: launcher.run(
+                [*base_args, "--delta", delta, "--trace-out", trace, "--metrics-out", metrics,
+                 *extra]))
+            n = len(report.requests)
+            check(n == FLEET["requests"] and report.total_tokens == n * FLEET["gen"],
+                  f"{label}: {n} requests, {report.total_tokens} tokens")
+            check(counts["flash_attention"] == n_attn * n and counts["flash_attention_tc"] == 0,
+                  f"{label}: {counts['flash_attention']} K6 launches for {n} admissions")
+            with open(trace) as f:
+                validate_chrome_trace(json.load(f))
+            (line,) = read_jsonl(metrics)
+            m = line["metrics"]
+            check(m["serve.requests"]["value"] == n and
+                  m["serve.tokens"]["value"] == report.total_tokens,
+                  f"{label}: metrics line {m['serve.requests']} {m['serve.tokens']}")
+            log(f"path {label}: {report.total_tokens} tokens, {report.tokens_per_s:.3f} tokens/s, "
+                f"p50 {1e3 * report.p50_s:.3f} ms, p99 {1e3 * report.p99_s:.3f} ms, prefill "
+                f"{1e3 * report.mean('prefill_s'):.3f} ms/request, K6 {counts['flash_attention']} "
+                f"launches ({n_attn} a request), fleet {fleet.nbytes() / 2**20:.2f} MiB vs "
+                f"{fleet.naive_nbytes() / 2**20:.2f} MiB naive, trace valid, metrics line "
+                f"right; {seconds:.1f} s with the checkpoint's read and encode")
+            return _fleet_tokens(report), fleet
+
+        def serve_step_mode(fleet):
+            """The launcher's session in step mode over the fleet it built (the
+            checkpoint is not read again)."""
+            engine = DecodeEngine(get_bundle(cfg, dev), fleet, n_slots=FLEET["slots"],
+                                  max_seq=FLEET["prompt_len"] + FLEET["gen"] + 8,
+                                  materialize="step")
+            reqs = make_requests(ArrivalProcess.parse("poisson:rate=4"), FLEET["requests"],
+                                 n_agents=fleet.n_agents, vocab_size=cfg.vocab_size,
+                                 prompt_len=FLEET["prompt_len"], max_new_tokens=FLEET["gen"],
+                                 seed=0)
+            report, counts, _ = counted_call("fleet-serve (step)", lambda: run_load(
+                ContinuousBatcher(engine, seed=0), reqs))
+            check(counts["flash_attention"] == n_attn * len(report.requests),
+                  f"fleet-serve (step): {counts['flash_attention']} K6 launches")
+            return _fleet_tokens(report), report
+
+        want, _ = serve("dense", "--dense-baseline")
+        for delta in FLEET["lossless"]:
+            got, fleet = serve(delta)
+            check(got == want, f"fleet-serve/{delta} (admit): tokens differ from the dense "
+                  "baseline")
+            got, report = serve_step_mode(fleet)
+            check(got == want, f"fleet-serve/{delta} (step): tokens differ from the dense "
+                  "baseline")
+            log(f"compare fleet-serve/{delta}: admit and step ({report.tokens_per_s:.3f} "
+                "tokens/s) token streams bit-identical to the dense baseline")
+            del fleet
+        for delta in FLEET["lossy"]:
+            got, _ = serve(delta)
+            same = sum(a == b for rid in want for a, b in zip(got[rid], want[rid]))
+            first = sum(got[rid][0] == want[rid][0] for rid in want)
+            log(f"compare fleet-serve/{delta}: {same} of {sum(map(len, want.values()))} tokens "
+                f"agree with the dense baseline ({first} of {len(want)} first tokens)")
+
+        # -- export: from_history, from_checkpoint and export_fleet agree --------
+        spec = DeltaSpec.parse("dense")
+        t0 = time.perf_counter()
+        f_hist = FleetDelta.from_history(hist, spec)
+        f_ckpt = FleetDelta.from_checkpoint(path, spec, device=dev)
+        fleet_path = export_fleet(os.path.join(work, "export"), hist, step=rounds)
+        f_export = FleetDelta.from_checkpoint(fleet_path, spec, device=dev)
+        for name, other in (("from_checkpoint", f_ckpt), ("export_fleet", f_export)):
+            check(_trees_equal(torch, f_hist.base, other.base)
+                  and _trees_equal(torch, f_hist.deltas, other.deltas),
+                  f"fleet-export: from_history's payloads differ from {name}'s")
+        log(f"compare fleet-export: from_history, from_checkpoint and export_fleet "
+            f"({os.path.getsize(fleet_path) / 2**30:.3f} GiB) payloads equal "
+            f"({len(nest_leaves(f_hist.deltas))} arrays, {spec.name}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        del f_hist, f_ckpt, f_export, hist, x, y, g
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- fig_serve at full size ------------------------------------------------
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_fleet_payloads")
+    payload, counts, _ = counted_call("fig-serve-full", lambda: fig_serve.run(
+        quick=False, device=dev, out_dir=out_dir))
+    n_req = 3 * 32 + 2 + 3 * 32  # three bit-identity engines, the warm-up, three rates
+    check(counts["flash_attention"] == fig_serve.TINY.n_layers * n_req,
+          f"fig-serve-full: {counts['flash_attention']} K6 launches (D = 16, f32) for {n_req} "
+          "requests")
+    check(all(payload["bit_identity"][k] for k in ("admit_vs_dense", "step_vs_dense")),
+          "fig-serve-full: bit identity")
+    log(f"path fig-serve-full: {payload['seconds']:.3f} s, memory "
+        + ", ".join(f"x{m['ratio']:.3f} at {n} agents" for n, m in payload["memory"].items())
+        + f", bit identity "
+        f"{payload['bit_identity']}, K6 {counts['flash_attention']} launches (D = 16, f32), "
+        + ", ".join(f"{k} {v['tokens_per_s']:.1f} tokens/s p50 {1e3 * v['p50_s']:.3f} ms "
+                    f"p99 {1e3 * v['p99_s']:.3f} ms" for k, v in payload["rates"].items()))
+
+    # -- recorders on training: the round table equals the CPU's, losses the
+    # unrecorded run's ---------------------------------------------------------
+    cpu = torch.device("cpu")
+    xa, ya = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    data = FederatedDataset.from_arrays(xa, ya, n_agents=10)
+    paper = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1, seed=0,
+                                  topology="ring", rounds=SIZES["paper_rounds"], eval_every=10)
+    loss = lambda p, b: models.logreg_loss(p, b, rho=0.01)  # noqa: E731
+
+    def run(spec, d, recorder=None):
+        resident = data.to(d)
+        return Experiment(spec, loss_fn=loss, params0=models.logreg_init(124), device=d,
+                          recorder=recorder, sampler_factory=lambda s: RoundSampler(
+                              resident, 128, s.config.t_o, s.config.seed, device=d)).run()
+
+    for label, spec in (("recorder-paper-uniform", paper.replace(systems="uniform")),
+                        ("recorder-paper-events-free",
+                         paper.replace(driver="events", systems=FREE_NETWORK))):
+        rec, rec_cpu = TraceRecorder(), TraceRecorder()
+        traced, counts, t_traced = counted_call(label, lambda: run(spec, dev, rec))
+        plain, _, t_plain = counted_call(label + " (no recorder)", lambda: run(spec, dev))
+        run(spec, cpu, rec_cpu)
+        check(traced.loss == plain.loss and traced.is_global == plain.is_global,
+              f"{label}: losses with a recorder differ from the run without")
+        check(rec.round_table() == rec_cpu.round_table() and len(rec.round_table()) ==
+              spec.rounds, f"{label}: the round table differs from the CPU's")
+        check([t[3] for t in rec.round_table()] == traced.sim_time_s,
+              f"{label}: round spans are not the simulated seconds")
+        agent = [s for s in rec.spans if s.cat == "agent"]
+        check(len(agent) == (spec.rounds * 10 if spec.driver == "events" else 0),
+              f"{label}: {len(agent)} per-agent spans")
+        validate_chrome_trace(to_chrome_trace(rec))
+        log(f"compare {label}: losses bit-identical with and without the recorder "
+            f"({1e3 * t_traced / spec.rounds:.3f} / {1e3 * t_plain / spec.rounds:.3f} ms/round), "
+            f"round table ({len(rec.round_table())} rounds, {len(rec.spans)} spans) equal to "
+            f"the CPU's, K1 "
+            f"{counts['fused_local_step']} launches")
+
+    # -- the driver benchmark under profile_capture ---------------------------
+    prof_dir = os.path.join(ROOT, "build", "chip_smoke_fleet_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    try:
+        payload, counts, seconds = counted_call("bench-driver", lambda: bench_driver.run(
+            quick=True, profile_dir=prof_dir, device=dev, out_dir=out_dir))
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(len(kernels) > 0, "bench-driver: the profile holds no device kernels")
+        r = payload["results"]
+        check(r["loop"]["final_loss"] == r["scan"]["final_loss"] == r["events"]["final_loss"]
+              and r["loop"]["a2a_rounds"] == r["scan"]["a2a_rounds"],
+              "bench-driver: the drivers' runs differ")
+        log(f"path bench-driver (quick, under profile_capture): "
+            + ", ".join(f"{d} {1e3 * r[d]['per_round_s']:.3f} ms/round (cold "
+                        f"{r[d]['cold_wall_s']:.3f} s)" for d in ("loop", "scan", "events"))
+            + f"; scan speedup {payload['speedup']:.3f}x, events {payload['events_speedup']:.3f}x;"
+            f" trace {len(events)} events, {len(kernels)} device kernels; K1 "
+            f"{counts['fused_local_step']} launches; {seconds:.1f} s")
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"fleet: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3289,6 +3628,8 @@ def main() -> int:
     for k, v in robust_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
+    for k, v in fleet_paths(torch, dev, card).items():
+        launches[k] = launches.get(k, 0) + v
     for k, v in collective_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     for name, _, _ in KERNELS:

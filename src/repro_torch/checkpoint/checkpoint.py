@@ -140,6 +140,32 @@ def _generator(state: np.ndarray, device_type: str, device) -> torch.Generator:
     return gen
 
 
+def _n_leaves(structure) -> int:
+    if structure["kind"] == "leaf":
+        return 1
+    items = structure["items"]
+    return sum(_n_leaves(v) for v in (items.values() if isinstance(items, dict) else items))
+
+
+def _locate(structure, subtree: tuple):
+    """``(first leaf index, sub-structure)`` of the node ``subtree`` (dict
+    keys and sequence indices from the root) in a structure descriptor;
+    leaves are numbered in the order the keys list them."""
+    start = 0
+    for step in subtree:
+        items = structure["items"]
+        if isinstance(items, dict):
+            names = list(items)
+            if step not in items:
+                raise KeyError(f"checkpoint has no {step!r} under {names}")
+            before = [items[k] for k in names[:names.index(step)]]
+            structure = items[step]
+        else:
+            before, structure = items[:step], items[step]
+        start += sum(_n_leaves(v) for v in before)
+    return start, structure
+
+
 def _rebuild(structure, leaves_iter):
     kind = structure["kind"]
     if kind == "dict":
@@ -151,26 +177,26 @@ def _rebuild(structure, leaves_iter):
     return next(leaves_iter)
 
 
-def _read(path: str):
-    with np.load(path) as data:
-        manifest = json.loads(bytes(data["__manifest__"].tobytes()).decode())
-        arrays = [data[f"arr_{i}"] for i in range(len(manifest["keys"]))]
-    return manifest, arrays
-
-
-def restore_checkpoint(path: str, device=None) -> tuple:
+def restore_checkpoint(path: str, device=None, *, subtree: tuple = ()) -> tuple:
     """``(step, tree)``: NamedTuples come back as plain tuples, leaves as
     tensors of their saved dtypes on the CPU (on ``device`` when given),
-    generators on the device type they were saved from (or ``device``)."""
-    manifest, arrays = _read(path)
-    generators = manifest.get("generators", {})
-    leaves = []
-    for key, name, arr in zip(manifest["keys"], manifest["dtypes"], arrays):
-        if key in generators:
-            leaves.append(_generator(arr, generators[key], device))
-        else:
-            leaves.append(_to_tensor(arr, name, device))
-    return manifest["step"], _rebuild(manifest["structure"], iter(leaves))
+    generators on the device type they were saved from (or ``device``).
+
+    ``subtree`` (dict keys and sequence indices from the root, e.g. ``(0,)``
+    for a state's first field) restores only that part of the tree and
+    reads only its arrays."""
+    with np.load(path) as data:
+        manifest = json.loads(bytes(data["__manifest__"].tobytes()).decode())
+        start, structure = _locate(manifest["structure"], tuple(subtree))
+        generators = manifest.get("generators", {})
+        leaves = []
+        for i in range(start, start + _n_leaves(structure)):
+            key, name, arr = manifest["keys"][i], manifest["dtypes"][i], data[f"arr_{i}"]
+            if key in generators:
+                leaves.append(_generator(arr, generators[key], device))
+            else:
+                leaves.append(_to_tensor(arr, name, device))
+    return manifest["step"], _rebuild(structure, iter(leaves))
 
 
 def read_manifest(path: str) -> dict:

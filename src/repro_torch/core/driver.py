@@ -76,8 +76,15 @@ def record_flags(hist, flags: np.ndarray, realized=None, start: int = 0, seconds
     instead of the static round constants.  ``start`` is the absolute index
     of the block's first round (the time model's draws are pure in the
     round); ``seconds`` overrides the time model with per-round seconds (the
-    events driver's event clock)."""
+    events driver's event clock).
+
+    A history carrying a :class:`~repro_torch.obs.trace.TraceRecorder`
+    (``hist.recorder``) also gets one span per round with the accountant's
+    bytes and seconds (and, under a time model, the round's phases as
+    children): host bookkeeping over values already on the host, so a run
+    without a recorder is bit-identical."""
     time_model = getattr(hist, "time_model", None)
+    rec = getattr(hist, "recorder", None)
     for i, f in enumerate(flags):
         f = bool(f)
         hist.is_global.append(f)
@@ -94,6 +101,11 @@ def record_flags(hist, flags: np.ndarray, realized=None, start: int = 0, seconds
         else:
             sec = None
         hist.accountant.record(f, nbytes, seconds=sec)
+        if rec is not None:
+            parts = None
+            if seconds is None and time_model is not None:
+                parts = time_model.round_parts(start + i, f)
+            rec.record_round(start + i, f, nbytes, seconds=sec, parts=parts)
 
 
 def record_block(hist, metrics: RoundMetrics, flags: np.ndarray, realized=None, *,
@@ -134,13 +146,18 @@ def _eval_agent_groups(eval_fn: EvalFn, state, k: int, mask) -> Dict[str, float]
 
 def maybe_eval(hist, eval_fn: Optional[EvalFn], eval_every: int, rounds: int,
                state, k: int) -> None:
-    """Append the eval-at-x̄ readout when round ``k`` is an eval boundary;
-    a history carrying an ``adversary_mask`` also gets the honest and
-    Byzantine groups' readouts in ``eval_per_agent``."""
+    """Append the eval-at-x̄ readout when round ``k`` is an eval boundary
+    (and an ``eval`` instant to a recorder's round track); a history
+    carrying an ``adversary_mask`` also gets the honest and Byzantine
+    groups' readouts in ``eval_per_agent``."""
     if eval_fn is None or not eval_boundary(k, rounds, eval_every):
         return
     x_bar = {name: v.mean(dim=0) for name, v in sorted(state.x.items())}
     hist.eval_metrics.append(dict(eval_fn(x_bar), round=k))
+    rec = getattr(hist, "recorder", None)
+    if rec is not None:
+        m = {key: v for key, v in hist.eval_metrics[-1].items() if key != "round"}
+        rec.add_instant("rounds", "eval", rec.clock_s, round=k, **m)
     mask = getattr(hist, "adversary_mask", None)
     if mask is not None:
         hist.eval_per_agent.append(_eval_agent_groups(eval_fn, state, k, mask))

@@ -259,7 +259,13 @@ class Experiment:
     ``device="cpu"`` to run the plain PyTorch path.  ``params0`` (unstacked)
     or ``x0`` (agent-stacked) may be numpy arrays or tensors; they are moved
     to the device.  ``sampler_factory(spec)`` builds the per-round sampler
-    (its batches must already lie on the device)."""
+    (its batches must already lie on the device).
+
+    ``recorder`` (a :class:`~repro_torch.obs.trace.TraceRecorder`) is
+    attached to every History this experiment makes, sweeps included: the
+    port runs a sweep's seeds and grid points one after another, so their
+    rounds follow one another on the recorder's timeline.  (The reference
+    vmaps a seed sweep into one program and leaves its sweeps unrecorded.)"""
 
     def __init__(
         self,
@@ -274,6 +280,7 @@ class Experiment:
         mixing: Optional[MixingOps] = None,
         stop_when: Optional[Callable[[History], bool]] = None,
         device: DeviceLike = None,
+        recorder: Any = None,
     ):
         if (params0 is None) == (x0 is None):
             raise ValueError("pass exactly one of params0 (unstacked) or x0 (stacked)")
@@ -289,6 +296,7 @@ class Experiment:
         self.eval_fn = eval_fn
         self._mixing = mixing
         self.stop_when = stop_when
+        self.recorder = recorder
 
     def _pieces(self) -> dict:
         return dict(
@@ -301,6 +309,7 @@ class Experiment:
             mixing=self._mixing,
             stop_when=self.stop_when,
             device=self.device,
+            recorder=self.recorder,
         )
 
     def _make_sampler(self, spec: ExperimentSpec) -> Sampler:
@@ -339,6 +348,7 @@ class Experiment:
                                               network=unwrap_network(mixing.network))
         hist.adversary_mask = adversary_mask(self.spec.adversary, self.spec.config.n_agents,
                                              self.spec.config.seed)
+        hist.recorder = self.recorder
         return hist
 
     def _synchronize(self) -> None:

@@ -50,6 +50,10 @@ class History:
     # eval series (repro_torch.core.adversary).
     adversary_mask: Optional[List[bool]] = None
     eval_per_agent: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    # Optional repro_torch.obs.trace.TraceRecorder: when set, the drivers'
+    # recording funnel also emits one span per round (host-side only; None
+    # is the telemetry-off path).  Excluded from to_dict().
+    recorder: Any = None
 
     @property
     def sim_time_s(self) -> List[float]:
@@ -184,6 +188,34 @@ class History:
             ),
             eval_per_agent=[dict(m) for m in d.get("eval_per_agent", [])],
         )
+
+    def telemetry(self, meta: Optional[Dict[str, Any]] = None):
+        """This run as a :class:`~repro_torch.obs.metrics.MetricsRegistry`:
+        round and byte counters, time gauges, per-round byte and simulated
+        second histograms, staleness and the Byzantine count."""
+        from repro_torch.obs.metrics import MetricsRegistry
+
+        reg = MetricsRegistry(meta=dict(meta or {}))
+        acct = self.accountant
+        reg.counter("train.rounds_gossip").inc(acct.agent_to_agent)
+        reg.counter("train.rounds_server").inc(acct.agent_to_server)
+        reg.counter("train.bytes_a2a").inc(acct.agent_to_agent_bytes)
+        reg.counter("train.bytes_a2s").inc(acct.agent_to_server_bytes)
+        reg.gauge("train.wall_time_s").set(self.wall_time_s)
+        reg.gauge("train.sim_time_a2a_s").set(acct.agent_to_agent_seconds)
+        reg.gauge("train.sim_time_a2s_s").set(acct.agent_to_server_seconds)
+        reg.histogram("train.round_bytes").observe_many(acct.per_round_bytes)
+        if acct.per_round_seconds:
+            reg.histogram("train.round_sim_s").observe_many(acct.per_round_seconds)
+        if self.loss:
+            reg.gauge("train.final_loss").set(self.loss[-1])
+        if self.staleness:
+            h = reg.histogram("train.staleness")
+            for row in self.staleness:
+                h.observe_many(row)
+        if self.adversary_mask is not None:
+            reg.gauge("train.n_byzantine").set(sum(self.adversary_mask))
+        return reg
 
 
 @contextlib.contextmanager

@@ -149,6 +149,21 @@ def make_async_mixing(spec: Any, device: torch.device) -> MixingOps:
     return mixing
 
 
+def _record_agent_rounds(rec, engine: EventEngine, flags, start: int, stop: int,
+                         t0: float) -> None:
+    """Each agent's view of rounds ``[start, stop)`` on its own track, from
+    the engine's frozen decisions: staleness, participation and gating."""
+    gate = engine.trace["gate"]
+    parts = engine.trace["participants"]
+    for k in range(start, stop):
+        dur = float(engine.seconds[k])
+        f = bool(flags[k - start])
+        for a in range(engine.n_agents):
+            rec.record_agent_round(k, a, t0, dur, f, staleness=int(engine.staleness[k, a]),
+                                   participant=bool(parts[k, a]), gated=bool(not gate[k, a]))
+        t0 += dur
+
+
 def drive_events(
     bound: BoundAlgorithm,
     state,
@@ -171,7 +186,8 @@ def drive_events(
     An :class:`EventNetwork` draws its operands from ``engine``; an ordinary
     network context (the trivial case) from its own processes.  Per-round
     seconds come from the engine's availability clock, and the per-agent
-    staleness series is appended to ``hist.staleness`` as rounds execute."""
+    staleness series is appended to ``hist.staleness`` as rounds execute.
+    A recorder on ``hist`` also gets every agent's rounds on its own track."""
     net = unwrap_network(bound.network)
     if isinstance(net, EventNetwork):
         net.engine = engine
@@ -183,8 +199,12 @@ def drive_events(
     for start, stop in cuts:
         flags = engine.flags[start:stop]
         state, metrics, realized = run_block(bound, state, sampler, start, flags)
+        rec = getattr(hist, "recorder", None)
+        t_block = rec.clock_s if rec is not None else 0.0
         record_block(hist, metrics, flags, realized, start=start,
                      seconds=engine.seconds[start:stop])
+        if rec is not None:
+            _record_agent_rounds(rec, engine, flags, start, stop, t_block)
         hist.staleness.extend(engine.staleness[start:stop].tolist())
         maybe_eval(hist, eval_fn, eval_every, rounds, state, stop - 1)
         if stop_when is not None and stop_when(hist):

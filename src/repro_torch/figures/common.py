@@ -84,6 +84,28 @@ def save_result(name: str, payload: dict, out_dir: Optional[str] = None, *,
     return path
 
 
+def write_manifest(art_dir: Optional[str] = None) -> str:
+    """Index the ``BENCH_*.json`` payloads of ``art_dir`` (``artifacts/torch``
+    by default) for the regression gate: ``MANIFEST.json`` maps each bench
+    key (``BENCH_driver.json`` -> ``driver``) to its file, with the git rev
+    of the checkout and the gate's schema version."""
+    import glob
+
+    from repro_torch.obs.regress import BENCH_SCHEMA_VERSION, bench_key
+
+    art_dir = ARTIFACTS if art_dir is None else art_dir
+    benches = {}
+    for path in sorted(glob.glob(os.path.join(art_dir, "BENCH_*.json"))):
+        fname = os.path.basename(path)
+        benches[bench_key(fname)] = {"path": fname}
+    manifest = {"schema_version": BENCH_SCHEMA_VERSION, "git_rev": git_rev(), "benches": benches}
+    os.makedirs(art_dir, exist_ok=True)
+    out = os.path.join(art_dir, "MANIFEST.json")
+    with open(out, "w") as f:
+        json.dump(manifest, f, indent=1)
+    return out
+
+
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)

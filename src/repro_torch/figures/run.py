@@ -3,11 +3,13 @@
 
     python -m repro_torch.figures.run [--full] [--only fig4 ...] [--out DIR] [--device cpu]
 
-Quick sizes by default; ``--full`` runs the paper's.  ``ablation`` is opt-in,
-as in the reference.  ``timecost`` and ``async`` (simulated wall-clock and
-asynchronous execution) and ``robust`` (Byzantine agents) run with the rest.
-A figure whose subsystem is not ported (``serve``, ``roofline``, ``driver``)
-raises an error naming its ROADMAP item.
+Quick sizes by default; ``--full`` runs the paper's.  ``ablation`` and
+``driver`` (the round-driver benchmark) are opt-in, as in the reference.
+``timecost`` and ``async`` (simulated wall-clock and asynchronous
+execution), ``robust`` (Byzantine agents) and ``serve`` (the serving path)
+run with the rest.  ``roofline`` is not ported and raises an error naming
+its ROADMAP item.  Each run re-indexes the payload directory's
+``BENCH_*.json`` in ``MANIFEST.json`` for ``repro_torch.figures.check_regress``.
 """
 from __future__ import annotations
 
@@ -15,12 +17,13 @@ import argparse
 import time
 
 from repro_torch.device import resolve_device
+from repro_torch.figures.common import write_manifest
 
 PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "dynamic", "optimizers",
-          "timecost", "async", "robust", "ablation", "sparse")
+          "timecost", "async", "robust", "ablation", "driver", "sparse", "serve")
 # the reference's other figures -> the ROADMAP item that ports them
-NOT_PORTED = {"serve": "A16", "roofline": "A17", "driver": "A13"}
-OPT_IN = ("ablation",)
+NOT_PORTED = {"roofline": "A17"}
+OPT_IN = ("ablation", "driver")
 
 
 def _row(name: str, seconds: float, derived: str) -> None:
@@ -139,6 +142,23 @@ def _ablation(quick, dev, out):
     return f"best_grad_sq={min(v['final_grad_sq'] for v in res.values()):.2e}"
 
 
+def _driver(quick, dev, out):
+    from repro_torch.figures import bench_driver
+
+    payload = bench_driver.run(quick=quick, device=dev, out_dir=out)
+    return f"scan_speedup={payload['speedup']:.2f}x"
+
+
+def _serve(quick, dev, out):
+    from repro_torch.figures import fig_serve
+
+    payload = fig_serve.run(quick=quick, device=dev, out_dir=out)
+    mem = payload["memory"]["64"]["ratio"]
+    bit = all(payload["bit_identity"][k] for k in ("admit_vs_dense", "step_vs_dense"))
+    best = max(v["tokens_per_s"] for v in payload["rates"].values())
+    return f"mem_savings_n64={mem:.0f}x;bit_identical={bit};best_tok_s={best:.0f}"
+
+
 def _sparse(quick, dev, out):
     from repro_torch.figures import fig_sparse
 
@@ -164,7 +184,9 @@ FIGURES = (
     ("robust", "fig_robust", _robust),
     ("table2", "table2_complexity", _table2),
     ("ablation", "ablation_eta_c", _ablation),
+    ("driver", "bench_driver", _driver),
     ("sparse", "fig_sparse", _sparse),
+    ("serve", "fig_serve", _serve),
 )
 
 
@@ -193,6 +215,7 @@ def main(argv=None) -> None:
             t0 = time.perf_counter()
             derived = fn(quick, dev, args.out)
             _row(row, time.perf_counter() - t0, derived)
+    write_manifest(args.out)
 
 
 if __name__ == "__main__":

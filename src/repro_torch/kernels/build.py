@@ -13,7 +13,9 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 and a later ``synchronize`` would not report it.
 
 The launch counters (:data:`LAUNCHES`) live here too: each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  The seconds a first
+:func:`library` call spends building and loading go to the innermost of
+:data:`LOAD_LISTENERS` (``repro_torch.obs.profile.track_compile_time``).
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -58,6 +61,10 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# callables (source name, seconds) told of each library's build and load;
+# only the last one hears it
+LOAD_LISTENERS: List[Callable[[str, float], None]] = []
 
 P = ctypes.c_void_p
 I64 = ctypes.c_longlong
@@ -158,6 +165,7 @@ def library(name: str) -> ctypes.CDLL:
     first use, with every entry point's ``argtypes``/``restype`` declared."""
     lib = _LIBS.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         path = build_all()[name]
         lib = ctypes.CDLL(str(path))
         for fn_name, argtypes in SIGNATURES[name].items():
@@ -165,6 +173,8 @@ def library(name: str) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
         _LIBS[name] = lib
+        if LOAD_LISTENERS:
+            LOAD_LISTENERS[-1](name, time.perf_counter() - t0)
     return lib
 
 

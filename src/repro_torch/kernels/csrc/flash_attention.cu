@@ -246,6 +246,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
              int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, float scale,
              int causal, int window, cudaStream_t s) {
   switch (d) {
+    case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
@@ -766,8 +767,9 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel); head
-// dim 32, 64 or 128; window <= 0 means none.  Strides are in elements; for
+// dtype: 0 = float32 (SIMT kernel, head dim 16, 32, 64 or 128), 1 = bfloat16
+// (tensor-core kernel, head dim 32, 64 or 128: its TMA boxes and swizzles
+// need rows of at least 64 bytes); window <= 0 means none.  Strides are in elements; for
 // bfloat16 the base addresses and every stride times 2 bytes must be
 // multiples of 16 (TMA).  Returns cudaGetLastError() (or the error met
 // encoding the tensor maps).

@@ -24,7 +24,10 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# head dims each kernel is instantiated for: the f32 SIMT kernel takes D = 16
+# (OPT = D / 16 output columns a thread); the tensor-core kernel's TMA boxes
+# and swizzles need rows of at least 64 bytes, 32 bf16 values
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (32, 64, 128)}
 
 
 def tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
@@ -76,8 +79,13 @@ def flash_attention(
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if not build.on_cuda(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
+    if d not in HEAD_DIMS[q.dtype]:
+        if q.dtype == torch.bfloat16 and d in HEAD_DIMS[torch.float32]:
+            raise ValueError(f"flash_attention kernel: bf16 head dim {d} gives {2 * d}-byte rows; "
+                             "the tensor-core kernel's TMA boxes need rows of at least 64 "
+                             "bytes (head dim 32, 64 or 128)")
+        raise ValueError(f"flash_attention kernel: {q.dtype} head dim {d} not in "
+                         f"{HEAD_DIMS[q.dtype]}")
     q, k, v = (build.last_dim_contiguous(t) for t in (q, k, v))
     tc = q.dtype == torch.bfloat16
     if tc:

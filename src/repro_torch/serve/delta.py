@@ -10,10 +10,21 @@ tree plus one compact **delta** per agent and leaf:
   ``base[idx] = val`` with the raw values, so reconstruction is bit-exact
   whenever the index set covers every differing coordinate.  With ``q8`` the
   payload is the int8-quantised difference plus one float32 scale per
-  (leaf, agent) row, added back.
+  (leaf, agent) row, added back;
+* ``lowrank`` — a rank-``r`` SVD of each agent's residual for leaves of two
+  or more dimensions, factored as ``(shape[0], rest)`` as the reference does
+  (so a layer-stacked LM leaf has rank at most its number of periods);
+  1-D leaves stay ``dense``.  Approximate; the SVD is ``torch.linalg.svd``
+  in float32 where the stack lies (LAPACK on the CPU, cuSOLVER on the
+  card), where the reference runs numpy's: the factors are not unique, and
+  their products agree with the reference's within float32 rounding.
 
-``lowrank`` deltas and the checkpoint exporters (``from_history``,
-``from_checkpoint``, ``export_fleet``) wait for ROADMAP A16.
+The exporters close the train → checkpoint → serve loop:
+:meth:`FleetDelta.from_history` reads a finished run's
+``History.agent_params()``, :meth:`FleetDelta.from_checkpoint` a
+:mod:`repro_torch.checkpoint` file (an algorithm-state tuple, ``{"x": ...}``
+or a bare stacked tree, written by either package), and
+:func:`export_fleet` writes a run's agent-stacked parameters as such a file.
 
 :meth:`FleetDelta.gather` builds the slot-stacked parameters of a few agents
 (what the step-mode engine does every step); :meth:`FleetDelta.gather_into`
@@ -29,6 +40,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.utils.pytree import nest_leaves, nest_map
 
 Tree = Any
@@ -38,25 +50,26 @@ _QMAX = 127.0  # int8 symmetric grid
 
 @dataclasses.dataclass(frozen=True)
 class DeltaSpec:
-    """Declarative delta format: ``"dense" | "topk[:f=..][,q8]"``."""
+    """Declarative delta format: ``"dense" | "topk[:f=..][,q8]" | "lowrank[:r=..]"``."""
 
     kind: str = "topk"
     fraction: float = 0.05  # topk: kept fraction of each leaf
+    rank: int = 4  # lowrank: SVD rank per leaf of ndim >= 2
     quantize: bool = False  # topk: int8-quantise the residual payload
 
     def __post_init__(self):
-        if self.kind == "lowrank":
-            raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A16)")
-        if self.kind not in ("dense", "topk"):
+        if self.kind not in ("dense", "topk", "lowrank"):
             raise ValueError(f"unknown delta kind {self.kind!r}")
         if not 0.0 < self.fraction <= 1.0:
             raise ValueError(f"fraction must be in (0, 1], got {self.fraction}")
+        if self.rank < 1:
+            raise ValueError(f"rank must be >= 1, got {self.rank}")
         if self.quantize and self.kind != "topk":
             raise ValueError("q8 only applies to kind='topk'")
 
     @classmethod
     def parse(cls, spec: str) -> "DeltaSpec":
-        """``"topk:f=0.05,q8"`` / ``"dense"``."""
+        """``"topk:f=0.05,q8"`` / ``"lowrank:r=8"`` / ``"dense"``."""
         name, _, tail = spec.partition(":")
         kw: dict = {"kind": name}
         if tail:
@@ -70,8 +83,8 @@ class DeltaSpec:
                     raise ValueError(f"bad delta spec item {item!r} in {spec!r}")
                 if k == "f":
                     kw["fraction"] = float(v)
-                elif k == "r" and name == "lowrank":
-                    raise NotImplementedError("low-rank deltas are not ported yet (ROADMAP A16)")
+                elif k == "r":
+                    kw["rank"] = int(v)
                 else:
                     raise ValueError(f"unknown delta spec key {k!r} in {spec!r}")
         return cls(**kw)
@@ -80,6 +93,8 @@ class DeltaSpec:
     def name(self) -> str:
         if self.kind == "topk":
             return f"topk:f={self.fraction:g}" + (",q8" if self.quantize else "")
+        if self.kind == "lowrank":
+            return f"lowrank:r={self.rank}"
         return "dense"
 
 
@@ -98,23 +113,40 @@ class QTopKDelta(NamedTuple):
     scale: torch.Tensor  # (n, 1) float32 per-row scale
 
 
+class LowRankDelta(NamedTuple):
+    u: torch.Tensor  # (n, d1, r) float32, the singular values folded in
+    v: torch.Tensor  # (n, r, d2) float32
+
+
 def _f32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float32).cpu().numpy()
 
 
 def _encode_leaf(stacked: torch.Tensor, base: torch.Tensor, spec: DeltaSpec):
-    """One agent-stacked leaf (n, *shape) -> a delta payload, chosen on the
-    host with numpy exactly as the reference does."""
+    """One agent-stacked leaf (n, *shape) -> a delta payload: top-k chosen
+    on the host with numpy exactly as the reference does, the low-rank SVD
+    taken with torch where the leaf lies."""
     n = stacked.shape[0]
-    if spec.kind == "dense":
+    if spec.kind == "dense" or (spec.kind == "lowrank" and base.dim() < 2):
         return DenseDelta(val=stacked.clone())
     rows = stacked.reshape(n, -1)
     d = rows.shape[1]
-    k = min(d, max(1, int(math.ceil(spec.fraction * d))))
+    if spec.kind == "lowrank":
+        # the residual factored as (shape[0], rest), one SVD per agent
+        d1 = base.shape[0]
+        diff = rows.to(torch.float32) - base.reshape(1, -1).to(torch.float32)
+        u, sv, vt = torch.linalg.svd(diff.reshape(n, d1, d // d1), full_matrices=False)
+        r = min(spec.rank, sv.shape[-1])
+        return LowRankDelta(u=(u[..., :r] * sv[:, None, :r]).contiguous(),
+                            v=vt[:, :r].contiguous())
     diff = _f32_numpy(rows) - _f32_numpy(base).reshape(1, -1)
-    part = np.argpartition(np.abs(diff), d - k, axis=1)[:, d - k:]
-    idx = np.sort(part, axis=1).astype(np.int32)
     dev = stacked.device
+    k = min(d, max(1, int(math.ceil(spec.fraction * d))))
+    if k == d:  # every coordinate: the sorted selection is 0..d-1
+        idx = np.tile(np.arange(d, dtype=np.int32), (n, 1))
+    else:
+        part = np.argpartition(np.abs(diff), d - k, axis=1)[:, d - k:]
+        idx = np.sort(part, axis=1).astype(np.int32)
     if spec.quantize:
         dsel = np.take_along_axis(diff, idx, axis=1)
         scale = np.maximum(np.max(np.abs(dsel), axis=1, keepdims=True), 1e-12)
@@ -137,6 +169,9 @@ def _apply(rows: torch.Tensor, delta, ids: torch.Tensor) -> torch.Tensor:
         at = (slot, delta.idx[ids].long())
         corr = delta.q[ids].to(torch.float32) * delta.scale[ids]
         rows[at] = rows[at] + corr.to(rows.dtype)
+    elif isinstance(delta, LowRankDelta):
+        corr = torch.bmm(delta.u[ids], delta.v[ids])
+        rows += corr.reshape(rows.shape).to(rows.dtype)
     else:
         raise TypeError(f"not a delta payload: {type(delta)}")
     return rows
@@ -185,6 +220,25 @@ class FleetDelta:
                 .to(device=l.device, dtype=l.dtype), stacked)
         deltas = nest_map(lambda b, l: _encode_leaf(l, b, spec), base, stacked)
         return cls(base=base, deltas=deltas, spec=spec, n_agents=int(n))
+
+    @classmethod
+    def from_history(cls, hist, spec: DeltaSpec, base: Optional[Tree] = None) -> "FleetDelta":
+        """The servable fleet of a finished run (its ``agent_params()``)."""
+        return cls.from_stacked(hist.agent_params(), spec, base=base)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, spec: DeltaSpec, base: Optional[Tree] = None,
+                        device: DeviceLike = None) -> "FleetDelta":
+        """The fleet of a :mod:`repro_torch.checkpoint` file, written by
+        either package: an algorithm-state tuple (x first), a ``{"x": ...}``
+        dict or a bare agent-stacked tree.  Only the stack's arrays are read,
+        onto ``device`` (the GPU when None), where it is encoded."""
+        from repro_torch.checkpoint import read_manifest, restore_checkpoint
+
+        dev = resolve_device(device)
+        _, stacked = restore_checkpoint(
+            path, device=dev, subtree=_stacked_path(read_manifest(path)["structure"]))
+        return cls.from_stacked(stacked, spec, base=base)
 
     @classmethod
     def synthetic(cls, base: Tree, n_agents: int, *, fraction: float = 0.02,
@@ -283,3 +337,25 @@ def materialize(base: Tree, deltas: Tree, agents: Optional[Sequence[int]] = None
 def materialize_fleet(fleet: FleetDelta) -> DenseFleet:
     """The dense-materialised baseline of the same personalised fleet."""
     return DenseFleet.from_stacked(materialize(fleet.base, fleet.deltas))
+
+
+def _stacked_path(structure: dict) -> tuple:
+    """Where the agent-stacked parameters sit in a checkpoint's structure
+    descriptor (the reference's ``_stacked_of`` over the restored tree):
+    a dict's ``"x"``, a sequence's first item (an algorithm state: x is its
+    first field), or the whole tree."""
+    if structure["kind"] == "dict":
+        return ("x",) if "x" in structure["items"] else ()
+    if structure["kind"] != "leaf" and structure["items"]:
+        return (0,)
+    return ()
+
+
+def export_fleet(directory: str, hist, step: int = 0) -> str:
+    """Write a finished run's agent-stacked parameters as a fleet checkpoint
+    (``{"x": stacked}`` with a ``kind: fleet`` manifest tag), which
+    :meth:`FleetDelta.from_checkpoint` reads in either package."""
+    from repro_torch.checkpoint import save_checkpoint
+
+    return save_checkpoint(directory, step, {"x": hist.agent_params()},
+                           metadata={"kind": "fleet"})

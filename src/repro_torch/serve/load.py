@@ -11,8 +11,10 @@ operation, so a load sweep is reproducible.  Two cost sources:
 
 Arrivals ``"poisson:rate=R"`` or ``"bursty:rate=R,burst=B"`` and request
 contents are drawn with numpy from domain-separated streams, bit-equal to
-the reference's.  The per-request trace export (``recorder``) and the
-metrics registry wait for the port of ``obs`` (ROADMAP A13).
+the reference's.  :func:`run_load` can hand each finished request's
+queue → prefill → decode lifecycle to a
+:class:`~repro_torch.obs.trace.TraceRecorder`, and
+:meth:`ServeReport.telemetry` exports a session's metrics.
 """
 from __future__ import annotations
 
@@ -152,12 +154,39 @@ class ServeReport:
             "requests": [r.breakdown() for r in self.requests],
         }
 
+    def telemetry(self, meta: Optional[dict] = None):
+        """This session as a :class:`~repro_torch.obs.metrics.MetricsRegistry`:
+        request and token counters, latency gauges, lifecycle histograms, and
+        per-slot decode occupancy (decode seconds attributed to each slot)."""
+        from repro_torch.obs.metrics import MetricsRegistry
+
+        reg = MetricsRegistry(meta=dict(meta or {}))
+        reg.counter("serve.requests").inc(len(self.requests))
+        reg.counter("serve.tokens").inc(self.total_tokens)
+        reg.gauge("serve.tokens_per_s").set(self.tokens_per_s)
+        reg.gauge("serve.p50_s").set(self.p50_s)
+        reg.gauge("serve.p99_s").set(self.p99_s)
+        reg.gauge("serve.makespan_s").set(self.makespan_s)
+        reg.histogram("serve.queue_wait_s").observe_many(r.queue_wait_s for r in self.requests)
+        reg.histogram("serve.prefill_s").observe_many(r.prefill_s for r in self.requests)
+        reg.histogram("serve.decode_s").observe_many(r.decode_s for r in self.requests)
+        for r in self.requests:
+            if r.slot is not None:
+                reg.counter(f"serve.slot.{r.slot}.requests").inc()
+                reg.counter(f"serve.slot.{r.slot}.decode_s").inc(r.decode_s)
+        return reg
+
 
 def run_load(batcher: ContinuousBatcher, requests: List[Request], *,
-             costs: Optional[StepCosts] = None) -> ServeReport:
+             costs: Optional[StepCosts] = None, recorder=None) -> ServeReport:
     """Drive ``requests`` through ``batcher`` on a simulated clock: pull due
     arrivals, admit into free slots (one prefill each), then one decode step
-    for the whole batch (charged once, to every active request)."""
+    for the whole batch (charged once, to every active request).
+
+    ``recorder`` (a :class:`~repro_torch.obs.trace.TraceRecorder`) gets each
+    finished request's lifecycle as spans on its agent's track, recorded
+    after the loop from the timestamps the loop stamps, so recording cannot
+    move the clock."""
     pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
     waiting: List[Request] = []
     done: List[Request] = []
@@ -201,4 +230,7 @@ def run_load(batcher: ContinuousBatcher, requests: List[Request], *,
             for r in out:
                 r.done_s = t
                 done.append(r)
+    if recorder is not None:
+        for r in sorted(done, key=lambda r: (r.agent_id, r.arrival_s, r.rid)):
+            recorder.record_request(r)
     return ServeReport(requests=done, clock_s=t)

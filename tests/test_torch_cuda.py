@@ -491,6 +491,8 @@ def _bf16_ulp(x):
     (1, 8, 2, 300, 128, 16, torch.bfloat16, None), (1, 8, 2, 1000, 128, 256, torch.bfloat16, None),
     # k and v the first 500 positions of a 700-long cache
     (1, 8, 2, 500, 128, None, torch.bfloat16, 700), (2, 4, 4, 333, 64, 100, torch.bfloat16, 400),
+    # head dim 16 in f32: fig_serve's TINY prefill, and ragged with a window
+    (1, 4, 2, 16, 16, None, torch.float32, None), (2, 4, 2, 77, 16, 20, torch.float32, None),
 ])
 def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype, cache):
     # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
@@ -513,6 +515,29 @@ def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype, cache):
         model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
                                         p_dtype=torch.bfloat16).float()
         assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
+def test_k6_bf16_head_dim_16_raises_naming_the_tma_rows(cuda, gen):
+    q, k, v = (torch.randn(1, 2, 32, 16, generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="TMA boxes need rows of at least 64 bytes"):
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_track_compile_time_sees_a_kernel_library_load(cuda, gen):
+    from repro_torch.kernels import build
+    from repro_torch.obs import track_compile_time
+
+    x = torch.randn(4, 8, generator=gen, device=cuda)
+    ops.fused_local_step(x, x, x, x, 0.1)  # builds (or finds) and loads every library
+    build._LIBS.pop("gt_update")  # the next launch loads it again
+    with track_compile_time() as stats:
+        ops.fused_local_step(x, x, x, x, 0.1)
+        torch.cuda.synchronize()
+    assert list(stats.events) == ["gt_update"] and stats.seconds == stats.events["gt_update"] > 0
+    assert build.LOAD_LISTENERS == []
 
 
 def test_k6_raises_on_strides_tma_cannot_take(cuda, gen):

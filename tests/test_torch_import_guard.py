@@ -40,7 +40,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "optim.optimizers", "sim", "sim.profiles", "sim.costmodel", "sim.tuner",
                  "events", "events.staleness", "events.clock", "events.driver",
                  "figures.fig_timecost", "figures.fig_async", "core.adversary",
-                 "figures.fig_robust", "checkpoint", "checkpoint.checkpoint"):
+                 "figures.fig_robust", "checkpoint", "checkpoint.checkpoint", "obs",
+                 "obs.trace", "obs.export", "obs.metrics", "obs.regress", "obs.profile",
+                 "launch.serve", "examples.train_federated_lm", "figures.fig_serve",
+                 "figures.bench_driver", "figures.check_regress"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -111,6 +114,8 @@ NO_COUNTERPART = {
     "repro.utils": {},
     "repro.data": {},
     "repro.checkpoint": {},
+    "repro.obs": {},
+    "repro.serve": {},
 }
 
 

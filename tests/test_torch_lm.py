@@ -85,6 +85,8 @@ def _qkv(seed, b, hq, hkv, sq, sk, d, dtype):
     (2, 4, 4, 128, 32, 48, "float32"),        # MHA, sliding window
     (1, 8, 2, 64, 64, None, "bfloat16"),
     (1, 4, 1, 128, 32, 32, "bfloat16"),       # MQA + window
+    (1, 4, 2, 64, 16, None, "float32"),       # head dim 16 (fig_serve's TINY)
+    (2, 4, 2, 96, 16, 40, "float32"),
 ])
 def test_k6_plain_matches_pallas_kernel_and_oracle(b, hq, hkv, s, d, window, dtype):
     q, k, v = _qkv(0, b, hq, hkv, s, s, d, dtype)

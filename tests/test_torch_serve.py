@@ -100,8 +100,11 @@ def test_spec_grammar_and_refusals():
     for bad in ("sparse", "topk:g=1", "dense,q8"):
         with pytest.raises(ValueError):
             S.DeltaSpec.parse(bad)
-    with pytest.raises(NotImplementedError, match="A16"):
-        S.DeltaSpec.parse("lowrank:r=4")
+    # low-rank deltas are ported (tests/test_torch_fleet.py)
+    assert S.DeltaSpec.parse("lowrank:r=4").name == J.DeltaSpec.parse("lowrank:r=4").name
+    for bad in ("lowrank:r=0", "lowrank:q8"):
+        with pytest.raises(ValueError):
+            S.DeltaSpec.parse(bad)
     with pytest.raises(ValueError):
         S.ArrivalProcess.parse("uniform:rate=1")
 

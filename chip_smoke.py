@@ -63,8 +63,18 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    with their share of a traced prefill's device time; its prefill logits
    held against the plain versions on the card) and Mamba2-370m
    ("serve-mamba2-370m": the SSD scan, K7, 48 launches per request; admit,
-   step and dense-fleet token streams bit-identical), then both models at
-   their reduced widths on the card and on the CPU ("serve-reduced");
+   step and dense-fleet token streams bit-identical), then all eight
+   decoder-only models at their reduced widths on the card and on the CPU
+   ("serve-reduced"); then the rest of the zoo at published widths in bf16
+   ("zoo"): Mixtral-8x7B (4 of 32 layers; MoE, a 4,608-token prompt past
+   its 4,096 window; admit, step and dense streams bit-identical),
+   DeepSeek-V2-Lite (14 of 27 layers; MLA through K6 at q/k 192, v 128) and
+   Jamba-v0.1 (one period of 8 layers: 7 K7, 1 K6 without RoPE, MoE every
+   other layer) served through the engine, and Qwen2.5-14B and Granite-20B
+   whole and Nemotron-4-340B (2 of 96 layers, K6 at head dim 192) prefilled
+   and decoded; every path's prefill against the plain versions, which
+   replay the kernel run's MoE routes (logits, greedy first tokens, each
+   attention layer and each K7 call; the routes that would flip counted);
    then the train -> checkpoint -> serve loop ("fleet"): the example twin
    ``repro_torch.examples.train_federated_lm`` trains LM_100M at full width
    (f32, 4 agents, K1 once a leaf and round) for a few rounds and writes its
@@ -2361,15 +2371,17 @@ def robust_paths(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 
-def flash_cost(b, hq, hkv, sq, sk, d, window, itemsize):
+def flash_cost(b, hq, hkv, sq, sk, d, window, itemsize, dv=None):
     """(bytes, flops) of one causal attention call: q, k, v read and o
-    written once; 4·D flops per unmasked (query, key) pair."""
+    written once; 2·D (Q K^T) + 2·Dv (P V) flops per unmasked (query, key)
+    pair (Dv = D unless given)."""
+    dv = d if dv is None else dv
     pairs = 0
     for i in range(sq):
         lo = 0 if window is None else max(0, i - window + 1)
         pairs += min(i, sk - 1) - lo + 1
-    nbytes = itemsize * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
-    return nbytes, 4.0 * b * hq * d * pairs
+    nbytes = itemsize * (b * hq * sq * (d + dv) + b * hkv * sk * (d + dv))
+    return nbytes, 2.0 * b * hq * (d + dv) * pairs
 
 
 def ssd_cost(b, l, h, p, g, n, chunk, itemsize):
@@ -2400,10 +2412,11 @@ def lm_kernel_checks(torch, dev):
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     rows = {}
 
-    def attn_inputs(b, hq, hkv, s, d, dt):
+    def attn_inputs(b, hq, hkv, s, d, dt, dv=None):
         # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt).transpose(1, 2)
-        k, v = (torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt) for _ in range(2))
+        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, hkv, s, dv or d, generator=gen, device=dev).to(dt)
         return q, k, v
 
     err6 = err6_p = 0.0
@@ -2415,8 +2428,20 @@ def lm_kernel_checks(torch, dev):
                                          (2, 4, 2, 77, 32, None, torch.float32),
                                          # fig_serve's TINY prefill: f32 at head dim 16
                                          (1, 4, 2, 16, 16, None, torch.float32),
-                                         (2, 4, 2, 77, 16, 20, torch.float32)):
-        q, k, v = attn_inputs(b, hq, hkv, s, d, dt)
+                                         (2, 4, 2, 77, 16, 20, torch.float32),
+                                         # Nemotron-4's head dim 192 (BK = 64 on the
+                                         # tensor cores) at the served prompt and S 2048
+                                         (1, 96, 8, 500, 192, None, torch.bfloat16),
+                                         (1, 96, 8, 2048, 192, None, torch.bfloat16),
+                                         (2, 8, 2, 333, 192, 100, torch.bfloat16),
+                                         # MLA: q/k 192, v 128 (zero-padded to 192)
+                                         (1, 16, 16, 500, (192, 128), None, torch.bfloat16),
+                                         # f32 at 192 and at the reduced MLA's 48 / 32
+                                         (1, 8, 2, 300, 192, 64, torch.float32),
+                                         (1, 4, 4, 45, (48, 32), None, torch.float32),
+                                         (2, 4, 4, 130, 48, 20, torch.float32)):
+        d, dv = d if isinstance(d, tuple) else (d, d)
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, dv)
         ops.reset_launch_counts()
         out = ops.flash_attention(q, k, v, causal=True, window=window)
         tc = ops.launch_counts()["flash_attention_tc"]
@@ -2424,7 +2449,8 @@ def lm_kernel_checks(torch, dev):
               "tensor-core launches")
         e = max_err(out, ref.flash_attention_ref(q, k, v, causal=True, window=window))
         check(e <= FLASH_TOL[names[dt]], f"K6 {(b, hq, hkv, s, d, window, dt)}: max |err| {e}")
-        msg = f"K6 check {(b, hq, hkv, s, d, window, names[dt])}: max |err| {e:.3e}"
+        shape = (b, hq, hkv, s, d) + ((dv,) if dv != d else ())
+        msg = f"K6 check {shape + (window, names[dt])}: max |err| {e:.3e}"
         if dt == torch.bfloat16:
             # against the plain version that rounds P to bf16 as the kernel does
             model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
@@ -2451,11 +2477,12 @@ def lm_kernel_checks(torch, dev):
           "naming the TMA row size")
     log(f"K6 check (bf16, head dim 16): raises ValueError: {raised}")
 
-    def k6_times(s):
-        """K6 (bf16, causal) at Qwen3-8B's heads and S: CUDA-event ms per call
-        back to back, device ms (profiler), and the same for SDPA."""
-        q, k, v = attn_inputs(1, 32, 8, s, 128, torch.bfloat16)
-        nb, fl = flash_cost(1, 32, 8, s, s, 128, None, 2)
+    def k6_times(s, hq=32, hkv=8, d=128, dv=128):
+        """K6 (bf16, causal) at Qwen3-8B's heads and S (or the given heads and
+        head dims): CUDA-event ms per call back to back, device ms
+        (profiler), and the same for SDPA."""
+        q, k, v = attn_inputs(1, hq, hkv, s, d, torch.bfloat16, dv)
+        nb, fl = flash_cost(1, hq, hkv, s, s, d, None, 2, dv)
         b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
         e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=True))
@@ -2476,6 +2503,14 @@ def lm_kernel_checks(torch, dev):
         served_shape=[1, 32, 8, 500, 128], **{f"served_{k_}": v_ for k_, v_ in served.items()},
         f32_window_ms=None,
     )
+    # the zoo's forms: Nemotron-4's head dim 192 (S 500 and 2048), MLA's
+    # q/k 192 against v 128 (S 500; the kernel on v padded to 192)
+    for key, (s, hq, hkv, d, dv) in (("d192_s2048", (2048, 96, 8, 192, 192)),
+                                     ("d192_s500", (500, 96, 8, 192, 192)),
+                                     ("mla_s500", (500, 16, 16, 192, 128))):
+        rows["flash_attention"][key] = dict(shape=[1, hq, hkv, s, d, dv],
+                                            **k6_times(s, hq, hkv, d, dv))
+        log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
     q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
     rows["flash_attention"]["f32_window_ms"] = time_ms(
         torch, lambda: ops.flash_attention(q, k, v, causal=True, window=256))
@@ -2501,11 +2536,13 @@ def lm_kernel_checks(torch, dev):
         return x, dtt, a, bm, cm
 
     # "strong": dt = 0.1 and A = -16, so a 64-step chunk decays by e^-102
-    # (exp(-cum) overflows f32); L = 1 and 65 sit at the kernel's 64-step chunk
+    # (exp(-cum) overflows f32); L = 1 and 65 sit at the kernel's 64-step chunk;
+    # H = 128 is Jamba-v0.1's Mamba layer at the zoo's 1,000-token prompt
     err7 = 0.0
     for b, l, h, p, g, n, dt, strong in ((1, 2048, 32, 64, 1, 128, torch.bfloat16, False),
                                          (1, 1000, 32, 64, 1, 128, torch.bfloat16, False),
                                          (1, 1000, 32, 64, 1, 128, torch.float32, False),
+                                         (1, 1000, 128, 64, 1, 128, torch.bfloat16, False),
                                          (2, 77, 8, 32, 2, 16, torch.float32, False),
                                          (2, 77, 8, 32, 2, 16, torch.bfloat16, False),
                                          (1, 1, 32, 64, 1, 128, torch.bfloat16, False),
@@ -2711,7 +2748,7 @@ def serve_run(torch, dev, label, bundle, fleet, mode="admit", count=True):
     from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine,
                                    make_requests, run_load)
 
-    _, _, _, slots, n_req, prompt_len, gen = SERVE[label]
+    _, _, _, slots, n_req, prompt_len, gen = {**SERVE, **ZOO_SERVE}[label]
     engine = DecodeEngine(bundle, fleet, n_slots=slots, max_seq=prompt_len + gen + 8,
                           materialize=mode)
     reqs = make_requests(ArrivalProcess.parse(SERVE_ARRIVAL), n_req, n_agents=fleet.n_agents,
@@ -2773,11 +2810,9 @@ def serve_report(torch, dev, label, engine, rep, card, kernel=None):
 def serve_paths(torch, dev, card):
     import numpy as np
 
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import get_config
     from repro_torch.models.registry import get_bundle
-    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, FleetDelta,
-                                   StepCosts, make_requests, materialize_fleet, run_load)
-    from repro_torch.utils.pytree import nest_leaves, nest_map
+    from repro_torch.serve import FleetDelta, materialize_fleet
 
     launches = {}
 
@@ -2852,9 +2887,21 @@ def serve_paths(torch, dev, card):
     del dense, fleet, base, bundle
     torch.cuda.empty_cache()
 
-    # -- serve-reduced: both models at reduced width, f32, card against CPU --
+    serve_reduced(torch, dev)
+    return launches
+
+
+def serve_reduced(torch, dev):
+    """serve-reduced: every decoder-only model at reduced width, f32, card
+    against CPU (the zoo's six beside the two served at full width)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import (ArrivalProcess, ContinuousBatcher, DecodeEngine, FleetDelta,
+                                   StepCosts, make_requests, run_load)
+    from repro_torch.utils.pytree import nest_leaves, nest_map
+
     cpu = torch.device("cpu")
-    for arch in ("qwen3-8b", "mamba2-370m"):
+    for arch in SERVE_REDUCED:
         cfg = get_reduced(arch)
         streams = []
         base_cpu = get_bundle(cfg, cpu).init(seed=0)
@@ -2872,6 +2919,308 @@ def serve_paths(torch, dev, card):
         check(len(nest_leaves(base_cpu)) > 0, "serve-reduced: empty parameters")
         log(f"compare serve-reduced/{arch}: greedy token streams equal on GPU and CPU "
             f"({sum(map(len, streams[0].values()))} tokens)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the rest of the decoder-only zoo at full width ("zoo")
+# ---------------------------------------------------------------------------
+
+# serve paths in SERVE's layout: (arch, agents, delta fraction, slots,
+# requests, prompt length, new tokens); Mixtral's prompt is longer than its
+# 4,096 window, so K6's window masks keys
+ZOO_SERVE = {"serve-mixtral-8x7b": ("mixtral-8x7b", 4, 0.001, 2, 6, 4608, 16),
+             "serve-deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 4, 0.001, 2, 6, 500, 16),
+             "serve-jamba-v0.1-52b": ("jamba-v0.1-52b", 4, 0.001, 1, 4, 1000, 16)}
+# prefill paths: one request of 500 tokens through bundle.prefill, then
+# greedy bundle.decode steps, on base weights
+ZOO_PREFILL = {"prefill-qwen2.5-14b": "qwen2.5-14b", "prefill-granite-20b": "granite-20b",
+               "prefill-nemotron-4-340b": "nemotron-4-340b"}
+ZOO_PREFILL_LEN, ZOO_DECODE_STEPS = 500, 8
+# depth cuts (published widths kept): the layers each path runs, where the
+# whole model does not fit one card with its slot copies
+ZOO_LAYERS = {"serve-mixtral-8x7b": 4, "serve-deepseek-v2-lite-16b": 14,
+              "serve-jamba-v0.1-52b": 8, "prefill-nemotron-4-340b": 2}
+SERVE_REDUCED = ("qwen3-8b", "mamba2-370m", "mixtral-8x7b", "deepseek-v2-lite-16b",
+                 "jamba-v0.1-52b", "qwen2.5-14b", "granite-20b", "nemotron-4-340b")
+
+
+class AttentionProbe:
+    """Inside the ``with``, every attention core the prefill runs through K6
+    is held against K6's bf16-P plain version on the same inputs, every K7
+    call against its plain version (phase 1's SSD_TOL), and every MoE
+    layer's routes are recorded.  The attention limit is one bf16 ulp of the
+    plain value + 2^-8 · max(1, max |v|): each p is rounded to bf16 once in
+    either (the kernel against its running max, the plain version against
+    the final one), so the two P differ by at most 2^-8 of p and P·V / l by
+    at most 2^-8 · max |v| before the outputs round (phase 1's FLASH_P_ATOL
+    is the same limit at |v| <= 1; a model's values reach past 1).  ``worst``
+    is the largest margin used (<= 0 passes), ``calls`` the attention layers
+    held; ``ssd_worst`` the largest K7 error over its limit (<= 1 passes),
+    ``ssd_calls`` the K7 calls held; ``routes`` the (token, expert) choices,
+    one (T, k) array a layer, in the order the layers ran.
+
+    For a prefill on the plain versions (``use_kernels=False``), ``replay``
+    takes the routes a kernel run recorded: the i-th MoE layer keeps the
+    kernel run's experts, weighted from its own logits, so both runs compute
+    one function even where a near-tie flips a top-k; its own choices are
+    still recorded in ``routes``.  Its bf16 attention takes K6's bf16-P plain
+    version (P rounded to bf16 before P·V, as the kernel rounds it): through
+    48 bf16 layers (Qwen2.5-14B) the f32-P one parts from K6 by rounding
+    alone past PREFILL_LOGIT_TOL, each layer within one ulp."""
+
+    def __init__(self, torch, replay=None):
+        self.torch, self.replay = torch, replay
+        self.worst, self.calls, self.ssd_worst, self.ssd_calls = float("-inf"), 0, 0.0, 0
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import attention as A
+        from repro_torch.models import moe as MOE
+        from repro_torch.models import transformer as T
+
+        self._core, self._route, self._scan = A.attention_core, MOE.route, T.ssd_scan
+        torch = self.torch
+        names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+        def core(q, k, v, **kw):
+            plain = not kw.get("use_kernel", True)
+            if plain and self.replay is not None and q.dtype == torch.bfloat16:
+                return ref.flash_attention_ref(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                    window=kw.get("window"), p_dtype=torch.bfloat16).transpose(1, 2)
+            out = self._core(q, k, v, **kw)
+            if not plain and q.dtype == torch.bfloat16:
+                model = ref.flash_attention_ref(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                    window=kw.get("window"), p_dtype=torch.bfloat16).transpose(1, 2).float()
+                tol = flash_p_tol(torch, model) + FLASH_P_ATOL * max(
+                    0.0, float(v.abs().max()) - 1.0)
+                over = float(((out.float() - model).abs() - tol).max())
+                self.worst, self.calls = max(self.worst, over), self.calls + 1
+            return out
+
+        def scan(x, dt, a, b, c, **kw):
+            y, hf = self._scan(x, dt, a, b, c, **kw)
+            y2, hf2 = ref.ssd_scan_ref(x, dt, a, b, c, **kw)
+            ey = max_err(y, y2) / (1.0 + float(y2.float().abs().max()))
+            eh = max_err(hf, hf2) / (1.0 + float(hf2.abs().max()))
+            self.ssd_worst = max(self.ssd_worst, ey / SSD_TOL[names[x.dtype]],
+                                 eh / SSD_TOL["float32"])
+            self.ssd_calls += 1
+            return y, hf
+
+        def route(logits, mo):
+            out = self._route(logits, mo)
+            self.routes.append(out[0].cpu())
+            if self.replay is None:
+                return out
+            idx = self.replay[len(self.routes) - 1].to(logits.device)
+            probs = out[2]
+            if mo.gate_mode == "softmax_topk":
+                top_w = torch.softmax(torch.gather(logits, -1, idx).float(), dim=-1)
+            else:
+                top_p = torch.gather(probs, -1, idx)
+                top_w = top_p / top_p.sum(-1, keepdim=True)
+            return idx, top_w, probs
+
+        A.attention_core, MOE.route, T.ssd_scan = core, route, scan
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        from repro_torch.models import moe as MOE
+        from repro_torch.models import transformer as T
+
+        A.attention_core, MOE.route, T.ssd_scan = self._core, self._route, self._scan
+
+
+def flipped_routes(a, b) -> int:
+    """(token, layer) pairs whose expert sets differ between two route lists."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def zoo_cfg(label, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=ZOO_LAYERS[label]) if label in ZOO_LAYERS else cfg
+
+
+def hold_prefill(torch, label, bundle, run, served_first=None):
+    """``run(use_kernels)`` -> last-position logits (numpy) of one prefill:
+    K6 and K7 against the plain versions on the card.  Every attention
+    layer's K6 output is held to the bf16-P plain version on its own inputs
+    and every K7 call to its plain version; the plain prefill replays the
+    kernel run's MoE routes (logged: the (token, layer) routes its own
+    logits would have flipped), so the logits are held to PREFILL_LOGIT_TOL
+    and the greedy first tokens equal (the kernel's token one of the plain
+    logits' maximisers, which bf16 logits can tie)."""
+    import numpy as np
+
+    with AttentionProbe(torch) as kp:
+        kern = run(True)
+    with AttentionProbe(torch, replay=kp.routes) as pp:
+        plain = run(False)
+    kinds = bundle.cfg.layer_kinds()
+    check(kp.calls == kinds.count("attn") and kp.worst <= 0.0,
+          f"{label}: {kp.calls} attention layers held, worst margin {kp.worst}")
+    check(kp.ssd_calls == kinds.count("mamba") and kp.ssd_worst <= 1.0,
+          f"{label}: {kp.ssd_calls} K7 calls held, worst error {kp.ssd_worst} of its limit")
+    check(len(pp.routes) == len(kp.routes), f"{label}: MoE layers differ between the prefills")
+    check(bool(np.isfinite(kern).all()) and kern.shape == (bundle.cfg.vocab_size,),
+          f"{label}: prefill logits")
+    e = float(np.abs(kern - plain).max()) / (1.0 + float(np.abs(plain).max()))
+    flips = flipped_routes(kp.routes, pp.routes)
+    top2 = np.sort(plain)[-2:]
+    log(f"{label}: prefill logits, K6 and K7 vs the plain versions on the card: max |err| / "
+        f"(1 + max |logit|) {e:.3e} (limit {PREFILL_LOGIT_TOL}); greedy token "
+        f"{int(np.argmax(kern))} vs {int(np.argmax(plain))}"
+        + ("" if served_first is None else f" (served {served_first})")
+        + f", top-2 margin {float(top2[1] - top2[0]):.4f}; {kp.calls} attention layers within "
+        f"one bf16 ulp + 2^-8 max(1, max |v|) of the bf16-P plain version (margin "
+        f"{-kp.worst:.3e}); {kp.ssd_calls} K7 calls within {kp.ssd_worst:.3e} of SSD_TOL; "
+        f"the kernel run's routes replayed, {flips} of {sum(len(r) for r in kp.routes)} "
+        f"(token, MoE layer) routes would have flipped")
+    check(e <= PREFILL_LOGIT_TOL, f"{label}: prefill logits differ by {e}")
+    greedy = int(np.argmax(kern))
+    check(plain[greedy] == plain.max(), f"{label}: greedy first tokens differ ({greedy}: "
+          f"{plain[greedy]} against the plain maximum {plain.max()})")
+    if served_first is not None:
+        check(greedy == served_first, f"{label}: the served first token differs")
+    return kern
+
+
+def zoo_serve_path(torch, dev, card, label):
+    """One served zoo model: fleet, the trace, K6 (and K7) launches per
+    admitted request, the report and profiles, the prefill held against the
+    plain versions; Mixtral also through step mode and a dense fleet."""
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import FleetDelta, materialize_fleet
+
+    arch, n_agents, frac = ZOO_SERVE[label][:3]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    bundle = get_bundle(zoo_cfg(label, arch), dev)
+    base = bundle.init(seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fleet = FleetDelta.synthetic(base, n_agents, fraction=frac, seed=0)
+    torch.cuda.synchronize()
+    cfg = bundle.cfg
+    log(f"{label}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active) drawn in {t1 - t0:.1f} s, fleet of "
+        f"{n_agents} ({fleet.spec.name}) in {time.perf_counter() - t1:.1f} s: "
+        f"{fleet.nbytes() / 1e9:.3f} GB vs {fleet.naive_nbytes() / 1e9:.3f} GB naive")
+    engine, rep, tokens, counts = serve_run(torch, dev, label, bundle, fleet)
+    kinds = cfg.layer_kinds()
+    n_req = len(rep.requests)
+    for name, per in (("flash_attention", kinds.count("attn")),
+                      ("flash_attention_tc", kinds.count("attn")),
+                      ("ssd_scan", kinds.count("mamba"))):
+        check(counts[name] == per * n_req, f"{label}: {counts[name]} {name} launches for "
+              f"{n_req} admissions ({per} each)")
+    log(f"{label}: launches {counts} ({kinds.count('attn')} K6 per admitted request, all on the "
+        f"tensor cores; {kinds.count('mamba')} K7)")
+    serve_report(torch, dev, label, engine, rep, card, kernel=("K6", "flash_fwd"))
+    first = min(rep.requests, key=lambda r: r.rid)
+    hold_prefill(torch, label, bundle,
+                 lambda k: engine.admit(0, first.agent_id, first.prompt, use_kernels=k),
+                 served_first=first.tokens[0])
+    if label == "serve-mixtral-8x7b":
+        del engine
+        _, rep_step, tokens_step, _ = serve_run(torch, dev, label, bundle, fleet, "step", False)
+        dense = materialize_fleet(fleet)
+        del fleet, base  # the dense fleet alone beside its slot buffer
+        torch.cuda.empty_cache()
+        _, rep_dense, tokens_dense, _ = serve_run(torch, dev, label, bundle, dense, "admit", False)
+        check(tokens == tokens_step == tokens_dense,
+              f"{label}: admit, step and dense token streams differ")
+        log(f"{label}: admit, step and dense ({dense.nbytes() / 1e9:.3f} GB) token streams "
+            f"bit-identical over {rep.total_tokens} tokens; step mode "
+            f"{rep_step.tokens_per_s:.3f} tokens/s, dense {rep_dense.tokens_per_s:.3f} tokens/s, "
+            f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return counts
+
+
+def zoo_prefill_path(torch, dev, card, label):
+    """One prompt of ZOO_PREFILL_LEN tokens through bundle.prefill on base
+    weights (K6 once per layer, on the tensor cores), then greedy decode
+    steps; the prefill held against the plain versions."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_bundle
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    bundle = get_bundle(zoo_cfg(label, ZOO_PREFILL[label]), dev)
+    params = bundle.init(seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    cfg = bundle.cfg
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, ZOO_PREFILL_LEN))).to(dev)
+    max_seq = ZOO_PREFILL_LEN + ZOO_DECODE_STEPS + 8
+
+    def prefill(use_kernels):
+        cache = bundle.init_cache(1, max_seq)
+        logits, cache = bundle.prefill(params, {"tokens": toks}, cache, use_kernels=use_kernels)
+        return logits, cache
+
+    prefill(True)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    n_attn = cfg.layer_kinds().count("attn")
+    check(counts["flash_attention"] == counts["flash_attention_tc"] == n_attn,
+          f"{label}: {counts['flash_attention']} K6 launches ({counts['flash_attention_tc']} on "
+          f"the tensor cores) for {n_attn} attention layers")
+    tok = logits[:, -1:].argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(ZOO_DECODE_STEPS):
+        step_logits, cache = bundle.decode(params, tok, cache)
+        tok = step_logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / ZOO_DECODE_STEPS
+    check(bool(torch.isfinite(step_logits.float()).all()) and int(cache["pos"]) ==
+          ZOO_PREFILL_LEN + ZOO_DECODE_STEPS, f"{label}: decode")
+    del cache, step_logits
+    hold_prefill(torch, label, bundle, lambda k: prefill(k)[0][0, -1].float().cpu().numpy())
+    log(f"path {label}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B parameters drawn "
+        f"in {draw_s:.1f} s; prefill of {ZOO_PREFILL_LEN} tokens {prefill_ms:.3f} ms "
+        f"({counts['flash_attention']} K6 launches), decode {decode_ms:.3f} ms/step, peak device "
+        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
+    return counts
+
+
+def zoo_paths(torch, dev, card):
+    """The six decoder-only models the port adds to Qwen3-8B and Mamba2-370m,
+    at their published widths in bf16 (depth cut where one card cannot hold
+    them): three served through the engine, three prefilled and decoded."""
+    import gc
+
+    t0 = time.perf_counter()
+    launches = {}
+    for label in ZOO_SERVE:
+        counts = zoo_serve_path(torch, dev, card, label)
+        for k in ("flash_attention", "ssd_scan"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        gc.collect()  # the engine and batcher hold each other: free the model now
+        torch.cuda.empty_cache()
+    for label in ZOO_PREFILL:
+        counts = zoo_prefill_path(torch, dev, card, label)
+        launches["flash_attention"] += counts["flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"zoo: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3628,6 +3977,8 @@ def main() -> int:
     for k, v in robust_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
+    for k, v in zoo_paths(torch, dev, card).items():
+        launches[k] = launches.get(k, 0) + v
     for k, v in fleet_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in collective_paths(torch, dev, card).items():

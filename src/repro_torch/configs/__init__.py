@@ -1,16 +1,37 @@
 """Architecture registry of the served models (the twin of ``repro.configs``).
 
 ``get_config(arch_id)`` / ``get_reduced(arch_id)`` resolve the public
-architecture id, e.g. ``--arch qwen3-8b``.  The port covers the two
-decoder-only text models that fit one 80 GB card at full width with more
-than one decode slot, plus Qwen3-8B's sliding-window variant; every other
-id of the reference waits for ROADMAP A14.
+architecture id, e.g. ``--arch mixtral-8x7b``.  The port covers the eight
+decoder-only text models of the reference (dense, MoE, MLA, SSM, hybrid)
+and Qwen3-8B's sliding-window variant; the encoder-decoder (seamless) and
+VLM (qwen2-vl) ids wait for ROADMAP A14.
 """
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_370m, qwen3_8b
+from repro_torch.configs import (
+    deepseek_v2_lite_16b,
+    granite_20b,
+    jamba_v01_52b,
+    mamba2_370m,
+    mixtral_8x7b,
+    nemotron_4_340b,
+    qwen2_5_14b,
+    qwen3_8b,
+)
 
-_MODULES = {m.ARCH_ID: m for m in (mamba2_370m, qwen3_8b)}
+_MODULES = {
+    m.ARCH_ID: m
+    for m in (
+        nemotron_4_340b,
+        jamba_v01_52b,
+        deepseek_v2_lite_16b,
+        mamba2_370m,
+        qwen3_8b,
+        qwen2_5_14b,
+        mixtral_8x7b,
+        granite_20b,
+    )
+}
 
 ARCH_IDS = tuple(_MODULES)
 

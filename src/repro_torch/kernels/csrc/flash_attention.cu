@@ -22,20 +22,22 @@
 //     tail and one item's epilogue overlaps the next one's loads.
 //   - Warp specialisation: warpgroup 2 is the producer (setmaxnreg down to
 //     24 registers): one thread issues TMA loads of each item's Q (once it
-//     is free) and of K and V into a ring of stages (3 at D = 128), each
+//     is free) and of K and V into a ring of stages (3 at D = 128 and 192), each
 //     with a full and an empty mbarrier.  Warpgroups 0 and 1 (setmaxnreg up
 //     to 240) each own 64 query rows; warpgroup 1 starts each item after
 //     warpgroup 0's first Q K^T (one named barrier), so their softmaxes
 //     fall between each other's products.
 //   - TMA tensor maps over the views as handed in: (D, S, H, B) with the
 //     strides in bytes, 128-byte swizzle with the inner box at 64 bf16
-//     (D = 128 is two boxes per row; D = 32 uses the 64-byte swizzle over
-//     its 64-byte rows).  TMA zero-fills past Sq and Sk; the k >= Sk mask
+//     (D = 128 is two boxes per row, D = 192 three; D = 32 uses the 64-byte
+//     swizzle over its 64-byte rows).  TMA zero-fills past Sq and Sk; the k >= Sk mask
 //     stays in the softmax and rows q >= Sq are never stored.  The maps are
 //     encoded on the host by cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__.
-//   - S = Q K^T on wgmma m64n128k16 (BK = 128 keys) with Q and K from
-//     shared memory.  While it runs, the previous tile's O += P V runs too,
+//   - S = Q K^T on wgmma m64n128k16 (BK = 128 keys; at D = 192, m64n64k16
+//     over BK = 64 keys, so that three K + V stages fit beside the 48 KB Q
+//     tile and the accumulators of S (32) and O (96) a thread stay within
+//     D = 128's budget) with Q and K from shared memory.  While it runs, the previous tile's O += P V runs too,
 //     so the exponentials of one tile overlap the other's product.
 //   - Online softmax in registers, f32: row max and sum across the four
 //     lanes that share an accumulator row (shuffles), exponentials as
@@ -46,7 +48,8 @@
 //     subtracts +inf, so its p are 0 and its alpha 1.  Only tiles that
 //     cross the causal diagonal, the window's edge or Sk pay for the mask;
 //     tiles wholly outside the band are never loaded.
-//   - O += P V on wgmma m64nDk16 with P as the register A operand, rounded
+//   - O += P V on wgmma m64nDk16 (m64n192k16 at D = 192) with P as the
+//     register A operand, rounded
 //     to bf16 in place (the reference's _sdpa rounds its probabilities to
 //     bf16 as well, src/repro/models/attention.py:129-132; the row sum l
 //     stays f32), and V from shared memory as stored (BK x D, MN-major B).
@@ -248,8 +251,10 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    case 48: return launch<T, 48>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    case 192: return launch<T, 192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -260,7 +265,6 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
 namespace tc {
 
 constexpr int BQ = 128;       // queries per work item: two consumer warpgroups of 64 rows
-constexpr int BK = 128;       // keys per tile (64 measured slower: tools/k6_ablation.py)
 constexpr int NTHREADS = 384; // warpgroups 0, 1: consumers; 2: producer
 constexpr int NCONSUMER = 256;
 constexpr float NEG_INF = -1e30f;
@@ -268,6 +272,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
+  // keys per tile: 128 (64 measured slower at D = 128: tools/k6_ablation.py);
+  // 64 at D = 192, where a 128-key stage would leave room for one stage only
+  static constexpr int BK = D == 192 ? 64 : 128;
   static constexpr int SWZ = D >= 64 ? 128 : 64;     // swizzle span = bytes per smem row
   static constexpr int CW = SWZ / 2;                 // bf16 columns per box (chunk)
   static constexpr int NCH = D / CW;                 // chunks per row
@@ -281,6 +288,7 @@ struct Cfg {
   // ring (K then V per stage) and the barriers (q_full, q_empty, full[], empty[])
   static constexpr int SMEM = 1024 + Q_BYTES + NSTAGE * 2 * KV_BYTES + 8 * (2 + 2 * NSTAGE);
   static_assert(D % CW == 0 && BK % 16 == 0 && NSTAGE >= 2, "tile shape");
+  static_assert(D / 2 + BK / 2 <= 128, "accumulators of O and S a thread");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -366,7 +374,8 @@ template <int N>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // 2^x on the special-function unit; subnormal results flush to 0 and
@@ -400,8 +409,8 @@ __device__ __forceinline__ void issue_qk(float* sc, uint32_t s_qw, uint32_t s_k)
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk * 16 / C::CW) * C::SWZ, in = (kk * 16 % C::CW) * 2;
-    mma_ss<BK>(sc, smem_desc(s_qw + off * BQ + in, 16, 8 * C::SWZ, C::LAYOUT),
-               smem_desc(s_k + off * BK + in, 16, 8 * C::SWZ, C::LAYOUT), kk > 0);
+    mma_ss<C::BK>(sc, smem_desc(s_qw + off * BQ + in, 16, 8 * C::SWZ, C::LAYOUT),
+                  smem_desc(s_k + off * C::BK + in, 16, 8 * C::SWZ, C::LAYOUT), kk > 0);
   }
   wg_commit();
 }
@@ -412,8 +421,9 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float* acc, const uint32_t (*pa)[4], uint32_t s_v) {
   using C = Cfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    mma_rs<D>(acc, pa[kk], smem_desc(s_v + kk * 16 * C::SWZ, BK * C::SWZ, 8 * C::SWZ, C::LAYOUT));
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+    mma_rs<D>(acc, pa[kk],
+              smem_desc(s_v + kk * 16 * C::SWZ, C::BK * C::SWZ, 8 * C::SWZ, C::LAYOUT));
   wg_commit();
 }
 
@@ -423,6 +433,7 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t (*pa)[4], ui
 // into unnormalised probabilities against the updated running max m.
 // Returns the rescale factors alpha of the two rows; adds the rows' partial
 // sums into rs.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* alpha, float* rs, int k0,
                                              int r0, int row, int col, int sk, int causal,
                                              int window, float scale_log2) {
@@ -477,6 +488,7 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* alpha, 
 
 // P in bf16 as the register A operand: keys 16kk .. 16kk + 15 are the
 // accumulator's 8-wide blocks 2kk and 2kk + 1
+template <int BK>
 __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sc) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
@@ -492,6 +504,7 @@ struct Item {
   int q0, h, b, k_begin, n_tiles;
 };
 
+template <int BK>
 __device__ __forceinline__ Item work_item(int w, int bh, int nq, int hq, int sk, int causal,
                                           int window) {
   Item it;
@@ -520,6 +533,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
              int window) {
   using C = Cfg<D>;
   constexpr int NS = C::NSTAGE;
+  constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_ring = s_q + C::Q_BYTES;  // stage s: K at s_ring + 2s KV_BYTES, V after it
@@ -548,7 +562,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       for (int r = 0, n = 0;; ++r, ++n) {
         const int w = work_index(r, n_items);
         if (w < 0) break;
-        const Item it = work_item(w, bh, nq, hq, sk, causal, window);
+        const Item it = work_item<BK>(w, bh, nq, hq, sk, causal, window);
         const int hk = it.h / group;
         mbar_wait(q_empty, (n & 1) ^ 1);
         mbar_expect_tx(q_full, C::Q_BYTES);
@@ -578,8 +592,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     auto release = [&](int kt) { mbar_arrive(empty0 + 8 * (kt % NS)); };
 
     // Both warpgroups run every tile of an item (a tile wholly masked for
-    // one of them is correct, p = 0, and rare: BK = 64 under the causal
-    // mask, or a window's leading tile).  Warpgroup 1 starts each item only
+    // one of them is correct, p = 0: at BK = 64 (D = 192) warpgroup 0's
+    // last tile under the causal mask, or a window's leading tile).  Warpgroup 1 starts each item only
     // once warpgroup 0 has issued its first Q K^T (named barrier 1), so
     // that one's softmax runs while the other's products hold the tensor
     // cores; after that the two run free.
@@ -592,7 +606,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     for (int r = 0, n = 0;; ++r, ++n) {
       const int w = work_index(r, n_items);
       if (w < 0) break;
-      const Item it = work_item(w, bh, nq, hq, sk, causal, window);
+      const Item it = work_item<BK>(w, bh, nq, hq, sk, causal, window);
       const int r0 = it.q0 + wg * 64;             // first query row of this warpgroup
       const int row = r0 + warp * 16 + lane / 4;  // this thread's rows: row and row + 8
       const int nt = it.n_tiles;
@@ -613,10 +627,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
         wg_wait<0>();
         fence_regs<BK / 2>(sc);
         if (nt == 1) mbar_arrive(q_empty);  // this item's last read of Q
-        softmax_tile(sc, m, alpha, rs, it.k_begin, r0, row, col, sk, causal, window, scale_log2);
+        softmax_tile<BK>(sc, m, alpha, rs, it.k_begin, r0, row, col, sk, causal, window,
+                         scale_log2);
 #pragma unroll
         for (int q = 0; q < 2; ++q) l[q] = rs[q];
-        pack_p(pa, sc);
+        pack_p<BK>(pa, sc);
         // steady state: S of tile t and P V of tile t - 1 in flight together;
         // the exponentials of tile t overlap the P V product
         for (int t = 1; t < nt; ++t) {
@@ -630,8 +645,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
           wg_wait<1>();
           fence_regs<BK / 2>(sc);
           if (t == nt - 1) mbar_arrive(q_empty);
-          softmax_tile(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, causal, window,
-                       scale_log2);
+          softmax_tile<BK>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, causal,
+                           window, scale_log2);
           wg_wait<0>();
           fence_regs<D / 2>(acc);
           release(kt - 1);
@@ -639,7 +654,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
           for (int q = 0; q < 2; ++q) l[q] = fmaf(l[q], alpha[q], rs[q]);
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-          pack_p(pa, sc);
+          pack_p<BK>(pa, sc);
         }
         wg_fence();
         fence_regs<D / 2>(acc);
@@ -720,8 +735,8 @@ int launch(const void* q, const void* k, const void* v, void* o, long long b, in
       C::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap mq, mk, mv;
   int e = make_map(&mq, q, D, sq, hq, b, qs.b, qs.h, qs.s, C::CW, BQ, swz);
-  if (e == 0) e = make_map(&mk, k, D, sk, hkv, b, ks.b, ks.h, ks.s, C::CW, BK, swz);
-  if (e == 0) e = make_map(&mv, v, D, sk, hkv, b, vs.b, vs.h, vs.s, C::CW, BK, swz);
+  if (e == 0) e = make_map(&mk, k, D, sk, hkv, b, ks.b, ks.h, ks.s, C::CW, C::BK, swz);
+  if (e == 0) e = make_map(&mv, v, D, sk, hkv, b, vs.b, vs.h, vs.s, C::CW, C::BK, swz);
   if (e != 0) return e;
   // the smem attribute and the SM count, once per instantiation and device
   // (each host call costs microseconds)
@@ -759,6 +774,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
     case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    case 192: return launch<192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -767,9 +783,10 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT kernel, head dim 16, 32, 64 or 128), 1 = bfloat16
-// (tensor-core kernel, head dim 32, 64 or 128: its TMA boxes and swizzles
-// need rows of at least 64 bytes); window <= 0 means none.  Strides are in elements; for
+// dtype: 0 = float32 (SIMT kernel, head dim 16, 32, 48, 64, 128 or 192),
+// 1 = bfloat16 (tensor-core kernel, head dim 32, 64, 128 or 192: its TMA
+// boxes and swizzles need rows of at least 64 bytes in whole boxes); window
+// <= 0 means none.  Strides are in elements; for
 // bfloat16 the base addresses and every stride times 2 bytes must be
 // multiples of 16 (TMA).  Returns cudaGetLastError() (or the error met
 // encoding the tensor maps).

@@ -5,7 +5,11 @@ Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 with its signature: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D).  Unlike the
 Pallas kernel, any Sq and Sk are taken (the ragged tail is masked in the
 kernel), and strided views are read in place as long as the last dimension
-is contiguous.
+is contiguous.  v may have a smaller head dim Dv than q and k (MLA: q/k 192
+= 128 no-RoPE + 64 RoPE against v 128): the scores keep the 1/sqrt(D) scale
+and the kernel runs on v zero-padded to D, whose extra output columns are
+zero and are sliced off (1.5x the P·V work and one copy of v at MLA's
+shapes; a kernel templated on (D, Dv) would save both).
 
 Tensors on the CPU go through the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`; tensors on a CUDA
@@ -24,10 +28,12 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims each kernel is instantiated for: the f32 SIMT kernel takes D = 16
-# (OPT = D / 16 output columns a thread); the tensor-core kernel's TMA boxes
-# and swizzles need rows of at least 64 bytes, 32 bf16 values
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (32, 64, 128)}
+# head dims each kernel is instantiated for: the f32 SIMT kernel takes
+# multiples of 16 (OPT = D / 16 output columns a thread; 48 is the reduced
+# MLA's q/k, 192 Nemotron-4's and MLA's); the tensor-core kernel's TMA boxes
+# and swizzles need rows of at least 64 bytes, 32 bf16 values, in whole
+# boxes (D = 192 is three 128-byte boxes a row)
+HEAD_DIMS = {torch.float32: (16, 32, 48, 64, 128, 192), torch.bfloat16: (32, 64, 128, 192)}
 
 
 def tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
@@ -61,12 +67,13 @@ def flash_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked softmax attention, online, f32 running statistics; returns
-    (B, Hq, Sq, D) in ``q``'s dtype.  Query head h reads KV head
+    (B, Hq, Sq, Dv) in ``q``'s dtype.  Query head h reads KV head
     ``h // (Hq // Hkv)``; positions of queries and keys both start at 0."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention takes 4-D q, k, v; got {q.shape}, {k.shape}, {v.shape}")
     b, hq, sq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    dv = v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d or not 0 < dv <= d:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} "
                          f"do not fit q {tuple(q.shape)}")
     hkv = k.shape[1]
@@ -83,9 +90,11 @@ def flash_attention(
         if q.dtype == torch.bfloat16 and d in HEAD_DIMS[torch.float32]:
             raise ValueError(f"flash_attention kernel: bf16 head dim {d} gives {2 * d}-byte rows; "
                              "the tensor-core kernel's TMA boxes need rows of at least 64 "
-                             "bytes (head dim 32, 64 or 128)")
+                             "bytes in whole boxes (head dim 32, 64, 128 or 192)")
         raise ValueError(f"flash_attention kernel: {q.dtype} head dim {d} not in "
                          f"{HEAD_DIMS[q.dtype]}")
+    if dv < d:
+        v = torch.nn.functional.pad(v, (0, d - dv))  # a contiguous copy, zeros past Dv
     q, k, v = (build.last_dim_contiguous(t) for t in (q, k, v))
     tc = q.dtype == torch.bfloat16
     if tc:
@@ -102,4 +111,4 @@ def flash_attention(
     build.LAUNCHES["flash_attention"] += 1
     if tc:
         build.LAUNCHES["flash_attention_tc"] += 1
-    return out
+    return out if dv == d else out[..., :dv]

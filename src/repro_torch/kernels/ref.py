@@ -233,14 +233,15 @@ def sparse_code_mix_csr_ref(
 def flash_attention_ref(
     q: Tensor,  # (B, Hq, Sq, D)
     k: Tensor,  # (B, Hkv, Sk, D)
-    v: Tensor,  # (B, Hkv, Sk, D)
+    v: Tensor,  # (B, Hkv, Sk, Dv), Dv <= D
     *,
     causal: bool = True,
     window: Optional[int] = None,
     p_dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Masked softmax attention with GQA (query head h reads KV head
-    ``h // group``), all in float32, output in ``q``'s dtype.  Query and key
+    ``h // group``), all in float32, output (B, Hq, Sq, Dv) in ``q``'s
+    dtype; scores scaled by 1/sqrt(D), q's head dim.  Query and key
     positions both start at 0; the causal mask keeps ``k <= q`` and the
     window ``k > q - window``.
 

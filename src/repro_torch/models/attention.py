@@ -1,13 +1,20 @@
-"""GQA attention with QK-norm and sliding windows: prefill through the
+"""GQA / MQA attention (QK-norm, QKV bias, sliding windows, with or without
+RoPE) and DeepSeek's Multi-head Latent Attention (MLA): prefill through the
 flash-attention kernel (K6), decode against a KV cache and the training
-forward (:func:`gqa_forward`, differentiable) in plain PyTorch.
+forward (:func:`gqa_forward`, :func:`mla_forward`, differentiable) in plain
+PyTorch.
 
 The reference's prefill core (``repro.models.attention.attention_core``)
 computes full or chunked scores in jnp; the port routes it to
 :func:`repro_torch.kernels.flash_attention.flash_attention`, which computes
 the same masked softmax online (and on the CPU runs its plain version).
-Decode stays plain PyTorch, as in the reference, which has no decode
-kernel.  MLA (DeepSeek) is not ported (ROADMAP A14).
+MLA's prefill materialises K (the up-projected no-RoPE part beside the one
+shared RoPE key) and V, with a q/k head dim (nope + rope) above V's; its
+decode is the absorbed form of the reference (``W_uk`` folded into the
+query, ``W_uv`` after the latent-space reduction, over the compressed
+``c_kv`` / ``k_rope`` cache).  Decode stays plain PyTorch, as in the
+reference, which has no decode kernel.  ``cos_sin=None`` means no RoPE
+(Jamba's attention layers).
 
 Caches are updated in place (the reference returns new arrays): the engine
 keeps one slot-stacked cache and every write lands in it.
@@ -65,17 +72,25 @@ def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = Fals
     return q, k, v
 
 
+def rope_qk(q: Tensor, k: Tensor, cos_sin) -> Tuple[Tensor, Tensor]:
+    """q and k rotated by ``cos_sin``, or as they are when it is None."""
+    if cos_sin is None:
+        return q, k
+    return apply_rope(q, *cos_sin), apply_rope(k, *cos_sin)
+
+
 def attention_core(
     q: Tensor,  # (B, Sq, H, D)
     k: Tensor,  # (B, Sk, Hkv, D)
-    v: Tensor,  # (B, Sk, Hkv, D)
+    v: Tensor,  # (B, Sk, Hkv, Dv), Dv <= D
     *,
     causal: bool,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     use_kernel: bool = True,
 ) -> Tensor:
-    """Full-sequence causal attention (prefill); returns (B, Sq, H, D).
+    """Full-sequence causal attention (prefill); returns (B, Sq, H, Dv),
+    scores scaled by 1/sqrt(D).
 
     The kernel reads the (B, S, H, D) tensors through their strides as
     (B, H, S, D) views; nothing is copied.  ``use_kernel=False`` computes the
@@ -143,8 +158,7 @@ def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     q, k, v = _project_qkv(params, cfg, x)
-    q = apply_rope(q, *cos_sin)
-    k = apply_rope(k, *cos_sin)
+    q, k = rope_qk(q, k, cos_sin)
     out = attention_train(q, k, v, window=cfg.sliding_window, chunk=cfg.attn_chunk)
     b, s, h, hd = out.shape
     return linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
@@ -193,7 +207,7 @@ def gqa_decode(
     params: Dict,
     cfg: ModelConfig,
     x: Tensor,  # (B, 1, d)
-    cos_sin: Tuple[Tensor, Tensor],  # tables at each row's position
+    cos_sin: Optional[Tuple[Tensor, Tensor]],  # tables at each row's position
     cache: Dict,
     pos: Tensor,  # (B,) int: tokens already in each row's context
     slotted: bool = False,
@@ -201,8 +215,7 @@ def gqa_decode(
     """One token per row; writes its K/V into ``cache`` at the row's own
     ``pos`` (``pos % window`` under SWA) and returns (B, 1, d)."""
     q, k, v = _project_qkv(params, cfg, x, slotted)
-    q = apply_rope(q, *cos_sin)
-    k = apply_rope(k, *cos_sin)
+    q, k = rope_qk(q, k, cos_sin)
     size = cache["k"].shape[1]
     pos = pos.to(torch.long)
     # past the end of a full-attention cache the write lands on its last
@@ -218,3 +231,111 @@ def gqa_decode(
     out = decode_attention_core(q, cache["k"], cache["v"], valid)
     b, _, h, hd = out.shape
     return linear(out.reshape(b, 1, h * hd), params["wo"].flatten(-3, -2), slotted)
+
+
+# ---------------------------------------------------------------------------
+# MLA: materialised K/V for prefill and training, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -> Dict:
+    m = cfg.mla
+    d, h, s = cfg.d_model, cfg.n_heads, cfg.init_scale
+    return {
+        "wq": normal_init(gen, stack + (d, h, m.nope_head_dim + m.rope_head_dim), s, dtype),
+        "w_dkv": normal_init(gen, stack + (d, m.kv_lora_rank), s, dtype),
+        "w_kr": normal_init(gen, stack + (d, m.rope_head_dim), s, dtype),
+        "kv_norm": torch.ones(stack + (m.kv_lora_rank,), dtype=dtype, device=gen.device),
+        "w_uk": normal_init(gen, stack + (m.kv_lora_rank, h, m.nope_head_dim), s, dtype),
+        "w_uv": normal_init(gen, stack + (m.kv_lora_rank, h, m.v_head_dim), s, dtype),
+        "wo": normal_init(gen, stack + (h, m.v_head_dim, d), s / math.sqrt(2 * cfg.n_layers),
+                          dtype),
+    }
+
+
+def _mla_qkr(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, slotted: bool = False):
+    """q_nope (B, S, H, nope), q_rope (B, S, H, rope), the normed latent
+    c_kv (B, S, r) and the one shared RoPE key k_rope (B, S, rope)."""
+    m = cfg.mla
+    q = linear(x, params["wq"], slotted)
+    q_nope = q[..., :m.nope_head_dim]
+    q_rope = apply_rope(q[..., m.nope_head_dim:], *cos_sin)
+    c_kv = rms_norm(linear(x, params["w_dkv"], slotted), vec(params["kv_norm"], slotted, 3),
+                    cfg.norm_eps)
+    k_rope = apply_rope(linear(x, params["w_kr"], slotted)[:, :, None, :], *cos_sin)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_qkv(params: Dict, q_nope, q_rope, c_kv, k_rope):
+    """Materialised q, k (B, S, H, nope + rope) and v (B, S, H, v_head_dim):
+    the latent up-projected, the shared RoPE key beside every head's no-RoPE
+    key, each a contiguous tensor (K6 reads them through TMA)."""
+    k_nope = linear(c_kv, params["w_uk"])
+    value = linear(c_kv, params["w_uv"])
+    k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:3], k_rope.shape[-1])
+    return (torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_b], dim=-1), value)
+
+
+def mla_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
+    """The training forward of an MLA layer (materialised K/V), x (B, S, d)
+    -> (B, S, d)."""
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
+    q, k, v = mla_qkv(params, *_mla_qkr(params, cfg, x, cos_sin))
+    out = attention_train(q, k, v, window=None, chunk=cfg.attn_chunk)
+    b, s, h, dv = out.shape
+    return linear(out.reshape(b, s, h * dv), params["wo"].flatten(0, 1))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device=None,
+                   stack: tuple = ()) -> Dict:
+    m = cfg.mla
+    return {"c_kv": torch.zeros(stack + (batch, max_seq, m.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros(stack + (batch, max_seq, m.rope_head_dim), dtype=dtype,
+                                  device=device)}
+
+
+def mla_fill_cache(cache: Dict, c_kv: Tensor, k_rope: Tensor) -> Dict:
+    """Write the prefill's latents into ``cache`` in place."""
+    s = c_kv.shape[1]
+    cache["c_kv"][:, :s].copy_(c_kv)
+    cache["k_rope"][:, :s].copy_(k_rope)
+    return cache
+
+
+def mla_decode(
+    params: Dict,
+    cfg: ModelConfig,
+    x: Tensor,  # (B, 1, d)
+    cos_sin: Tuple[Tensor, Tensor],
+    cache: Dict,
+    pos: Tensor,  # (B,) int
+    slotted: bool = False,
+) -> Tensor:
+    """Absorbed-matrix MLA decode: attention in the compressed latent space
+    (MQA-shaped), ``W_uk`` folded into the query and ``W_uv`` applied after
+    the value reduction; writes the token's latents at the row's ``pos``."""
+    if cfg.attn_logit_softcap is not None:
+        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
+    m = cfg.mla
+    q_nope, q_rope, c_new, r_new = _mla_qkr(params, cfg, x, cos_sin, slotted)
+    size = cache["c_kv"].shape[1]
+    pos = pos.to(torch.long)
+    slot = pos.clamp(max=size - 1)  # the reference's clamped dynamic_update_slice
+    rows = torch.arange(x.shape[0], device=x.device)
+    cache["c_kv"][rows, slot] = c_new[:, 0]
+    cache["k_rope"][rows, slot] = r_new[:, 0]
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    per = "b" if slotted else ""
+    q_lat = torch.einsum(f"bshk,{per}rhk->bshr", q_nope, params["w_uk"])
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
+              + torch.einsum("bshr,btr->bhst", q_rope, r_cache)) * scale
+    valid = torch.arange(size, device=x.device)[None, :] <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", probs, c_cache)
+    out = torch.einsum(f"bshr,{per}rhk->bshk", ctx, params["w_uv"])
+    b, _, h, dv = out.shape
+    return linear(out.reshape(b, 1, h * dv), params["wo"].flatten(-3, -2), slotted)

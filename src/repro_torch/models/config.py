@@ -1,9 +1,10 @@
 """Model configuration of the LM zoo (the twin of ``repro.models.config``).
 
-Only the fields the served decoder-only text models use are ported: dense
-GQA decoders with QK-norm (Qwen3) and attention-free Mamba-2 SSD stacks.
-The other families of the reference (MoE, MLA, hybrid, encoder-decoder,
-VLM) raise ``NotImplementedError`` in :mod:`repro_torch.models.transformer`,
+The decoder-only text families are ported: dense GQA / MQA decoders (QK-norm,
+QKV bias, sliding windows), MoE (Mixtral; DeepSeek's fine-grained experts
+with shared ones), MLA (DeepSeek-V2), attention-free Mamba-2 SSD stacks and
+hybrid Mamba/attention stacks (Jamba).  Encoder-decoder and VLM / audio
+models raise ``NotImplementedError`` in :mod:`repro_torch.models.transformer`,
 naming the ROADMAP item they wait for.  :func:`config_to_dict` and
 :func:`config_from_dict` give the reference's JSON form (checkpoint
 manifests carry it).
@@ -12,6 +13,21 @@ from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int  # routed experts
+    top_k: int
+    d_expert: int  # per-expert FFN hidden size
+    n_shared: int = 0  # shared (always-on) experts, DeepSeek-style
+    # which layers are MoE: "all" | "every_2" (odd layers) | "after_first"
+    layer_mode: str = "all"
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+    # router weight normalisation: "softmax_topk" (Mixtral: softmax over the
+    # selected logits) | "topk_softmax" (DeepSeek: softmax first, renormalise)
+    gate_mode: str = "softmax_topk"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +44,20 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0  # 0 => direct q projection (V2-Lite)
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | ssm (moe | hybrid | audio | vlm are not ported)
+    arch_type: str  # dense | moe | ssm | hybrid (audio | vlm are not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,19 +65,19 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
-    attn_impl: str = "gqa"  # gqa | none (pure SSM); mla is not ported
+    attn_impl: str = "gqa"  # gqa | mla | none (pure SSM)
     qk_norm: bool = False
     qkv_bias: bool = False
     sliding_window: Optional[int] = None
     rope_theta: float = 10000.0
     mrope_sections: Optional[Tuple[int, int, int]] = None
     attn_logit_softcap: Optional[float] = None
-    mlp_type: str = "swiglu"
-    moe: Optional[object] = None
+    mlp_type: str = "swiglu"  # swiglu | squared_relu | gelu
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    mla: Optional[object] = None
+    mla: Optional[MLAConfig] = None
     hybrid_period: Optional[Tuple[str, ...]] = None
-    first_k_dense: int = 0
+    first_k_dense: int = 0  # DeepSeek: the first k layers use a dense FFN
     is_enc_dec: bool = False
     n_encoder_layers: int = 0
     modality: str = "text"
@@ -70,41 +97,94 @@ class ModelConfig:
         """Mixer kind per decoder layer ('attn' | 'mamba')."""
         if self.hybrid_period:
             period = list(self.hybrid_period)
+            assert self.n_layers % len(period) == 0
             return period * (self.n_layers // len(period))
         if self.arch_type == "ssm":
             return ["mamba"] * self.n_layers
         return ["attn"] * self.n_layers
 
     def ffn_kinds(self) -> List[str]:
-        """FFN kind per decoder layer ('dense' | 'none'; MoE is not ported)."""
+        """FFN kind per decoder layer ('dense' | 'moe' | 'none')."""
         if self.arch_type == "ssm":
-            return ["none"] * self.n_layers
-        if self.moe is not None:
-            raise NotImplementedError("MoE layers are not ported yet (ROADMAP A14)")
-        return ["dense"] * self.n_layers
+            return ["none"] * self.n_layers  # the Mamba-2 block subsumes the FFN
+        if self.moe is None:
+            return ["dense"] * self.n_layers
+        mode = self.moe.layer_mode
+        kinds = []
+        for layer in range(self.n_layers):
+            if mode == "all":
+                kinds.append("moe")
+            elif mode == "every_2":
+                kinds.append("moe" if layer % 2 == 1 else "dense")
+            elif mode == "after_first":
+                kinds.append("dense" if layer < self.first_k_dense else "moe")
+            else:
+                raise ValueError(mode)
+        return kinds
 
     def scan_period(self) -> int:
-        """Length of the repeating layer pattern (1 for the ported stacks)."""
+        """Length of the repeating layer pattern after the ``first_k_dense``
+        head (the unit of the stacked parameter layout)."""
+        body = self.n_layers - self.first_k_dense
         if self.hybrid_period:
-            return len(self.hybrid_period)
+            p = len(self.hybrid_period)
+            if self.moe is not None and self.moe.layer_mode == "every_2":
+                p = max(p, 2) if p % 2 == 0 else p * 2
+            assert body % p == 0
+            return p
+        if self.moe is not None and self.moe.layer_mode == "every_2":
+            assert body % 2 == 0
+            return 2
         return 1
 
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic or bounded-cache decode (SSM, hybrid, sliding window)."""
+        if self.arch_type in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
+
     def param_count(self) -> int:
-        """Parameters of the ported families (embedding included, no biases)."""
+        """Analytic parameter count (embedding included, biases ignored),
+        the reference's formula term for term."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
+        mult = 3 if self.mlp_type == "swiglu" else 2
         n = v * d * (1 if self.tie_embeddings else 2)
-        for kind, ffn in zip(self.layer_kinds(), self.ffn_kinds()):
-            if kind == "attn":
+        for kind in self.layer_kinds():
+            if kind == "attn" and self.attn_impl == "mla":
+                m = self.mla
+                n += d * self.n_heads * (m.nope_head_dim + m.rope_head_dim)  # q
+                n += d * (m.kv_lora_rank + m.rope_head_dim)  # down
+                n += m.kv_lora_rank * self.n_heads * (m.nope_head_dim + m.v_head_dim)  # up
+                n += self.n_heads * m.v_head_dim * d  # out
+            elif kind == "attn":
                 n += 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
             else:
                 s = self.ssm
                 d_in = s.expand * d
                 n += d * (2 * d_in + 2 * s.n_groups * s.d_state + d_in // s.head_dim)
                 n += s.d_conv * (d_in + 2 * s.n_groups * s.d_state) + d_in * d
+        for ffn in self.ffn_kinds():
             if ffn == "dense":
-                n += (3 if self.mlp_type == "swiglu" else 2) * d * f
+                n += mult * d * f
+            elif ffn == "moe":
+                mo = self.moe
+                n += (mo.n_experts + mo.n_shared) * mult * d * mo.d_expert
+                n += d * mo.n_experts  # router
+        if self.is_enc_dec:
+            n += self.n_encoder_layers * (4 * d * self.n_heads * hd + 3 * d * f)
+            n += self.n_layers * 4 * d * self.n_heads * hd  # cross-attention
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: an MoE layer counts its top-k
+        routed experts and the shared ones only."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        per_expert = (3 if self.mlp_type == "swiglu" else 2) * self.d_model * mo.d_expert
+        n_moe = self.ffn_kinds().count("moe")
+        return self.param_count() - n_moe * (mo.n_experts - mo.top_k) * per_expert
 
 
 # ---------------------------------------------------------------------------
@@ -128,20 +208,21 @@ def config_to_dict(cfg: ModelConfig) -> dict:
 
 
 def config_from_dict(d: dict) -> ModelConfig:
-    """Inverse of :func:`config_to_dict`: rebuilds the SSM sub-config and the
-    tuple fields JSON turned into lists.  MoE and MLA configs, and a
-    ``remat_policy`` other than ``"full"``, wait for ROADMAP A14; the
+    """Inverse of :func:`config_to_dict`: rebuilds the MoE, SSM and MLA
+    sub-configs and the tuple fields JSON turned into lists.  A
+    ``remat_policy`` other than ``"full"`` waits for ROADMAP A14; the
     reference's ``scan_unroll`` (a dry-run flag of its layer scan) is
     dropped."""
     d = dict(d)
-    for key in ("moe", "mla"):
-        if d.get(key) is not None:
-            raise NotImplementedError(f"{key} configs are not ported yet (ROADMAP A14)")
     policy = d.pop("remat_policy", "full")
     if policy != "full":
         raise NotImplementedError(
             f"remat_policy={policy!r} is not ported yet (ROADMAP A14); the port runs 'full'")
     d.pop("scan_unroll", None)
+    if d.get("moe") is not None:
+        d["moe"] = MoEConfig(**d["moe"])
+    if d.get("mla") is not None:
+        d["mla"] = MLAConfig(**d["mla"])
     if d.get("ssm") is not None:
         s = dict(d["ssm"])
         if s.get("a_init_range") is not None:

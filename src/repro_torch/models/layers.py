@@ -8,6 +8,7 @@ reference's decode over the slot axis lowered to.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -15,12 +16,28 @@ import torch
 Tensor = torch.Tensor
 
 
+# float32 elements drawn at once: a larger leaf is drawn in slices along its
+# first axis, so the float32 draw never holds more than 8 GiB beside the model
+# (a whole Granite-20B stacked FFN leaf is 3.9e9 elements: 29 GiB in float32
+# on top of its 52.5 GiB of bf16 weights)
+DRAW_CHUNK = 1 << 31
+
+
 def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
                 device=None) -> Tensor:
     """``scale * N(0, 1)`` drawn in float32 from ``gen``, cast to ``dtype``."""
-    draw = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=device or gen.device)
-    return draw.mul_(scale).to(dtype)
+    shape, dev = tuple(shape), device or gen.device
+    lead = shape[0] if shape else 1
+    rows = max(1, DRAW_CHUNK // max(1, math.prod(shape[1:])))
+    if rows >= lead:  # one slice covers the leaf
+        draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return draw.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    for r0 in range(0, lead, rows):
+        blk = out[r0:r0 + rows]
+        blk.copy_(torch.randn(blk.shape, generator=gen, dtype=torch.float32,
+                              device=dev).mul_(scale))
+    return out
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:

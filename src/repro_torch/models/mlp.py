@@ -1,5 +1,5 @@
-"""SwiGLU feed-forward block (the other MLP types of the reference serve no
-ported model and wait for ROADMAP A14)."""
+"""Feed-forward blocks: SwiGLU (Llama family), squared ReLU (Nemotron-4) and
+GELU with the tanh approximation (``jax.nn.gelu``'s default)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,20 +9,33 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import linear, normal_init
 
+MLP_TYPES = ("swiglu", "squared_relu", "gelu")
+
 
 def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str, scale: float, dtype,
              stack: tuple = ()) -> Dict[str, torch.Tensor]:
-    if mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {mlp_type!r} is not ported yet (ROADMAP A14)")
-    return {
-        "w_gate": normal_init(gen, stack + (d, f), scale, dtype),
-        "w_up": normal_init(gen, stack + (d, f), scale, dtype),
-        "w_down": normal_init(gen, stack + (f, d), scale, dtype),
-    }
+    if mlp_type not in MLP_TYPES:
+        raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    p = {}
+    if mlp_type == "swiglu":
+        p["w_gate"] = normal_init(gen, stack + (d, f), scale, dtype)
+    p["w_up"] = normal_init(gen, stack + (d, f), scale, dtype)
+    p["w_down"] = normal_init(gen, stack + (f, d), scale, dtype)
+    return p
+
+
+def activation(params: Dict, mlp_type: str, up) -> torch.Tensor:
+    """The hidden activation of ``mlp_type``; ``up(name)`` projects the input
+    through the weight ``params[name]``."""
+    if mlp_type == "swiglu":
+        return F.silu(up(params["w_gate"])) * up(params["w_up"])
+    if mlp_type == "squared_relu":
+        return torch.square(F.relu(up(params["w_up"])))
+    if mlp_type == "gelu":
+        return F.gelu(up(params["w_up"]), approximate="tanh")
+    raise ValueError(f"unknown mlp_type {mlp_type!r}")
 
 
 def mlp_forward(params: Dict, mlp_type: str, x: torch.Tensor, slotted: bool = False):
-    if mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {mlp_type!r} is not ported yet (ROADMAP A14)")
-    h = F.silu(linear(x, params["w_gate"], slotted)) * linear(x, params["w_up"], slotted)
+    h = activation(params, mlp_type, lambda w: linear(x, w, slotted))
     return linear(h, params["w_down"], slotted)

@@ -1,0 +1,180 @@
+"""Mixture-of-Experts: sort-based capacity dispatch and DeepSeek-style shared
+experts (the twin of ``repro.models.moe``).
+
+Routing follows ``gate_mode``: ``softmax_topk`` (Mixtral: softmax over the
+top-k logits) or ``topk_softmax`` (DeepSeek: softmax over all experts, keep
+the top k, renormalise).  Ties in the top-k go to the lower expert index, as
+``jax.lax.top_k`` (and the port's top-k compressor) breaks them.
+
+Dispatch is the reference's: the T·k (token, expert) entries are sorted
+stably by expert, each expert keeps its first ``cap = max(1, min(int(cf·T·k
+/ E), T·k))`` entries and drops the rest, and the expert FFN is one batched
+product over an (E, cap, d) buffer whose unused rows are zeros, with no
+host sync.  A routing group of one token (a decode step) drops nothing (its
+k experts are distinct and cap >= 1), so it runs its k experts alone,
+reading their weights in place, and leaves the other E - k unread: the
+batched product would read E / k times the weights.  Its k expert ids cross
+to the host to index the weights.  The combine adds each token's weighted
+expert outputs in ascending expert order, the order of the reference's
+scatter-add, with no atomics.
+
+A ``slotted`` call (one parameter set per row, the engine's decode over
+slots) routes and dispatches each row on its own, with the capacity of its
+own tokens: what ``jax.vmap`` of the reference's layer over the slots
+computes.  Expert products are plain PyTorch, as the reference computes them
+outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.layers import normal_init
+from repro_torch.models.mlp import activation, init_mlp, mlp_forward
+
+Tensor = torch.Tensor
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -> Dict[str, Any]:
+    mo = cfg.moe
+    d, fe, e = cfg.d_model, mo.d_expert, mo.n_experts
+    s = cfg.init_scale
+    p: Dict[str, Any] = {"router": normal_init(gen, stack + (d, e), s, torch.float32)}
+    if cfg.mlp_type == "swiglu":
+        p["w_gate"] = normal_init(gen, stack + (e, d, fe), s, dtype)
+    p["w_up"] = normal_init(gen, stack + (e, d, fe), s, dtype)
+    p["w_down"] = normal_init(gen, stack + (e, fe, d), s, dtype)
+    if mo.n_shared:
+        p["shared"] = init_mlp(gen, d, mo.n_shared * fe, cfg.mlp_type, s, dtype, stack)
+    return p
+
+
+def top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The k largest entries of the last axis, largest first, ties to the
+    lower index (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(logits: Tensor, mo: MoEConfig) -> Tuple[Tensor, Tensor, Tensor]:
+    """(top_idx (T, k), top_w (T, k) float32, probs (T, E) float32)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    if mo.gate_mode == "softmax_topk":
+        top_logit, top_idx = top_k(logits, mo.top_k)
+        top_w = torch.softmax(top_logit.to(torch.float32), dim=-1)
+    elif mo.gate_mode == "topk_softmax":
+        top_p, top_idx = top_k(probs, mo.top_k)
+        top_w = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    else:
+        raise ValueError(mo.gate_mode)
+    return top_idx, top_w, probs
+
+
+def _expert_counts(top_idx: Tensor, n_experts: int) -> Tensor:
+    """Entries routed to each expert (int64, on the device, no host sync)."""
+    flat = top_idx.reshape(-1).long()
+    return torch.zeros(n_experts, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
+def aux_load_balance_loss(probs: Tensor, top_idx: Tensor, mo: MoEConfig) -> Tensor:
+    """``E · sum_e f_e · p_e · coef``: f the share of routed entries, p the
+    mean router probability of each expert."""
+    counts = _expert_counts(top_idx, mo.n_experts).to(torch.float32)
+    frac = counts / (top_idx.shape[0] * mo.top_k)
+    return mo.n_experts * torch.sum(frac * torch.mean(probs, dim=0)) * mo.router_aux_coef
+
+
+def capacity(mo: MoEConfig, t: int) -> int:
+    """Entries each expert keeps out of a layer's ``t`` tokens."""
+    return max(1, min(int(mo.capacity_factor * t * mo.top_k / mo.n_experts), t * mo.top_k))
+
+
+def _ffn(params: Dict, mlp_type: str, x: Tensor) -> Tensor:
+    """The expert FFN: ``x`` (..., d) through weights of matching leading
+    axes, (E, cap, d) against (E, d, f) batched or (1, d) against (d, f)."""
+    return activation(params, mlp_type, lambda m: x @ m) @ params["w_down"]
+
+
+def _combine(contrib: Tensor, top_idx: Tensor) -> Tensor:
+    """contrib (T, k, d), each entry's weighted output (zero where dropped)
+    -> (T, d): a token's k entries added into a zero row in ascending
+    expert order."""
+    t, k, d = contrib.shape
+    by_expert = torch.argsort(top_idx, dim=-1)
+    contrib = torch.gather(contrib, 1, by_expert[..., None].expand(t, k, d))
+    y = torch.zeros((t, d), dtype=contrib.dtype, device=contrib.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y
+
+
+def dispatch_batched(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tensor,
+                     top_w: Tensor) -> Tensor:
+    """The reference's dispatch: xf (T, d) through an (E, cap, d) buffer and
+    one batched product over the experts -> each entry's weighted output
+    (T, k, d), zero where dropped.  No host sync."""
+    mo = cfg.moe
+    t, d = xf.shape
+    k = mo.top_k
+    cap = capacity(mo, t)
+    flat_expert = top_idx.reshape(-1)  # (T·k,)
+    order = torch.argsort(flat_expert, stable=True)  # entries grouped by expert
+    counts = _expert_counts(top_idx, mo.n_experts)
+    offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    slot = torch.arange(cap, device=xf.device)
+    in_range = slot[None, :] < torch.clamp(counts, max=cap)[:, None]  # (E, cap)
+    src = order[torch.clamp(offsets[:, None] + slot[None, :], max=t * k - 1)]
+    x_exp = xf[src // k] * in_range[..., None].to(xf.dtype)  # (E, cap, d)
+    y_exp = _ffn(experts, cfg.mlp_type, x_exp)  # (E, cap, d)
+    w = top_w.reshape(-1)[src] * in_range.to(torch.float32)
+    # each kept entry's weighted output to its place in the (T·k) stream;
+    # unused buffer rows go to a spare row past its end
+    dest = torch.where(in_range, src, t * k).reshape(-1)
+    contrib = torch.zeros((t * k + 1, d), dtype=xf.dtype, device=xf.device).index_copy(
+        0, dest, (y_exp * w[..., None].to(y_exp.dtype)).reshape(-1, d))
+    return contrib[:t * k].reshape(t, k, d)
+
+
+def dispatch_in_place(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tensor,
+                      top_w: Tensor) -> Tensor:
+    """One token (xf (1, d)): its k distinct experts, none dropped, each
+    read in place -> (1, k, d).  The k expert ids cross to the host."""
+    return torch.stack([
+        _ffn({n: w[i] for n, w in experts.items()}, cfg.mlp_type, xf)[0]
+        * top_w[0, j].to(xf.dtype) for j, i in enumerate(top_idx[0].tolist())])[None]
+
+
+def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor) -> Tuple[Tensor, Tensor]:
+    """xf (T, d) -> (y (T, d), aux): one routing group."""
+    mo = cfg.moe
+    logits = xf.to(torch.float32) @ params["router"]
+    top_idx, top_w, probs = route(logits, mo)
+    aux = aux_load_balance_loss(probs, top_idx, mo)
+    experts = {n: params[n] for n in ("w_gate", "w_up", "w_down") if n in params}
+    dispatch = dispatch_in_place if xf.shape[0] == 1 else dispatch_batched
+    y = _combine(dispatch(experts, cfg, xf, top_idx, top_w), top_idx)
+    if mo.n_shared:
+        y = y + mlp_forward(params["shared"], cfg.mlp_type, xf[None])[0]
+    return y, aux
+
+
+def moe_forward(params: Dict, cfg: ModelConfig, x: Tensor,
+                slotted: bool = False) -> Tuple[Tensor, Tensor]:
+    """x (B, S, d) -> (y (B, S, d), aux loss).  With ``slotted`` every leaf
+    of ``params`` carries a leading axis of size B and each row is its own
+    routing group; aux is then one loss per row."""
+    b, s, d = x.shape
+    if not slotted:
+        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d))
+        return y.reshape(b, s, d), aux
+    ys, auxs = [], []
+    for row in range(b):
+        p_row = {k: ({kk: vv[row] for kk, vv in v.items()} if isinstance(v, dict) else v[row])
+                 for k, v in params.items()}
+        y, aux = _moe_tokens(p_row, cfg, x[row])
+        ys.append(y)
+        auxs.append(aux)
+    return torch.stack(ys), torch.stack(auxs)

@@ -1,4 +1,4 @@
-"""Model registry: one interface over the ported decoder-only families (the
+"""Model registry: one interface over the decoder-only families (the
 twin of ``repro.models.registry``).
 
 ``ModelBundle`` is what the serving engine and the trainer consume: init /

@@ -1,5 +1,8 @@
-"""Decoder-only LM for the served families: dense GQA decoders (Qwen3) and
-Mamba-2 SSD stacks (the twin of ``repro.models.transformer``).
+"""Decoder-only LM of the zoo's text families: dense GQA / MQA decoders
+(Qwen3, Qwen2.5, Granite, Nemotron-4), MoE (Mixtral; DeepSeek-V2-Lite with
+MLA and a dense first layer), Mamba-2 SSD stacks and hybrid Mamba/attention
+stacks with MoE every other layer (Jamba) (the twin of
+``repro.models.transformer``).
 
 Parameters keep the reference's stacked layout — ``{"embed", "final_norm",
 "lm_head", "head_layers": [...], "layers": {"pos0": ...}}`` with a leading
@@ -18,16 +21,18 @@ Entry points:
   (:func:`lm_forward`), differentiable: attention through
   :func:`repro_torch.models.attention.attention_train` and Mamba layers
   through the chunked ``ssd_reference``, as the reference trains (it has no
-  gradient kernels); with ``cfg.remat`` every period is recomputed in the
+  gradient kernels), plus the MoE layers' load-balance loss; with
+  ``cfg.remat`` every period is recomputed in the
   backward pass (``torch.utils.checkpoint``, non-reentrant), the reference's
   ``jax.checkpoint`` of its scanned period.  With ``slotted=True`` every
   parameter carries a leading slot axis, one agent per row, and each
   projection is one batched product over the slots; the cache's ``pos`` is
   then one position per slot.
 
-Caches are updated in place and returned.  Families the port does not cover
-yet (MoE, MLA, hybrid, encoder-decoder, VLM / M-RoPE, prefix embeddings)
-raise ``NotImplementedError`` naming ROADMAP A14.
+Caches are updated in place and returned.  Hybrid stacks use no RoPE (their
+Mamba layers carry position).  Families the port does not cover yet
+(encoder-decoder, VLM / audio / M-RoPE, prefix embeddings, the attention
+logit softcap) raise ``NotImplementedError`` naming ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, normal_init, rms_norm, vec
 from repro_torch.models.mlp import init_mlp, mlp_forward
-from repro_torch.models.rope import apply_rope, rope_cos_sin, text_positions
+from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.models.rope import rope_cos_sin, text_positions
 
 Tensor = torch.Tensor
 Tree = Any
@@ -64,15 +70,9 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("encoder-decoder")
     if cfg.modality != "text" or cfg.mrope_sections is not None:
         missing.append("VLM / audio frontends and M-RoPE")
-    if cfg.moe is not None:
-        missing.append("MoE")
-    if cfg.attn_impl == "mla":
-        missing.append("MLA")
-    if cfg.hybrid_period or cfg.arch_type == "hybrid":
-        missing.append("hybrid stacks")
     if cfg.attn_logit_softcap is not None:
         missing.append("attention logit softcap")
-    if cfg.arch_type not in ("dense", "ssm"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         missing.append(f"arch_type {cfg.arch_type!r}")
     if missing:
         raise NotImplementedError(
@@ -98,11 +98,17 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, ffn_kind: str,
     dev = gen.device
     p: Dict[str, Any] = {"norm1": {"scale": torch.ones(stack + (cfg.d_model,), dtype=dtype,
                                                        device=dev)}}
-    p["mixer"] = (A.init_gqa if kind == "attn" else M.init_mamba2)(gen, cfg, dtype, stack)
-    if ffn_kind == "dense":
+    if kind == "attn":
+        p["mixer"] = (A.init_mla if cfg.attn_impl == "mla" else A.init_gqa)(gen, cfg, dtype, stack)
+    else:
+        p["mixer"] = M.init_mamba2(gen, cfg, dtype, stack)
+    if ffn_kind != "none":
         p["norm2"] = {"scale": torch.ones(stack + (cfg.d_model,), dtype=dtype, device=dev)}
+    if ffn_kind == "dense":
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, cfg.init_scale, dtype,
                             stack)
+    elif ffn_kind == "moe":
+        p["ffn"] = init_moe(gen, cfg, dtype, stack)
     return p
 
 
@@ -128,6 +134,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tr
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype, device,
                  stack: tuple = ()) -> Dict:
+    if kind == "attn" and cfg.attn_impl == "mla":
+        return A.init_mla_cache(cfg, batch, max_seq, dtype, device, stack)
     if kind == "attn":
         return A.init_gqa_cache(cfg, batch, max_seq, dtype, device, stack)
     return M.init_mamba2_cache(cfg, batch, dtype, device, stack)
@@ -165,6 +173,23 @@ def params_from_paths(flat: Dict[str, Tensor], cfg: ModelConfig) -> Tree:
     return tree
 
 
+def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device):
+    """RoPE tables at positions ``offset + arange(s)`` (MLA rotates its
+    rope_head_dim part only); None for stacks without RoPE (SSM, hybrid)."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return None
+    hd = cfg.mla.rope_head_dim if cfg.attn_impl == "mla" else cfg.resolved_head_dim
+    return rope_cos_sin(text_positions(b, s, offset, device), hd, cfg.rope_theta)
+
+
+def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False):
+    """The block's FFN on its normed input: (out, MoE aux loss or None)."""
+    h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
+    if ffn_kind == "dense":
+        return mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted), None
+    return moe_forward(bp["ffn"], cfg, h, slotted)
+
+
 def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
     if not cfg.tie_embeddings:
         return params["lm_head"]
@@ -177,17 +202,22 @@ def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
 
 
 def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor,
-                  cos_sin) -> Tensor:
+                  cos_sin) -> Tuple[Tensor, Tensor]:
+    """One layer of the training forward: (x, MoE aux loss)."""
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
     if kind == "attn":
-        h = A.gqa_forward(bp["mixer"], cfg, h, cos_sin)
+        h = (A.mla_forward if cfg.attn_impl == "mla" else A.gqa_forward)(bp["mixer"], cfg, h,
+                                                                          cos_sin)
     else:
         h = M.mamba2_forward(bp["mixer"], cfg, h)
     x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn_kind != "none":
-        x = x + mlp_forward(bp["ffn"], cfg.mlp_type, rms_norm(x, bp["norm2"]["scale"],
-                                                              cfg.norm_eps))
-    return x
+        h, a = _ffn(bp, cfg, ffn_kind, x)
+        x = x + h
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _text_only(batch: Dict) -> None:
@@ -196,32 +226,38 @@ def _text_only(batch: Dict) -> None:
                                   "are not ported yet (ROADMAP A14)")
 
 
-def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    """Forward to the final norm, without the vocabulary projection."""
+def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tensor, Tensor]:
+    """Forward to the final norm, without the vocabulary projection; returns
+    (hidden, MoE aux loss summed over the layers)."""
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     x = params["embed"][tokens.long()]
     b, s, _ = x.shape
-    cos_sin = None
-    if cfg.arch_type != "ssm":
-        cos_sin = rope_cos_sin(text_positions(b, s, 0, x.device), cfg.resolved_head_dim,
-                               cfg.rope_theta)
+    cos_sin = _cos_sin(cfg, b, s, 0, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, (k, f) in zip(params["head_layers"], head_pat):
-        x = block_forward(bp, cfg, k, f, x, cos_sin)
+        x, a = block_forward(bp, cfg, k, f, x, cos_sin)
+        aux = aux + a
 
-    def period(x_in: Tensor, p: int) -> Tensor:
+    def period(x_in: Tensor, p: int) -> Tuple[Tensor, Tensor]:
+        a_tot = torch.zeros((), dtype=torch.float32, device=x_in.device)
         for i, (k, f) in enumerate(period_pat):
             bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
-            x_in = block_forward(bp, cfg, k, f, x_in, cos_sin)
-        return x_in
+            x_in, a = block_forward(bp, cfg, k, f, x_in, cos_sin)
+            a_tot = a_tot + a
+        return x_in, a_tot
 
+    auxs = []
     for p in range(n_periods):
-        x = checkpoint(period, x, p, use_reentrant=False) if cfg.remat else period(x, p)
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        x, a = checkpoint(period, x, p, use_reentrant=False) if cfg.remat else period(x, p)
+        auxs.append(a)
+    aux = aux + torch.sum(torch.stack(auxs))
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), aux
 
 
-def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    """Full causal training forward; returns logits (B, S, V)."""
-    return linear(_hidden_states(params, cfg, tokens), _lm_head(params, cfg))
+def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tensor, Tensor]:
+    """Full causal training forward; returns (logits (B, S, V), MoE aux)."""
+    hidden, aux = _hidden_states(params, cfg, tokens)
+    return linear(hidden, _lm_head(params, cfg)), aux
 
 
 def _ce_sum(logits: Tensor, targets: Tensor) -> Tensor:
@@ -243,16 +279,16 @@ def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int) -> Te
 
 def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S): position t
-    predicts token t + 1, logits in float32."""
+    predicts token t + 1, logits in float32; plus the MoE aux loss."""
     _text_only(batch)
     tokens = batch["tokens"]
     if cfg.loss_chunk > 0:
-        hidden = _hidden_states(params, cfg, tokens)
+        hidden, aux = _hidden_states(params, cfg, tokens)
         return _chunked_ce(hidden[:, :-1], _lm_head(params, cfg), tokens[:, 1:],
-                           cfg.loss_chunk)
-    logits = lm_forward(params, cfg, tokens)
+                           cfg.loss_chunk) + aux
+    logits, aux = lm_forward(params, cfg, tokens)
     b, s = tokens.shape
-    return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1))
+    return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1)) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,10 +301,16 @@ def _prefill_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tens
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
     mp = bp["mixer"]
     b, s, _ = x.shape
-    if kind == "attn":
+    if kind == "attn" and cfg.attn_impl == "mla":
+        q_nope, q_rope, c_kv, k_rope = A._mla_qkr(mp, cfg, h, cos_sin)
+        A.mla_fill_cache(cc, c_kv, k_rope)
+        q, k, v = A.mla_qkv(mp, q_nope, q_rope, c_kv, k_rope)
+        core = A.attention_core(q, k, v, causal=True, softcap=cfg.attn_logit_softcap,
+                                use_kernel=use_kernels)
+        out = linear(core.reshape(b, s, -1), mp["wo"].flatten(0, 1))
+    elif kind == "attn":
         q, k, v = A._project_qkv(mp, cfg, h)
-        q = apply_rope(q, *cos_sin)
-        k = apply_rope(k, *cos_sin)
+        q, k = A.rope_qk(q, k, cos_sin)
         A.gqa_fill_cache(cc, k, v)
         core = A.attention_core(q, k, v, causal=True, window=cfg.sliding_window,
                                 softcap=cfg.attn_logit_softcap, use_kernel=use_kernels)
@@ -290,8 +332,7 @@ def _prefill_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tens
         cc["ssm"].copy_(final_state)
     x = x + out
     if ffn_kind != "none":
-        x = x + mlp_forward(bp["ffn"], cfg.mlp_type, rms_norm(x, bp["norm2"]["scale"],
-                                                              cfg.norm_eps))
+        x = x + _ffn(bp, cfg, ffn_kind, x)[0]
     return x
 
 
@@ -312,14 +353,11 @@ def lm_prefill(
     _text_only({"prefix_embeds": prefix_embeds, "positions": positions})
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     b, s = tokens.shape
-    if cfg.arch_type == "ssm" and s < cfg.ssm.d_conv - 1:
+    if "mamba" in cfg.layer_kinds() and s < cfg.ssm.d_conv - 1:
         raise ValueError(f"{cfg.name}: a prompt needs at least {cfg.ssm.d_conv - 1} tokens "
                          f"(the conv window), got {s}")
     x = params["embed"][tokens.long()]
-    cos_sin = None
-    if cfg.arch_type != "ssm":
-        cos_sin = rope_cos_sin(text_positions(b, s, 0, x.device), cfg.resolved_head_dim,
-                               cfg.rope_theta)
+    cos_sin = _cos_sin(cfg, b, s, 0, x.device)
     for bp, (k, f), cc in zip(params["head_layers"], head_pat, cache["head_layers"]):
         x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels)
     for p in range(n_periods):
@@ -342,13 +380,13 @@ def _decode_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tenso
                   cc: Dict, pos: Tensor, slotted: bool) -> Tensor:
     h = rms_norm(x, vec(bp["norm1"]["scale"], slotted, 3), cfg.norm_eps)
     if kind == "attn":
-        h = A.gqa_decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted)
+        decode = A.mla_decode if cfg.attn_impl == "mla" else A.gqa_decode
+        h = decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted)
     else:
         h = M.mamba2_decode(bp["mixer"], cfg, h, cc, slotted)
     x = x + h
     if ffn_kind != "none":
-        h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
-        x = x + mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted)
+        x = x + _ffn(bp, cfg, ffn_kind, x, slotted)[0]
     return x
 
 
@@ -375,10 +413,7 @@ def lm_decode(
         x = params["embed"][torch.arange(b, device=tok.device), tok][:, None, :]
     else:
         x = params["embed"][tok][:, None, :]
-    cos_sin = None
-    if cfg.arch_type != "ssm":
-        cos_sin = rope_cos_sin(text_positions(b, 1, posv, x.device), cfg.resolved_head_dim,
-                               cfg.rope_theta)
+    cos_sin = _cos_sin(cfg, b, 1, posv, x.device)
     for j, ((k, f), bp) in enumerate(zip(head_pat, params["head_layers"])):
         cc = cache["head_layers"][j]
         if slotted:

@@ -3,7 +3,7 @@ per-request latency breakdown (the twin of the reference's
 ``examples/serve_decode.py``):
 
     python -m repro_torch.serve --arch mamba2-370m            # full width, on the GPU
-    python -m repro_torch.serve --arch qwen3-8b --reduced --device cpu
+    python -m repro_torch.serve --arch mixtral-8x7b --reduced --device cpu
 
 Each request belongs to a different agent of the fleet; one decode step
 advances every occupied slot under that slot's own weights.  The table at

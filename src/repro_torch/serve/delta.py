@@ -102,8 +102,15 @@ class DenseDelta(NamedTuple):
     val: torch.Tensor  # (n,) + leaf.shape raw values
 
 
+def _index_dtype(d: int):
+    """int32 flat coordinates, the reference's; int64 for a leaf of 2^31 or
+    more elements (a stacked expert leaf at full width), where int32 would
+    wrap (the reference's would too)."""
+    return np.int32 if d <= np.iinfo(np.int32).max else np.int64
+
+
 class TopKDelta(NamedTuple):
-    idx: torch.Tensor  # (n, k) int32 flat coordinates
+    idx: torch.Tensor  # (n, k) int32 flat coordinates (int64 past 2^31 - 1)
     val: torch.Tensor  # (n, k) float32 raw parameter values (set-form)
 
 
@@ -143,10 +150,10 @@ def _encode_leaf(stacked: torch.Tensor, base: torch.Tensor, spec: DeltaSpec):
     dev = stacked.device
     k = min(d, max(1, int(math.ceil(spec.fraction * d))))
     if k == d:  # every coordinate: the sorted selection is 0..d-1
-        idx = np.tile(np.arange(d, dtype=np.int32), (n, 1))
+        idx = np.tile(np.arange(d, dtype=_index_dtype(d)), (n, 1))
     else:
         part = np.argpartition(np.abs(diff), d - k, axis=1)[:, d - k:]
-        idx = np.sort(part, axis=1).astype(np.int32)
+        idx = np.sort(part, axis=1).astype(_index_dtype(d))
     if spec.quantize:
         dsel = np.take_along_axis(diff, idx, axis=1)
         scale = np.maximum(np.max(np.abs(dsel), axis=1, keepdims=True), 1e-12)
@@ -256,7 +263,7 @@ class FleetDelta:
             k = min(d, max(1, int(math.ceil(fraction * d))))
             idx = np.stack(
                 [np.sort(rng.choice(d, size=k, replace=False)) for _ in range(n_agents)]
-            ).astype(np.int32)
+            ).astype(_index_dtype(d))
             noise = rng.normal(scale=scale, size=(n_agents, k)).astype(np.float32)
             idx_t = torch.from_numpy(idx).to(leaf.device)
             val = leaf.reshape(-1)[idx_t.long()].to(torch.float32) + torch.from_numpy(

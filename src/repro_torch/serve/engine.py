@@ -24,8 +24,11 @@ Prefill runs per admitted request at batch 1, straight into the slot's
 cache.  It launches the port's Hopper kernels: the flash-attention kernel
 (K6) once per attention layer and the SSD scan kernel (K7) once per Mamba
 layer — 36 launches per admitted Qwen3-8B request, 48 per Mamba2-370m
-request.  (The reference's prefill ran neither of its Pallas kernels.)
-Decode is plain PyTorch, as in the reference.
+request, one K6 and seven K7 per Jamba period.  (The reference's prefill ran
+neither of its Pallas kernels.)  Decode is plain PyTorch, as in the
+reference; an MoE layer routes each slot's token on its own (capacity per
+slot, as the reference's ``jax.vmap`` over the slots) and reads the chosen
+experts' weights in place.
 """
 from __future__ import annotations
 

@@ -146,13 +146,17 @@ def tree_to_numpy(tree: Any, bf16_dtype: Any = None) -> Any:
 
 def lm_params_from_jax(params: Any, device: DeviceLike) -> Any:
     """LM parameters of the reference (``init_lm``'s nested tree: dicts, the
-    ``head_layers`` list and the stacked ``layers``) as the port's."""
+    ``head_layers`` list and the stacked ``layers``) as the port's, every
+    family's leaves as they are: MoE's float32 router, its (periods, experts,
+    d_in, d_out) expert stacks and the shared experts' dict, MLA's
+    projections, Mamba's float32 ``a_log`` / ``dt_bias`` / ``d_skip``."""
     return tree_from_jax(params, device)
 
 
 def lm_cache_from_jax(cache: Any, device: DeviceLike) -> Any:
-    """A reference KV/SSM cache (``init_cache`` / ``lm_prefill`` layout, with
-    its scalar ``pos``) as the port's."""
+    """A reference cache (``init_cache`` / ``lm_prefill`` layout, with its
+    scalar ``pos``: GQA's ``k`` / ``v``, MLA's ``c_kv`` / ``k_rope``, Mamba's
+    ``conv`` / ``ssm``, mixed by position in a hybrid stack) as the port's."""
     return tree_from_jax(cache, device)
 
 

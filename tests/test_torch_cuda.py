@@ -517,6 +517,44 @@ def test_k6_within_tolerance(cuda, gen, b, hq, hkv, s, d, window, dtype, cache):
         assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,dv,window,dtype", [
+    # Nemotron-4's GQA at head dim 192 (BK = 64 on the tensor cores), ragged
+    (1, 16, 2, 500, 192, 192, None, torch.bfloat16), (1, 8, 1, 77, 192, 192, None, torch.bfloat16),
+    (2, 8, 2, 333, 192, 192, 100, torch.bfloat16), (1, 8, 2, 129, 192, 192, None, torch.float32),
+    # MLA: q/k 192 against v 128 (v zero-padded to 192), and the reduced 48 / 32
+    (1, 16, 16, 300, 192, 128, None, torch.bfloat16), (1, 4, 4, 300, 192, 128, None, torch.float32),
+    (1, 4, 4, 45, 48, 32, None, torch.float32), (2, 4, 4, 130, 48, 48, 20, torch.float32),
+])
+def test_k6_zoo_head_dims_within_tolerance(cuda, gen, b, hq, hkv, s, d, dv, window, dtype):
+    q = torch.randn(b, s, hq, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, s, dv, generator=gen, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_tc"] == (1 if dtype == torch.bfloat16 else 0)
+    assert out.shape == (b, hq, s, dv)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                        p_dtype=torch.bfloat16).float()
+        assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("d,dv,dtype", [(48, 48, torch.bfloat16), (40, 40, torch.float32),
+                                        (256, 256, torch.bfloat16), (64, 96, torch.float32)])
+def test_k6_refuses_head_dims_it_has_no_instance_for(cuda, gen, d, dv, dtype):
+    q, k = (torch.randn(1, 2, 32, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    v = torch.randn(1, 2, 32, dv, generator=gen, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 def test_k6_bf16_head_dim_16_raises_naming_the_tma_rows(cuda, gen):
     q, k, v = (torch.randn(1, 2, 32, 16, generator=gen, device=cuda).to(torch.bfloat16)
                for _ in range(3))
@@ -669,7 +707,9 @@ def test_k2_one_row_and_k9_exact(cuda, gen, n, d, dtype, bits, res, noise):
         assert torch.equal(r_new, r2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m", "mixtral-8x7b",
+                                  "deepseek-v2-lite-16b", "jamba-v0.1-52b", "qwen2.5-14b",
+                                  "granite-20b", "nemotron-4-340b"])
 def test_reduced_serving_gpu_matches_cpu(cuda, arch):
     from repro_torch.configs import get_reduced
     from repro_torch.models.registry import get_bundle
@@ -690,8 +730,9 @@ def test_reduced_serving_gpu_matches_cpu(cuda, arch):
         rep = run_load(ContinuousBatcher(DecodeEngine(bundle, fleet, n_slots=2, max_seq=48)),
                        reqs, costs=StepCosts())
         streams.append({r.rid: r.tokens for r in rep.requests})
-    kernel = "flash_attention" if arch == "qwen3-8b" else "ssd_scan"
-    assert ops.launch_counts()[kernel] == 2 * 4  # two layers, four admissions
+    kinds = get_reduced(arch).layer_kinds()  # K6 per attention layer, K7 per Mamba layer
+    assert ops.launch_counts()["flash_attention"] == kinds.count("attn") * 4  # four admissions
+    assert ops.launch_counts()["ssd_scan"] == kinds.count("mamba") * 4
     assert streams[0] == streams[1]
 
 

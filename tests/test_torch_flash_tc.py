@@ -161,3 +161,82 @@ def test_tma_strides_reject_an_unaligned_base():
     t = _bf16(2 * 4 * 7 * 64 + 1)[1:].view(2, 4, 7, 64)
     with pytest.raises(ValueError, match="base address"):
         tma_strides(t, "k")
+
+
+# ---------------------------------------------------------------------------
+# The zoo's head dims: Nemotron-4's 192, MLA's q/k 192 (48 reduced) against a
+# smaller v head dim 128 (32 reduced)
+# ---------------------------------------------------------------------------
+
+
+def _qkv_dv(seed, b, hq, hkv, s, d, dv, dtype):
+    q, k, _ = _qkv(seed, b, hq, hkv, s, s, d, dtype)
+    v = np.random.default_rng(seed + 1).normal(size=(b, hkv, s, dv)).astype(np.float32)
+    return q, k, (v.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else v)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dv,window,dtype", [
+    (1, 8, 2, 64, 192, 192, None, "float32"),     # Nemotron-4's GQA head dim
+    (1, 4, 1, 96, 192, 192, 40, "bfloat16"),
+    (1, 4, 4, 64, 48, 32, None, "float32"),       # reduced MLA: q/k 48, v 32
+    (2, 4, 4, 64, 192, 128, None, "float32"),     # MLA: q/k 192, v 128
+    (1, 4, 4, 64, 192, 128, None, "bfloat16"),
+])
+def test_zoo_head_dims_plain_matches_pallas_kernel_and_attention_core(b, hq, hkv, s, d, dv,
+                                                                      window, dtype):
+    """The plain version (what the wrapper runs on the CPU) at D = 192 and
+    with v's head dim below q's, against the Pallas kernel in interpret mode
+    on v zero-padded to D (its BlockSpecs take one head dim; the padded
+    columns come out zero and are sliced off) and against the reference's
+    attention_core, which takes v's own head dim.  The scale is 1/sqrt(D)."""
+    from repro_torch.kernels import ops
+
+    q, k, v = _qkv_dv(14, b, hq, hkv, s, d, dv, dtype)
+    v_pad = np.concatenate([v, np.zeros(v.shape[:3] + (d - dv,), v.dtype)], axis=-1)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v_pad), causal=True,
+                              window=window, block_q=32, block_k=32, interpret=True),
+                      np.float32)
+    assert not want[..., dv:].any()
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True, window=window)
+    assert got.shape == (b, hq, s, dv) and got.dtype == _t(q).dtype
+    tol = 2e-6 if dtype == "float32" else BF16_ATOL
+    np.testing.assert_allclose(_np(got), want[..., :dv], atol=tol, rtol=0)
+    if dtype == "bfloat16":
+        model = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=True, window=window,
+                                        p_dtype=BF16)
+        np.testing.assert_allclose(_np(model), want[..., :dv], atol=BF16_ATOL, rtol=0)
+    qs, ks, vs = (np.ascontiguousarray(np.swapaxes(x, 1, 2)) for x in (q, k, v))
+    core = np.asarray(JA.attention_core(jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs),
+                                        causal=True, window=window, chunk=1024), np.float32)
+    np.testing.assert_allclose(_np(got.transpose(1, 2)), core,
+                               atol=tol if dtype == "float32" else BF16_CORE_ATOL, rtol=0)
+
+
+def test_zoo_head_dims_refused_shapes():
+    from repro_torch.kernels import ops
+
+    q, k, v = (_t(x) for x in _qkv_dv(15, 1, 4, 4, 16, 48, 64, "float32"))
+    with pytest.raises(ValueError, match="do not fit"):  # v's head dim above q's
+        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="do not fit"):  # v's length not k's
+        ops.flash_attention(q, k, v[:, :, :8, :32])
+
+
+@pytest.mark.parametrize("view,want", [
+    # Nemotron-4's (B, S, H, 192) activation as (B, H, S, 192): 384-byte rows
+    (lambda: _bf16(2, 40, 96, 192).transpose(1, 2), (40 * 96 * 192, 192, 96 * 192)),
+    # MLA's key: cat(k_nope, broadcast k_rope) materialised contiguous
+    (lambda: torch.cat([_bf16(2, 40, 16, 128), _bf16(2, 40, 1, 64).expand(2, 40, 16, 64)],
+                       dim=-1).transpose(1, 2), (40 * 16 * 192, 192, 16 * 192)),
+    # MLA's v zero-padded from 128 to 192 (a fresh contiguous (B, H, S, 192))
+    (lambda: torch.nn.functional.pad(_bf16(2, 40, 16, 128).transpose(1, 2), (0, 64)),
+     (16 * 40 * 192, 40 * 192, 192)),
+])
+def test_tma_strides_at_head_dim_192(view, want):
+    assert tma_strides(view(), "k") == want
+
+
+def test_tma_strides_at_head_dim_192_reject_unaligned_rows():
+    # a 192-wide slice of 196-wide rows: positions 392 bytes apart
+    with pytest.raises(ValueError, match=r"k\.stride\(2\)"):
+        tma_strides(_bf16(1, 2, 30, 196)[..., :192], "k")

@@ -323,11 +323,12 @@ def test_configs_match_reference(arch):
 def test_unported_families_and_short_prompts_raise():
     from repro_torch.configs import get_config as cfg_of
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        cfg_of("mixtral-8x7b")
+    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):  # encoder-decoder, VLM
+        with pytest.raises(NotImplementedError, match="A14"):
+            cfg_of(arch)
     base = get_reduced("qwen3-8b")
-    for bad in ({"moe": object()}, {"attn_impl": "mla"}, {"is_enc_dec": True},
-                {"mrope_sections": (4, 6, 6)}, {"hybrid_period": ("attn", "mamba")}):
+    for bad in ({"is_enc_dec": True}, {"modality": "vlm"}, {"mrope_sections": (4, 6, 6)},
+                {"attn_logit_softcap": 30.0}):
         with pytest.raises(NotImplementedError, match="A14"):
             get_bundle(dataclasses.replace(base, **bad), "cpu")
     bundle = get_bundle(get_reduced("mamba2-370m"), "cpu")

@@ -34,12 +34,12 @@ from repro_torch.kernels.flash_attention import tma_strides  # noqa: E402
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "build", "k6_ablation")
 
-STEADY_SOFTMAX = ("softmax_tile(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, causal, "
-                  "window,\n                       scale_log2);")
+STEADY_SOFTMAX = ("softmax_tile<BK>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, "
+                  "causal,\n                           window, scale_log2);")
 VARIANTS = {
     "base": [],
     # 64 keys per tile instead of 128
-    "bk64": [("constexpr int BK = 128;", "constexpr int BK = 64;")],
+    "bk64": [("static constexpr int BK = D == 192 ? 64 : 128;", "static constexpr int BK = 64;")],
     # a two-stage K/V ring instead of three
     "ns2": [("NSTAGE_FIT < 4 ? NSTAGE_FIT : 4", "2")],
     # one work item per block, blocks in the hardware's order (not persistent)

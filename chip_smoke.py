@@ -12,6 +12,8 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    shapes the main path gives it and at ragged shapes, and times kernel,
    plain version and (where one PyTorch call computes the same function) the
    library call, beside the least time the card could take (``bound_ms``);
+   K6 both causal and without the causal mask (an encoder's; Sq and Sk
+   apart);
 3. drives the main paths through ``Experiment.run`` — PISCO on the paper's
    logreg fleet ("paper"), a 512-agent MLP fleet with int8 compressed gossip
    ("dense-q8"), a 10,000-agent MLP fleet on sparse gossip ("sparse-10k")
@@ -72,9 +74,15 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    Jamba-v0.1 (one period of 8 layers: 7 K7, 1 K6 without RoPE, MoE every
    other layer) served through the engine, and Qwen2.5-14B and Granite-20B
    whole and Nemotron-4-340B (2 of 96 layers, K6 at head dim 192) prefilled
-   and decoded; every path's prefill against the plain versions, which
-   replay the kernel run's MoE routes (logits, greedy first tokens, each
-   attention layer and each K7 call; the routes that would flip counted);
+   and decoded, then the encoder-decoder SeamlessM4T-medium whole (12 + 12
+   layers; 4 utterances of 1,024 frames: the encoder through K6 without the
+   causal mask, then 16 greedy steps with cross-attention to the memory) and
+   the VLM Qwen2-VL-2B whole (256 patch embeddings at their M-RoPE grid ids
+   before 500 tokens, then 8 steps); every path's prefill against the plain
+   versions, which replay the kernel run's MoE routes (logits, greedy first
+   tokens, each attention layer and each K7 call; the routes that would flip
+   counted); and both at reduced widths, card against CPU in f32 (prefill,
+   decode, one value_and_grad: "reduced-media");
    then the train -> checkpoint -> serve loop ("fleet"): the example twin
    ``repro_torch.examples.train_federated_lm`` trains LM_100M at full width
    (f32, 4 agents, K1 once a leaf and round) for a few rounds and writes its
@@ -2371,15 +2379,16 @@ def robust_paths(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 
-def flash_cost(b, hq, hkv, sq, sk, d, window, itemsize, dv=None):
-    """(bytes, flops) of one causal attention call: q, k, v read and o
-    written once; 2·D (Q K^T) + 2·Dv (P V) flops per unmasked (query, key)
-    pair (Dv = D unless given)."""
+def flash_cost(b, hq, hkv, sq, sk, d, window, itemsize, dv=None, causal=True):
+    """(bytes, flops) of one attention call: q, k, v read and o written
+    once; 2·D (Q K^T) + 2·Dv (P V) flops per unmasked (query, key) pair
+    (Dv = D unless given): the causal band, or without the causal mask all
+    Sq·Sk pairs (keys past the window excepted)."""
     dv = d if dv is None else dv
     pairs = 0
     for i in range(sq):
         lo = 0 if window is None else max(0, i - window + 1)
-        pairs += min(i, sk - 1) - lo + 1
+        pairs += max(0, (min(i, sk - 1) if causal else sk - 1) - lo + 1)
     nbytes = itemsize * (b * hq * sq * (d + dv) + b * hkv * sk * (d + dv))
     return nbytes, 2.0 * b * hq * (d + dv) * pairs
 
@@ -2402,8 +2411,11 @@ def lm_kernel_checks(torch, dev):
     causal; its tensor-core path), at the served prompt (S 500), at S 1000
     with a 256 window (bf16 and f32), at fig_serve's TINY prefill (f32, D 16)
     and at ragged small shapes, timed at S 2048 and S 500 beside SDPA (and at
-    D 16 in f32); K7 at Mamba2-370m's (B 1, L 2048, H 32, P 64, G 1,
-    N 128, chunk 256, bf16) and at a ragged L of 1000 in f32."""
+    D 16 in f32); K6 without the causal mask at SeamlessM4T's encoder shape
+    (B 4, 16 / 16 heads, S 1024, D 64, bf16), at cross shapes (Sq 500 / Sk
+    1024 and the reverse), group 1 and 6, ragged tails, f32 at D 32 and 64,
+    timed beside non-causal SDPA; K7 at Mamba2-370m's (B 1, L 2048, H 32,
+    P 64, G 1, N 128, chunk 256, bf16) and at a ragged L of 1000 in f32."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -2412,14 +2424,41 @@ def lm_kernel_checks(torch, dev):
     names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     rows = {}
 
-    def attn_inputs(b, hq, hkv, s, d, dt, dv=None):
+    def attn_inputs(b, hq, hkv, s, d, dt, dv=None, sk=None):
         # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
         q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dt).transpose(1, 2)
-        k = torch.randn(b, hkv, s, d, generator=gen, device=dev).to(dt)
-        v = torch.randn(b, hkv, s, dv or d, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, hkv, sk or s, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, hkv, sk or s, dv or d, generator=gen, device=dev).to(dt)
         return q, k, v
 
     err6 = err6_p = 0.0
+
+    def check6(q, k, v, causal, window, dt, shape):
+        """One K6 call against its plain version (FLASH_TOL) and, in bf16,
+        against the bf16-P plain version; returns (max |err|, against the
+        bf16-P version or 0)."""
+        ops.reset_launch_counts()
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        tc = ops.launch_counts()["flash_attention_tc"]
+        what = f"K6 {shape + (window, names[dt])}" + ("" if causal else " non-causal")
+        check(tc == (dt == torch.bfloat16), f"{what}: {tc} tensor-core launches")
+        e = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window))
+        check(e <= FLASH_TOL[names[dt]], f"{what}: max |err| {e}")
+        msg = f"{what.replace('K6', 'K6 check', 1)}: max |err| {e:.3e}"
+        e_p = 0.0
+        if dt == torch.bfloat16:
+            # against the plain version that rounds P to bf16 as the kernel does
+            model = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                            p_dtype=torch.bfloat16).float()
+            over = float(((out.float() - model).abs() - flash_p_tol(torch, model)).max())
+            e_p = max_err(out, model)
+            check(over <= 0.0, f"{what}: max |err| {e_p} against the bf16-P plain version, "
+                  f"{over} beyond one bf16 ulp + 2^-8")
+            msg += (f" (f32 oracle, limit {FLASH_TOL['bfloat16']}); {e_p:.3e} against the bf16-P "
+                    f"plain version (limit one bf16 ulp of it + 2^-8; margin {-over:.3e}); "
+                    "tensor cores")
+        log(msg)
+        return e, e_p
     for b, hq, hkv, s, d, window, dt in ((1, 32, 8, 2048, 128, None, torch.bfloat16),
                                          (1, 32, 8, 500, 128, None, torch.bfloat16),
                                          (1, 32, 8, 1000, 128, 256, torch.bfloat16),
@@ -2442,31 +2481,25 @@ def lm_kernel_checks(torch, dev):
                                          (2, 4, 4, 130, 48, 20, torch.float32)):
         d, dv = d if isinstance(d, tuple) else (d, d)
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt, dv)
-        ops.reset_launch_counts()
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
-        tc = ops.launch_counts()["flash_attention_tc"]
-        check(tc == (dt == torch.bfloat16), f"K6 {(b, hq, hkv, s, d, window, dt)}: {tc} "
-              "tensor-core launches")
-        e = max_err(out, ref.flash_attention_ref(q, k, v, causal=True, window=window))
-        check(e <= FLASH_TOL[names[dt]], f"K6 {(b, hq, hkv, s, d, window, dt)}: max |err| {e}")
-        shape = (b, hq, hkv, s, d) + ((dv,) if dv != d else ())
-        msg = f"K6 check {shape + (window, names[dt])}: max |err| {e:.3e}"
-        if dt == torch.bfloat16:
-            # against the plain version that rounds P to bf16 as the kernel does
-            model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
-                                            p_dtype=torch.bfloat16).float()
-            over = float(((out.float() - model).abs() - flash_p_tol(torch, model)).max())
-            e_p = max_err(out, model)
-            check(over <= 0.0, f"K6 {(b, hq, hkv, s, d, window)}: max |err| {e_p} against the "
-                  f"bf16-P plain version, {over} beyond one bf16 ulp + 2^-8")
-            msg += (f" (f32 oracle, limit {FLASH_TOL['bfloat16']}); {e_p:.3e} against the bf16-P "
-                    f"plain version (limit one bf16 ulp of it + 2^-8; margin {-over:.3e}); "
-                    "tensor cores")
-            err6_p = max(err6_p, e_p)
-            del model
-        log(msg)
-        err6 = max(err6, e)
-        del q, k, v, out
+        e, e_p = check6(q, k, v, True, window, dt, (b, hq, hkv, s, d) + ((dv,) if dv != d else ()))
+        err6, err6_p = max(err6, e), max(err6_p, e_p)
+        del q, k, v
+    # without the causal mask: SeamlessM4T's encoder (MHA, group 1), Sq and
+    # Sk apart as in a cross-attention (each way), group 6, ragged tails of
+    # both, f32 at the reduced Seamless's D 32 and at D 64
+    for b, hq, hkv, sq, sk, d, dt in ((4, 16, 16, 1024, 1024, 64, torch.bfloat16),
+                                      (4, 16, 16, 500, 1024, 64, torch.bfloat16),
+                                      (4, 16, 16, 1024, 500, 64, torch.bfloat16),
+                                      (1, 12, 2, 333, 517, 128, torch.bfloat16),
+                                      (2, 8, 8, 77, 45, 32, torch.bfloat16),
+                                      (1, 8, 2, 100, 64, 192, torch.bfloat16),
+                                      (2, 4, 4, 130, 130, 32, torch.float32),
+                                      (2, 4, 2, 45, 77, 32, torch.float32),
+                                      (2, 16, 16, 200, 333, 64, torch.float32)):
+        q, k, v = attn_inputs(b, hq, hkv, sq, d, dt, sk=sk)
+        e, e_p = check6(q, k, v, False, None, dt, (b, hq, hkv, sq, sk, d))
+        err6, err6_p = max(err6, e), max(err6_p, e_p)
+        del q, k, v
     q, k, v = attn_inputs(1, 4, 2, 16, 16, torch.bfloat16)
     try:
         ops.flash_attention(q, k, v, causal=True)
@@ -2477,19 +2510,20 @@ def lm_kernel_checks(torch, dev):
           "naming the TMA row size")
     log(f"K6 check (bf16, head dim 16): raises ValueError: {raised}")
 
-    def k6_times(s, hq=32, hkv=8, d=128, dv=128):
-        """K6 (bf16, causal) at Qwen3-8B's heads and S (or the given heads and
-        head dims): CUDA-event ms per call back to back, device ms
-        (profiler), and the same for SDPA."""
-        q, k, v = attn_inputs(1, hq, hkv, s, d, torch.bfloat16, dv)
-        nb, fl = flash_cost(1, hq, hkv, s, s, d, None, 2, dv)
-        b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-        e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=True))
+    def k6_times(s, hq=32, hkv=8, d=128, dv=128, b=1, sk=None, causal=True,
+                 dt=torch.bfloat16):
+        """K6 (bf16, causal) at Qwen3-8B's heads and S (or the given batch,
+        heads, head dims, key length, mask and dtype): CUDA-event ms per call
+        back to back, device ms (profiler), and the same for SDPA."""
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, dv, sk)
+        nb, fl = flash_cost(b, hq, hkv, s, sk or s, d, None, q.element_size(), dv, causal)
+        b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+        e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=causal))
         check(e_lib <= FLASH_TOL["bfloat16"], f"SDPA disagrees with the plain version: {e_lib}")
-        kern = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
         t = dict(ms=time_ms(torch, kern, iters=20), device_ms=device_ms(torch, kern),
-                 plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                 plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal),
                                   iters=3),
                  library_ms=time_ms(torch, lib, iters=20), library_device_ms=device_ms(torch, lib),
                  bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6)
@@ -2510,6 +2544,19 @@ def lm_kernel_checks(torch, dev):
                                      ("mla_s500", (500, 16, 16, 192, 128))):
         rows["flash_attention"][key] = dict(shape=[1, hq, hkv, s, d, dv],
                                             **k6_times(s, hq, hkv, d, dv))
+        log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
+    # without the causal mask: SeamlessM4T's encoder (all S² pairs), the two
+    # cross shapes, and f32 at the reduced Seamless's D 32 and at D 64
+    # (shape: B, Hq, Hkv, Sq, Sk, D)
+    for key, (b, hq, sq, sk, d, dt) in (
+            ("noncausal_enc", (4, 16, 1024, 1024, 64, torch.bfloat16)),
+            ("noncausal_cross_500_1024", (4, 16, 500, 1024, 64, torch.bfloat16)),
+            ("noncausal_cross_1024_500", (4, 16, 1024, 500, 64, torch.bfloat16)),
+            ("noncausal_f32_d32", (4, 16, 1024, 1024, 32, torch.float32)),
+            ("noncausal_f32_d64", (4, 16, 1024, 1024, 64, torch.float32))):
+        rows["flash_attention"][key] = dict(
+            shape=[b, hq, hq, sq, sk, d], dtype=names[dt],
+            **k6_times(sq, hq, hq, d, d, b=b, sk=sk, causal=False, dt=dt))
         log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
     q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
     rows["flash_attention"]["f32_window_ms"] = time_ms(
@@ -2932,10 +2979,19 @@ ZOO_SERVE = {"serve-mixtral-8x7b": ("mixtral-8x7b", 4, 0.001, 2, 6, 4608, 16),
              "serve-deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 4, 0.001, 2, 6, 500, 16),
              "serve-jamba-v0.1-52b": ("jamba-v0.1-52b", 4, 0.001, 1, 4, 1000, 16)}
 # prefill paths: one request of 500 tokens through bundle.prefill, then
-# greedy bundle.decode steps, on base weights
+# greedy bundle.decode steps, on base weights; the encoder-decoder and the
+# VLM take their stub frontends' inputs (zoo_prefill_batch)
 ZOO_PREFILL = {"prefill-qwen2.5-14b": "qwen2.5-14b", "prefill-granite-20b": "granite-20b",
-               "prefill-nemotron-4-340b": "nemotron-4-340b"}
+               "prefill-nemotron-4-340b": "nemotron-4-340b",
+               "prefill-seamless-m4t-medium": "seamless-m4t-medium",
+               "prefill-qwen2-vl-2b": "qwen2-vl-2b"}
 ZOO_PREFILL_LEN, ZOO_DECODE_STEPS = 500, 8
+# SeamlessM4T: 4 utterances of TRAIN_4K's seq // 4 = 1,024 frames (the
+# reference's FRAMES_PER_SEQ_DIV), 16 greedy steps; Qwen2-VL: one 448² image,
+# 16 x 16 patches after the 2 x 2 merge (t = 0, h = row, w = column), before
+# ZOO_PREFILL_LEN text tokens at t = h = w = 16 + i
+SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_DECODE_STEPS = 4, 1024, 16
+VLM_GRID = 16
 # depth cuts (published widths kept): the layers each path runs, where the
 # whole model does not fit one card with its slot copies
 ZOO_LAYERS = {"serve-mixtral-8x7b": 4, "serve-deepseek-v2-lite-16b": 14,
@@ -2957,7 +3013,9 @@ class AttentionProbe:
     is the largest margin used (<= 0 passes), ``calls`` the attention layers
     held; ``ssd_worst`` the largest K7 error over its limit (<= 1 passes),
     ``ssd_calls`` the K7 calls held; ``routes`` the (token, expert) choices,
-    one (T, k) array a layer, in the order the layers ran.
+    one (T, k) array a layer, in the order the layers ran.  Each call's own
+    ``causal`` flag goes to its plain version; ``noncausal`` counts the held
+    calls without the causal mask (an encoder's).
 
     For a prefill on the plain versions (``use_kernels=False``), ``replay``
     takes the routes a kernel run recorded: the i-th MoE layer keeps the
@@ -2971,6 +3029,7 @@ class AttentionProbe:
     def __init__(self, torch, replay=None):
         self.torch, self.replay = torch, replay
         self.worst, self.calls, self.ssd_worst, self.ssd_calls = float("-inf"), 0, 0.0, 0
+        self.noncausal = 0
         self.routes = []
 
     def __enter__(self):
@@ -2985,19 +3044,24 @@ class AttentionProbe:
 
         def core(q, k, v, **kw):
             plain = not kw.get("use_kernel", True)
-            if plain and self.replay is not None and q.dtype == torch.bfloat16:
+            causal = kw["causal"]
+            window = kw.get("window") if causal else None  # attention_core's rule
+
+            def model():
                 return ref.flash_attention_ref(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-                    window=kw.get("window"), p_dtype=torch.bfloat16).transpose(1, 2)
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                    window=window, p_dtype=torch.bfloat16).transpose(1, 2)
+
+            if plain and self.replay is not None and q.dtype == torch.bfloat16:
+                return model()
             out = self._core(q, k, v, **kw)
             if not plain and q.dtype == torch.bfloat16:
-                model = ref.flash_attention_ref(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-                    window=kw.get("window"), p_dtype=torch.bfloat16).transpose(1, 2).float()
-                tol = flash_p_tol(torch, model) + FLASH_P_ATOL * max(
+                want = model().float()
+                tol = flash_p_tol(torch, want) + FLASH_P_ATOL * max(
                     0.0, float(v.abs().max()) - 1.0)
-                over = float(((out.float() - model).abs() - tol).max())
+                over = float(((out.float() - want).abs() - tol).max())
                 self.worst, self.calls = max(self.worst, over), self.calls + 1
+                self.noncausal += not causal
             return out
 
         def scan(x, dt, a, b, c, **kw):
@@ -3058,16 +3122,23 @@ def hold_prefill(torch, label, bundle, run, served_first=None):
     kernel run's MoE routes (logged: the (token, layer) routes its own
     logits would have flipped), so the logits are held to PREFILL_LOGIT_TOL
     and the greedy first tokens equal (the kernel's token one of the plain
-    logits' maximisers, which bf16 logits can tie)."""
+    logits' maximisers, which bf16 logits can tie).  The K6 calls held are
+    the ones the model makes: one an attention layer, or for an
+    encoder-decoder one an encoder layer, all without the causal mask (its
+    prefill's decode step attends in plain PyTorch)."""
     import numpy as np
 
     with AttentionProbe(torch) as kp:
         kern = run(True)
     with AttentionProbe(torch, replay=kp.routes) as pp:
         plain = run(False)
-    kinds = bundle.cfg.layer_kinds()
-    check(kp.calls == kinds.count("attn") and kp.worst <= 0.0,
-          f"{label}: {kp.calls} attention layers held, worst margin {kp.worst}")
+    cfg = bundle.cfg
+    kinds = cfg.layer_kinds()
+    n_k6 = cfg.n_encoder_layers if cfg.is_enc_dec else kinds.count("attn")
+    check(kp.calls == n_k6 and kp.worst <= 0.0,
+          f"{label}: {kp.calls} attention layers held of {n_k6}, worst margin {kp.worst}")
+    check(kp.noncausal == (n_k6 if cfg.is_enc_dec else 0),
+          f"{label}: {kp.noncausal} of {kp.calls} K6 calls held without the causal mask")
     check(kp.ssd_calls == kinds.count("mamba") and kp.ssd_worst <= 1.0,
           f"{label}: {kp.ssd_calls} K7 calls held, worst error {kp.ssd_worst} of its limit")
     check(len(pp.routes) == len(kp.routes), f"{label}: MoE layers differ between the prefills")
@@ -3080,7 +3151,8 @@ def hold_prefill(torch, label, bundle, run, served_first=None):
         f"(1 + max |logit|) {e:.3e} (limit {PREFILL_LOGIT_TOL}); greedy token "
         f"{int(np.argmax(kern))} vs {int(np.argmax(plain))}"
         + ("" if served_first is None else f" (served {served_first})")
-        + f", top-2 margin {float(top2[1] - top2[0]):.4f}; {kp.calls} attention layers within "
+        + f", top-2 margin {float(top2[1] - top2[0]):.4f}; {kp.calls} attention layers "
+        f"({kp.noncausal} without the causal mask) within "
         f"one bf16 ulp + 2^-8 max(1, max |v|) of the bf16-P plain version (margin "
         f"{-kp.worst:.3e}); {kp.ssd_calls} K7 calls within {kp.ssd_worst:.3e} of SSD_TOL; "
         f"the kernel run's routes replayed, {flips} of {sum(len(r) for r in kp.routes)} "
@@ -3146,11 +3218,54 @@ def zoo_serve_path(torch, dev, card, label):
     return counts
 
 
-def zoo_prefill_path(torch, dev, card, label):
-    """One prompt of ZOO_PREFILL_LEN tokens through bundle.prefill on base
-    weights (K6 once per layer, on the tensor cores), then greedy decode
-    steps; the prefill held against the plain versions."""
+def vlm_grid_positions(torch, grid, n_text):
+    """M-RoPE ids (3, 1, grid² + n_text), int32: one image of grid x grid
+    merged patches (t = 0, h = row, w = column), then text at t = h = w =
+    grid + i."""
+    rows = torch.arange(grid * grid) // grid
+    img = torch.stack([torch.zeros_like(rows), rows, torch.arange(grid * grid) % grid])
+    txt = (grid + torch.arange(n_text)).expand(3, n_text)
+    return torch.cat([img, txt], dim=1).to(torch.int32)[:, None]
+
+
+def zoo_prefill_batch(torch, dev, cfg):
+    """(batch, rows, decode steps, init_cache keywords, what it holds) of a
+    prefill path, drawn with numpy at seed 0: ZOO_PREFILL_LEN tokens; for
+    SeamlessM4T SEAMLESS_BATCH rows of SEAMLESS_FRAMES frame embeddings and
+    the first token (its prefill runs the encoder and one decode step); for
+    Qwen2-VL VLM_GRID² patch embeddings at their grid ids before the
+    tokens."""
     import numpy as np
+
+    from repro_torch.models.transformer import dtype_of
+
+    rng = np.random.default_rng(0)
+    if cfg.is_enc_dec:
+        b, t = SEAMLESS_BATCH, SEAMLESS_FRAMES
+        frames = rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)
+        toks = rng.integers(0, cfg.vocab_size, size=(b, 1))
+        batch = {"frames": torch.from_numpy(frames).to(dev, dtype_of(cfg)),
+                 "tokens": torch.from_numpy(toks).to(dev)}
+        return batch, b, SEAMLESS_DECODE_STEPS, {"mem_len": t}, f"{b} x {t} frames"
+    toks = rng.integers(0, cfg.vocab_size, size=(1, ZOO_PREFILL_LEN))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    what = f"{ZOO_PREFILL_LEN} tokens"
+    if cfg.modality == "vlm":
+        n_patch = VLM_GRID * VLM_GRID
+        patches = rng.normal(size=(1, n_patch, cfg.d_model)).astype(np.float32)
+        batch["prefix_embeds"] = torch.from_numpy(patches).to(dev, dtype_of(cfg))
+        batch["positions"] = vlm_grid_positions(torch, VLM_GRID, ZOO_PREFILL_LEN).to(dev)
+        what = f"{n_patch} patches at their {VLM_GRID} x {VLM_GRID} grid ids + {what}"
+    return batch, 1, ZOO_DECODE_STEPS, {}, what
+
+
+def zoo_prefill_path(torch, dev, card, label):
+    """One request through bundle.prefill on base weights (K6 once per
+    attention layer, causal, or once per encoder layer without the causal
+    mask, on the tensor cores), a traced prefill (K6's share of its device
+    time), then greedy decode steps; the prefill held against the plain
+    versions."""
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_bundle
@@ -3162,13 +3277,14 @@ def zoo_prefill_path(torch, dev, card, label):
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     cfg = bundle.cfg
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(1, ZOO_PREFILL_LEN))).to(dev)
-    max_seq = ZOO_PREFILL_LEN + ZOO_DECODE_STEPS + 8
+    batch, rows, steps, cache_kw, what = zoo_prefill_batch(torch, dev, cfg)
+    s = batch["tokens"].shape[1] + (batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch
+                                    else 0)
+    max_seq = s + steps + 8
 
     def prefill(use_kernels):
-        cache = bundle.init_cache(1, max_seq)
-        logits, cache = bundle.prefill(params, {"tokens": toks}, cache, use_kernels=use_kernels)
+        cache = bundle.init_cache(rows, max_seq, **cache_kw)
+        logits, cache = bundle.prefill(params, batch, cache, use_kernels=use_kernels)
         return logits, cache
 
     prefill(True)  # warm-up
@@ -3179,32 +3295,119 @@ def zoo_prefill_path(torch, dev, card, label):
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     counts = ops.launch_counts()
-    n_attn = cfg.layer_kinds().count("attn")
-    check(counts["flash_attention"] == counts["flash_attention_tc"] == n_attn,
+    n_k6 = cfg.n_encoder_layers if cfg.is_enc_dec else cfg.layer_kinds().count("attn")
+    check(counts["flash_attention"] == counts["flash_attention_tc"] == n_k6,
           f"{label}: {counts['flash_attention']} K6 launches ({counts['flash_attention_tc']} on "
-          f"the tensor cores) for {n_attn} attention layers")
+          f"the tensor cores) for {n_k6} {'encoder' if cfg.is_enc_dec else 'attention'} layers")
+    pos0 = int(cache["pos"])
     tok = logits[:, -1:].argmax(-1)
     t0 = time.perf_counter()
-    for _ in range(ZOO_DECODE_STEPS):
+    for _ in range(steps):
         step_logits, cache = bundle.decode(params, tok, cache)
         tok = step_logits[:, -1:].argmax(-1)
     torch.cuda.synchronize()
-    decode_ms = 1e3 * (time.perf_counter() - t0) / ZOO_DECODE_STEPS
-    check(bool(torch.isfinite(step_logits.float()).all()) and int(cache["pos"]) ==
-          ZOO_PREFILL_LEN + ZOO_DECODE_STEPS, f"{label}: decode")
+    decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    check(bool(torch.isfinite(step_logits.float()).all()) and int(cache["pos"]) == pos0 + steps
+          and step_logits.shape == (rows, 1, cfg.vocab_size), f"{label}: decode")
     del cache, step_logits
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(True)
+        torch.cuda.synchronize()
+    window, busy, top = device_share(prof, f"{label} prefill")
+    k6_us = sum(us for name, us in top if "flash_fwd" in name)
+    log(f"profile {label} prefill: window {window / 1e3:.3f} ms, device busy "
+        f"{100.0 * busy / window:.1f}% (idle {100.0 - 100.0 * busy / window:.1f}%), device "
+        f"{busy / 1e3:.3f} ms; K6 {k6_us / 1e3:.3f} ms, {100.0 * k6_us / busy:.1f}% of it")
+    for name, us in top[:6]:
+        log(f"profile {label} prefill:   {us / 1e3:8.3f} ms  {name[:100]}")
     hold_prefill(torch, label, bundle, lambda k: prefill(k)[0][0, -1].float().cpu().numpy())
-    log(f"path {label}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B parameters drawn "
-        f"in {draw_s:.1f} s; prefill of {ZOO_PREFILL_LEN} tokens {prefill_ms:.3f} ms "
-        f"({counts['flash_attention']} K6 launches), decode {decode_ms:.3f} ms/step, peak device "
-        f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
+    log(f"path {label}: {cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.is_enc_dec else "")
+        + f", {cfg.param_count() / 1e9:.3f} B parameters drawn in {draw_s:.1f} s; prefill of "
+        f"{what} {prefill_ms:.3f} ms ({counts['flash_attention']} K6 launches"
+        + (", none causal" if cfg.is_enc_dec else "")
+        + f"), decode {decode_ms:.3f} ms/step ({rows} rows), peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
     return counts
 
 
+# reduced-media: card against CPU in f32 at reduced() widths, per model:
+# logits of the prefill and of four decode steps within this share of
+# 1 + max |logit|, the loss within it relatively, each gradient leaf within
+# it of the leaf's max |g| (float32 sums in other orders; the collective
+# path's and the paper path's 1e-4)
+REDUCED_MEDIA_TOL = 1e-4
+
+
+def reduced_media(torch, dev):
+    """reduced-media: SeamlessM4T and Qwen2-VL at reduced() widths in f32 on
+    the card and on the CPU from the same weights and numpy inputs: the
+    bundle's prefill (Seamless's encoder through K6's f32 kernel without the
+    causal mask at D 32; Qwen2-VL's layers causal at its 4 x 4 grid ids),
+    four decode steps on given tokens, and one value_and_grad.  Returns the
+    card's K6 launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import nest_leaves, nest_map
+
+    cpu = torch.device("cpu")
+    launches = 0
+    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):
+        cfg = get_reduced(arch)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)))
+        if cfg.is_enc_dec:
+            batch = {"frames": torch.from_numpy(
+                rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32)), "tokens": toks}
+        else:
+            batch = {"tokens": toks, "prefix_embeds": torch.from_numpy(
+                rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)),
+                "positions": vlm_grid_positions(torch, 4, 24).expand(3, 2, 40).contiguous()}
+        params_cpu = get_bundle(cfg, cpu).init(seed=0)
+        got = []
+        for d in (dev, cpu):
+            bundle = get_bundle(cfg, d)
+            params = nest_map(lambda t: t.to(d), params_cpu)
+            b_d = {k: v.to(d) for k, v in batch.items()}
+            ops.reset_launch_counts()
+            logits, cache = bundle.prefill(params, b_d, bundle.init_cache(2, 48))
+            counts = ops.launch_counts()
+            steps = [logits[:, -1]]
+            for t in range(1, 5):
+                lg, cache = bundle.decode(params, b_d["tokens"][:, t:t + 1], cache)
+                steps.append(lg[:, 0])
+            loss, grads = bundle.value_and_grad(params, b_d)
+            got.append((torch.stack(steps).cpu(), float(loss),
+                        [g.cpu() for g in nest_leaves(grads)], counts))
+        (card_lg, card_loss, card_g, counts), (cpu_lg, cpu_loss, cpu_g, _) = got
+        n_k6 = cfg.n_encoder_layers if cfg.is_enc_dec else cfg.layer_kinds().count("attn")
+        check(counts["flash_attention"] == n_k6 and counts["flash_attention_tc"] == 0,
+              f"reduced-media/{arch}: {counts['flash_attention']} K6 launches (f32) for {n_k6}")
+        launches += counts["flash_attention"]
+        e_lg = max_err(card_lg, cpu_lg) / (1.0 + float(cpu_lg.abs().max()))
+        e_loss = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        e_g = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(card_g, cpu_g))
+        check(bool(torch.isfinite(card_lg).all()) and e_lg <= REDUCED_MEDIA_TOL
+              and e_loss <= REDUCED_MEDIA_TOL and e_g <= REDUCED_MEDIA_TOL,
+              f"reduced-media/{arch}: card vs CPU logits {e_lg}, loss {e_loss}, grads {e_g}")
+        log(f"compare reduced-media/{arch}: prefill and 4 decode steps' logits within {e_lg:.3e} "
+            f"of 1 + max |logit|, loss {card_loss:.6f} vs {cpu_loss:.6f} ({e_loss:.3e}), "
+            f"{len(card_g)} gradient leaves within {e_g:.3e} of their max |g| (limit "
+            f"{REDUCED_MEDIA_TOL}); {counts['flash_attention']} K6 launches in f32"
+            + (", none causal" if cfg.is_enc_dec else ""))
+    return launches
+
+
 def zoo_paths(torch, dev, card):
-    """The six decoder-only models the port adds to Qwen3-8B and Mamba2-370m,
+    """The decoder-only models the port adds to Qwen3-8B and Mamba2-370m,
     at their published widths in bf16 (depth cut where one card cannot hold
-    them): three served through the engine, three prefilled and decoded."""
+    them): three served through the engine, three prefilled and decoded;
+    then the encoder-decoder (SeamlessM4T) and the VLM (Qwen2-VL) whole,
+    prefilled and decoded, and both at reduced() widths card against CPU."""
     import gc
 
     t0 = time.perf_counter()
@@ -3220,6 +3423,7 @@ def zoo_paths(torch, dev, card):
         launches["flash_attention"] += counts["flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
+    launches["flash_attention"] += reduced_media(torch, dev)
     log(f"zoo: {time.perf_counter() - t0:.1f} s")
     return launches
 

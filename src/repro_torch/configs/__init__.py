@@ -1,10 +1,9 @@
 """Architecture registry of the served models (the twin of ``repro.configs``).
 
 ``get_config(arch_id)`` / ``get_reduced(arch_id)`` resolve the public
-architecture id, e.g. ``--arch mixtral-8x7b``.  The port covers the eight
-decoder-only text models of the reference (dense, MoE, MLA, SSM, hybrid)
-and Qwen3-8B's sliding-window variant; the encoder-decoder (seamless) and
-VLM (qwen2-vl) ids wait for ROADMAP A14.
+architecture id, e.g. ``--arch mixtral-8x7b``: the reference's ten models
+(dense, MoE, MLA, SSM, hybrid, the encoder-decoder SeamlessM4T and the VLM
+Qwen2-VL) and Qwen3-8B's sliding-window variant.
 """
 from __future__ import annotations
 
@@ -16,13 +15,17 @@ from repro_torch.configs import (
     mixtral_8x7b,
     nemotron_4_340b,
     qwen2_5_14b,
+    qwen2_vl_2b,
     qwen3_8b,
+    seamless_m4t_medium,
 )
 
 _MODULES = {
     m.ARCH_ID: m
     for m in (
         nemotron_4_340b,
+        seamless_m4t_medium,
+        qwen2_vl_2b,
         jamba_v01_52b,
         deepseek_v2_lite_16b,
         mamba2_370m,
@@ -40,24 +43,14 @@ _VARIANTS = {
 }
 
 
-def _module(arch_id: str):
-    try:
-        return _MODULES[arch_id]
-    except KeyError:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet (ROADMAP A14); "
-            f"the port serves {sorted(_MODULES) + sorted(_VARIANTS)}"
-        ) from None
-
-
 def get_config(arch_id: str, dtype: str = "bfloat16"):
     if arch_id in _VARIANTS:
         return _VARIANTS[arch_id](dtype)
-    return _module(arch_id).config(dtype)
+    return _MODULES[arch_id].config(dtype)
 
 
 def get_reduced(arch_id: str, dtype: str = "float32"):
-    return _module(arch_id.removesuffix("-swa")).reduced(dtype)
+    return _MODULES[arch_id.removesuffix("-swa")].reduced(dtype)
 
 
 __all__ = ["ARCH_IDS", "get_config", "get_reduced"]

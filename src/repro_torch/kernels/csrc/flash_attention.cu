@@ -1,4 +1,6 @@
-// K6: causal / sliding-window GQA flash attention for Hopper (sm_90a).
+// K6: GQA flash attention for Hopper (sm_90a), causal (with or without a
+// sliding window) or bidirectional (`causal` = 0: an encoder's
+// self-attention, or Sq queries against Sk keys of another sequence).
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py:86
 // `flash_attention` (pallas_call at :117).  q (B, Hq, Sq, D), k and v
@@ -6,7 +8,10 @@
 // contiguous), so the prefill hands over (B, S, H, D) activations as
 // transposed views without a copy.  Query head h reads KV head h / group,
 // as the Pallas index map does.  Output (B, Hq, Sq, D), contiguous, in the
-// input dtype.  Two kernels behind one entry point, chosen by dtype:
+// input dtype.  Without the causal mask every key tile up to Sk is live for
+// every query tile, all items are of one length, and only the ragged Sk
+// tail (and a window, if one is given) is masked.  Two kernels behind one
+// entry point, chosen by dtype:
 //
 // bfloat16: flash_fwd_tc, on the tensor cores.  Bound on the H100:
 // operations at the prefill's long prompts (causal S = 2048, Hq 32, D 128:

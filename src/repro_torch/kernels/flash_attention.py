@@ -1,11 +1,12 @@
-"""K6 — causal / sliding-window GQA flash attention (CUDA source
-``csrc/flash_attention.cu``).
+"""K6 — GQA flash attention, causal (with or without a sliding window) or
+bidirectional (CUDA source ``csrc/flash_attention.cu``).
 
 Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 with its signature: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D).  Unlike the
 Pallas kernel, any Sq and Sk are taken (the ragged tail is masked in the
-kernel), and strided views are read in place as long as the last dimension
-is contiguous.  v may have a smaller head dim Dv than q and k (MLA: q/k 192
+kernel; without the causal mask every key up to Sk is live, as in an
+encoder's self-attention or a cross-attention, Sq and Sk apart), and strided
+views are read in place as long as the last dimension is contiguous.  v may have a smaller head dim Dv than q and k (MLA: q/k 192
 = 128 no-RoPE + 64 RoPE against v 128): the scores keep the 1/sqrt(D) scale
 and the kernel runs on v zero-padded to D, whose extra output columns are
 zero and are sliced off (1.5x the P·V work and one copy of v at MLA's

@@ -3,8 +3,12 @@
 ``local_batches`` leaves are (T_o, A, b, ...) and ``comm_batch`` leaves
 (A, b, ...), where A = n_agents and b = global_batch // A; on a rank mesh each
 rank takes its own slice of the agent axis
-(:func:`repro_torch.launch.mesh.rank_slice`).  Only text batches are ported:
-the audio and VLM stubs wait for ROADMAP A14.
+(:func:`repro_torch.launch.mesh.rank_slice`).
+
+The frontends are stubs, as in the reference: an audio batch carries
+precomputed frame embeddings (b, seq // 4, d_model) beside its tokens; a VLM
+batch carries patch embeddings (b, seq // 8, d_model) that prefix seq - seq
+// 8 tokens, and M-RoPE position ids (3, b, seq).
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import dtype_of
 
 
 class TensorSpec(NamedTuple):
@@ -22,9 +27,15 @@ class TensorSpec(NamedTuple):
 
 
 def _per_agent_batch(cfg: ModelConfig, b: int, seq: int) -> Dict[str, TensorSpec]:
-    if cfg.is_enc_dec or cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: audio / VLM training inputs are not ported yet "
-                                  "(ROADMAP A14)")
+    """The loss function's batch of one agent (leaves (b, ...))."""
+    if cfg.is_enc_dec:
+        return {"frames": TensorSpec((b, seq // 4, cfg.d_model), dtype_of(cfg)),
+                "tokens": TensorSpec((b, seq), torch.int32)}
+    if cfg.modality == "vlm":
+        n_patch = seq // 8
+        return {"tokens": TensorSpec((b, seq - n_patch), torch.int32),
+                "prefix_embeds": TensorSpec((b, n_patch, cfg.d_model), dtype_of(cfg)),
+                "positions": TensorSpec((3, b, seq), torch.int32)}
     return {"tokens": TensorSpec((b, seq), torch.int32)}
 
 

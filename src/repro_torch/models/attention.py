@@ -1,8 +1,8 @@
 """GQA / MQA attention (QK-norm, QKV bias, sliding windows, with or without
-RoPE) and DeepSeek's Multi-head Latent Attention (MLA): prefill through the
-flash-attention kernel (K6), decode against a KV cache and the training
-forward (:func:`gqa_forward`, :func:`mla_forward`, differentiable) in plain
-PyTorch.
+RoPE; causal, bidirectional or cross) and DeepSeek's Multi-head Latent
+Attention (MLA): prefill through the flash-attention kernel (K6), decode
+against a KV cache and the training forward (:func:`gqa_forward`,
+:func:`mla_forward`, differentiable) in plain PyTorch.
 
 The reference's prefill core (``repro.models.attention.attention_core``)
 computes full or chunked scores in jnp; the port routes it to
@@ -15,6 +15,14 @@ query, ``W_uv`` after the latent-space reduction, over the compressed
 ``c_kv`` / ``k_rope`` cache).  Decode stays plain PyTorch, as in the
 reference, which has no decode kernel.  ``cos_sin=None`` means no RoPE
 (Jamba's attention layers).
+
+The encoder-decoder's attention (SeamlessM4T): its encoder runs K6 without
+the causal mask (``attention_core(causal=False)``); a cross-attention takes
+its keys and values from the encoder memory (``x_kv``), rotated with the
+memory's own position tables (``cos_sin_kv``), as the reference does.  A
+decode step's cross-attention (one query against the whole memory) is
+:func:`gqa_forward` with ``causal=False``: the plain grouped form, as the
+reference's, not a K6 call.
 
 Caches are updated in place (the reference returns new arrays): the engine
 keeps one slot-stacked cache and every write lands in it.
@@ -57,11 +65,15 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -
     return p
 
 
-def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = False):
-    """q (B, S, H, hd), k and v (B, S, Hkv, hd), with bias and QK-norm."""
+def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = False,
+                 x_kv: Optional[Tensor] = None):
+    """q (B, S, H, hd), k and v (B, S_kv, Hkv, hd), with bias and QK-norm;
+    k and v project ``x_kv`` (a cross-attention's memory) when given, else
+    ``x``."""
+    xkv = x if x_kv is None else x_kv
     q = linear(x, params["wq"], slotted)
-    k = linear(x, params["wk"], slotted)
-    v = linear(x, params["wv"], slotted)
+    k = linear(xkv, params["wk"], slotted)
+    v = linear(xkv, params["wv"], slotted)
     if cfg.qkv_bias:
         q = q + vec(params["bq"], slotted, 4).to(q.dtype)
         k = k + vec(params["bk"], slotted, 4).to(k.dtype)
@@ -89,19 +101,19 @@ def attention_core(
     softcap: Optional[float] = None,
     use_kernel: bool = True,
 ) -> Tensor:
-    """Full-sequence causal attention (prefill); returns (B, Sq, H, Dv),
-    scores scaled by 1/sqrt(D).
+    """Full-sequence attention (prefill, and the encoder's bidirectional
+    pass with ``causal=False``); returns (B, Sq, H, Dv), scores scaled by
+    1/sqrt(D).  Without the causal mask the window is ignored, as the
+    reference's unmasked path ignores it.
 
     The kernel reads the (B, S, H, D) tensors through their strides as
     (B, H, S, D) views; nothing is copied.  ``use_kernel=False`` computes the
     kernel's plain version instead (the on-card yardstick of the prefill)."""
-    if not causal:
-        raise NotImplementedError("non-causal attention (encoder-decoder) waits for ROADMAP A14")
     if softcap is not None:
         raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     fn = flash_attention if use_kernel else kref.flash_attention_ref
     out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-             causal=True, window=window)
+             causal=causal, window=window if causal else None)
     return out.transpose(1, 2)
 
 
@@ -130,17 +142,21 @@ def attention_train(
     k: Tensor,  # (B, Sk, Hkv, D)
     v: Tensor,  # (B, Sk, Hkv, D)
     *,
+    causal: bool = True,
     window: Optional[int] = None,
     chunk: int = 1024,
 ) -> Tensor:
-    """Causal attention of the training forward, differentiable: the
-    reference's ``attention_core`` (full scores up to ``chunk`` queries, else
-    query chunks against their causal key span).  The reference trains
-    through this jnp code and has no gradient kernel; K6 is forward-only and
-    stays the prefill's.  Returns (B, Sq, H, D)."""
+    """Attention of the training forward, differentiable: the reference's
+    ``attention_core`` (causal: full scores up to ``chunk`` queries, else
+    query chunks against their causal key span; non-causal: full scores,
+    unmasked, the window ignored).  The reference trains through this jnp
+    code and has no gradient kernel; K6 is forward-only and stays the
+    prefill's.  Returns (B, Sq, H, D)."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    if not causal:
+        return _sdpa(qg, k, v, None).reshape(b, sq, h, -1)
     if sq <= chunk or sq % chunk:
         out = _sdpa(qg, k, v, _causal_mask(sq, k.shape[1], 0, window, q.device))
         return out.reshape(b, sq, h, -1)
@@ -153,13 +169,19 @@ def attention_train(
     return torch.cat(outs, dim=1).reshape(b, sq, h, -1)
 
 
-def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
-    """The training forward of a GQA layer, x (B, S, d) -> (B, S, d)."""
+def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, *, causal: bool = True,
+                x_kv: Optional[Tensor] = None, cos_sin_kv=None) -> Tensor:
+    """The training forward of a GQA layer, x (B, S, d) -> (B, S, d).  A
+    cross-attention takes k and v from ``x_kv`` (B, S_kv, d), rotated with
+    ``cos_sin_kv`` (``cos_sin`` when None)."""
     if cfg.attn_logit_softcap is not None:
         raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
-    q, k, v = _project_qkv(params, cfg, x)
-    q, k = rope_qk(q, k, cos_sin)
-    out = attention_train(q, k, v, window=cfg.sliding_window, chunk=cfg.attn_chunk)
+    q, k, v = _project_qkv(params, cfg, x, x_kv=x_kv)
+    if cos_sin is not None:
+        q = apply_rope(q, *cos_sin)
+        k = apply_rope(k, *(cos_sin if cos_sin_kv is None else cos_sin_kv))
+    out = attention_train(q, k, v, causal=causal, window=cfg.sliding_window,
+                          chunk=cfg.attn_chunk)
     b, s, h, hd = out.shape
     return linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
 

@@ -1,11 +1,13 @@
 """Model configuration of the LM zoo (the twin of ``repro.models.config``).
 
-The decoder-only text families are ported: dense GQA / MQA decoders (QK-norm,
+Every family of the reference is ported: dense GQA / MQA decoders (QK-norm,
 QKV bias, sliding windows), MoE (Mixtral; DeepSeek's fine-grained experts
-with shared ones), MLA (DeepSeek-V2), attention-free Mamba-2 SSD stacks and
-hybrid Mamba/attention stacks (Jamba).  Encoder-decoder and VLM / audio
-models raise ``NotImplementedError`` in :mod:`repro_torch.models.transformer`,
-naming the ROADMAP item they wait for.  :func:`config_to_dict` and
+with shared ones), MLA (DeepSeek-V2), attention-free Mamba-2 SSD stacks,
+hybrid Mamba/attention stacks (Jamba), the encoder-decoder (SeamlessM4T,
+``arch_type="audio"``, ``is_enc_dec``) and the VLM decoder with M-RoPE
+(Qwen2-VL, ``arch_type="vlm"``).  The attention logit softcap raises
+``NotImplementedError`` in :mod:`repro_torch.models.transformer`, naming the
+ROADMAP item it waits for.  :func:`config_to_dict` and
 :func:`config_from_dict` give the reference's JSON form (checkpoint
 manifests carry it).
 """
@@ -57,7 +59,7 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # dense | moe | ssm | hybrid (audio | vlm are not ported)
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,9 +80,9 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     hybrid_period: Optional[Tuple[str, ...]] = None
     first_k_dense: int = 0  # DeepSeek: the first k layers use a dense FFN
-    is_enc_dec: bool = False
+    is_enc_dec: bool = False  # SeamlessM4T: an encoder stack before the decoder
     n_encoder_layers: int = 0
-    modality: str = "text"
+    modality: str = "text"  # text | audio | vlm (the frontends are stubs: frames, patches)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "float32"

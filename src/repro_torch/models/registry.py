@@ -1,18 +1,22 @@
-"""Model registry: one interface over the decoder-only families (the
-twin of ``repro.models.registry``).
+"""Model registry: one interface over every family (the twin of
+``repro.models.registry``).
 
 ``ModelBundle`` is what the serving engine and the trainer consume: init /
 init_cache / prefill / decode / loss / value_and_grad bound to one
-configuration and one device.
+configuration and one device.  The encoder-decoder's (``cfg.is_enc_dec``)
+is an :class:`EncDecBundle`: its cache holds the encoder memory, its
+prefill runs the encoder and one decode step on the first token (the
+reference's), and its batches carry ``frames``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.pytree import nest_leaves, nest_map
@@ -54,16 +58,45 @@ class ModelBundle:
         the parameters' tree layout; nothing stays attached to a graph."""
         live = nest_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss = T.lm_loss(live, self.cfg, batch)
+            loss = self.loss(live, batch)
             grads = iter(torch.autograd.grad(loss, nest_leaves(live)))
         return loss.detach(), nest_map(lambda _: next(grads), params)
 
 
+@dataclasses.dataclass(frozen=True)
+class EncDecBundle(ModelBundle):
+    """The encoder-decoder's bundle; batches are ``{"frames": (B, T,
+    d_model), "tokens": (B, S)}``."""
+
+    def init(self, seed: int = 0) -> Tree:
+        return E.init_encdec(self.cfg, seed=seed, device=self.device)
+
+    def init_cache(self, batch: int, max_seq: int, mem_len: Optional[int] = None) -> Dict:
+        """``mem_len`` defaults to ``max_seq``, as in the reference."""
+        return E.init_encdec_cache(self.cfg, batch, max_seq, mem_len or max_seq, self.device)
+
+    def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
+                use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """The encoder over ``batch["frames"]`` (K6 without the causal mask
+        on every layer) into the cache's memory, then one decode step on
+        ``batch["tokens"][:, :1]``; returns (logits (B, 1, V), cache at
+        pos 1)."""
+        cache["memory"] = E.encode_prefill(params, self.cfg, batch["frames"],
+                                           use_kernels=use_kernels)
+        return E.encdec_decode_step(params, self.cfg, batch["tokens"][:, :1], cache)
+
+    def decode(self, params: Tree, token: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
+        return E.encdec_decode_step(params, self.cfg, token, cache)
+
+    def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
+        return E.encdec_loss(params, self.cfg, batch)
+
+
 def get_bundle(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
-    """The bundle of a decoder-only configuration on ``device`` (CUDA when
-    none is given)."""
+    """The bundle of a configuration on ``device`` (CUDA when none is
+    given): an :class:`EncDecBundle` for an encoder-decoder."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:  # the index tensors report
         dev = torch.device("cuda", torch.cuda.current_device())
-    return ModelBundle(cfg=cfg, device=dev)
+    return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev)

@@ -1,8 +1,9 @@
-"""Decoder-only LM of the zoo's text families: dense GQA / MQA decoders
-(Qwen3, Qwen2.5, Granite, Nemotron-4), MoE (Mixtral; DeepSeek-V2-Lite with
-MLA and a dense first layer), Mamba-2 SSD stacks and hybrid Mamba/attention
-stacks with MoE every other layer (Jamba) (the twin of
-``repro.models.transformer``).
+"""Decoder-only LM of the zoo: dense GQA / MQA decoders (Qwen3, Qwen2.5,
+Granite, Nemotron-4), MoE (Mixtral; DeepSeek-V2-Lite with MLA and a dense
+first layer), Mamba-2 SSD stacks, hybrid Mamba/attention stacks with MoE
+every other layer (Jamba) and the VLM decoder (Qwen2-VL: M-RoPE, a prefix
+of patch embeddings) (the twin of ``repro.models.transformer``).  The
+encoder-decoder is :mod:`repro_torch.models.encdec`.
 
 Parameters keep the reference's stacked layout — ``{"embed", "final_norm",
 "lm_head", "head_layers": [...], "layers": {"pos0": ...}}`` with a leading
@@ -29,10 +30,16 @@ Entry points:
   projection is one batched product over the slots; the cache's ``pos`` is
   then one position per slot.
 
+The VLM's stub frontend hands over ``prefix_embeds`` (B, S_img, d_model),
+which go before the token embeddings, and ``positions``: M-RoPE ids (3, B,
+S) of the whole stream (text-only ids when none are given).  The loss is
+taken over the text tail.  A decode step rotates at the degenerate ids
+``mrope_text_positions(b, 1, pos)``, as the reference's does, whatever ids
+the prefill's prefix carried.
+
 Caches are updated in place and returned.  Hybrid stacks use no RoPE (their
-Mamba layers carry position).  Families the port does not cover yet
-(encoder-decoder, VLM / audio / M-RoPE, prefix embeddings, the attention
-logit softcap) raise ``NotImplementedError`` naming ROADMAP A14.
+Mamba layers carry position).  The attention logit softcap raises
+``NotImplementedError`` naming ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -51,7 +58,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, normal_init, rms_norm, vec
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
-from repro_torch.models.rope import rope_cos_sin, text_positions
+from repro_torch.models.rope import mrope_text_positions, rope_cos_sin, text_positions
 
 Tensor = torch.Tensor
 Tree = Any
@@ -64,19 +71,13 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the families the port does not cover."""
-    missing = []
-    if cfg.is_enc_dec:
-        missing.append("encoder-decoder")
-    if cfg.modality != "text" or cfg.mrope_sections is not None:
-        missing.append("VLM / audio frontends and M-RoPE")
+    """Raise ``NotImplementedError`` for what the port does not cover (the
+    attention logit softcap) and ``ValueError`` for an unknown arch_type."""
     if cfg.attn_logit_softcap is not None:
-        missing.append("attention logit softcap")
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        missing.append(f"arch_type {cfg.arch_type!r}")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP A14)")
+            f"{cfg.name}: attention logit softcap not ported yet (ROADMAP A14)")
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
 
 
 def _period_patterns(cfg: ModelConfig):
@@ -168,18 +169,25 @@ def params_from_paths(flat: Dict[str, Tensor], cfg: ModelConfig) -> Tree:
         for p in parents:
             node = node.setdefault(p, {})
         node[name] = leaf
+    if cfg.is_enc_dec:
+        return tree
     head = tree.pop("head_layers", {})
     tree["head_layers"] = [head[str(i)] for i in range(len(_period_patterns(cfg)[0]))]
     return tree
 
 
-def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device):
-    """RoPE tables at positions ``offset + arange(s)`` (MLA rotates its
-    rope_head_dim part only); None for stacks without RoPE (SSM, hybrid)."""
+def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device, positions=None):
+    """RoPE tables at ``positions`` (M-RoPE's (3, B, S) under
+    ``mrope_sections``), by default the text positions ``offset +
+    arange(s)`` (MLA rotates its rope_head_dim part only); None for stacks
+    without RoPE (SSM, hybrid)."""
     if cfg.arch_type in ("ssm", "hybrid"):
         return None
     hd = cfg.mla.rope_head_dim if cfg.attn_impl == "mla" else cfg.resolved_head_dim
-    return rope_cos_sin(text_positions(b, s, offset, device), hd, cfg.rope_theta)
+    if positions is None:
+        ids = mrope_text_positions if cfg.mrope_sections is not None else text_positions
+        positions = ids(b, s, offset, device)
+    return rope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
 
 
 def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False):
@@ -220,19 +228,24 @@ def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tenso
     return x, aux
 
 
-def _text_only(batch: Dict) -> None:
-    if batch.get("prefix_embeds") is not None or batch.get("positions") is not None:
-        raise NotImplementedError("prefix embeddings and explicit positions (VLM / audio) "
-                                  "are not ported yet (ROADMAP A14)")
-
-
-def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tensor, Tensor]:
-    """Forward to the final norm, without the vocabulary projection; returns
-    (hidden, MoE aux loss summed over the layers)."""
-    head_pat, period_pat, n_periods = _period_patterns(cfg)
+def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor]) -> Tensor:
+    """Token embeddings (B, S_txt, d), after the prefix (B, S_img, d) when
+    one is given (cast to the embeddings' dtype)."""
     x = params["embed"][tokens.long()]
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
+def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
+                   prefix_embeds: Optional[Tensor] = None,
+                   positions: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Forward to the final norm, without the vocabulary projection; returns
+    (hidden (B, S_img + S_txt, d), MoE aux loss summed over the layers)."""
+    head_pat, period_pat, n_periods = _period_patterns(cfg)
+    x = _embed(params, tokens, prefix_embeds)
     b, s, _ = x.shape
-    cos_sin = _cos_sin(cfg, b, s, 0, x.device)
+    cos_sin = _cos_sin(cfg, b, s, 0, x.device, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, (k, f) in zip(params["head_layers"], head_pat):
         x, a = block_forward(bp, cfg, k, f, x, cos_sin)
@@ -254,9 +267,12 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tens
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), aux
 
 
-def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor) -> Tuple[Tensor, Tensor]:
-    """Full causal training forward; returns (logits (B, S, V), MoE aux)."""
-    hidden, aux = _hidden_states(params, cfg, tokens)
+def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor, *,
+               prefix_embeds: Optional[Tensor] = None,
+               positions: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Full causal training forward over the prefix and the tokens; returns
+    (logits (B, S_img + S_txt, V), MoE aux)."""
+    hidden, aux = _hidden_states(params, cfg, tokens, prefix_embeds, positions)
     return linear(hidden, _lm_head(params, cfg)), aux
 
 
@@ -279,16 +295,18 @@ def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int) -> Te
 
 def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S): position t
-    predicts token t + 1, logits in float32; plus the MoE aux loss."""
-    _text_only(batch)
+    of the text tail predicts token t + 1, logits in float32; plus the MoE
+    aux loss.  ``batch`` may carry ``prefix_embeds`` and ``positions``
+    (VLM)."""
     tokens = batch["tokens"]
-    if cfg.loss_chunk > 0:
-        hidden, aux = _hidden_states(params, cfg, tokens)
-        return _chunked_ce(hidden[:, :-1], _lm_head(params, cfg), tokens[:, 1:],
-                           cfg.loss_chunk) + aux
-    logits, aux = lm_forward(params, cfg, tokens)
+    prefix, positions = batch.get("prefix_embeds"), batch.get("positions")
     b, s = tokens.shape
-    return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1)) + aux
+    if cfg.loss_chunk > 0:
+        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions)
+        return _chunked_ce(hidden[:, -s:-1], _lm_head(params, cfg), tokens[:, 1:],
+                           cfg.loss_chunk) + aux
+    logits, aux = lm_forward(params, cfg, tokens, prefix_embeds=prefix, positions=positions)
+    return _ce_sum(logits[:, -s:-1], tokens[:, 1:]) / (b * (s - 1)) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -346,18 +364,19 @@ def lm_prefill(
     positions: Optional[Tensor] = None,
     use_kernels: bool = True,
 ) -> Tuple[Tensor, Dict]:
-    """Full causal forward and cache fill; returns (logits (B, S, V), cache).
+    """Full causal forward over the prefix (if any) and the tokens, and the
+    cache fill; returns (logits (B, S_img + S, V), cache), the cache's
+    ``pos`` at the stream's length.
 
     A Mamba layer keeps the last ``d_conv - 1`` inputs of its convolution
     in the cache, so prompts shorter than that are refused."""
-    _text_only({"prefix_embeds": prefix_embeds, "positions": positions})
     head_pat, period_pat, n_periods = _period_patterns(cfg)
-    b, s = tokens.shape
+    x = _embed(params, tokens, prefix_embeds)
+    b, s, _ = x.shape
     if "mamba" in cfg.layer_kinds() and s < cfg.ssm.d_conv - 1:
         raise ValueError(f"{cfg.name}: a prompt needs at least {cfg.ssm.d_conv - 1} tokens "
                          f"(the conv window), got {s}")
-    x = params["embed"][tokens.long()]
-    cos_sin = _cos_sin(cfg, b, s, 0, x.device)
+    cos_sin = _cos_sin(cfg, b, s, 0, x.device, positions)
     for bp, (k, f), cc in zip(params["head_layers"], head_pat, cache["head_layers"]):
         x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels)
     for p in range(n_periods):

@@ -4,8 +4,9 @@ Layouts stay the reference's at this boundary: the MLP's ``w1`` is already
 (hidden, d_in), and the CNN keeps NHWC/HWIO (its forward converts inside),
 so crossing over is a copy into a tensor on the target device.  The JAX
 side hands over numpy arrays (``np.asarray`` of its arrays); nothing here
-imports JAX.  The LM zoo's nested trees (parameters and caches) cross with
-:func:`lm_params_from_jax` / :func:`lm_cache_from_jax` and back; a PISCO
+imports JAX.  The LM zoo's nested trees (parameters and caches, the
+encoder-decoder's among them) cross with :func:`lm_params_from_jax` /
+:func:`lm_cache_from_jax` and back; a PISCO
 state over LM trees crosses with :func:`lm_state_from_jax` as flat,
 path-keyed dicts, and :func:`split_state` / :func:`join_states` cut an
 agent-stacked state into one state per rank and back.
@@ -145,18 +146,23 @@ def tree_to_numpy(tree: Any, bf16_dtype: Any = None) -> Any:
 
 
 def lm_params_from_jax(params: Any, device: DeviceLike) -> Any:
-    """LM parameters of the reference (``init_lm``'s nested tree: dicts, the
-    ``head_layers`` list and the stacked ``layers``) as the port's, every
-    family's leaves as they are: MoE's float32 router, its (periods, experts,
+    """LM parameters of the reference as the port's, every family's leaves
+    as they are: ``init_lm``'s nested tree (dicts, the ``head_layers`` list
+    and the stacked ``layers``: MoE's float32 router, its (periods, experts,
     d_in, d_out) expert stacks and the shared experts' dict, MLA's
-    projections, Mamba's float32 ``a_log`` / ``dt_bias`` / ``d_skip``."""
+    projections, Mamba's float32 ``a_log`` / ``dt_bias`` / ``d_skip``) and
+    the encoder-decoder's ``init_encdec`` tree (the stacked ``enc_layers``
+    and ``dec_layers`` with their ``cross_attn``); this one function carries
+    both."""
     return tree_from_jax(params, device)
 
 
 def lm_cache_from_jax(cache: Any, device: DeviceLike) -> Any:
-    """A reference cache (``init_cache`` / ``lm_prefill`` layout, with its
-    scalar ``pos``: GQA's ``k`` / ``v``, MLA's ``c_kv`` / ``k_rope``, Mamba's
-    ``conv`` / ``ssm``, mixed by position in a hybrid stack) as the port's."""
+    """A reference cache as the port's: ``init_cache`` / ``lm_prefill``'s
+    layout, with its scalar ``pos`` (GQA's ``k`` / ``v``, MLA's ``c_kv`` /
+    ``k_rope``, Mamba's ``conv`` / ``ssm``, mixed by position in a hybrid
+    stack), or the encoder-decoder's ``init_encdec_cache`` layout (``pos``,
+    the stacked ``self_kv`` and the encoder ``memory``)."""
     return tree_from_jax(cache, device)
 
 

@@ -1,8 +1,10 @@
 """The Hopper kernels (K1-K9 and the codes pass of K3 and K5) against their
-plain PyTorch versions on a card, short PISCO and baseline runs on the GPU
-against the CPU, greedy serving of both reduced LMs on the GPU against the
-CPU, and a two-rank gloo round of reduced Mamba2-370m training on the card
-against the same ranks on the CPU.
+plain PyTorch versions on a card (K6 causal and without the causal mask),
+short PISCO and baseline runs on the GPU against the CPU, greedy serving of
+the reduced decoder-only LMs on the GPU against the CPU, the reduced
+encoder-decoder and VLM (prefill, decode, gradients) likewise, and a
+two-rank gloo round of reduced Mamba2-370m training on the card against the
+same ranks on the CPU.
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips without one.  The file imports no JAX, so on a GPU machine without JAX
@@ -542,6 +544,84 @@ def test_k6_zoo_head_dims_within_tolerance(cuda, gen, b, hq, hkv, s, d, dv, wind
         model = ref.flash_attention_ref(q, k, v, causal=True, window=window,
                                         p_dtype=torch.bfloat16).float()
         assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dtype", [
+    # SeamlessM4T's encoder (MHA, group 1, D 64) and cross shapes, Sq != Sk
+    (4, 16, 16, 1024, 1024, 64, torch.bfloat16), (2, 16, 16, 500, 1024, 64, torch.bfloat16),
+    (2, 16, 16, 1024, 500, 64, torch.bfloat16),
+    # ragged tails around the tensor-core kernel's 128-row and 128-key tiles
+    (1, 8, 8, 1, 1, 64, torch.bfloat16), (1, 8, 8, 129, 127, 64, torch.bfloat16),
+    (1, 8, 8, 63, 257, 32, torch.bfloat16),
+    # group > 1 (6 and 8), head dims 128 and 192 (BK = 64)
+    (1, 12, 2, 333, 517, 128, torch.bfloat16), (2, 8, 1, 150, 90, 128, torch.bfloat16),
+    (1, 8, 2, 100, 64, 192, torch.bfloat16),
+    # f32 (the SIMT kernel): the reduced Seamless's D 32, D 64, group 1 and 2
+    (2, 4, 4, 130, 130, 32, torch.float32), (2, 4, 2, 45, 77, 32, torch.float32),
+    (1, 16, 16, 200, 333, 64, torch.float32), (1, 4, 4, 1, 65, 64, torch.float32),
+])
+def test_k6_non_causal_within_tolerance(cuda, gen, b, hq, hkv, sq, sk, d, dtype):
+    """K6 without the causal mask (an encoder's self-attention; Sq queries
+    against Sk keys of another sequence), against its plain version."""
+    q = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=False)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_tc"] == (1 if dtype == torch.bfloat16 else 0)
+    assert out.shape == (b, hq, sq, d)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        model = ref.flash_attention_ref(q, k, v, causal=False, p_dtype=torch.bfloat16).float()
+        assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
+def test_reduced_encdec_and_vlm_gpu_match_cpu(cuda, arch):
+    """The bundle's prefill (K6 without the causal mask on Seamless's
+    encoder, causal at M-RoPE grid ids on Qwen2-VL), decode steps and one
+    value_and_grad on the card against the CPU, f32, the same weights."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.models.rope import mrope_text_positions
+    from repro_torch.utils.pytree import nest_leaves, nest_map
+
+    cfg = get_reduced(arch)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+    if cfg.is_enc_dec:
+        batch = {"frames": torch.randn(2, 33, cfg.d_model, generator=g), "tokens": toks}
+    else:
+        pos = mrope_text_positions(2, 29).clone()
+        pos[1:, :, :9] = torch.stack([torch.arange(9) // 3, torch.arange(9) % 3])[:, None]
+        pos[0, :, :9] = 0
+        batch = {"tokens": toks, "prefix_embeds": torch.randn(2, 9, cfg.d_model, generator=g),
+                 "positions": pos}
+    base = get_bundle(cfg, "cpu").init(0)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        bundle = get_bundle(cfg, dev)
+        params = nest_map(lambda t: t.to(dev), base)
+        bd = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        logits, cache = bundle.prefill(params, bd, bundle.init_cache(2, 40))
+        if dev.type == "cuda":
+            n_k6 = cfg.n_encoder_layers if cfg.is_enc_dec else cfg.n_layers
+            assert ops.launch_counts()["flash_attention"] == n_k6
+        steps = [logits[:, -1]]
+        for t in range(1, 4):
+            lg, cache = bundle.decode(params, bd["tokens"][:, t:t + 1], cache)
+            steps.append(lg[:, 0])
+        loss, grads = bundle.value_and_grad(params, bd)
+        out.append((torch.stack(steps).cpu(), float(loss), [x.cpu() for x in nest_leaves(grads)]))
+    (lg_c, loss_c, g_c), (lg_h, loss_h, g_h) = out
+    assert float((lg_c - lg_h).abs().max()) <= 1e-4 * (1.0 + float(lg_h.abs().max()))
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    for a, b in zip(g_c, g_h):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("d,dv,dtype", [(48, 48, torch.bfloat16), (40, 40, torch.float32),

@@ -46,7 +46,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "figures.fig_robust", "checkpoint", "checkpoint.checkpoint", "obs",
                  "obs.trace", "obs.export", "obs.metrics", "obs.regress", "obs.profile",
                  "launch.serve", "examples.train_federated_lm", "figures.fig_serve",
-                 "figures.bench_driver", "figures.check_regress"):
+                 "figures.bench_driver", "figures.check_regress", "models.encdec",
+                 "configs.seamless_m4t_medium", "configs.qwen2_vl_2b"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

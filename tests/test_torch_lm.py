@@ -321,21 +321,24 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_families_and_short_prompts_raise():
-    from repro_torch.configs import get_config as cfg_of
-
-    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):  # encoder-decoder, VLM
-        with pytest.raises(NotImplementedError, match="A14"):
-            cfg_of(arch)
+    """The attention logit softcap (no reference config sets it) raises
+    naming A14, an unknown arch_type raises, and so does a Mamba prompt
+    shorter than the conv window, counting a prefix; the encoder-decoder and
+    VLM families now build."""
     base = get_reduced("qwen3-8b")
-    for bad in ({"is_enc_dec": True}, {"modality": "vlm"}, {"mrope_sections": (4, 6, 6)},
-                {"attn_logit_softcap": 30.0}):
-        with pytest.raises(NotImplementedError, match="A14"):
-            get_bundle(dataclasses.replace(base, **bad), "cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        get_bundle(dataclasses.replace(base, attn_logit_softcap=30.0), "cpu")
+    with pytest.raises(ValueError, match="arch_type"):
+        get_bundle(dataclasses.replace(base, arch_type="vision"), "cpu")
+    for bad in ({"modality": "vlm", "arch_type": "vlm", "mrope_sections": (4, 6, 6)},
+                {"is_enc_dec": True, "n_encoder_layers": 1, "arch_type": "audio"}):
+        assert get_bundle(dataclasses.replace(base, **bad), "cpu").cfg.name == base.name
     bundle = get_bundle(get_reduced("mamba2-370m"), "cpu")
     params = bundle.init(0)
     with pytest.raises(ValueError, match="at least 3"):
         bundle.prefill(params, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
                        bundle.init_cache(1, 8))
-    with pytest.raises(NotImplementedError, match="A14"):  # VLM prefix embeddings
-        bundle.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.long),
-                             "prefix_embeds": torch.zeros((1, 2, 128))})
+    logits, _ = bundle.prefill(params, {"tokens": torch.zeros((1, 1), dtype=torch.long),
+                                        "prefix_embeds": torch.zeros((1, 2, 128))},
+                               bundle.init_cache(1, 8))
+    assert logits.shape == (1, 3, 512)

@@ -83,6 +83,16 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    tokens, each attention layer and each K7 call; the routes that would flip
    counted); and both at reduced widths, card against CPU in f32 (prefill,
    decode, one value_and_grad: "reduced-media");
+   then the LM training launcher ``python -m repro_torch.launch.train``,
+   called in-process ("launch"): Mamba2-370m at full width in bf16 with the
+   CLI's defaults but batch 2 (K1 every local step), 6 rounds and a
+   checkpoint, then restored for two rounds under ``--profile`` (ms a
+   round, peak GiB, the device's idle share); reduced Qwen3-8B restored from
+   one checkpoint on the card and on the CPU (losses within 1e-4, flags
+   equal); and the README's seven launcher commands at --reduced, cut to 10
+   rounds (the sparse fleet with cohorts, K4 over each round's weights, to
+   256 agents and 4 rounds of batch 1 and seq 32), each summary line and its
+   trace's one round span a round checked;
    then the train -> checkpoint -> serve loop ("fleet"): the example twin
    ``repro_torch.examples.train_federated_lm`` trains LM_100M at full width
    (f32, 4 agents, K1 once a leaf and round) for a few rounds and writes its
@@ -346,6 +356,18 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def launch_full_leaves(torch):
+    """(shape, dtype) of every distinct leaf of the launch phase's state:
+    Mamba2-370m at full width, stacked over LAUNCH_FULL_AGENTS agents."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+
+    leaves = flatten_paths(get_bundle(get_config("mamba2-370m"), "meta").init(0))
+    return sorted({((LAUNCH_FULL_AGENTS,) + tuple(t.shape), t.dtype) for t in leaves.values()},
+                  key=lambda sd: (sd[0], str(sd[1])))
+
+
 def kernel_checks(torch, dev):
     from repro_torch.core.topology import make_sparse_topology, make_topology
     from repro_torch.kernels import ops, ref
@@ -356,11 +378,14 @@ def kernel_checks(torch, dev):
     rows = {}
 
     # K1 — every leaf shape of the MLP fleets and the logreg fleet, ragged
-    # bf16; timed at the largest leaf of sparse-10k (w1: 10,000 x 32 x 784)
+    # bf16, and every agent-stacked leaf the launch phase's full-width
+    # Mamba2-370m gives it (bf16 and f32, the embedding (4, 50,280, 1,024)
+    # and in_proj (4, 48, 1,024, 4,384) the largest); timed at the largest
+    # leaf of sparse-10k (w1: 10,000 x 32 x 784)
     shapes = [((10000, 32, 784), torch.float32), ((10000, 32), torch.float32),
               ((10000, 10, 32), torch.float32), ((10000, 10), torch.float32),
               ((512, 32, 784), torch.float32), ((10, 124), torch.float32),
-              ((7, 3, 5), torch.bfloat16), ((1,), torch.float32)]
+              ((7, 3, 5), torch.bfloat16), ((1,), torch.float32)] + launch_full_leaves(torch)
     err = 0.0
     for shape, dt in shapes:
         x, y, gn, go = (randn(*shape).to(dt) for _ in range(4))
@@ -750,6 +775,18 @@ def profile_rounds(torch, dev, label, spec, loss_fn, params0, data, batch, activ
         log(f"profile {label}:   {us / 1e3 / active:8.3f} ms/round  {name[:110]}")
 
 
+def union_length(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + cur_e - cur_s
+
+
 def device_share(prof, label):
     """(window µs, device-busy µs, every device op as (name, µs), heaviest
     first) of a finished ``torch.profiler`` trace.  Busy time is the union of the
@@ -760,16 +797,9 @@ def device_share(prof, label):
     events = prof.events()
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")]
-    dev_iv = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    dev_iv = [(e.time_range.start, e.time_range.end) for e in dev_events]
     check(len(dev_iv) > 0, f"profile {label}: the trace holds no device activity")
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in dev_iv:
-        if cur_e is None or a > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
+    busy = union_length(dev_iv)
     window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     per_kernel = {}
     for e in dev_events:
@@ -3429,6 +3459,216 @@ def zoo_paths(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5a: the LM training launcher ("launch")
+# ---------------------------------------------------------------------------
+
+# (a) Mamba2-370m at its published width with the CLI's defaults (4 agents
+# on a ring, T_o 2, seq 128, eta_l 0.05) but batch 2 (the agents' vmapped
+# gradient keeps every activation, since checkpointing has no vmap rule:
+# ~1.45 GiB a layer at batch 4, 70 GiB for the 48 layers beside 8.3 GiB of
+# state): 6 rounds checkpointed at round 6, then two more restored from it
+# under the profiler (cut from 20 and 30: a round takes ~2.2 s and a
+# checkpoint of the state 8.2 GiB, ~13 s to save and ~20 to restore); (b) reduced Qwen3-8B restored from one checkpoint on the card
+# and on the CPU; (c) the README's seven launcher commands at --reduced, each
+# cut to LAUNCH_README_ROUNDS rounds; the sparse fleet to 256 agents (not
+# 2,048: the sampler draws each agent's 200,000-token Zipf stream on the
+# host, ~16 ms an agent, 34 s for 2,048) and LAUNCH_SPARSE_ROUNDS rounds of
+# batch 1 and seq 32 (its vmapped gradient over 2,048 agents at batch 4 and
+# seq 128 outgrows one card: 256 agents hold 18 GB on the CPU)
+LAUNCH_FULL_AGENTS = 4  # the CLI's default --n-agents
+LAUNCH_FULL = ["--arch", "mamba2-370m", "--batch", "2", "--log-every", "5"]
+LAUNCH_REDUCED = ["--arch", "qwen3-8b", "--reduced", "--log-every", "1"]
+LAUNCH_README_ROUNDS = 10
+LAUNCH_SPARSE_ROUNDS = 4
+LAUNCH_README = (
+    ("README:383", ["--arch", "mamba2-370m", "--reduced", "--sparse", "--n-agents", "256",
+                    "--topology", "random_regular", "--cohort", "0.1"]),
+    ("README:423-systems", ["--arch", "qwen3-8b", "--reduced", "--systems", "wan-gossip"]),
+    ("README:423-tune", ["--arch", "qwen3-8b", "--reduced", "--tune", "--tune-p", "0", "0.1",
+                         "1.0"]),
+    ("README:448", ["--arch", "qwen3-8b", "--reduced", "--p", "0.1", "--local-opt",
+                    "momentum", "--server-opt", "fedadam", "--lr-schedule", "cosine"]),
+    ("README:461", ["--arch", "qwen3-8b", "--reduced", "--network", "bernoulli:0.3",
+                    "--participation", "0.5"]),
+    ("README:494", ["--arch", "qwen3-8b", "--reduced", "--driver", "events", "--systems",
+                    "lognormal-stragglers", "--async", "poly", "--staleness-bound", "2",
+                    "--buffer-size", "5"]),
+    ("README:615", ["--arch", "qwen3-8b", "--reduced", "--systems", "wan-gossip"]),
+)
+LAUNCH_LOSS_TOL = 1e-4  # reduced Qwen3-8B in f32, card against CPU
+
+
+def launch_call(torch, dev, label, argv):
+    """``repro_torch.launch.train.main(argv)`` in this process, its standard
+    output caught: (lines, launch counts of the call, seconds, peak GiB)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as launch_main
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = launch_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(code == 0, f"{label}: the launcher exited {code}")
+    return (out.getvalue().splitlines(), ops.launch_counts(), seconds,
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def launch_rounds(lines):
+    """(round, flag, loss) of every logged round."""
+    import re
+
+    pat = re.compile(r"^round +(\d+) \[([JW])\] loss=(\S+)")
+    return [(int(m[1]), m[2], float(m[3])) for m in map(pat.match, lines) if m]
+
+
+def launch_done(label, lines, rounds):
+    """The run's summary line, its gossip and server rounds adding up."""
+    import re
+
+    done = [ln for ln in lines if ln.startswith(("done: ", "done (events"))]
+    check(len(done) == 1, f"{label}: no summary line")
+    m = re.search(r"\((\d+) gossip, (\d+) server rounds\)", done[0]) or re.search(
+        r"gossip [\d.]+s / (\d+) rounds, server [\d.]+s / (\d+) rounds", done[0])
+    check(m is not None and int(m[1]) + int(m[2]) == rounds,
+          f"{label}: the summary does not add up to {rounds} rounds: {done[0]}")
+    return done[0]
+
+
+def launch_paths(torch, dev, card):
+    """The training launcher ``python -m repro_torch.launch.train``, called
+    in-process through its ``main(argv)``."""
+    import math
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_launch_", dir=os.path.join(ROOT, "build"))
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    try:
+        # -- (a) full width: train, checkpoint, restore under the profiler --
+        ck = os.path.join(work, "full")
+        lines, counts, sec, peak = launch_call(torch, dev, "launch-full", LAUNCH_FULL + [
+            "--rounds", "6", "--ckpt-dir", ck, "--ckpt-every", "6"])
+        add(counts)
+        first = launch_rounds(lines)
+        check(first and all(math.isfinite(r[2]) for r in first), "launch-full: a loss is not finite")
+        check(counts.get("fused_local_step", 0) > 0, "launch-full: K1 not launched")
+        done = launch_done("launch-full", lines, 6)
+        loop_s = float(done.split(" rounds in ")[1].split("s ")[0])
+        check(os.listdir(ck) == ["ckpt_6.npz"], f"launch-full: checkpoints {os.listdir(ck)}")
+        ck_gib = os.path.getsize(os.path.join(ck, "ckpt_6.npz")) / 2**30
+        log(f"path launch-full (mamba2-370m, batch 2, 6 rounds, a checkpoint of {ck_gib:.2f} "
+            f"GiB at round 6): {sec:.2f} s, {1e3 * loop_s / 6:.1f} ms/round in the loop (the "
+            f"save included), peak {peak:.2f} GiB, K1 {counts.get('fused_local_step', 0)} "
+            f"launches, losses " + " ".join(f"{k}{f}={v:.4f}" for k, f, v in first))
+
+        prof = os.path.join(work, "profile")
+        lines, counts, sec2, peak2 = launch_call(torch, dev, "launch-full-restore", LAUNCH_FULL + [
+            "--rounds", "8", "--ckpt-dir", ck, "--profile", prof, "--log-every", "1"])
+        add(counts)
+        restored = [ln for ln in lines if ln.startswith("restored ")]
+        check(len(restored) == 1 and restored[0].endswith(" at round 6"),
+              f"launch-full-restore: {restored}")
+        second = launch_rounds(lines)
+        check([r[0] for r in second] == [6, 7] and all(math.isfinite(r[2]) for r in second),
+              f"launch-full-restore: rounds {second}")
+        done = launch_done("launch-full-restore", lines, 2)
+        loop_s = float(done.split(" rounds in ")[1].split("s ")[0])
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        dev_iv = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        check(len(dev_iv) > 0, "launch-full-restore: the profile holds no device work")
+        busy = union_length(dev_iv)
+        spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+        window = max(e["ts"] + e["dur"] for e in spans) - min(e["ts"] for e in spans)
+        log(f"path launch-full-restore (round 6 -> 8 under the profiler): {sec2:.2f} s with "
+            f"the restore, {1e3 * loop_s / 2:.1f} ms/round in the loop, peak {peak2:.2f} GiB, "
+            f"window {window / 1e3:.1f} ms, device busy {100.0 * busy / window:.1f}% (idle "
+            f"{100.0 - 100.0 * busy / window:.1f}%), {len(dev_iv)} device ops, K1 "
+            f"{counts.get('fused_local_step', 0)} launches, losses "
+            + " ".join(f"{k}{f}={v:.4f}" for k, f, v in second))
+
+        # -- (b) reduced Qwen3-8B, card against CPU from one checkpoint ----
+        src = os.path.join(work, "reduced")
+        launch_call(torch, dev, "launch-reduced-ckpt", LAUNCH_REDUCED + [
+            "--device", "cpu", "--rounds", "2", "--ckpt-dir", src, "--ckpt-every", "2"])
+        runs = {}
+        for where in ("cuda", "cpu"):
+            d = os.path.join(work, f"reduced-{where}")
+            shutil.copytree(src, d)
+            lines, counts, _, _ = launch_call(torch, dev, f"launch-reduced-{where}",
+                                              LAUNCH_REDUCED + ["--device", where, "--rounds",
+                                                                "6", "--ckpt-dir", d])
+            if where == "cuda":
+                add(counts)
+            runs[where] = launch_rounds(lines)
+        card_r, cpu_r = runs["cuda"], runs["cpu"]
+        check([r[:2] for r in card_r] == [r[:2] for r in cpu_r] and len(card_r) == 4,
+              f"launch-reduced: flags differ {card_r} vs {cpu_r}")
+        dev_max = max(abs(a[2] - b[2]) for a, b in zip(card_r, cpu_r))
+        check(dev_max <= LAUNCH_LOSS_TOL, f"launch-reduced: losses differ by {dev_max:.3e}")
+        log(f"compare launch-reduced (qwen3-8b, restored at round 2, 4 rounds): flags equal, "
+            f"losses within {dev_max:.2e} of the CPU's (limit {LAUNCH_LOSS_TOL:g})")
+
+        # -- (c) the README's seven commands --------------------------------
+        for label, argv in LAUNCH_README:
+            rounds = LAUNCH_SPARSE_ROUNDS if "--sparse" in argv else LAUNCH_README_ROUNDS
+            trace = os.path.join(work, label.replace(":", "_") + ".trace.json")
+            extra = ["--rounds", str(rounds)]
+            if "--sparse" in argv:
+                extra += ["--batch", "1", "--seq", "32"]
+            if "--tune" not in argv:
+                extra += ["--trace-out", trace, "--log-every", "5"]
+            if label == "README:615":
+                extra += ["--metrics-out", os.path.join(work, "runs.jsonl")]
+            lines, counts, sec, peak = launch_call(torch, dev, label, argv + extra)
+            add(counts)
+            if "--tune" in argv:
+                check(any(ln.startswith("fastest-to-target: ") for ln in lines),
+                      f"{label}: no frontier")
+                summary = [ln for ln in lines if ln.startswith("fastest-to-target")][0]
+            else:
+                summary = launch_done(label, lines, rounds)
+                with open(trace) as f:
+                    events = json.load(f)["traceEvents"]
+                # the rounds track (the events driver adds one track per agent)
+                track = {(e["pid"], e["tid"]) for e in events if e.get("ph") == "M"
+                         and e.get("name") == "thread_name" and e["args"]["name"] == "rounds"}
+                round_spans = [e for e in events if e.get("ph") == "X"
+                               and (e.get("pid"), e.get("tid")) in track
+                               and e.get("name") in ("gossip_round", "server_round")]
+                check(len({e["args"]["round"] for e in round_spans}) == rounds
+                      and len(round_spans) == rounds,
+                      f"{label}: {len(round_spans)} round spans for {rounds} rounds")
+                if "--systems" in argv and "--driver" not in argv:
+                    check(any(ln.startswith("simulated time under ") for ln in lines),
+                          f"{label}: no simulated split")
+            if "--sparse" in argv:
+                check(counts.get("sparse_mix", 0) > 0, f"{label}: K4 not launched")
+            log(f"path launch {label} ({rounds} rounds): {sec:.2f} s, peak {peak:.3f} GiB, "
+                f"launches { {k: v for k, v in counts.items() if v} }; {summary}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"launch: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5b: the train -> checkpoint -> serve loop, observed ("fleet")
 # ---------------------------------------------------------------------------
 
@@ -4182,6 +4422,8 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
     for k, v in zoo_paths(torch, dev, card).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in launch_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in fleet_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v

@@ -37,6 +37,7 @@ from repro_torch.core.driver import predraw_schedule, record_block, run_block
 from repro_torch.core.trainer import History, record_wall_time
 from repro_torch.data.synthetic import synthetic_lm_tokens
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.train import nested_state
 from repro_torch.models import ModelConfig, config_to_dict, get_bundle
 from repro_torch.models.transformer import params_from_paths
 from repro_torch.optim import resolve_update_rules
@@ -78,13 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default=None, help="torch device (default: the GPU)")
     return ap
-
-
-def nested_state(state, cfg: ModelConfig):
-    """The PISCO state with x, y and g in the model's nested layout (the
-    reference's), the form checkpoints and ``History.final_state`` carry.
-    An update rule's state keeps the flat, path-keyed layout."""
-    return state._replace(**{f: params_from_paths(getattr(state, f), cfg) for f in "xyg"})
 
 
 def train(cfg: ModelConfig, args: argparse.Namespace, *, device: DeviceLike = None,

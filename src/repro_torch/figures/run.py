@@ -7,8 +7,9 @@ Quick sizes by default; ``--full`` runs the paper's.  ``ablation`` and
 ``driver`` (the round-driver benchmark) are opt-in, as in the reference.
 ``timecost`` and ``async`` (simulated wall-clock and asynchronous
 execution), ``robust`` (Byzantine agents) and ``serve`` (the serving path)
-run with the rest.  ``roofline`` is not ported and raises an error naming
-its ROADMAP item.  Each run re-indexes the payload directory's
+run with the rest, and ``roofline`` aggregates the dry run's records
+(``artifacts/torch/dryrun``, written by ``repro_torch.launch.dryrun``) into
+``BENCH_roofline.json``.  Each run re-indexes the payload directory's
 ``BENCH_*.json`` in ``MANIFEST.json`` for ``repro_torch.figures.check_regress``.
 """
 from __future__ import annotations
@@ -19,10 +20,10 @@ import time
 from repro_torch.device import resolve_device
 from repro_torch.figures.common import write_manifest
 
-PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "compression", "dynamic", "optimizers",
-          "timecost", "async", "robust", "ablation", "driver", "sparse", "serve")
+PORTED = ("fig4", "fig5", "fig6", "fig7", "table2", "roofline", "compression", "dynamic",
+          "optimizers", "timecost", "async", "robust", "ablation", "driver", "sparse", "serve")
 # the reference's other figures -> the ROADMAP item that ports them
-NOT_PORTED = {"roofline": "A17"}
+NOT_PORTED: dict = {}
 OPT_IN = ("ablation", "driver")
 
 
@@ -170,6 +171,17 @@ def _sparse(quick, dev, out):
             f";parity_n{payload['parity']['n']}={payload['parity']['ok']}")
 
 
+def _roofline(quick, dev, out):
+    from repro_torch.figures import roofline
+    from repro_torch.figures.common import save_result
+
+    s = roofline.summarize(roofline.load_records())
+    # the aggregation persists, so the regression gate can pin n_fail == 0
+    save_result("BENCH_roofline", {"bench": "roofline", "quick": quick, "summary": s}, out,
+                device=None)
+    return f"ok={s['n_ok']};fail={s['n_fail']};dominant={s['dominant_counts']}".replace(",", ";")
+
+
 # run order and CSV row names, as in the reference
 FIGURES = (
     ("fig4", "fig4_p_sweep", _fig4),
@@ -187,6 +199,7 @@ FIGURES = (
     ("driver", "bench_driver", _driver),
     ("sparse", "fig_sparse", _sparse),
     ("serve", "fig_serve", _serve),
+    ("roofline", "roofline", _roofline),
 )
 
 

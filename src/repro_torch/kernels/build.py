@@ -199,11 +199,13 @@ def last_dim_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel), False
-    when on the CPU (use the plain version).  All must share one device."""
+    when on the CPU or the meta device (use the plain version: on meta it
+    traces shapes and operation counts, as the dry run needs).  All must
+    share one device."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"

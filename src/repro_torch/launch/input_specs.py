@@ -1,9 +1,11 @@
-"""Shapes of the training inputs (the twin of ``repro.launch.input_specs``).
+"""Shapes of every model input (the twin of ``repro.launch.input_specs``).
 
-``local_batches`` leaves are (T_o, A, b, ...) and ``comm_batch`` leaves
-(A, b, ...), where A = n_agents and b = global_batch // A; on a rank mesh each
-rank takes its own slice of the agent axis
-(:func:`repro_torch.launch.mesh.rank_slice`).
+* train: ``local_batches`` leaves are (T_o, A, b, ...) and ``comm_batch``
+  leaves (A, b, ...), where A = n_agents and b = global_batch // A; on a rank
+  mesh each rank takes its own slice of the agent axis
+  (:func:`repro_torch.launch.mesh.rank_slice`);
+* prefill: batch leaves (B, ...) with B = global_batch;
+* decode: one token (B, 1) beside the cache.
 
 The frontends are stubs, as in the reference: an audio batch carries
 precomputed frame embeddings (b, seq // 4, d_model) beside its tokens; a VLM
@@ -51,3 +53,25 @@ def train_inputs(cfg: ModelConfig, shape: InputShape, n_agents: int,
     comm = {k: TensorSpec((n_agents,) + s.shape, s.dtype) for k, s in per.items()}
     local = {k: TensorSpec((t_o,) + s.shape, s.dtype) for k, s in comm.items()}
     return local, comm
+
+
+def prefill_inputs(cfg: ModelConfig, shape: InputShape) -> Dict[str, TensorSpec]:
+    """The prefill batch (leaves (B, ...))."""
+    if shape.kind != "prefill":
+        raise ValueError(f"{shape.name} is a {shape.kind} shape, not a prefill shape")
+    return _per_agent_batch(cfg, shape.global_batch, shape.seq_len)
+
+
+def decode_token_input(shape: InputShape) -> TensorSpec:
+    """The decode step's token (B, 1)."""
+    if shape.kind != "decode":
+        raise ValueError(f"{shape.name} is a {shape.kind} shape, not a decode shape")
+    return TensorSpec((shape.global_batch, 1), torch.int32)
+
+
+def materialize(spec, device: torch.device):
+    """Empty tensors of a tree of :class:`TensorSpec` on ``device`` (the
+    dry run's meta stand-ins)."""
+    if isinstance(spec, TensorSpec):
+        return torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    return {k: materialize(v, device) for k, v in spec.items()}

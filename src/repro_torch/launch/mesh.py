@@ -18,8 +18,10 @@ only the bytes in flight pass through the host.  The choice is read once
 from ``dist.get_backend()`` when the mesh is built.
 
 Only the agent axes are ported: the "model" axis (tensor parallelism inside
-an agent) has size 1 here, and the 256- and 512-chip production meshes of the
-reference wait for ROADMAP A17.
+an agent) has size 1 here.  :func:`make_production_mesh` is the port's
+counterpart of the reference's 256- and 512-chip meshes for the dry run: the
+same 16 or 32 agents, one card each, with no process group behind it; its
+collectives move no data and count the bytes they would move.
 """
 from __future__ import annotations
 
@@ -238,3 +240,68 @@ def rank_slice(tree: Dict, mesh: RankMesh, agent_axes: Sequence[str], axis: int 
         return t.select(axis, a).contiguous().to(dev)
 
     return {k: take(v) for k, v in tree.items()}
+
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
+@dataclasses.dataclass
+class CountingMesh:
+    """A mesh of named axes with no process group (the dry run's): rank 0's
+    view, on ``device`` (meta: nothing is allocated).  Its collectives
+    return tensors of the shapes the real ones would and count each
+    result's bytes per kind under the reference's HLO names
+    (``collective-permute`` a shift, ``all-reduce`` a sum, ``all-gather`` a
+    gather), as :meth:`collective_counts` reports them."""
+
+    shape: Dict[str, int]
+    device: torch.device
+    rank: int = 0
+    clock: MeshClock = dataclasses.field(default_factory=MeshClock)
+    bytes_by_kind: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    calls_by_kind: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+
+    axis_names = RankMesh.axis_names
+    coords = RankMesh.coords
+    size = RankMesh.size
+    index = RankMesh.index
+
+    def _count(self, kind: str, out: torch.Tensor) -> torch.Tensor:
+        self.bytes_by_kind[kind] += out.numel() * out.element_size()
+        self.calls_by_kind[kind] += 1
+        return out
+
+    def shift(self, x: torch.Tensor, moves: Sequence[Tuple[str, int]]) -> List[torch.Tensor]:
+        return [self._count("collective-permute", torch.empty_like(x)) for _ in moves]
+
+    def all_reduce_sum(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        return self._count("all-reduce", torch.empty_like(x))
+
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        return self._count("all-gather", x.new_empty((self.size(axes),) + tuple(x.shape)))
+
+    def reset_counts(self) -> None:
+        for k in COLLECTIVE_KINDS:
+            self.bytes_by_kind[k] = self.calls_by_kind[k] = 0
+
+    def collective_counts(self) -> Dict[str, int]:
+        """The reference's ``collective_bytes`` record: bytes and calls per
+        kind, the ``wire_*`` figures (equal here: no host upcast to
+        correct), ``raw_total`` and ``total``."""
+        out: Dict[str, int] = dict(self.bytes_by_kind)
+        out.update({f"wire_{k}": v for k, v in self.bytes_by_kind.items()})
+        out.update({f"n_{k}": v for k, v in self.calls_by_kind.items()})
+        out["raw_total"] = out["total"] = sum(self.bytes_by_kind.values())
+        return out
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = "meta") -> CountingMesh:
+    """The port's layout of the reference's production meshes: 16 agents on
+    a ``data`` axis (single) or 2 x 16 on ``pod`` x ``data`` (multi), and a
+    ``model`` axis of 1, so one card per agent (16 or 32 cards)."""
+    shape = (2, 16, 1) if multi_pod else (16, 1)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return CountingMesh(shape=dict(zip(axes, shape)), device=torch.device(device))

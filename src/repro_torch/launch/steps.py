@@ -1,39 +1,73 @@
-"""The per-rank PISCO train steps (the twin of ``repro.launch.steps``).
+"""The step functions of the launcher and the dry run (the twin of
+``repro.launch.steps``).
 
-:func:`build_train_steps` is the reference's ``build_train_steps`` with one
-agent per rank of a :class:`repro_torch.launch.mesh.RankMesh`: it returns the
-gossip round and the server round (the host draws W^k = J with probability p
-and calls one of them), each a function every rank calls with its own state
-and batches.  Gossip runs over the mesh's circulant topology — a ring over
-one agent axis, a torus over two — through
-:func:`repro_torch.core.mixing.collective_shift_mixing`, the server round is
-a sum over the agent axes.  The reference's ``StepSpec.lower`` and dry-run,
-and its prefill / decode step builders, have no counterpart yet (ROADMAP A17).
+Three step kinds per (architecture x mesh), each a :class:`StepSpec`: the
+function, its arguments as meta tensors (nothing allocated) and notes.
+
+* :func:`build_train_steps` — one PISCO round with one agent per rank of a
+  mesh: the gossip round and the server round (the host draws W^k = J with
+  probability p and calls one of them), each a function every rank calls
+  with its own state and batches.  Gossip runs over the mesh's circulant
+  topology — a ring over one agent axis, a torus over two — through
+  :func:`repro_torch.core.mixing.collective_shift_mixing`, the server round
+  is a sum over the agent axes.  Over a
+  :class:`~repro_torch.launch.mesh.RankMesh` ranks call ``fn`` on their own
+  tensors; over the dry run's
+  :class:`~repro_torch.launch.mesh.CountingMesh` ``spec.lower()`` counts it.
+* :func:`build_prefill_step` — inference prefill (forward and cache fill).
+* :func:`build_decode_step` — one decode step against the KV/SSM cache.
+
+  Both are one card's share: the serving batch splits over the agent axes
+  when it divides across them, as the reference shards it over its batch
+  axes, and the notes record the cards (``n_chips``) that serve it.
+
+``spec.lower()`` runs the function on its meta arguments under the counters
+of :mod:`repro_torch.utils.roofline` and returns their record: the port's
+counterpart of the reference's lowering and compilation.  Pod-as-agent (an
+agent sharded over the intra-pod data axis, ``agent_mode="hierarchical"``)
+is not ported (ROADMAP A17).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.shapes import InputShape
 from repro_torch.core.mixing import MixingOps, collective_shift_mixing
-from repro_torch.core.pisco import PiscoConfig, make_rank_round_fn
+from repro_torch.core.pisco import PiscoConfig, PiscoState, make_rank_round_fn
 from repro_torch.core.topology import mixing_rate
-from repro_torch.launch.input_specs import train_inputs
+from repro_torch.launch import input_specs as I
 from repro_torch.launch.mesh import agent_axes_for, n_agents_for
-from repro_torch.models.registry import ModelBundle
+from repro_torch.models.registry import ModelBundle, get_bundle
 from repro_torch.models.transformer import params_from_paths
 from repro_torch.utils.pytree import flatten_paths
+from repro_torch.utils.roofline import count_call
+
+META = torch.device("meta")
 
 
 @dataclasses.dataclass
-class TrainStep:
+class StepSpec:
     name: str
-    fn: Callable  # (state, local_batches, comm_batch) -> (state, this agent's loss)
-    mixing: MixingOps
+    fn: Callable
+    args: Tuple[Any, ...]  # meta tensors of the arguments' shapes and dtypes
     notes: Dict[str, Any]
+    mixing: Optional[MixingOps] = None  # a train step's mixer
+    mesh: Any = None
+
+    def lower(self) -> Dict[str, Any]:
+        """The counts of one call on the meta arguments
+        (:func:`repro_torch.utils.roofline.count_call`) over the dry run's
+        counting mesh."""
+        return count_call(self.fn, self.args, self.mesh)
+
+
+def meta_bundle(bundle: ModelBundle) -> ModelBundle:
+    """The bundle's twin on the meta device."""
+    return bundle if bundle.device.type == "meta" else get_bundle(bundle.cfg, META)
 
 
 # ---------------------------------------------------------------------------
@@ -108,21 +142,23 @@ def build_train_steps(
     p: float = 0.1,
     agent_mode: str = "flat",
     wire_dtype: str = "float32",
-) -> Dict[str, TrainStep]:
+) -> Dict[str, StepSpec]:
     """``{"train_gossip": ..., "train_global": ...}`` for this rank.
     ``wire_dtype`` "float32" upcasts gossip messages, "native" sends the
-    state's own dtype."""
+    state's own dtype.  ``args`` are one agent's state and batches on the
+    meta device."""
     if agent_mode != "flat":
         raise NotImplementedError("pod-as-agent meshes (an agent sharded over the intra-pod "
                                   "data axis) are not ported yet (ROADMAP A17)")
     agent_axes = agent_axes_for(mesh, agent_mode)
     n_agents = n_agents_for(mesh, agent_mode)
     pcfg = PiscoConfig(n_agents=n_agents, t_o=t_o, eta_l=eta_l, eta_c=eta_c, p=p)
-    train_inputs(bundle.cfg, shape, n_agents, t_o)  # the batch must divide over the agents
+    local_spec, comm_spec = I.train_inputs(bundle.cfg, shape, n_agents, t_o)
     shifts = mesh_gossip_shifts(mesh, agent_axes)
     gossip_ops = collective_shift_mixing(
         mesh, agent_axes, shifts, wire_dtype=None if wire_dtype == "native" else wire_dtype)
-    vg = flat_value_and_grad(bundle)
+    # over the dry run's counting mesh the round runs on the meta device
+    vg = flat_value_and_grad(meta_bundle(bundle) if mesh.device.type == "meta" else bundle)
     notes = {
         "n_agents": n_agents,
         "agent_axes": agent_axes,
@@ -131,8 +167,74 @@ def build_train_steps(
         "wire_dtype": wire_dtype,
         "lambda_w": lambda_w(mesh, agent_axes, shifts),
     }
+    # one agent's slice: the agent axis is first in comm, second in local
+    one = {k: I.TensorSpec(v.shape[1:], v.dtype) for k, v in comm_spec.items()}
+    local = {k: I.TensorSpec(v.shape[:1] + v.shape[2:], v.dtype) for k, v in local_spec.items()}
+    x = flatten_paths(meta_bundle(bundle).init(0))
+    state = PiscoState(x=x, y={k: torch.empty_like(v) for k, v in x.items()},
+                       g={k: torch.empty_like(v) for k, v in x.items()},
+                       step=torch.zeros((), dtype=torch.int32, device=META))
+    args = (state, I.materialize(local, META), I.materialize(one, META))
     return {
-        name: TrainStep(name, make_rank_round_fn(vg, pcfg, gossip_ops, global_round=is_global),
-                        gossip_ops, notes)
+        name: StepSpec(name, make_rank_round_fn(vg, pcfg, gossip_ops, global_round=is_global),
+                       args, notes, mixing=gossip_ops, mesh=mesh)
         for name, is_global in (("train_gossip", False), ("train_global", True))
     }
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def serve_split(mesh, batch: int) -> Tuple[Optional[Tuple[str, ...]], int]:
+    """``(batch_axes, cards)`` of a serving batch on ``mesh``: the
+    reference's rule, every agent axis when the batch divides across them
+    (each card serves ``batch // cards`` rows), else none (one card serves
+    the whole batch and the others idle)."""
+    axes = agent_axes_for(mesh)
+    cards = mesh.size(axes)
+    return (tuple(axes), cards) if batch % cards == 0 else (None, 1)
+
+
+def _per_card(shape: InputShape, mesh) -> Tuple[InputShape, Dict[str, Any]]:
+    """One card's share of a serving shape and the notes that record it."""
+    axes, cards = serve_split(mesh, shape.global_batch)
+    rows = shape.global_batch // cards
+    notes = {"batch_axes": axes, "n_chips": cards, "rows_per_chip": rows}
+    return dataclasses.replace(shape, global_batch=rows), notes
+
+
+def _serve_cache(bundle: ModelBundle, shape: InputShape) -> Dict:
+    if bundle.cfg.is_enc_dec:
+        return bundle.init_cache(shape.global_batch, shape.seq_len, mem_len=shape.seq_len // 4)
+    return bundle.init_cache(shape.global_batch, shape.seq_len)
+
+
+def build_prefill_step(bundle: ModelBundle, shape: InputShape, mesh) -> StepSpec:
+    """One card's prefill of its rows of ``shape.global_batch`` sequences of
+    ``shape.seq_len`` tokens into a fresh cache (:func:`serve_split`; the
+    mesh's model axis is 1, so no collective runs)."""
+    mb = meta_bundle(bundle)
+    card, notes = _per_card(shape, mesh)
+    batch = I.materialize(I.prefill_inputs(mb.cfg, card), META)
+    args = (mb.init(0), batch, _serve_cache(mb, card))
+    return StepSpec("prefill", lambda p, b, c: mb.prefill(p, b, c), args, notes, mesh=mesh)
+
+
+def build_decode_step(bundle: ModelBundle, shape: InputShape, mesh, *,
+                      opt_idle_batch: bool = False) -> StepSpec:
+    """One card's decode step of its rows of ``shape.global_batch`` against
+    a cache of ``shape.seq_len`` positions (:func:`serve_split`).
+    ``opt_idle_batch`` is accepted and recorded: the reference re-shards a
+    batch-1 decode over its idle data axis, and with one card per agent
+    there is no such axis, so it changes nothing."""
+    mb = meta_bundle(bundle)
+    card, notes = _per_card(shape, mesh)
+    token = I.materialize(I.decode_token_input(card), META)
+    args = (mb.init(0), token, _serve_cache(mb, card))
+    notes["opt_idle_batch"] = opt_idle_batch
+    if opt_idle_batch:
+        notes["opt_idle_batch_note"] = ("no idle data axis: one card per agent, model axis 1; "
+                                        "the step is unchanged")
+    return StepSpec("decode", lambda p, t, c: mb.decode(p, t, c), args, notes, mesh=mesh)

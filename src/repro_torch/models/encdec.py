@@ -42,10 +42,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, normal_init, rms_norm
+from repro_torch.models.layers import can_remat, linear, normal_init, rms_norm, seeded_generator
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.rope import rope_cos_sin, text_positions
-from repro_torch.models.transformer import _ce_sum, dtype_of
+from repro_torch.models.transformer import _ce_sum, dtype_of, unstack
 from repro_torch.utils.pytree import nest_map
 
 Tensor = torch.Tensor
@@ -59,10 +59,11 @@ Tree = Any
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tree:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed`` (each stacked leaf drawn whole)."""
+    with ``seed`` (each stacked leaf drawn whole).  On the meta device: the
+    tree's shapes and dtypes, nothing allocated."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
 
     def norm(stack: tuple = ()) -> Dict[str, Tensor]:
         return {"scale": torch.ones(stack + (cfg.d_model,), dtype=dtype, device=dev)}
@@ -115,13 +116,16 @@ def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
     b, t, _ = frames.shape
     cos_sin = _cos_sin(cfg, b, t, 0, frames.device)
 
+    layers = unstack(params["enc_layers"], cfg.n_encoder_layers)
+
     def layer(x: Tensor, i: int) -> Tensor:
-        lp = _layer(params["enc_layers"], i)
+        lp = layers[i]
         x = x + attend(lp["attn"], rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps), cos_sin)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         return x + mlp_forward(lp["ffn"], cfg.mlp_type, h)
 
     x = frames.to(dtype_of(cfg))
+    remat = remat and can_remat(x)
     for i in range(cfg.n_encoder_layers):
         x = checkpoint(layer, x, i, use_reentrant=False) if remat else layer(x, i)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
@@ -175,12 +179,14 @@ def decode_train(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor)
     cos_sin = _cos_sin(cfg, b, s, 0, x.device)
     mem_cos_sin = _cos_sin(cfg, b, memory.shape[1], 0, x.device)
 
-    def layer(xx: Tensor, i: int) -> Tensor:
-        return _dec_layer(_layer(params["dec_layers"], i), cfg, xx, memory, cos_sin,
-                          mem_cos_sin)
+    layers = unstack(params["dec_layers"], cfg.n_layers)
 
+    def layer(xx: Tensor, i: int) -> Tensor:
+        return _dec_layer(layers[i], cfg, xx, memory, cos_sin, mem_cos_sin)
+
+    remat = cfg.remat and can_remat(x)
     for i in range(cfg.n_layers):
-        x = checkpoint(layer, x, i, use_reentrant=False) if cfg.remat else layer(x, i)
+        x = checkpoint(layer, x, i, use_reentrant=False) if remat else layer(x, i)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return linear(x, params["lm_head"])
 

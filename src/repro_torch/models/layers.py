@@ -23,6 +23,32 @@ Tensor = torch.Tensor
 DRAW_CHUNK = 1 << 31
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: the initialisers place
+    their tensors on ``gen.device``, so drawing from it gives shapes and
+    dtypes only (the counterpart of ``jax.eval_shape`` of an init)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def can_remat(x: Tensor) -> bool:
+    """Whether ``torch.utils.checkpoint`` may recompute a block of ``x``'s
+    graph: not under a ``torch.func`` transform (the agents' vmapped
+    gradients), where it has no vmap rule.  The values are the same either
+    way; only the activations kept for the backward pass differ."""
+    return not torch._C._functorch.is_functorch_wrapped_tensor(x)
+
+
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The initialisers' generator on ``device``, seeded with ``seed``; on
+    the meta device (which has no generator) one that allocates nothing."""
+    if device.type == "meta":
+        return _MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
                 device=None) -> Tensor:
     """``scale * N(0, 1)`` drawn in float32 from ``gen``, cast to ``dtype``."""

@@ -154,7 +154,10 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor) -> Tuple[Tensor, Ten
     top_idx, top_w, probs = route(logits, mo)
     aux = aux_load_balance_loss(probs, top_idx, mo)
     experts = {n: params[n] for n in ("w_gate", "w_up", "w_down") if n in params}
-    dispatch = dispatch_in_place if xf.shape[0] == 1 else dispatch_batched
+    # one token reads its experts in place, but its ids are data: on the
+    # meta device (the dry run) it takes the batched form, as the reference lowers
+    in_place = xf.shape[0] == 1 and xf.device.type != "meta"
+    dispatch = dispatch_in_place if in_place else dispatch_batched
     y = _combine(dispatch(experts, cfg, xf, top_idx, top_w), top_idx)
     if mo.n_shared:
         y = y + mlp_forward(params["shared"], cfg.mlp_type, xf[None])[0]

@@ -25,7 +25,9 @@ Entry points:
   gradient kernels), plus the MoE layers' load-balance loss; with
   ``cfg.remat`` every period is recomputed in the
   backward pass (``torch.utils.checkpoint``, non-reentrant), the reference's
-  ``jax.checkpoint`` of its scanned period.  With ``slotted=True`` every
+  ``jax.checkpoint`` of its scanned period, except under ``torch.func``
+  transforms (the agents' vmapped gradients), where checkpointing has no
+  vmap rule and every activation is kept.  With ``slotted=True`` every
   parameter carries a leading slot axis, one agent per row, and each
   projection is one batched product over the slots; the cache's ``pos`` is
   then one position per slot.
@@ -55,7 +57,14 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import attention as A
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, normal_init, rms_norm, vec
+from repro_torch.models.layers import (
+    can_remat,
+    linear,
+    normal_init,
+    rms_norm,
+    seeded_generator,
+    vec,
+)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.rope import mrope_text_positions, rope_cos_sin, text_positions
@@ -115,10 +124,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, ffn_kind: str,
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tree:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed`` (stacked layers drawn whole, one leaf at a time)."""
+    with ``seed`` (stacked layers drawn whole, one leaf at a time).  On the
+    meta device: the tree's shapes and dtypes, nothing allocated."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = seeded_generator(dev, seed)
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     params: Dict[str, Any] = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), cfg.init_scale, dtype),
@@ -157,6 +167,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device: DeviceLike = 
 def _index(tree: Tree, fn) -> Tree:
     """Views of every leaf of a nested dict."""
     return {k: _index(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def unstack(tree: Tree, n: int) -> list:
+    """The ``n`` layers of a stacked nested dict, every leaf unbound once
+    along its first axis.  A layer's gradient then lands in one stack of
+    all ``n`` (unbind's backward), where indexing each layer apart would
+    write a zero-filled copy of the whole stacked leaf per layer and add
+    them: work quadratic in the depth."""
+    unbound = _index(tree, lambda t: t.unbind(0))
+    return [_index(unbound, lambda views, i=i: views[i]) for i in range(n)]
 
 
 def params_from_paths(flat: Dict[str, Tensor], cfg: ModelConfig) -> Tree:
@@ -251,17 +271,19 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
         x, a = block_forward(bp, cfg, k, f, x, cos_sin)
         aux = aux + a
 
+    layers = [unstack(params["layers"][f"pos{i}"], n_periods) for i in range(len(period_pat))]
+
     def period(x_in: Tensor, p: int) -> Tuple[Tensor, Tensor]:
         a_tot = torch.zeros((), dtype=torch.float32, device=x_in.device)
         for i, (k, f) in enumerate(period_pat):
-            bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
-            x_in, a = block_forward(bp, cfg, k, f, x_in, cos_sin)
+            x_in, a = block_forward(layers[i][p], cfg, k, f, x_in, cos_sin)
             a_tot = a_tot + a
         return x_in, a_tot
 
+    remat = cfg.remat and can_remat(x)
     auxs = []
     for p in range(n_periods):
-        x, a = checkpoint(period, x, p, use_reentrant=False) if cfg.remat else period(x, p)
+        x, a = checkpoint(period, x, p, use_reentrant=False) if remat else period(x, p)
         auxs.append(a)
     aux = aux + torch.sum(torch.stack(auxs))
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), aux

@@ -128,9 +128,10 @@ GATES: Dict[str, List[MetricGate]] = {
         MetricGate("rates.rate=16.tokens_per_s", "higher", WALL_TOL),
         MetricGate("rates.rate=16.p99_s", "time", WALL_TOL),
     ],
+    "roofline": [
+        MetricGate("summary.n_fail", "count", 0),
+    ],
 }
-# The reference's "roofline" gate (summary.n_fail) comes with the port of
-# benchmarks/roofline.py (ROADMAP A17).
 
 
 def lookup(payload: Any, path: str) -> Tuple[bool, Any]:

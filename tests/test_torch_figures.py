@@ -566,11 +566,17 @@ def test_figures_run_cli(tmp_path, capsys):
     # the run re-indexes its payload directory for the regression gate
     manifest = json.loads((tmp_path / "MANIFEST.json").read_text())
     assert manifest["benches"] == {}  # table2 writes no BENCH_ payload
-    # serve (A16) and driver (A13) are ported (tests/test_torch_fleet.py);
-    # roofline waits for A17
-    assert trun.NOT_PORTED == {"roofline": "A17"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        trun.main(["--only", "roofline", "--device", "cpu"])
+    # serve (A16) and driver (A13) are ported (tests/test_torch_fleet.py),
+    # and roofline (A17) aggregates the committed dry-run records
+    assert trun.NOT_PORTED == {}
+    trun.main(["--only", "roofline", "--device", "cpu", "--out", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("roofline,") and ";fail=0;" in out[1]
+    got = json.loads((tmp_path / "BENCH_roofline.json").read_text())
+    assert got["bench"] == "roofline" and got["summary"]["n_fail"] == 0
+    assert got["summary"]["n_ok"] > 0 and got["device"] is None
+    manifest = json.loads((tmp_path / "MANIFEST.json").read_text())
+    assert manifest["benches"] == {"roofline": {"path": "BENCH_roofline.json"}}
     with pytest.raises(SystemExit):
         trun.main(["--only", "fig9", "--device", "cpu"])
     # robust (ROADMAP A12) is ported: fig_robust at its quick size against

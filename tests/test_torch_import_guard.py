@@ -47,7 +47,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.trace", "obs.export", "obs.metrics", "obs.regress", "obs.profile",
                  "launch.serve", "examples.train_federated_lm", "figures.fig_serve",
                  "figures.bench_driver", "figures.check_regress", "models.encdec",
-                 "configs.seamless_m4t_medium", "configs.qwen2_vl_2b"):
+                 "configs.seamless_m4t_medium", "configs.qwen2_vl_2b", "launch.dryrun",
+                 "launch.cost_correction", "utils.roofline", "figures.roofline",
+                 "figures.experiments_md"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -118,6 +120,37 @@ NO_COUNTERPART = {
     "repro.obs": {},
     "repro.serve": {},
 }
+
+
+# a reference module whose twin has another name -> (the twin, the
+# reference's public names without a counterpart there, with the reason)
+RENAMED_TWINS = {
+    "repro.utils.hlo": ("repro_torch.utils.roofline", {
+        "collective_bytes": "no HLO to parse: eager PyTorch compiles no module; the dry run's "
+                            "CountingMesh counts the bytes its collectives would move",
+        "shape_bytes": "no HLO shape strings: the counters read tensor shapes",
+        "COLLECTIVE_KINDS": "kept by the mesh that counts them, "
+                            "repro_torch.launch.mesh.COLLECTIVE_KINDS",
+        "ICI_BW": "a TPU link rate; the port's link term is NVLink's, LINK_BW",
+    }),
+}
+
+
+@pytest.mark.parametrize("module", sorted(RENAMED_TWINS))
+def test_renamed_twins_cover_the_reference_module(module):
+    """Every public name of the reference module is in its twin, or listed
+    with its reason."""
+    import importlib
+
+    ref = importlib.import_module(module)
+    twin_name, listed = RENAMED_TWINS[module]
+    twin = importlib.import_module(twin_name)
+    public = [n for n in vars(ref) if not n.startswith("_")
+              and getattr(getattr(ref, n), "__module__", module) == module
+              and not isinstance(getattr(ref, n), type(importlib))]
+    missing = [n for n in public if n not in listed and not hasattr(twin, n)]
+    assert missing == []
+    assert all(not hasattr(twin, n) for n in listed) and set(listed) <= set(public)
 
 
 @pytest.mark.parametrize("package", sorted(NO_COUNTERPART))

@@ -13,7 +13,7 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    plain version and (where one PyTorch call computes the same function) the
    library call, beside the least time the card could take (``bound_ms``);
    K6 both causal and without the causal mask (an encoder's; Sq and Sk
-   apart);
+   apart), and with the attention logit softcap (bf16 and f32);
 3. drives the main paths through ``Experiment.run`` — PISCO on the paper's
    logreg fleet ("paper"), a 512-agent MLP fleet with int8 compressed gossip
    ("dense-q8"), a 10,000-agent MLP fleet on sparse gossip ("sparse-10k")
@@ -24,8 +24,8 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    zeroed just before each run and read just after, and checks each against
    the same spec run on the CPU (the 10,000-agent paths at 1,024 agents);
    then the paper's figures through ``repro_torch.figures`` ("figures"): Fig.
-   4's p = 0 and p = 0.1 cells at full size (600 rounds, an eval every
-   round) and the compression sweep's top-k cell, card against CPU with
+   4's p = 0 and p = 0.1 cells at full width (200 of 600 rounds, an eval
+   every round) and the compression sweep's top-k cell, card against CPU with
    their (rounds, a2a, a2s) readouts; its int8 cell (K2, the codes pass, K3)
    with the bytes held to the byte model; the paper spec's 3-seed
    ``Experiment.sweep``, seed 0 bit-equal to ``run()``; and the sparse-fleet
@@ -82,7 +82,14 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    versions, which replay the kernel run's MoE routes (logits, greedy first
    tokens, each attention layer and each K7 call; the routes that would flip
    counted); and both at reduced widths, card against CPU in f32 (prefill,
-   decode, one value_and_grad: "reduced-media");
+   decode, one value_and_grad: "reduced-media"); then the attention logit
+   softcap and the dots remat policy ("a14"): Qwen3-8B whole in bf16 with
+   Gemma-2's cap of 50, a 500-token prefill through K6 with the cap held
+   against the capped plain versions, then 8 greedy steps
+   ("softcap-qwen3-8b"); the reduced GQA, MLA and encoder-decoder models
+   with a cap, card against CPU; and one value_and_grad of Qwen3-8B (4
+   layers, 1 x 4,096 tokens) under full remat and under dots, gradients
+   bit-equal, peak memory and time of each ("remat-dots");
    then the LM training launcher ``python -m repro_torch.launch.train``,
    called in-process ("launch"): Mamba2-370m at full width in bf16 with the
    CLI's defaults but batch 2 (K1 every local step), 6 rounds and a
@@ -97,9 +104,9 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    ``repro_torch.examples.train_federated_lm`` trains LM_100M at full width
    (f32, 4 agents, K1 once a leaf and round) for a few rounds and writes its
    final state checkpoint (its GiB, save and restore seconds); the launcher
-   ``repro_torch.launch.serve`` serves that checkpoint under dense,
-   top-k at f = 1 (both bit-identical to the dense baseline, admit and step
-   modes), q8 top-k and rank-4 deltas, with a Perfetto trace and a metrics
+   ``repro_torch.launch.serve`` serves that checkpoint under dense
+   (bit-identical to the dense baseline, admit and step modes), q8 top-k
+   and rank-4 deltas, with a Perfetto trace and a metrics
    line each (K6 in f32, 12 launches a request); ``FleetDelta.from_history``,
    ``from_checkpoint`` and ``export_fleet`` agree; fig_serve at full size
    (K6 at head dim 16); recorders on the paper path under a systems profile
@@ -118,6 +125,14 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    the hierarchical mixer and a dense Erdos-Renyi W, on the card against the
    same ranks on the CPU, and over a ring with stochastic int8 gossip (noise
    drawn on each device) held to its invariants on both ("collective-reduced");
+   then pod-as-agent on a mesh of 2 pods x 2 data ranks, each pod one agent
+   whose x, y and g are sharded over its data ranks (gathered before each
+   gradient call, the gradient reduce-scattered after it): the reduced model,
+   three rounds, card against CPU ("collective-hierarchical-reduced"), and
+   Mamba2-370m at full width in bf16, a gossip and a server round timed by
+   phase (local, gather, scatter, exchange), both agents' x bit-equal after
+   the server round, per-rank peak memory beside the flat path's
+   ("collective-hierarchical-mamba2-370m");
 6. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -195,6 +210,12 @@ PREFILL_LOGIT_TOL = 5e-2
 # K3's contraction on the tensor cores against an f64 contraction of the
 # same q: its max |err| at most this many times cuBLAS's f32 w.T @ q's
 K3_F64_ERR_RATIO = 4.0
+# The attention logit softcap of the softcap paths (Gemma-2's,
+# arXiv:2408.00118) and, for K6's bound, the f32 operations it adds a live
+# (query, key) pair: the scale into the tanh's argument, the tanh (one
+# operation, as the tensor-core kernel's tanh.approx is), the multiply by the cap
+SOFTCAP = 50.0
+SOFTCAP_OPS = 3
 
 # Path sizes: the paper's quickstart fleet, the largest dense fleet (n = 512,
 # topology.SPARSE_AUTO_MIN_AGENTS) and the documented large-fleet deployment
@@ -1028,7 +1049,10 @@ TOPK_SPREAD = {"rounds": 0.12413793103448276, "final_running_grad_sq": 0.1367205
 # sweep(seeds): every seed's losses on the card within this of the same
 # sweep on the CPU
 SWEEP_RTOL = 1e-4
-FIG_SIZES = dict(fig4_rounds=600, fig4_p=(0.0, 0.1), sweep_seeds=(0, 1, 2))
+# Fig. 4's cells and the int8 cell at 200 of the figure's 600 rounds (to keep
+# the script inside its time); the top-k cell at all 600, where TOPK_SPREAD's
+# limits were read
+FIG_SIZES = dict(fig4_rounds=200, topk_rounds=600, fig4_p=(0.0, 0.1), sweep_seeds=(0, 1, 2))
 
 
 def counted(torch, dev, label, fn):
@@ -1157,7 +1181,7 @@ def compare_topk_run(torch, label, gpu, cpu, card_cg, cpu_cg):
 
 def figures_paths(torch, dev):
     """The paper's figures at full size through ``repro_torch.figures``:
-    Fig. 4's p = 0 and p = 0.1 cells (600 rounds, an eval every round), the
+    Fig. 4's p = 0 and p = 0.1 cells (200 rounds, an eval every round), the
     compression sweep's top-k and int8 cells, the paper spec's 3-seed sweep
     and the sparse-fleet scaling; card against CPU where a figure's numbers
     are read."""
@@ -1183,11 +1207,10 @@ def figures_paths(torch, dev):
     work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
     n_test = len(work[cpu][0].y_test)
 
-    def fig_run(d, **kw):
+    def fig_run(d, rounds=FIG_SIZES["fig4_rounds"], **kw):
         data, loss_fn, eval_fn, params0 = work[d]
         return run_pisco_variant(data=data, loss_fn=loss_fn, eval_fn=eval_fn, params0=params0,
-                                 t_o=1, eta_l=0.5, rounds=FIG_SIZES["fig4_rounds"], seed=0,
-                                 device=d, **kw)[0]
+                                 t_o=1, eta_l=0.5, rounds=rounds, seed=0, device=d, **kw)[0]
 
     # -- fig4-full: Fig. 4's cells at full size, an eval every round --------
     for p in FIG_SIZES["fig4_p"]:
@@ -1216,11 +1239,12 @@ def figures_paths(torch, dev):
     top_mix = {d: ExperimentSpec.create(n_agents=10, topology="ring", compression="top0.1",
                                         seed=0).make_mixing(d) for d in (dev, cpu)}
     gpu_h, counts, secs = counted(torch, dev, label, lambda: fig_run(
-        dev, p=0.1, compression="top0.1", mixing=top_mix[dev]))
+        dev, rounds=FIG_SIZES["topk_rounds"], p=0.1, compression="top0.1", mixing=top_mix[dev]))
     add(counts)
     check(counts.get("fused_local_step", 0) > 0, f"{label}: K1 not launched")
     compare_topk_run(torch, label, gpu_h,
-                     fig_run(cpu, p=0.1, compression="top0.1", mixing=top_mix[cpu]),
+                     fig_run(cpu, rounds=FIG_SIZES["topk_rounds"], p=0.1, compression="top0.1",
+                             mixing=top_mix[cpu]),
                      top_mix[dev].compression, top_mix[cpu].compression)
     check(gpu_h.byte_model.gossip_message_bytes == 13 * 8,
           f"{label}: a top-k message of 13 (value, index) pairs is 104 bytes")
@@ -1310,7 +1334,7 @@ def figures_paths(torch, dev):
 # Phase 2c: dynamic networks and update rules
 # ---------------------------------------------------------------------------
 
-DYN_SIZES = dict(rounds=20, fig_dynamic_rounds=600, fig_optimizers_rounds=500)
+DYN_SIZES = dict(rounds=20, fig_dynamic_rounds=200, fig_optimizers_rounds=200)
 
 
 def drive_dynamic(torch, dev, label, spec, *args, **kw):
@@ -1510,7 +1534,7 @@ def dynamic_paths(torch, dev):
                          128)
     check_bit_equal(torch, label, hist, want, "the inline path")
 
-    # -- fig-dynamic: ring, q = 0.3, half participation, 600 rounds -------
+    # -- fig-dynamic: ring, q = 0.3, half participation, 200 rounds -------
     work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
     n_test = len(work[cpu][0].y_test)
 
@@ -1537,7 +1561,7 @@ def dynamic_paths(torch, dev):
     check_readout_tie(label, gpu_h, cpu_h, got, want_r, fig_dynamic.GRAD_TARGET)
     summary[label] = 1e3 * secs / len(gpu_h.loss)
 
-    # -- fig-optimizers: Adam (lr 0.05) + FedAdam at p = 0.2, 500 rounds ---
+    # -- fig-optimizers: Adam (lr 0.05) + FedAdam at p = 0.2, 200 rounds ---
     label = "fig-optimizers/adam+fedadam,p=0.2"
     cell = dict(p=0.2, t_o=2, eta_l=0.3, rounds=DYN_SIZES["fig_optimizers_rounds"],
                 optimizer="adam:lr=0.05", server_optimizer="fedadam")
@@ -1578,7 +1602,7 @@ def check_readout_tie(label, gpu, cpu, got, want, target):
 # Phase 2d: simulated systems costs and asynchronous execution
 # ---------------------------------------------------------------------------
 
-ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=600, fig_timecost_rounds=200)
+ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=200, fig_timecost_rounds=100)
 # fig_async's rule at n agents: poly decay, staleness bound 2, a server
 # buffer of half the fleet
 ASYNC_RULE = "poly:alpha=0.5,bound=2,buffer={}"
@@ -1845,7 +1869,7 @@ def async_paths(torch, dev):
         check(dev_s <= UNIFORM_SIM_RTOL, f"{label}: sim_time_s deviates by {dev_s}")
         summary[label] = 1e3 * hist.wall_time_s / len(hist.loss)
 
-    # -- fig-async-full: the stragglers cell, 600 rounds, sync and async ---
+    # -- fig-async-full: the stragglers cell, 200 rounds, sync and async ---
     work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
     rounds_f = ASYNC_SIZES["fig_async_rounds"]
     window = max(1, min(20, rounds_f // 10))
@@ -2436,6 +2460,29 @@ def ssd_cost(b, l, h, p, g, n, chunk, itemsize):
     return nbytes, b * h * flops
 
 
+def flex_softcap(torch, q, k, v, causal, cap):
+    """The library's one call for capped attention: torch.compile of
+    ``flex_attention`` with ``cap * tanh(s / cap)`` as its score_mod (applied
+    to the scaled scores, before the mask) and a causal block mask when
+    ``causal``; GQA by ``enable_gqa``.  Returns a thunk on q, k and v.  The
+    compiler's caches go under build/ in the checkout."""
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", "compile_cache", sub))
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    compiled = _FLEX.setdefault("flex", torch.compile(flex_attention, dynamic=False))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    mask = (create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None,
+                              q.shape[-2], k.shape[-2], device=q.device) if causal else None)
+    return lambda: compiled(q, k, v, score_mod=score_mod, block_mask=mask, enable_gqa=True)
+
+
+_FLEX = {}
+
+
 def lm_kernel_checks(torch, dev):
     """K6 at Qwen3-8B's prefill shape (B 1, Hq 32, Hkv 8, D 128, S 2048, bf16,
     causal; its tensor-core path), at the served prompt (S 500), at S 1000
@@ -2463,23 +2510,25 @@ def lm_kernel_checks(torch, dev):
 
     err6 = err6_p = 0.0
 
-    def check6(q, k, v, causal, window, dt, shape):
+    def check6(q, k, v, causal, window, dt, shape, softcap=None):
         """One K6 call against its plain version (FLASH_TOL) and, in bf16,
         against the bf16-P plain version; returns (max |err|, against the
         bf16-P version or 0)."""
         ops.reset_launch_counts()
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
         tc = ops.launch_counts()["flash_attention_tc"]
-        what = f"K6 {shape + (window, names[dt])}" + ("" if causal else " non-causal")
+        what = (f"K6 {shape + (window, names[dt])}" + ("" if causal else " non-causal")
+                + ("" if softcap is None else f" softcap {softcap}"))
         check(tc == (dt == torch.bfloat16), f"{what}: {tc} tensor-core launches")
-        e = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window))
+        e = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                 softcap=softcap))
         check(e <= FLASH_TOL[names[dt]], f"{what}: max |err| {e}")
         msg = f"{what.replace('K6', 'K6 check', 1)}: max |err| {e:.3e}"
         e_p = 0.0
         if dt == torch.bfloat16:
             # against the plain version that rounds P to bf16 as the kernel does
             model = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                            p_dtype=torch.bfloat16).float()
+                                            softcap=softcap, p_dtype=torch.bfloat16).float()
             over = float(((out.float() - model).abs() - flash_p_tol(torch, model)).max())
             e_p = max_err(out, model)
             check(over <= 0.0, f"{what}: max |err| {e_p} against the bf16-P plain version, "
@@ -2530,6 +2579,30 @@ def lm_kernel_checks(torch, dev):
         e, e_p = check6(q, k, v, False, None, dt, (b, hq, hkv, sq, sk, d))
         err6, err6_p = max(err6, e), max(err6_p, e_p)
         del q, k, v
+    # the attention logit softcap: Gemma-2's cap of 50 at Qwen3-8B's prefill
+    # (bf16, causal) and without the causal mask in f32 at D 32, and a cap of
+    # 2 on scores drawn twice as large (it bites: most |s| pass 2), causal
+    # with a window, ragged, MLA's head dims, and the reduced models' f32
+    # head dims (Qwen3 32, DeepSeek's MLA 48 / 32, Seamless's encoder 32)
+    for b, hq, hkv, sq, sk, d, causal, window, dt, cap in (
+            (1, 32, 8, 2048, 2048, 128, True, None, torch.bfloat16, SOFTCAP),
+            (1, 32, 8, 500, 500, 128, True, None, torch.bfloat16, 2.0),
+            (2, 8, 2, 333, 333, 64, True, 100, torch.bfloat16, 2.0),
+            (1, 16, 16, 500, 500, (192, 128), True, None, torch.bfloat16, 2.0),
+            (2, 8, 8, 77, 45, 32, False, None, torch.bfloat16, 2.0),
+            (4, 16, 16, 1024, 1024, 32, False, None, torch.float32, SOFTCAP),
+            (2, 4, 4, 130, 130, 32, False, None, torch.float32, 2.0),
+            (2, 4, 2, 77, 77, 32, True, 20, torch.float32, 2.0),
+            (1, 4, 4, 45, 45, (48, 32), True, None, torch.float32, 2.0),
+            (1, 4, 2, 16, 16, 16, True, None, torch.float32, 2.0)):
+        d, dv = d if isinstance(d, tuple) else (d, d)
+        q, k, v = attn_inputs(b, hq, hkv, sq, d, dt, dv, sk=sk)
+        if cap < 10:
+            q = q * 2
+        e, e_p = check6(q, k, v, causal, window, dt, (b, hq, hkv, sq, sk, d) + (
+            (dv,) if dv != d else ()), softcap=cap)
+        err6, err6_p = max(err6, e), max(err6_p, e_p)
+        del q, k, v
     q, k, v = attn_inputs(1, 4, 2, 16, 16, torch.bfloat16)
     try:
         ops.flash_attention(q, k, v, causal=True)
@@ -2541,22 +2614,39 @@ def lm_kernel_checks(torch, dev):
     log(f"K6 check (bf16, head dim 16): raises ValueError: {raised}")
 
     def k6_times(s, hq=32, hkv=8, d=128, dv=128, b=1, sk=None, causal=True,
-                 dt=torch.bfloat16):
+                 dt=torch.bfloat16, softcap=None):
         """K6 (bf16, causal) at Qwen3-8B's heads and S (or the given batch,
-        heads, head dims, key length, mask and dtype): CUDA-event ms per call
-        back to back, device ms (profiler), and the same for SDPA."""
+        heads, head dims, key length, mask, dtype and softcap): CUDA-event ms
+        per call back to back, device ms (profiler), and the same for SDPA,
+        or with a softcap for flex_attention (flex_softcap).  The bound counts the
+        cap as SOFTCAP_OPS f32 operations a live (query, key) pair: in f32
+        added to the products' operations, in bf16 beside them (the tensor
+        cores and the f32 units run at once: the larger of the two times)."""
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt, dv, sk)
         nb, fl = flash_cost(b, hq, hkv, s, sk or s, d, None, q.element_size(), dv, causal)
-        b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
-        e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=causal))
-        check(e_lib <= FLASH_TOL["bfloat16"], f"SDPA disagrees with the plain version: {e_lib}")
-        kern = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S
+        b_ms, b_by = bound_ms(nb, fl, rate)
+        if softcap is not None:
+            cap_ops = SOFTCAP_OPS * fl / (2.0 * (d + dv))  # per live pair
+            t_ops = (max(fl / rate, cap_ops / F32_FLOP_PER_S) if dt == torch.bfloat16
+                     else (fl + cap_ops) / F32_FLOP_PER_S)
+            b_ms, b_by = bound_ms(nb, t_ops * F32_FLOP_PER_S)
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal, softcap=softcap)  # noqa: E731
         t = dict(ms=time_ms(torch, kern, iters=20), device_ms=device_ms(torch, kern),
-                 plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal),
-                                  iters=3),
-                 library_ms=time_ms(torch, lib, iters=20), library_device_ms=device_ms(torch, lib),
+                 plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+                     q, k, v, causal=causal, softcap=softcap), iters=3),
+                 library_ms=None, library_device_ms=None,
                  bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6)
+        if softcap is None:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+        else:
+            lib = flex_softcap(torch, q, k, v, causal, softcap)
+        e_lib = max_err(lib(), ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap))
+        check(e_lib <= FLASH_TOL["bfloat16"],
+              f"{'SDPA' if softcap is None else 'flex_attention'} disagrees with the plain "
+              f"version: {e_lib}")
+        t.update(library_ms=time_ms(torch, lib, iters=20),
+                 library_device_ms=device_ms(torch, lib), library_max_abs_err=e_lib)
         return t
 
     full = k6_times(2048)
@@ -2587,6 +2677,15 @@ def lm_kernel_checks(torch, dev):
         rows["flash_attention"][key] = dict(
             shape=[b, hq, hq, sq, sk, d], dtype=names[dt],
             **k6_times(sq, hq, hq, d, d, b=b, sk=sk, causal=False, dt=dt))
+        log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
+    # the softcap forms, beside flex_attention with the cap as its score_mod:
+    # Qwen3-8B's prefill shape in bf16, and f32 at D 32 without the causal mask
+    for key, (b, hq, hkv, sq, d, causal, dt) in (
+            ("softcap_s2048", (1, 32, 8, 2048, 128, True, torch.bfloat16)),
+            ("softcap_f32_d32_noncausal", (4, 16, 16, 1024, 32, False, torch.float32))):
+        rows["flash_attention"][key] = dict(
+            shape=[b, hq, hkv, sq, sq, d], dtype=names[dt], softcap=SOFTCAP,
+            **k6_times(sq, hq, hkv, d, d, b=b, causal=causal, dt=dt, softcap=SOFTCAP))
         log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
     q, k, v = attn_inputs(1, 32, 8, 1000, 128, torch.float32)
     rows["flash_attention"]["f32_window_ms"] = time_ms(
@@ -2814,7 +2913,7 @@ def collective_kernel_checks(torch, dev, rows):
 
 # (arch, agents, delta fraction, slots, requests, prompt length, new tokens)
 SERVE = {"serve-qwen3-8b": ("qwen3-8b", 4, 0.001, 2, 6, 500, 16),
-         "serve-mamba2-370m": ("mamba2-370m", 8, 0.02, 4, 12, 1000, 32)}
+         "serve-mamba2-370m": ("mamba2-370m", 8, 0.02, 4, 6, 1000, 32)}
 SERVE_ARRIVAL = "poisson:rate=4"
 
 
@@ -3080,7 +3179,8 @@ class AttentionProbe:
             def model():
                 return ref.flash_attention_ref(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                    window=window, p_dtype=torch.bfloat16).transpose(1, 2)
+                    window=window, softcap=kw.get("softcap"),
+                    p_dtype=torch.bfloat16).transpose(1, 2)
 
             if plain and self.replay is not None and q.dtype == torch.bfloat16:
                 return model()
@@ -3459,6 +3559,216 @@ def zoo_paths(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: the attention logit softcap and the dots remat policy ("a14")
+# ---------------------------------------------------------------------------
+
+# softcap-qwen3-8b: one prompt through bundle.prefill, then greedy steps
+SOFTCAP_PROMPT, SOFTCAP_STEPS = 500, 8
+# the reduced softcap models (card against CPU, f32): a cap under each
+# model's largest scaled score, so that it bites (tests/test_torch_softcap.py)
+SOFTCAP_REDUCED = {"qwen3-8b": 2.0, "deepseek-v2-lite-16b": 0.1, "seamless-m4t-medium": 0.1}
+# remat-dots: one value_and_grad of Qwen3-8B at full width, 4 of 36 layers
+# (the embedding and the head whole), bf16, under each remat policy
+REMAT_DOTS = dict(arch="qwen3-8b", layers=4, batch=1, seq=4096)
+
+
+def softcap_path(torch, dev, card):
+    """softcap-qwen3-8b: Qwen3-8B at full width in bf16 with Gemma-2's
+    attention logit softcap: the prefill through K6 with the cap (one
+    launch an attention layer, on the tensor cores) held against the plain
+    versions (each layer's K6 output against the capped bf16-P plain version
+    on its own inputs, the logits to PREFILL_LOGIT_TOL), then greedy decode
+    steps (the capped plain decode)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_bundle
+
+    label = "softcap-qwen3-8b"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-8b", "bfloat16"), attn_logit_softcap=SOFTCAP)
+    bundle = get_bundle(cfg, dev)
+    params = bundle.init(seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, SOFTCAP_PROMPT))).to(dev)
+
+    def prefill(use_kernels):
+        cache = bundle.init_cache(1, SOFTCAP_PROMPT + SOFTCAP_STEPS + 8)
+        return bundle.prefill(params, {"tokens": toks}, cache, use_kernels=use_kernels)
+
+    prefill(True)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(True)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    check(counts["flash_attention"] == counts["flash_attention_tc"] == cfg.n_layers,
+          f"{label}: {counts['flash_attention']} K6 launches ({counts['flash_attention_tc']} on "
+          f"the tensor cores) for {cfg.n_layers} attention layers")
+    tok = logits[:, -1:].argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(SOFTCAP_STEPS):
+        step_logits, cache = bundle.decode(params, tok, cache)
+        tok = step_logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / SOFTCAP_STEPS
+    check(bool(torch.isfinite(step_logits.float()).all())
+          and int(cache["pos"]) == SOFTCAP_PROMPT + SOFTCAP_STEPS, f"{label}: decode")
+    del cache, step_logits
+    hold_prefill(torch, label, bundle, lambda k: prefill(k)[0][0, -1].float().cpu().numpy())
+    log(f"path {label}: {cfg.param_count() / 1e9:.3f} B parameters drawn in {draw_s:.1f} s, "
+        f"softcap {SOFTCAP}; prefill of {SOFTCAP_PROMPT} tokens {prefill_ms:.3f} ms "
+        f"({counts['flash_attention']} K6 launches with the cap, on the tensor cores), decode "
+        f"{decode_ms:.3f} ms/step; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB, on {card}")
+    return counts
+
+
+def softcap_reduced(torch, dev):
+    """The reduced softcap models (GQA, MLA, the encoder-decoder) in f32 on
+    the card and on the CPU from the same weights and numpy inputs: the
+    bundle's prefill (K6's f32 kernel with the cap), four decode steps on
+    given tokens and one value_and_grad, within REDUCED_MEDIA_TOL.  Returns
+    the card's K6 launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import nest_leaves, nest_map
+
+    cpu = torch.device("cpu")
+    launches = 0
+    for arch, cap in SOFTCAP_REDUCED.items():
+        cfg = dataclasses.replace(get_reduced(arch), attn_logit_softcap=cap)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 24)))}
+        if cfg.is_enc_dec:
+            batch["frames"] = torch.from_numpy(
+                rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32))
+        params_cpu = get_bundle(cfg, cpu).init(seed=0)
+        got = []
+        for d in (dev, cpu):
+            bundle = get_bundle(cfg, d)
+            params = nest_map(lambda t: t.to(d), params_cpu)
+            b_d = {k: v.to(d) for k, v in batch.items()}
+            ops.reset_launch_counts()
+            logits, cache = bundle.prefill(params, b_d, bundle.init_cache(2, 48))
+            counts = ops.launch_counts()
+            steps = [logits[:, -1]]
+            for t in range(1, 5):
+                lg, cache = bundle.decode(params, b_d["tokens"][:, t:t + 1], cache)
+                steps.append(lg[:, 0])
+            loss, grads = bundle.value_and_grad(params, b_d)
+            got.append((torch.stack(steps).cpu(), float(loss),
+                        [g.cpu() for g in nest_leaves(grads)], counts))
+        (card_lg, card_loss, card_g, counts), (cpu_lg, cpu_loss, cpu_g, _) = got
+        n_k6 = cfg.n_encoder_layers if cfg.is_enc_dec else cfg.layer_kinds().count("attn")
+        label = f"softcap-reduced/{arch}"
+        check(counts["flash_attention"] == n_k6 and counts["flash_attention_tc"] == 0,
+              f"{label}: {counts['flash_attention']} K6 launches (f32) for {n_k6}")
+        launches += counts["flash_attention"]
+        e_lg = max_err(card_lg, cpu_lg) / (1.0 + float(cpu_lg.abs().max()))
+        e_loss = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        e_g = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(card_g, cpu_g))
+        check(bool(torch.isfinite(card_lg).all()) and e_lg <= REDUCED_MEDIA_TOL
+              and e_loss <= REDUCED_MEDIA_TOL and e_g <= REDUCED_MEDIA_TOL,
+              f"{label}: card vs CPU logits {e_lg}, loss {e_loss}, grads {e_g}")
+        log(f"compare {label} (softcap {cap}): prefill and 4 decode steps' logits within "
+            f"{e_lg:.3e} of 1 + max |logit|, loss {card_loss:.6f} vs {cpu_loss:.6f} "
+            f"({e_loss:.3e}), {len(card_g)} gradient leaves within {e_g:.3e} of their max |g| "
+            f"(limit {REDUCED_MEDIA_TOL}); {counts['flash_attention']} K6 launches in f32 with "
+            "the cap")
+    return launches
+
+
+def remat_dots_path(torch, dev, card):
+    """remat-dots: one value_and_grad of Qwen3-8B at full width (REMAT_DOTS'
+    layers) in bf16 under remat_policy "full" and "dots" from the same
+    weights and tokens: loss and gradients bit-equal (the kept matmul
+    outputs are what a recomputation gives), each run's peak device memory
+    and its time (CUDA events around one call; device ms from the
+    profiler)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import nest_leaves
+
+    label = "remat-dots"
+    base = dataclasses.replace(get_config(REMAT_DOTS["arch"], "bfloat16"),
+                               n_layers=REMAT_DOTS["layers"], remat=True)
+    params = get_bundle(base, dev).init(seed=0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, base.vocab_size, size=(REMAT_DOTS["batch"], REMAT_DOTS["seq"]))).to(dev)}
+    runs = {}
+    for policy in ("full", "dots"):
+        bundle = get_bundle(dataclasses.replace(base, remat_policy=policy), dev)
+        fn = lambda: bundle.value_and_grad(params, batch)  # noqa: E731
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        loss, grads = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[policy] = dict(loss=loss, grads=nest_leaves(grads), peak_gib=peak / 2**30,
+                            above_gib=(peak - before) / 2**30,
+                            ms=time_ms(torch, fn, iters=3, warmup=0),
+                            device_ms=device_ms(torch, fn, iters=3))
+        del grads
+    full, dots = runs["full"], runs["dots"]
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(full["grads"],
+                                                                         dots["grads"])]
+    equal = torch.equal(full["loss"], dots["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(full["grads"], dots["grads"]))
+    for policy, r in runs.items():
+        log(f"path {label} {policy}: one value_and_grad of {REMAT_DOTS['batch']} x "
+            f"{REMAT_DOTS['seq']} tokens, {base.n_layers} layers: {r['ms']:.3f} ms (device "
+            f"{r['device_ms']:.3f} ms), peak {r['peak_gib']:.3f} GiB ({r['above_gib']:.3f} GiB "
+            f"above the weights and batch), loss {float(r['loss']):.6f}")
+    log(f"path {label}: dots against full: loss and {len(diffs)} gradient leaves "
+        + ("bit-equal" if equal else f"differ, max |diff| {max(diffs):.3e} on "
+           f"{sum(d > 0 for d in diffs)} leaves")
+        + f"; peak {dots['peak_gib'] - full['peak_gib']:+.3f} GiB, time "
+        f"{dots['device_ms'] - full['device_ms']:+.3f} ms device, on {card}")
+    check(equal, f"{label}: gradients under dots differ from full remat's (max |diff| "
+                 f"{max(diffs)})")
+    del runs, full, dots, params
+
+
+def a14_paths(torch, dev, card):
+    """softcap-qwen3-8b, the reduced softcap models card against CPU, and
+    remat-dots; returns the K6 launches of the softcap paths."""
+    import gc
+
+    t0 = time.perf_counter()
+    counts = softcap_path(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"flash_attention": counts["flash_attention"] + softcap_reduced(torch, dev)}
+    remat_dots_path(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"a14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5a: the LM training launcher ("launch")
 # ---------------------------------------------------------------------------
 
@@ -3477,6 +3787,7 @@ def zoo_paths(torch, dev, card):
 # seq 128 outgrows one card: 256 agents hold 18 GB on the CPU)
 LAUNCH_FULL_AGENTS = 4  # the CLI's default --n-agents
 LAUNCH_FULL = ["--arch", "mamba2-370m", "--batch", "2", "--log-every", "5"]
+LAUNCH_FULL_ROUNDS = 4  # then 2 restored under the profiler
 LAUNCH_REDUCED = ["--arch", "qwen3-8b", "--reduced", "--log-every", "1"]
 LAUNCH_README_ROUNDS = 10
 LAUNCH_SPARSE_ROUNDS = 4
@@ -3560,31 +3871,31 @@ def launch_paths(torch, dev, card):
 
     try:
         # -- (a) full width: train, checkpoint, restore under the profiler --
-        ck = os.path.join(work, "full")
+        ck, n = os.path.join(work, "full"), LAUNCH_FULL_ROUNDS
         lines, counts, sec, peak = launch_call(torch, dev, "launch-full", LAUNCH_FULL + [
-            "--rounds", "6", "--ckpt-dir", ck, "--ckpt-every", "6"])
+            "--rounds", str(n), "--ckpt-dir", ck, "--ckpt-every", str(n)])
         add(counts)
         first = launch_rounds(lines)
         check(first and all(math.isfinite(r[2]) for r in first), "launch-full: a loss is not finite")
         check(counts.get("fused_local_step", 0) > 0, "launch-full: K1 not launched")
-        done = launch_done("launch-full", lines, 6)
+        done = launch_done("launch-full", lines, n)
         loop_s = float(done.split(" rounds in ")[1].split("s ")[0])
-        check(os.listdir(ck) == ["ckpt_6.npz"], f"launch-full: checkpoints {os.listdir(ck)}")
-        ck_gib = os.path.getsize(os.path.join(ck, "ckpt_6.npz")) / 2**30
-        log(f"path launch-full (mamba2-370m, batch 2, 6 rounds, a checkpoint of {ck_gib:.2f} "
-            f"GiB at round 6): {sec:.2f} s, {1e3 * loop_s / 6:.1f} ms/round in the loop (the "
+        check(os.listdir(ck) == [f"ckpt_{n}.npz"], f"launch-full: checkpoints {os.listdir(ck)}")
+        ck_gib = os.path.getsize(os.path.join(ck, f"ckpt_{n}.npz")) / 2**30
+        log(f"path launch-full (mamba2-370m, batch 2, {n} rounds, a checkpoint of {ck_gib:.2f} "
+            f"GiB at round {n}): {sec:.2f} s, {1e3 * loop_s / n:.1f} ms/round in the loop (the "
             f"save included), peak {peak:.2f} GiB, K1 {counts.get('fused_local_step', 0)} "
             f"launches, losses " + " ".join(f"{k}{f}={v:.4f}" for k, f, v in first))
 
         prof = os.path.join(work, "profile")
         lines, counts, sec2, peak2 = launch_call(torch, dev, "launch-full-restore", LAUNCH_FULL + [
-            "--rounds", "8", "--ckpt-dir", ck, "--profile", prof, "--log-every", "1"])
+            "--rounds", str(n + 2), "--ckpt-dir", ck, "--profile", prof, "--log-every", "1"])
         add(counts)
         restored = [ln for ln in lines if ln.startswith("restored ")]
-        check(len(restored) == 1 and restored[0].endswith(" at round 6"),
+        check(len(restored) == 1 and restored[0].endswith(f" at round {n}"),
               f"launch-full-restore: {restored}")
         second = launch_rounds(lines)
-        check([r[0] for r in second] == [6, 7] and all(math.isfinite(r[2]) for r in second),
+        check([r[0] for r in second] == [n, n + 1] and all(math.isfinite(r[2]) for r in second),
               f"launch-full-restore: rounds {second}")
         done = launch_done("launch-full-restore", lines, 2)
         loop_s = float(done.split(" rounds in ")[1].split("s ")[0])
@@ -3596,7 +3907,7 @@ def launch_paths(torch, dev, card):
         busy = union_length(dev_iv)
         spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
         window = max(e["ts"] + e["dur"] for e in spans) - min(e["ts"] for e in spans)
-        log(f"path launch-full-restore (round 6 -> 8 under the profiler): {sec2:.2f} s with "
+        log(f"path launch-full-restore (round {n} -> {n + 2} under the profiler): {sec2:.2f} s with "
             f"the restore, {1e3 * loop_s / 2:.1f} ms/round in the loop, peak {peak2:.2f} GiB, "
             f"window {window / 1e3:.1f} ms, device busy {100.0 * busy / window:.1f}% (idle "
             f"{100.0 - 100.0 * busy / window:.1f}%), {len(dev_iv)} device ops, K1 "
@@ -3974,12 +4285,18 @@ def fleet_paths(torch, dev, card):
 # Phase 6: PISCO across ranks (spawned processes, one agent each)
 # ---------------------------------------------------------------------------
 
-# collective-mamba2-370m: TRAIN_4K's sequence, 4 agents (not 16) with 2
+# collective-mamba2-370m: a quarter of TRAIN_4K's sequence (1,024 of 4,096,
+# to keep the script inside its time), 4 agents (not 16) with 2
 # sequences each (not 64: global batch 8, not 256), T_o = 2, eta_l = 1e-2,
 # eta_c = 1, the f32 wire; "reduced" is collective-reduced's model and sizes.
-COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=4096,
+# collective-hierarchical-reduced widens that model to d_model 1,024, the
+# FSDP rule's least sharded dim, so that 5 of its 11 leaves shard over data
+# (as at full width) and the card-vs-CPU comparison covers the gathers and
+# the reduce-scatter.
+COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=1024,
                   batch=2, t_o=2, eta_l=1e-2, eta_c=1.0, wire="float32",
-                  reduced_seq=64, reduced_batch=2, reduced_rounds=3)
+                  reduced_seq=64, reduced_batch=2, reduced_rounds=3, hier_seq=1024,
+                  hier_reduced_d_model=1024)
 # collective-reduced, card against CPU: f32 round losses within 1e-4 relative
 # and the final x within 1e-4 of its largest magnitude (cuBLAS and the CPU
 # sum in other orders over three rounds); with int8 gossip (q8d) a few
@@ -4226,6 +4543,103 @@ def _collective_run(torch, spec, dev, label, full):
     return out
 
 
+def _hierarchical_run(torch, spec, dev, label, full):
+    """Pod-as-agent on this rank: mesh pod 2 x data 2 x model 1, each pod one
+    agent sharded over its two data ranks (build_train_steps(agent_mode=
+    "hierarchical")), one row of the agent's batch a data rank.  Full width:
+    a gossip and a server round, timed by phase; reduced: gossip, server,
+    gossip.  Returns what the parent reports and checks, the agent's
+    gathered final x among it."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core.pisco import init_rank_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh, rank_slice
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+
+    cfg = (dataclasses.replace(get_reduced(spec["arch"]), d_model=spec["hier_reduced_d_model"])
+           if spec["reduced"] or not full else get_config(spec["arch"], spec["dtype"]))
+    seq = spec["hier_seq"] if full else spec["reduced_seq"]
+    n_agents, b = 2, 2  # one row of the agent's batch a data rank
+    bundle = get_bundle(cfg, dev)
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), dev)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=seq, global_batch=n_agents * b)
+    steps = S.build_train_steps(bundle, shape, mesh, t_o=spec["t_o"], eta_l=spec["eta_l"],
+                                eta_c=spec["eta_c"], agent_mode="hierarchical",
+                                wire_dtype=spec["wire"])
+    notes = steps["train_gossip"].notes
+    dims, bdims = notes["data_dims"], notes["batch_dims"]
+    kinds = ("gossip", "global") if full else ("gossip", "global", "gossip")
+    sampler = make_lm_sampler(cfg, n_agents, b, seq, spec["t_o"], seed=0)
+    batches = []
+    for k in range(len(kinds) + 1):
+        loc, com = (rank_slice(t, mesh, ("pod",), axis=1 - i, device=dev)
+                    for i, t in enumerate(sampler(k)))
+        batches.append((S.batch_share(loc, bdims["local"], mesh),
+                        S.batch_share(com, bdims["comm"], mesh)))
+    # the same whole weights on every agent, drawn on the card at full width
+    # and on the CPU when reduced (so that the card's and the CPU's runs start
+    # from one point); each rank keeps its shard
+    x0 = flatten_paths(bundle.init(seed=0) if full else get_bundle(cfg, "cpu").init(seed=0))
+    x0 = S.shard_leaves({k: v.to(dev) for k, v in x0.items()}, dims, mesh)
+    vg = S.sharded_value_and_grad(S.flat_value_and_grad(bundle), mesh, dims)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    out = {"losses": [], "rounds": {}, "n_leaves": len(dims),
+           "n_sharded": sum(d is not None for d in dims.values()),
+           "state_bytes_per_card": notes["state_bytes_per_card"]}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = init_rank_state(vg, x0, batches[0][1])
+    del x0
+    mesh.clock.on = full
+    ops.reset_launch_counts()
+    for k, kind in enumerate(kinds, start=1):
+        mesh.clock.reset()
+        sync()
+        t0 = time.perf_counter()
+        state, loss = steps["train_" + kind].fn(state, *batches[k])
+        sync()
+        wall = time.perf_counter() - t0
+        secs = dict(mesh.clock.seconds)
+        gather, scatter = secs.get("gather", 0.0), secs.get("scatter", 0.0)
+        out["rounds"][f"{k}-{kind}"] = dict(
+            ms=1e3 * wall, local_ms=1e3 * (secs.get("local", 0.0) - gather - scatter),
+            gather_ms=1e3 * gather, scatter_ms=1e3 * scatter,
+            # the gossip's or the server round's own transfers: the mesh's
+            # exchange time less the gathers' and the reductions' spans
+            exchange_ms=1e3 * max(0.0, secs.get("exchange", 0.0) - gather - scatter),
+            bytes_sent=mesh.clock.bytes_sent)
+        out["losses"].append(float(loss))
+        check(np.isfinite(float(loss)), f"{label}: {kind} loss {float(loss)}")
+    mesh.clock.on = False
+    sync()
+    out["launches"] = ops.launch_counts()
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the two shards of each leaf tile it: the gathered agent, cut again,
+    # gives this rank's shard back
+    whole = S.gather_leaves(state.x, dims, mesh)
+    again = S.shard_leaves(whole, dims, mesh)
+    check(all(torch.equal(again[k], state.x[k]) for k in dims),
+          f"{label}: a gathered leaf cut again is not this rank's shard")
+    if kinds[-1] == "global":  # after the server round: both agents bit-equal
+        for name, v in whole.items():
+            hi = _stats_all_reduce(torch, v, dist.ReduceOp.MAX)
+            lo = _stats_all_reduce(torch, v, dist.ReduceOp.MIN)
+            check(torch.equal(hi, lo), f"{label}: x/{name} differs across the agents after "
+                                       "the server round")
+    out["x"] = {k: v.detach().float().cpu() for k, v in whole.items()} if not full else None
+    return out
+
+
 def _card_vs_cpu(torch, card, cpu):
     """Per deterministic mixer of collective-reduced: this rank's final x on
     the card against the CPU, as the largest deviation over its limit (see
@@ -4269,6 +4683,18 @@ def collective_rank(rank, spec, port, out_dir):
                            "card_losses": card["losses"]["ring-q8"]}}
         del card, cpu
         res["full"] = _collective_run(torch, spec, dev, "collective-mamba2-370m", True)
+        label = "collective-hierarchical-reduced"
+        card = _hierarchical_run(torch, spec, dev, label, False)
+        cpu = _hierarchical_run(torch, spec, torch.device("cpu"), label, False)
+        used = 0.0
+        for name, v in card.pop("x").items():
+            want = cpu["x"][name]
+            scale = max(float(want.abs().max()), 1e-30)
+            used = max(used, float((v - want).abs().max()) / (COLLECTIVE_TOL["exact"] * scale))
+        del cpu["x"]
+        res["hier_reduced"] = dict(card=card, cpu=cpu, x_used_of_limit=used)
+        res["hier_full"] = _hierarchical_run(torch, spec, dev,
+                                             "collective-hierarchical-mamba2-370m", True)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -4360,17 +4786,62 @@ def collective_paths(torch, dev, card, spec=None):
         f"within {max(f['mean_x_used_of_limit'] for f in full):.3f}, of y within "
         f"{max(f['mean_y_used_of_limit'] for f in full):.3f} and of the eta_c = 0.7 "
         f"candidate within {max(f['mean_cand_used_of_limit'] for f in full):.3f} of its limit")
+    # -- pod-as-agent: collective-hierarchical-reduced, card against CPU ----
+    hr = [r["hier_reduced"] for r in res]
+    lim = COLLECTIVE_TOL["exact"]
+    g = np.array([r["card"]["losses"] for r in hr])
+    c = np.array([r["cpu"]["losses"] for r in hr])
+    rel = float(np.max(np.abs(g - c) / np.abs(c)))
+    used = max(r["x_used_of_limit"] for r in hr)
+    log(f"compare collective-hierarchical-reduced: 2 pods x 2 data ranks, {g.shape[1]} rounds "
+        f"(gossip, server, gossip), card vs CPU: max relative loss deviation {rel:.3e} (limit "
+        f"{lim}), each agent's gathered x at {used:.3f} of its limit; {hr[0]['card']['n_sharded']}"
+        f" of {hr[0]['card']['n_leaves']} leaves sharded over data; losses {g[0].tolist()}")
+    check(rel <= lim, f"collective-hierarchical-reduced: losses deviate by {rel} (limit {lim})")
+    check(hr[0]["card"]["n_sharded"] > 0, "collective-hierarchical-reduced: no leaf sharded "
+                                          "over data")
+    check(used <= 1.0, f"collective-hierarchical-reduced: final x past its limit ({used})")
+    hier_reduced_counts = summed([r["card"] for r in hr])
+    log(f"collective-hierarchical-reduced: launches on the card, summed over ranks "
+        f"{hier_reduced_counts}")
+    # -- pod-as-agent at full width ------------------------------------------
+    hf = [r["hier_full"] for r in res]
+    hlabel = "collective-hierarchical-mamba2-370m"
+    hier_counts = summed(hf)
+    for kind in hf[0]["rounds"]:
+        per = {k: float(np.mean([f["rounds"][kind][k] for f in hf]))
+               for k in ("ms", "local_ms", "gather_ms", "scatter_ms", "exchange_ms")}
+        log(f"path {hlabel} {kind.split('-', 1)[1]}: {per['ms']:.3f} ms/round (mean over ranks; "
+            f"local {per['local_ms']:.3f}, gather {per['gather_ms']:.3f}, scatter "
+            f"{per['scatter_ms']:.3f}, exchange {per['exchange_ms']:.3f}), "
+            f"{hf[0]['rounds'][kind]['bytes_sent'] / 1e9:.3f} GB sent per rank; losses by rank "
+            f"{[round(f['losses'][int(kind[0]) - 1], 6) for f in hf]}")
+    hpeaks = [f.get("peak_gib", 0.0) for f in hf]
+    log(f"path {hlabel}: 2 pods x 2 data ranks, one row of {spec['hier_seq']} tokens a rank; "
+        f"{hf[0]['n_sharded']} of {hf[0]['n_leaves']} leaves sharded over data, state "
+        f"{hf[0]['state_bytes_per_card'] / 2**30:.3f} GiB a card; peak device memory per rank "
+        f"{', '.join(format(p, '.3f') for p in hpeaks)} GiB against the flat path's "
+        f"{', '.join(format(p, '.3f') for p in peaks)} GiB; launches summed over ranks "
+        f"{hier_counts}; on {card}")
     # the launch checks last (on the CPU, in a rehearsal, nothing launches)
     for k in ("fused_local_step", "fused_mix_combine", "row_absmax", "rowwise_quant_dequant"):
         check(reduced_counts.get(k, 0) > 0, f"collective-reduced: {k} not launched")
+    for k in ("fused_local_step", "fused_mix_combine"):
+        check(hier_reduced_counts.get(k, 0) > 0, f"collective-hierarchical-reduced: {k} not "
+                                                 "launched")
+    for f in hf:  # per rank: K8 once per leaf shard (the gossip round's x), K1 every step
+        lc = f["launches"]
+        check(lc["fused_mix_combine"] == f["n_leaves"] and lc["fused_local_step"] > 0,
+              f"{hlabel}: launches per rank {lc} for {f['n_leaves']} leaves")
     for f in full:  # per rank: K8 once per leaf (gossip), K2 and K9 twice (q8d's x and y)
         n = f["n_leaves"]
         lc = f["launches"]
         check(lc["fused_mix_combine"] == n and lc["row_absmax"] == lc["rowwise_quant_dequant"]
               == 2 * n and lc["fused_local_step"] > 0,
               f"{label}: launches per rank {lc} for {n} leaves")
-    return {k: counts.get(k, 0) for k in ("fused_local_step", "fused_mix_combine", "row_absmax",
-                                         "rowwise_quant_dequant")}
+    return {k: counts.get(k, 0) + hier_counts.get(k, 0)
+            for k in ("fused_local_step", "fused_mix_combine", "row_absmax",
+                      "rowwise_quant_dequant")}
 
 
 def main() -> int:
@@ -4422,6 +4893,8 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     launches.update(serve_paths(torch, dev, card))
     for k, v in zoo_paths(torch, dev, card).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in a14_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in launch_paths(torch, dev, card).items():
         launches[k] = launches.get(k, 0) + v

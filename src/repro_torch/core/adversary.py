@@ -318,8 +318,10 @@ def make_adversarial_mixing(
     ``adversary=None`` with ``robust_agg="mean"`` returns ``base`` itself.
     Accounting metadata (``gossip_edges``, ``gossip_messages``, realized
     counts) is kept: Byzantine agents send wrong bytes, not fewer.  Wrap
-    before compression.  Collective mixers are refused: corrupting a rank's
-    payloads needs an adversary over rank meshes (ROADMAP A17)."""
+    before compression.  Collective mixers (flat or pod-as-agent) are
+    refused: corrupting a rank's payloads needs an adversary over rank
+    meshes, the next item of ROADMAP A17 after the model axis, before NCCL
+    across cards."""
     adv = parse_adversary_spec(adversary, n_agents, seed) if adversary is not None else None
     robust = make_robust_agg(robust_agg, n_agents)
     if adv is None and robust is None:
@@ -332,8 +334,8 @@ def make_adversarial_mixing(
     else:
         if base.mesh is not None:
             raise NotImplementedError(
-                "an adversary over collective mixers needs one over rank meshes, which "
-                "comes with pod-as-agent and NCCL across cards (ROADMAP A17)"
+                "an adversary over collective mixers needs one over rank meshes, which is "
+                "not ported yet (ROADMAP A17: after the model axis, before NCCL across cards)"
             )
         corrupt = adv.make_corrupt()
         net = base.network

@@ -204,8 +204,10 @@ def make_compressor(spec: str) -> Compressor:
 @dataclasses.dataclass(frozen=True)
 class CompressedGossip:
     """Difference-form compressed gossip over the dense ``w``, the sparse
-    ``csr`` = (indptr, indices, data, self_w), or the gossip of a collective
-    mixer ``base_gossip`` (trees of one rank's own leaves) — exactly one.
+    ``csr`` = (indptr, indices, data, self_w), or any other mixer's plain
+    gossip ``base_gossip`` — exactly one.  ``base_gossip`` takes agent-stacked
+    trees, or, with ``per_rank``, trees of one rank's own leaves (a
+    collective mixer: each leaf is one message, one row).
     Over a dynamic network ``w`` or ``csr`` is a callable that returns the
     operand the driver staged for the round.
 
@@ -227,8 +229,10 @@ class CompressedGossip:
     error_feedback: bool = True
     seed: int = 0
     gamma: float = 1.0
-    # collective mixers: this rank's noise stream (its global rank), so that
-    # ranks round independently as the reference's agent rows do
+    # collective mixers: leaves are this rank's own, and ``stream`` (its
+    # global rank) seeds its noise, so that ranks round independently as the
+    # reference's agent rows do
+    per_rank: bool = False
     stream: int = 0
     # Byzantine corruption of the sent q, ``corrupt(q, leaf index)``, that
     # ``w`` / ``csr`` do not carry (MixingOps.wire_corrupt): q is written
@@ -238,7 +242,7 @@ class CompressedGossip:
     def __post_init__(self):
         if sum(b is not None for b in (self.w, self.csr, self.base_gossip)) != 1:
             raise ValueError("CompressedGossip needs exactly one of w (dense), csr (sparse) "
-                             "or base_gossip (collective)")
+                             "or base_gossip")
 
     def _operands(self) -> Tuple[Optional[torch.Tensor], Optional[Tuple[torch.Tensor, ...]]]:
         """``(w, csr)`` of this call: the frozen operand, or the round's."""
@@ -250,7 +254,7 @@ class CompressedGossip:
         over a collective mixer from the rank too, so that ranks round
         independently)."""
         device = tree_leaves(template)[0].device
-        seed = self.seed * 65536 + self.stream if self.base_gossip is not None else self.seed
+        seed = self.seed * 65536 + self.stream if self.per_rank else self.seed
         gen = torch.Generator(device=device).manual_seed(seed)
         return {
             "x": tree_zeros_like(template) if self.error_feedback else (),
@@ -269,7 +273,7 @@ class CompressedGossip:
 
     def _mix_leaf(self, x, residual, gen, i: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # a collective mixer's leaf is one rank's own message: one row
-        rows = x.reshape(1 if self.base_gossip is not None else x.shape[0], -1)
+        rows = x.reshape(1 if self.per_rank else x.shape[0], -1)
         res = None if residual is None else residual.reshape(rows.shape)
         if isinstance(self.compressor, StochasticQuantizer):
             noise = None
@@ -318,7 +322,9 @@ def compress_mixing(
     seed: int = 0,
     gamma: Optional[float] = None,
 ) -> MixingOps:
-    """Attach a compressor to dense, sparse, dynamic or collective mixing ops.
+    """Attach a compressor to any mixing ops: the fused kernels over a dense
+    or sparse operand (frozen or a dynamic network's), any other mixer
+    (collective, identity, ...) through its own gossip of the written-out q.
     ``global_avg`` (the server round) stays full precision.  ``gamma=None``
     chooses the consensus step as the reference does: 0.5 for top-k (a
     contractive sparsifier diverges undamped under large local steps), 1.0
@@ -333,16 +339,11 @@ def compress_mixing(
         # network over frozen operands stages the round index only)
         staged = lambda: net.gossip_w  # noqa: E731
         w, csr = (None, staged) if net.sparse else (staged, None)
-    if w is None and csr is None and base.mesh is None:
-        raise NotImplementedError(
-            f"compressed gossip over {base.name!r} is not ported: only over the "
-            "dense, sparse, dynamic and collective mixers"
-        )
     cg = CompressedGossip(
         compressor=compressor, w=w, csr=csr,
         base_gossip=base.gossip if w is None and csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
-        stream=base.mesh.rank if base.mesh is not None else 0,
+        per_rank=base.mesh is not None, stream=base.mesh.rank if base.mesh is not None else 0,
         corrupt=base.wire_corrupt,
     )
     return dataclasses.replace(

@@ -90,7 +90,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention": {
         "launch_flash_attention": [P, P, P, P, I64, I32, I32, I32, I32, I32, *[I64] * 9, F32,
-                                   I32, I32, I32, P],
+                                   I32, I32, F32, I32, P],
     },
     "ssd_scan": {
         "launch_ssd_scan": [P, P, P, P, P, P, P, P, P, *[I32] * 6, *[I64] * 12, I32, I32, P],

@@ -59,6 +59,21 @@
 //     bf16 as well, src/repro/models/attention.py:129-132; the row sum l
 //     stays f32), and V from shared memory as stored (BK x D, MN-major B).
 //
+// The attention logit softcap (Gemma-2's; `softcap` > 0, 0 meaning none)
+// caps each scaled score to cap tanh(s / cap) before the masks and the
+// running max, as the reference's _sdpa does (src/repro/models/attention.py:
+// 113-133).  It is a template parameter of both kernels, so the capless
+// instantiations compile to the code they were without it.  The f32 kernel
+// calls the accurate tanhf (its 2e-6 tolerance needs it); the tensor-core
+// kernel one tanh.approx.f32 on the SFU (relative error ~2^-11, below the
+// 2^-9 of the bf16 P it feeds), and folds only log2(e) into its
+// exponentials (the scale went into the tanh's argument).  The accurate form
+// there, cap - 2 cap / (2^x + 1) from an ex2.approx and an IEEE division,
+// costs two SFU operations a score beside the softmax's one and took 0.182
+// ms at Qwen3-8B's S = 2048 against tanh.approx's 0.099 (the capless kernel
+// 0.073: tools/k6_ablation.py, on an H100), at the same max |err| against
+// the plain version.
+//
 // float32: flash_fwd, SIMT.  f32 inputs need f32 arithmetic for their
 // 2e-6 tolerance (neither bf16 nor TF32 tensor cores keep it), so this
 // kernel runs against the 67 TFLOP/s f32 rate.  The TPU grid walks the key
@@ -103,11 +118,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int hq, int group, int sq, int sk, Strides qs, Strides ks,
-          Strides vs, float scale, int causal, int window) {
+          Strides vs, float scale, int causal, int window, float cap) {
   extern __shared__ float smem[];
   float* sQ = smem;                 // BQ x (D + 1)
   float* sKt = sQ + BQ * (D + 1);   // D x (BK + 1), K transposed
@@ -183,7 +198,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int j = 0; j < CPT; ++j) {
         const int kj = k0 + tx + 16 * j;
         const bool ok = kj < sk && (!causal || kj <= qi) && (window <= 0 || kj > qi - window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        if constexpr (CAP) {
+          s[i][j] = ok ? cap * tanhf(s[i][j] * scale / cap) : NEG_INF;
+        } else {
+          s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       // the 16 lanes of one half-warp share a row
@@ -235,31 +254,41 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, long long b, int hq, int hkv,
            int sq, int sk, Strides qs, Strides ks, Strides vs, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, float cap, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D, CAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)hq, (unsigned)b);
-  flash_fwd<T, D><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, hq,
-                                              hq / hkv, sq, sk, qs, ks, vs, scale, causal, window);
+  flash_fwd<T, D, CAP><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+                                                   hq, hq / hkv, sq, sk, qs, ks, vs, scale,
+                                                   causal, window, cap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_cap(const void* q, const void* k, const void* v, void* o, long long b, int hq,
+               int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, float scale,
+               int causal, int window, float cap, cudaStream_t s) {
+  if (cap > 0.f)
+    return launch<T, D, true>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+  return launch<T, D, false>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o, long long b, int hq,
              int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, float scale,
-             int causal, int window, cudaStream_t s) {
+             int causal, int window, float cap, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 48: return launch<T, 48>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 192: return launch<T, 192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    case 16: return launch_cap<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 32: return launch_cap<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 48: return launch_cap<T, 48>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 64: return launch_cap<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 128: return launch_cap<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 192: return launch_cap<T, 192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -391,6 +420,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// the softcap of a score, cap tanh(s scale / cap), with k = scale / cap
+__device__ __forceinline__ float capped(float s, float k, float cap) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(s * k));
+  return cap * t;
+}
+
 // named barrier `id` over the 256 consumer threads
 template <int id>
 __device__ __forceinline__ void bar_sync() {
@@ -432,16 +468,22 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t (*pa)[4], ui
   wg_commit();
 }
 
-// Mask the scores of key tile k0 where it crosses Sk, the causal diagonal
-// or the window's edge (rows r0 .. r0 + 63 of the warpgroup; this thread's
-// rows `row`, `row + 8`, columns 8j + col, 8j + col + 1), then turn them
-// into unnormalised probabilities against the updated running max m.
-// Returns the rescale factors alpha of the two rows; adds the rows' partial
-// sums into rs.
-template <int BK>
+// Cap the scores (CAP; `cap_k` = scale / cap), mask them where
+// key tile k0 crosses Sk, the causal diagonal or the window's edge (rows
+// r0 .. r0 + 63 of the warpgroup; this thread's rows `row`, `row + 8`,
+// columns 8j + col, 8j + col + 1), then turn them into unnormalised
+// probabilities against the updated running max m (`scale_log2` is
+// scale log2(e), or log2(e) once capped).  Returns the rescale factors alpha
+// of the two rows; adds the rows' partial sums into rs.
+template <int BK, bool CAP>
 __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* alpha, float* rs, int k0,
                                              int r0, int row, int col, int sk, int causal,
-                                             int window, float scale_log2) {
+                                             int window, float scale_log2, float cap_k,
+                                             float cap) {
+  if constexpr (CAP) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = capped(sc[i], cap_k, cap);
+  }
   const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > r0) ||
                     (window > 0 && k0 < r0 + 64 - window);
   if (edge) {
@@ -530,12 +572,12 @@ __device__ __forceinline__ int work_index(int r, int n_items) {
   return w < n_items ? w : -1;
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int hq,
              int group, int sq, int sk, int nq, int n_items, float scale_log2, int causal,
-             int window) {
+             int window, float cap_k, float cap) {
   using C = Cfg<D>;
   constexpr int NS = C::NSTAGE;
   constexpr int BK = C::BK;
@@ -632,8 +674,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
         wg_wait<0>();
         fence_regs<BK / 2>(sc);
         if (nt == 1) mbar_arrive(q_empty);  // this item's last read of Q
-        softmax_tile<BK>(sc, m, alpha, rs, it.k_begin, r0, row, col, sk, causal, window,
-                         scale_log2);
+        softmax_tile<BK, CAP>(sc, m, alpha, rs, it.k_begin, r0, row, col, sk, causal, window,
+                              scale_log2, cap_k, cap);
 #pragma unroll
         for (int q = 0; q < 2; ++q) l[q] = rs[q];
         pack_p<BK>(pa, sc);
@@ -650,8 +692,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
           wg_wait<1>();
           fence_regs<BK / 2>(sc);
           if (t == nt - 1) mbar_arrive(q_empty);
-          softmax_tile<BK>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, causal,
-                           window, scale_log2);
+          softmax_tile<BK, CAP>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk,
+                                causal, window, scale_log2, cap_k, cap);
           wg_wait<0>();
           fence_regs<D / 2>(acc);
           release(kt - 1);
@@ -731,10 +773,10 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int s, int h, long long b
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, long long b, int hq, int hkv,
            int sq, int sk, Strides qs, Strides ks, Strides vs, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, float cap, cudaStream_t stream) {
   using C = Cfg<D>;
   const CUtensorMapSwizzle swz =
       C::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -752,8 +794,8 @@ int launch(const void* q, const void* k, const void* v, void* o, long long b, in
   static unsigned long long smem_set = 0;
   static int sms[64] = {0};
   if (!((smem_set >> device) & 1ull)) {
-    err = cudaFuncSetAttribute(flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(flash_fwd_tc<D, CAP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set |= 1ull << device;
   }
@@ -766,20 +808,31 @@ int launch(const void* q, const void* k, const void* v, void* o, long long b, in
   const long long n_items = (long long)nq * hq * b;
   if (n_items > (1ll << 30)) return (int)cudaErrorInvalidValue;
   const int blocks = (int)(n_items < sms[device] ? n_items : sms[device]);
-  flash_fwd_tc<D><<<blocks, NTHREADS, C::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, hq, hq / hkv, sq, sk, nq, (int)n_items, scale * LOG2E,
-      causal, window);
+  // capped, the scale goes into the tanh's argument and the exponentials
+  // fold log2(e) alone
+  flash_fwd_tc<D, CAP><<<blocks, NTHREADS, C::SMEM, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, hq, hq / hkv, sq, sk, nq, (int)n_items,
+      CAP ? LOG2E : scale * LOG2E, causal, window, CAP ? scale / cap : 0.f, cap);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_cap(const void* q, const void* k, const void* v, void* o, long long b, int hq,
+               int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, float scale,
+               int causal, int window, float cap, cudaStream_t s) {
+  if (cap > 0.f)
+    return launch<D, true>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+  return launch<D, false>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
 }
 
 int launch_d(int d, const void* q, const void* k, const void* v, void* o, long long b, int hq,
              int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, float scale,
-             int causal, int window, cudaStream_t s) {
+             int causal, int window, float cap, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 128: return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
-    case 192: return launch<192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    case 32: return launch_cap<32>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 64: return launch_cap<64>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 128: return launch_cap<128>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
+    case 192: return launch_cap<192>(q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -791,7 +844,7 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o, long l
 // dtype: 0 = float32 (SIMT kernel, head dim 16, 32, 48, 64, 128 or 192),
 // 1 = bfloat16 (tensor-core kernel, head dim 32, 64, 128 or 192: its TMA
 // boxes and swizzles need rows of at least 64 bytes in whole boxes); window
-// <= 0 means none.  Strides are in elements; for
+// <= 0 means none, and so does softcap <= 0.  Strides are in elements; for
 // bfloat16 the base addresses and every stride times 2 bytes must be
 // multiples of 16 (TMA).  Returns cudaGetLastError() (or the error met
 // encoding the tensor maps).
@@ -800,13 +853,17 @@ extern "C" int launch_flash_attention(const void* q, const void* k, const void* 
                                       long long qsb, long long qsh, long long qss,
                                       long long ksb, long long ksh, long long kss,
                                       long long vsb, long long vsh, long long vss, float scale,
-                                      int causal, int window, int dtype, void* stream) {
+                                      int causal, int window, float softcap, int dtype,
+                                      void* stream) {
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || sk <= 0) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(d, q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+  if (dtype == 0)
+    return launch_d<float>(d, q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window,
+                           softcap, s);
   if (dtype == 1)
-    return tc::launch_d(d, q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window, s);
+    return tc::launch_d(d, q, k, v, o, b, hq, hkv, sq, sk, qs, ks, vs, scale, causal, window,
+                        softcap, s);
   return (int)cudaErrorInvalidValue;
 }

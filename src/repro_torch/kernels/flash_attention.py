@@ -1,5 +1,6 @@
 """K6 — GQA flash attention, causal (with or without a sliding window) or
-bidirectional (CUDA source ``csrc/flash_attention.cu``).
+bidirectional, with or without the attention logit softcap (CUDA source
+``csrc/flash_attention.cu``).
 
 Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 with its signature: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D).  Unlike the
@@ -66,10 +67,13 @@ def flash_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Masked softmax attention, online, f32 running statistics; returns
     (B, Hq, Sq, Dv) in ``q``'s dtype.  Query head h reads KV head
-    ``h // (Hq // Hkv)``; positions of queries and keys both start at 0."""
+    ``h // (Hq // Hkv)``; positions of queries and keys both start at 0.
+    ``softcap`` caps the scaled scores to ``softcap * tanh(s / softcap)``
+    before the masks (Gemma-2's attention logit softcap)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention takes 4-D q, k, v; got {q.shape}, {k.shape}, {v.shape}")
     b, hq, sq, d = q.shape
@@ -85,8 +89,10 @@ def flash_attention(
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
     if not build.on_cuda(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     if d not in HEAD_DIMS[q.dtype]:
         if q.dtype == torch.bfloat16 and d in HEAD_DIMS[torch.float32]:
             raise ValueError(f"flash_attention kernel: bf16 head dim {d} gives {2 * d}-byte rows; "
@@ -106,7 +112,7 @@ def flash_attention(
     err = build.library("flash_attention").launch_flash_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), b, hq, hkv, sq, k.shape[2], d,
         *qs, *ks, *vs, 1.0 / math.sqrt(d), int(causal), 0 if window is None else int(window),
-        _DTYPES[q.dtype], build.stream_of(q),
+        0.0 if softcap is None else float(softcap), _DTYPES[q.dtype], build.stream_of(q),
     )
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1

@@ -237,13 +237,16 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    softcap: Optional[float] = None,
     p_dtype: torch.dtype = torch.float32,
 ) -> Tensor:
     """Masked softmax attention with GQA (query head h reads KV head
     ``h // group``), all in float32, output (B, Hq, Sq, Dv) in ``q``'s
-    dtype; scores scaled by 1/sqrt(D), q's head dim.  Query and key
-    positions both start at 0; the causal mask keeps ``k <= q`` and the
-    window ``k > q - window``.
+    dtype; scores scaled by 1/sqrt(D), q's head dim, then capped to
+    ``softcap * tanh(s / softcap)`` when ``softcap`` is given (before the
+    mask, as the reference's ``_sdpa``).  Query and key positions both
+    start at 0; the causal mask keeps ``k <= q`` and the window
+    ``k > q - window``.
 
     ``p_dtype`` other than float32 models the tensor-core kernel's rounding:
     the unnormalised probabilities exp(s - max) are rounded to it before
@@ -255,6 +258,8 @@ def flash_attention_ref(
     kf = torch.repeat_interleave(_f32(k), group, dim=1)
     vf = torch.repeat_interleave(_f32(v), group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", _f32(q), kf) / math.sqrt(d)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

@@ -54,14 +54,11 @@ def applicable(arch: str, shape_name: str) -> bool:
 
 def variant_config(arch: str, *, loss_chunk: int = 0, remat_policy: str = "full",
                    ssm_chunk: int = 0):
-    """The full-width config with the dry run's levers applied; the
-    ``dots`` remat policy is not ported (ROADMAP A14)."""
-    cfg = get_config(arch)
+    """The full-width config with the dry run's levers applied (the
+    reference's: a chunked loss, the ``dots`` remat policy, the SSD chunk)."""
+    cfg = dataclasses.replace(get_config(arch), remat_policy=remat_policy)
     if loss_chunk:
         cfg = dataclasses.replace(cfg, loss_chunk=loss_chunk)
-    if remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported yet (ROADMAP A14); the port runs 'full'")
     if ssm_chunk and cfg.ssm is not None:
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=ssm_chunk))
     return cfg

@@ -7,7 +7,8 @@ sits at ``np.unravel_index(r, shape)``, and every axis gets one sub-group per
 setting of the other coordinates (the ranks that differ on that axis alone).
 The collectives the mixers need — a neighbour shift along one axis (the
 reference's ``ppermute``), a sum and a gather over a set of axes (``psum``,
-``all_gather``) — are methods of the mesh.
+``all_gather``) — and pod-as-agent's reduce-scatter of a gradient over the
+intra-pod data axis are methods of the mesh.
 
 Transport.  NCCL moves CUDA tensors between cards directly.  Gloo moves host
 tensors only; it runs the CPU tests, and it is the only choice when several
@@ -17,11 +18,12 @@ pinned host buffers: the model, the state and the kernels stay on the card,
 only the bytes in flight pass through the host.  The choice is read once
 from ``dist.get_backend()`` when the mesh is built.
 
-Only the agent axes are ported: the "model" axis (tensor parallelism inside
-an agent) has size 1 here.  :func:`make_production_mesh` is the port's
-counterpart of the reference's 256- and 512-chip meshes for the dry run: the
-same 16 or 32 agents, one card each, with no process group behind it; its
-collectives move no data and count the bytes they would move.
+The agent axes and the "data" axis inside a pod-as-agent agent are ported;
+the "model" axis (tensor parallelism inside an agent) has size 1 here.
+:func:`make_production_mesh` is the port's counterpart of the reference's
+256- and 512-chip meshes for the dry run: the same 16 or 32 agents, one card
+each, with no process group behind it; its collectives move no data and
+count the bytes they would move.
 """
 from __future__ import annotations
 
@@ -181,6 +183,22 @@ class RankMesh:
             self.clock.bytes_sent += send.numel() * send.element_size()
             return self._from_wire(torch.stack(parts))
 
+    def reduce_scatter_sum(self, x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+        """This rank's block of the sum of ``x`` over the ranks of ``axes``:
+        the sum split into n equal blocks along ``dim``, block i to the rank
+        at position i (row-major over ``axes``)."""
+        with self.clock.span("exchange", self.device):
+            group, ranks = self.group(axes)
+            n = len(ranks)
+            if x.shape[dim] % n:
+                raise ValueError(f"reduce_scatter_sum: dim {dim} of {tuple(x.shape)} does not "
+                                 f"split over {n} ranks")
+            self.clock.bytes_sent += x.numel() * x.element_size()
+            parts = [self._to_wire(c) for c in x.chunk(n, dim)]
+            out = self._empty_wire(parts[0])
+            dist.reduce_scatter(out, parts, group=group)
+            return self._from_wire(out)
+
 
 def make_mesh(shape: Tuple[int, ...], axes: Sequence[str], device: DeviceLike = None) -> RankMesh:
     """The mesh of named ``axes`` with ``shape`` over the default process
@@ -253,7 +271,8 @@ class CountingMesh:
     return tensors of the shapes the real ones would and count each
     result's bytes per kind under the reference's HLO names
     (``collective-permute`` a shift, ``all-reduce`` a sum, ``all-gather`` a
-    gather), as :meth:`collective_counts` reports them."""
+    gather, ``reduce-scatter`` a reduce-scatter), as
+    :meth:`collective_counts` reports them."""
 
     shape: Dict[str, int]
     device: torch.device
@@ -283,6 +302,9 @@ class CountingMesh:
     def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         return self._count("all-gather", x.new_empty((self.size(axes),) + tuple(x.shape)))
 
+    def reduce_scatter_sum(self, x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+        return self._count("reduce-scatter", x.chunk(self.size(axes), dim)[0].clone())
+
     def reset_counts(self) -> None:
         for k in COLLECTIVE_KINDS:
             self.bytes_by_kind[k] = self.calls_by_kind[k] = 0
@@ -301,7 +323,8 @@ class CountingMesh:
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = "meta") -> CountingMesh:
     """The port's layout of the reference's production meshes: 16 agents on
     a ``data`` axis (single) or 2 x 16 on ``pod`` x ``data`` (multi), and a
-    ``model`` axis of 1, so one card per agent (16 or 32 cards)."""
+    ``model`` axis of 1, so one card per agent (16 or 32 cards); under
+    pod-as-agent the multi mesh's 2 agents spread over 16 cards each."""
     shape = (2, 16, 1) if multi_pod else (16, 1)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return CountingMesh(shape=dict(zip(axes, shape)), device=torch.device(device))

@@ -1,0 +1,121 @@
+"""Placements of agent-stacked parameters over a mesh (the twin of
+``repro.launch.specs``).
+
+A placement is a tuple with one entry per dim of a leaf — a mesh axis name,
+a tuple of names (the dim spread over their product), or None (whole along
+that dim) — the entries of the reference's ``PartitionSpec``.  A tree of
+them is a flat dict keyed by the leaf paths of
+:func:`repro_torch.utils.pytree.flatten_paths`, beside a dict of tensors (or
+anything with ``shape`` and ``dtype``) on the same keys.  Every function
+reads a mesh by its ``shape`` dict alone, as the reference's do, so a
+:class:`~repro_torch.launch.mesh.RankMesh`, a
+:class:`~repro_torch.launch.mesh.CountingMesh` or a stand-in with a
+``shape`` serves.
+
+The models declare intent (heads over "model", d_ff over "model", ...); not
+every dim divides every mesh axis, so :func:`sanitize_specs` replicates
+what does not divide and reports it.  :func:`add_fsdp_axis` is pod-as-agent's
+FSDP: each agent's replica spreads over the intra-pod data axis.  The
+reference's ``to_shardings`` (``NamedSharding`` objects for ``jax.jit``)
+has no twin: the port's ranks slice their shards themselves
+(:func:`repro_torch.launch.steps.build_train_steps`).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+
+Spec = Tuple[Any, ...]
+
+
+def stack_spec_tree(spec_tree: Dict[str, Spec], agent_axes: Sequence[str]) -> Dict[str, Spec]:
+    """Prefix every placement with the agent axis (the leading stacked dim):
+    the axis name, or the tuple of names when there are several."""
+    axes = tuple(agent_axes)
+    entry = axes if len(axes) > 1 else axes[0]
+    return {k: (entry,) + tuple(s) for k, s in spec_tree.items()}
+
+
+def _axis_product(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, (tuple, list)):
+        return int(np.prod([mesh.shape[a] for a in entry]))
+    return mesh.shape[entry]
+
+
+def _entries(spec, shape) -> List[Any]:
+    """One entry per dim: the placement padded with None, or cut, to the
+    leaf's rank."""
+    entries = list(spec or ()) + [None] * (len(shape) - len(spec or ()))
+    return entries[:len(shape)]
+
+
+def _trim(entries: List[Any]) -> Spec:
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def sanitize_specs(spec_tree: Dict[str, Spec], shape_tree: Dict[str, Any],
+                   mesh) -> Tuple[Dict[str, Spec], List[str]]:
+    """Replicate every dim its axes do not divide; returns (placements,
+    report), one report line per dropped entry, in path order."""
+    report: List[str] = []
+    fixed = {}
+    for path in sorted(spec_tree):
+        shape = tuple(shape_tree[path].shape)
+        entries = []
+        for dim, entry in zip(shape, _entries(spec_tree[path], shape)):
+            size = _axis_product(mesh, entry)
+            if entry is not None and dim % size != 0:
+                report.append(f"{path}: dim {dim} % {entry}({size}) != 0 -> replicated")
+                entry = None
+            entries.append(entry)
+        fixed[path] = _trim(entries)
+    return fixed, report
+
+
+def add_fsdp_axis(spec_tree: Dict[str, Spec], shape_tree: Dict[str, Any], mesh,
+                  axis: str = "data", *, skip_leading: int = 0,
+                  min_dim: int = 1024) -> Dict[str, Spec]:
+    """Greedy FSDP: on every leaf, ``axis`` goes on the first dim from
+    ``skip_leading`` on that has no axis yet, is at least ``min_dim`` and
+    divides by the axis's size (pod-as-agent's: axis 0 is the agent stack,
+    so ``skip_leading=1``).  A leaf without such a dim stays as it was."""
+    size = mesh.shape[axis]
+    out = {}
+    for path, spec in spec_tree.items():
+        shape = tuple(shape_tree[path].shape)
+        entries = _entries(spec, shape)
+        for i in range(skip_leading, len(shape)):
+            if entries[i] is None and shape[i] >= min_dim and shape[i] % size == 0:
+                entries[i] = axis
+                break
+        out[path] = _trim(entries)
+    return out
+
+
+def shard_bytes(shape_tree: Dict[str, Any], spec_tree: Dict[str, Spec], mesh) -> int:
+    """Bytes one device holds of a placed tree (logical, no padding)."""
+    total = 0
+    for path, shaped in shape_tree.items():
+        n = int(np.prod(tuple(shaped.shape))) if len(shaped.shape) else 1
+        denom = 1
+        for entry in spec_tree[path]:
+            denom *= _axis_product(mesh, entry)
+        total += (n // max(1, denom)) * shaped.dtype.itemsize
+    return total
+
+
+def data_dims(spec_tree: Dict[str, Spec], axis: str = "data",
+              skip_leading: int = 1) -> Dict[str, Any]:
+    """Per leaf, the dim of the unstacked (per-agent) leaf that ``axis``
+    splits, or None for a leaf held whole: what a rank of pod-as-agent
+    slices and gathers."""
+    out = {}
+    for path, spec in spec_tree.items():
+        dims = [i - skip_leading for i, e in enumerate(spec) if i >= skip_leading and e == axis]
+        out[path] = dims[0] if dims else None
+    return out

@@ -4,12 +4,18 @@
 Three step kinds per (architecture x mesh), each a :class:`StepSpec`: the
 function, its arguments as meta tensors (nothing allocated) and notes.
 
-* :func:`build_train_steps` — one PISCO round with one agent per rank of a
-  mesh: the gossip round and the server round (the host draws W^k = J with
+* :func:`build_train_steps` — one PISCO round of this rank's agent: the
+  gossip round and the server round (the host draws W^k = J with
   probability p and calls one of them), each a function every rank calls
-  with its own state and batches.  Gossip runs over the mesh's circulant
-  topology — a ring over one agent axis, a torus over two — through
-  :func:`repro_torch.core.mixing.collective_shift_mixing`, the server round
+  with its own state and batches.  ``agent_mode="flat"`` puts one agent on
+  each rank; ``"hierarchical"`` (pod-as-agent) makes each pod one agent
+  whose x, y and g are sharded over the pod's ``data`` ranks
+  (:func:`fsdp_placement`, the reference's ``add_fsdp_axis``) and whose
+  batch splits over them: the ranks gather the agent's parameters before
+  each gradient call and reduce-scatter its gradient after it, and
+  everything else of the round runs on the shards.  Gossip runs over the
+  mesh's circulant topology — a ring over one agent axis, a torus over two
+  — through :func:`repro_torch.core.mixing.collective_shift_mixing`, the server round
   is a sum over the agent axes.  Over a
   :class:`~repro_torch.launch.mesh.RankMesh` ranks call ``fn`` on their own
   tensors; over the dry run's
@@ -23,14 +29,13 @@ function, its arguments as meta tensors (nothing allocated) and notes.
 
 ``spec.lower()`` runs the function on its meta arguments under the counters
 of :mod:`repro_torch.utils.roofline` and returns their record: the port's
-counterpart of the reference's lowering and compilation.  Pod-as-agent (an
-agent sharded over the intra-pod data axis, ``agent_mode="hierarchical"``)
-is not ported (ROADMAP A17).
+counterpart of the reference's lowering and compilation.  The "model" axis
+(tensor parallelism inside an agent) has size 1 on the port's meshes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +46,7 @@ from repro_torch.core.pisco import PiscoConfig, PiscoState, make_rank_round_fn
 from repro_torch.core.topology import mixing_rate
 from repro_torch.launch import input_specs as I
 from repro_torch.launch.mesh import agent_axes_for, n_agents_for
+from repro_torch.launch.specs import add_fsdp_axis, data_dims, sanitize_specs, stack_spec_tree
 from repro_torch.models.registry import ModelBundle, get_bundle
 from repro_torch.models.transformer import params_from_paths
 from repro_torch.utils.pytree import flatten_paths
@@ -131,6 +137,112 @@ def flat_value_and_grad(bundle: ModelBundle) -> Callable:
     return vg
 
 
+# ---------------------------------------------------------------------------
+# Pod-as-agent: an agent's leaves and batch over the intra-pod data axis
+# ---------------------------------------------------------------------------
+
+
+def fsdp_placement(bundle: ModelBundle, mesh, n_agents: int,
+                   agent_axes: Sequence[str] = ("pod",)) -> Tuple[Dict, List[str], Dict]:
+    """``(placements, dropped, dims)`` of pod-as-agent's agent-stacked
+    leaves, as the reference's ``build_train_steps`` places them: the model's
+    placements stacked over the agent axes, ``add_fsdp_axis(..., "data",
+    skip_leading=1)``, then ``sanitize_specs`` (with its report of dropped
+    entries).  ``dims`` is the per-agent leaf's dim that the data axis
+    splits, None where a leaf stays whole on every data rank."""
+    mb = meta_bundle(bundle)
+    stacked = {k: torch.empty((n_agents,) + tuple(v.shape), dtype=v.dtype, device=META)
+               for k, v in flatten_paths(mb.init(0)).items()}
+    specs = stack_spec_tree(mb.param_specs("model"), agent_axes)
+    specs = add_fsdp_axis(specs, stacked, mesh, "data", skip_leading=1)
+    specs, dropped = sanitize_specs(specs, stacked, mesh)
+    return specs, dropped, data_dims(specs, "data", skip_leading=1)
+
+
+def shard_leaves(tree: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
+                 mesh) -> Dict[str, torch.Tensor]:
+    """This rank's data shard of each of the agent's whole leaves (a copy
+    that holds no reference to the whole leaf; a leaf held whole stays as it
+    is)."""
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    return {k: v if dims[k] is None else v.chunk(n, dims[k])[i].clone(
+        memory_format=torch.contiguous_format) for k, v in tree.items()}
+
+
+def gather_leaves(shards: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
+                  mesh) -> Dict[str, torch.Tensor]:
+    """The agent's whole leaves from the data ranks' shards (an all-gather
+    over ``data`` per sharded leaf), charged to the mesh clock's "gather"."""
+    out = {}
+    with mesh.clock.span("gather", mesh.device):
+        for k, v in shards.items():
+            d = dims[k]
+            if d is None:
+                out[k] = v
+                continue
+            parts = mesh.all_gather(v, ("data",))  # (n, *shard)
+            out[k] = parts.movedim(0, d).reshape(v.shape[:d] + (-1,) + v.shape[d + 1:])
+    return out
+
+
+def sharded_value_and_grad(vg: Callable, mesh, dims: Dict[str, Optional[int]]) -> Callable:
+    """Pod-as-agent's ``vg(shards, batch_share) -> (loss, grad shards)``:
+    gather the agent's parameters over ``data``, take the gradient of this
+    rank's share of the batch, then reduce-scatter each sharded leaf's
+    gradient (all-reduce a whole one) in the gradient's dtype, as the
+    reference's reduction does, and divide it by the data size: the agent's
+    mean gradient over its whole batch, as the reference's synchronous data
+    parallelism inside a pod computes it.  The loss is the mean over the data
+    ranks.  The reductions are charged to the mesh clock's "scatter" (their
+    transfers to "exchange" as well).
+
+    The whole agent is gathered before the call, not one layer at a time as
+    the reference's FSDP gathers inside its layer scan: while the gradient
+    runs, each rank holds the agent's whole parameters and gradient, and only
+    the resting x, y and g are sharded.  A step's peak bytes are therefore the
+    gathered agent's, above the reference's."""
+    n = mesh.shape["data"]
+
+    def vg_sharded(shards, batch):
+        loss, grads = vg(gather_leaves(shards, dims, mesh), batch)
+        out = {}
+        with mesh.clock.span("scatter", mesh.device):
+            for k in list(grads):
+                g = grads.pop(k)
+                red = (mesh.all_reduce_sum(g, ("data",)) if dims[k] is None
+                       else mesh.reduce_scatter_sum(g, ("data",), dims[k]))
+                out[k] = red / n
+                del g, red
+            loss = mesh.all_reduce_sum(loss.detach().to(torch.float32).reshape(1), ("data",))
+        return (loss / n).reshape(()), out
+
+    return vg_sharded
+
+
+def batch_dims(batch: Dict[str, Any], b_per_agent: int, lead: int = 0) -> Dict[str, Optional[int]]:
+    """The dim of each of one agent's batch leaves that the data axis splits
+    (the reference's ``_comm_spec`` / ``_comm_spec_inner``: the first or the
+    second dim after ``lead`` leading ones, whichever is the per-agent
+    batch), None for a leaf no dim of which is."""
+    out = {}
+    for k, v in batch.items():
+        inner = tuple(v.shape)[lead:]
+        out[k] = (lead if len(inner) >= 1 and inner[0] == b_per_agent else
+                  lead + 1 if len(inner) >= 2 and inner[1] == b_per_agent else None)
+    return out
+
+
+def batch_share(batch: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
+                mesh) -> Dict[str, torch.Tensor]:
+    """This data rank's rows of one agent's batch (copies); a leaf whose
+    batch dim does not split over the data ranks is taken whole, as the
+    reference's sanitizer replicates it."""
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    return {k: v if dims[k] is None or v.shape[dims[k]] % n else
+            v.chunk(n, dims[k])[i].clone(memory_format=torch.contiguous_format)
+            for k, v in batch.items()}
+
+
 def build_train_steps(
     bundle: ModelBundle,
     shape: InputShape,
@@ -145,13 +257,13 @@ def build_train_steps(
 ) -> Dict[str, StepSpec]:
     """``{"train_gossip": ..., "train_global": ...}`` for this rank.
     ``wire_dtype`` "float32" upcasts gossip messages, "native" sends the
-    state's own dtype.  ``args`` are one agent's state and batches on the
-    meta device."""
-    if agent_mode != "flat":
-        raise NotImplementedError("pod-as-agent meshes (an agent sharded over the intra-pod "
-                                  "data axis) are not ported yet (ROADMAP A17)")
+    state's own dtype.  ``args`` are this rank's state and batches on the
+    meta device: one agent's whole, or under pod-as-agent its data shard
+    (the notes' ``data_dims`` and ``batch_dims`` say which dims split;
+    :func:`shard_leaves` and :func:`batch_share` cut them)."""
     agent_axes = agent_axes_for(mesh, agent_mode)
     n_agents = n_agents_for(mesh, agent_mode)
+    hierarchical = agent_mode == "hierarchical" and "data" in mesh.axis_names
     pcfg = PiscoConfig(n_agents=n_agents, t_o=t_o, eta_l=eta_l, eta_c=eta_c, p=p)
     local_spec, comm_spec = I.train_inputs(bundle.cfg, shape, n_agents, t_o)
     shifts = mesh_gossip_shifts(mesh, agent_axes)
@@ -171,10 +283,26 @@ def build_train_steps(
     one = {k: I.TensorSpec(v.shape[1:], v.dtype) for k, v in comm_spec.items()}
     local = {k: I.TensorSpec(v.shape[:1] + v.shape[2:], v.dtype) for k, v in local_spec.items()}
     x = flatten_paths(meta_bundle(bundle).init(0))
+    local, one = I.materialize(local, META), I.materialize(one, META)
+    if hierarchical:
+        specs, dropped, dims = fsdp_placement(bundle, mesh, n_agents, agent_axes)
+        b_per_agent = shape.global_batch // n_agents
+        bdims = {"comm": batch_dims(one, b_per_agent), "local": batch_dims(local, b_per_agent, 1)}
+        vg = sharded_value_and_grad(vg, mesh, dims)
+        x = shard_leaves(x, dims, mesh)
+        local, one = batch_share(local, bdims["local"], mesh), batch_share(one, bdims["comm"], mesh)
+        # x, y and g, each this rank's shard (shard_bytes of the placements:
+        # the model axis is 1)
+        state_bytes = 3 * sum(v.numel() * v.element_size() for v in x.values())
+        notes.update(agent_mode=agent_mode, placements={k: list(v) for k, v in specs.items()},
+                     dropped_shardings=dropped, data_dims=dims, batch_dims=bdims,
+                     state_bytes_per_card=state_bytes, gather="whole agent before the "
+                     "gradient call (the reference gathers one layer at a time): peak bytes "
+                     "hold the gathered parameters and gradient, not the reference's")
     state = PiscoState(x=x, y={k: torch.empty_like(v) for k, v in x.items()},
                        g={k: torch.empty_like(v) for k, v in x.items()},
                        step=torch.zeros((), dtype=torch.int32, device=META))
-    args = (state, I.materialize(local, META), I.materialize(one, META))
+    args = (state, local, one)
     return {
         name: StepSpec(name, make_rank_round_fn(vg, pcfg, gossip_ops, global_round=is_global),
                        args, notes, mixing=gossip_ops, mesh=mesh)

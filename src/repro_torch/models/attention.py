@@ -16,6 +16,11 @@ query, ``W_uv`` after the latent-space reduction, over the compressed
 reference, which has no decode kernel.  ``cos_sin=None`` means no RoPE
 (Jamba's attention layers).
 
+The attention logit softcap (``cfg.attn_logit_softcap``, Gemma-2's
+``cap * tanh(s / cap)``) is applied on every path in the reference's order:
+the scaled scores are capped, then masked, then go through the float32
+softmax.  K6 caps its f32 score tiles the same way.
+
 The encoder-decoder's attention (SeamlessM4T): its encoder runs K6 without
 the causal mask (``attention_core(causal=False)``); a cross-attention takes
 its keys and values from the encoder memory (``x_kv``), rotated with the
@@ -65,6 +70,19 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -
     return p
 
 
+def spec_gqa(cfg: ModelConfig, model_axis: str = "model") -> Dict:
+    """Placements: heads over ``model_axis`` (K and V replicated under MQA)."""
+    mp = model_axis
+    kv = (None, mp, None) if cfg.n_kv_heads > 1 else (None, None, None)
+    sp = {"wq": (None, mp, None), "wk": kv, "wv": kv, "wo": (mp, None, None)}
+    if cfg.qkv_bias:
+        bkv = (mp, None) if cfg.n_kv_heads > 1 else (None, None)
+        sp.update(bq=(mp, None), bk=bkv, bv=bkv)
+    if cfg.qk_norm:
+        sp.update(q_norm=(None,), k_norm=(None,))
+    return sp
+
+
 def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = False,
                  x_kv: Optional[Tensor] = None):
     """q (B, S, H, hd), k and v (B, S_kv, Hkv, hd), with bias and QK-norm;
@@ -103,25 +121,30 @@ def attention_core(
 ) -> Tensor:
     """Full-sequence attention (prefill, and the encoder's bidirectional
     pass with ``causal=False``); returns (B, Sq, H, Dv), scores scaled by
-    1/sqrt(D).  Without the causal mask the window is ignored, as the
-    reference's unmasked path ignores it.
+    1/sqrt(D) and capped by ``softcap`` when given.  Without the causal mask
+    the window is ignored, as the reference's unmasked path ignores it.
 
     The kernel reads the (B, S, H, D) tensors through their strides as
     (B, H, S, D) views; nothing is copied.  ``use_kernel=False`` computes the
     kernel's plain version instead (the on-card yardstick of the prefill)."""
-    if softcap is not None:
-        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     fn = flash_attention if use_kernel else kref.flash_attention_ref
     out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-             causal=causal, window=window if causal else None)
+             causal=causal, window=window if causal else None, softcap=softcap)
     return out.transpose(1, 2)
 
 
-def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
+def _softcap(scores: Tensor, cap: Optional[float]) -> Tensor:
+    """``cap * tanh(scores / cap)`` in the scores' dtype (unchanged for None)."""
+    return scores if cap is None else cap * torch.tanh(scores / cap)
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+          softcap: Optional[float] = None) -> Tensor:
     """Grouped attention as the reference's ``_sdpa``: q (B, Sq, Hkv, G, D),
-    k and v (B, Sk, Hkv, D); scores in the input dtype, softmax in float32,
-    probabilities cast back.  Returns (B, Sq, Hkv, G, D)."""
+    k and v (B, Sk, Hkv, D); scores in the input dtype, capped, masked,
+    softmax in float32, probabilities cast back.  Returns (B, Sq, Hkv, G, D)."""
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    scores = _softcap(scores, softcap)
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
@@ -145,6 +168,7 @@ def attention_train(
     causal: bool = True,
     window: Optional[int] = None,
     chunk: int = 1024,
+    softcap: Optional[float] = None,
 ) -> Tensor:
     """Attention of the training forward, differentiable: the reference's
     ``attention_core`` (causal: full scores up to ``chunk`` queries, else
@@ -156,16 +180,16 @@ def attention_train(
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, dh)
     if not causal:
-        return _sdpa(qg, k, v, None).reshape(b, sq, h, -1)
+        return _sdpa(qg, k, v, None, softcap).reshape(b, sq, h, -1)
     if sq <= chunk or sq % chunk:
-        out = _sdpa(qg, k, v, _causal_mask(sq, k.shape[1], 0, window, q.device))
+        out = _sdpa(qg, k, v, _causal_mask(sq, k.shape[1], 0, window, q.device), softcap)
         return out.reshape(b, sq, h, -1)
     outs = []
     for q0 in range(0, sq, chunk):
         k_end = q0 + chunk
         k0 = 0 if window is None else max(0, k_end - window - chunk)
         mask = _causal_mask(chunk, k_end - k0, q0 - k0, window, q.device)
-        outs.append(_sdpa(qg[:, q0:k_end], k[:, k0:k_end], v[:, k0:k_end], mask))
+        outs.append(_sdpa(qg[:, q0:k_end], k[:, k0:k_end], v[:, k0:k_end], mask, softcap))
     return torch.cat(outs, dim=1).reshape(b, sq, h, -1)
 
 
@@ -174,14 +198,12 @@ def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, *, causal: b
     """The training forward of a GQA layer, x (B, S, d) -> (B, S, d).  A
     cross-attention takes k and v from ``x_kv`` (B, S_kv, d), rotated with
     ``cos_sin_kv`` (``cos_sin`` when None)."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     q, k, v = _project_qkv(params, cfg, x, x_kv=x_kv)
     if cos_sin is not None:
         q = apply_rope(q, *cos_sin)
         k = apply_rope(k, *(cos_sin if cos_sin_kv is None else cos_sin_kv))
     out = attention_train(q, k, v, causal=causal, window=cfg.sliding_window,
-                          chunk=cfg.attn_chunk)
+                          chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
     b, s, h, hd = out.shape
     return linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
 
@@ -191,13 +213,15 @@ def decode_attention_core(
     k_cache: Tensor,  # (B, S_cache, Hkv, D)
     v_cache: Tensor,  # (B, S_cache, Hkv, D)
     valid: Tensor,  # (B, S_cache) bool
+    softcap: Optional[float] = None,
 ) -> Tensor:
     """One query against the cache, as the reference's ``_sdpa``: scores in
-    the input dtype, softmax in float32, probabilities cast back."""
+    the input dtype, capped, softmax in float32, probabilities cast back."""
     b, _, h, dh = q.shape
     hkv = k_cache.shape[2]
     qg = q.reshape(b, 1, hkv, h // hkv, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache) * (1.0 / math.sqrt(dh))
+    scores = _softcap(scores, softcap)
     scores = torch.where(valid[:, None, None, None, :], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
@@ -250,7 +274,7 @@ def gqa_decode(
     valid = idx <= pos[:, None]
     if cfg.sliding_window is not None:
         valid = valid | (pos[:, None] >= size)  # the rolling buffer is full once wrapped
-    out = decode_attention_core(q, cache["k"], cache["v"], valid)
+    out = decode_attention_core(q, cache["k"], cache["v"], valid, cfg.attn_logit_softcap)
     b, _, h, hd = out.shape
     return linear(out.reshape(b, 1, h * hd), params["wo"].flatten(-3, -2), slotted)
 
@@ -273,6 +297,15 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -
         "wo": normal_init(gen, stack + (h, m.v_head_dim, d), s / math.sqrt(2 * cfg.n_layers),
                           dtype),
     }
+
+
+def spec_mla(cfg: ModelConfig, model_axis: str = "model") -> Dict:
+    """Placements: heads over ``model_axis``, the latent projections
+    replicated."""
+    mp = model_axis
+    return {"wq": (None, mp, None), "w_dkv": (None, None), "w_kr": (None, None),
+            "kv_norm": (None,), "w_uk": (None, mp, None), "w_uv": (None, mp, None),
+            "wo": (mp, None, None)}
 
 
 def _mla_qkr(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, slotted: bool = False):
@@ -301,10 +334,9 @@ def mla_qkv(params: Dict, q_nope, q_rope, c_kv, k_rope):
 def mla_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
     """The training forward of an MLA layer (materialised K/V), x (B, S, d)
     -> (B, S, d)."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     q, k, v = mla_qkv(params, *_mla_qkr(params, cfg, x, cos_sin))
-    out = attention_train(q, k, v, window=None, chunk=cfg.attn_chunk)
+    out = attention_train(q, k, v, window=None, chunk=cfg.attn_chunk,
+                          softcap=cfg.attn_logit_softcap)
     b, s, h, dv = out.shape
     return linear(out.reshape(b, s, h * dv), params["wo"].flatten(0, 1))
 
@@ -338,8 +370,6 @@ def mla_decode(
     """Absorbed-matrix MLA decode: attention in the compressed latent space
     (MQA-shaped), ``W_uk`` folded into the query and ``W_uv`` applied after
     the value reduction; writes the token's latents at the row's ``pos``."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError("attention logit softcap is not ported (ROADMAP A14)")
     m = cfg.mla
     q_nope, q_rope, c_new, r_new = _mla_qkr(params, cfg, x, cos_sin, slotted)
     size = cache["c_kv"].shape[1]
@@ -354,6 +384,7 @@ def mla_decode(
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     scores = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
               + torch.einsum("bshr,btr->bhst", q_rope, r_cache)) * scale
+    scores = _softcap(scores, cfg.attn_logit_softcap)
     valid = torch.arange(size, device=x.device)[None, :] <= pos[:, None]
     scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)

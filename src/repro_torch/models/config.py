@@ -5,9 +5,9 @@ QKV bias, sliding windows), MoE (Mixtral; DeepSeek's fine-grained experts
 with shared ones), MLA (DeepSeek-V2), attention-free Mamba-2 SSD stacks,
 hybrid Mamba/attention stacks (Jamba), the encoder-decoder (SeamlessM4T,
 ``arch_type="audio"``, ``is_enc_dec``) and the VLM decoder with M-RoPE
-(Qwen2-VL, ``arch_type="vlm"``).  The attention logit softcap raises
-``NotImplementedError`` in :mod:`repro_torch.models.transformer`, naming the
-ROADMAP item it waits for.  :func:`config_to_dict` and
+(Qwen2-VL, ``arch_type="vlm"``), the attention logit softcap on any of
+them, and both of the reference's remat policies (``"full"``, ``"dots"``).
+:func:`config_to_dict` and
 :func:`config_from_dict` give the reference's JSON form (checkpoint
 manifests carry it).
 """
@@ -88,6 +88,8 @@ class ModelConfig:
     dtype: str = "float32"
     attn_chunk: int = 1024
     remat: bool = True  # recompute each period's activations in the backward pass
+    # full | dots (keep the outputs of the unbatched matmuls, recompute the rest)
+    remat_policy: str = "full"
     loss_chunk: int = 0  # >0: cross-entropy over sequence chunks of this length
     init_scale: float = 0.02
 
@@ -196,30 +198,23 @@ class ModelConfig:
 
 def config_to_dict(cfg: ModelConfig) -> dict:
     """JSON-serialisable form of a :class:`ModelConfig` (sub-configs become
-    dicts), the reference's key for key and in its order.  The port runs
-    only the reference's ``remat_policy="full"`` and no layer scan, so those
-    two keys are written as constants."""
+    dicts), the reference's key for key and in its order.  The port runs no
+    layer scan, so the reference's ``scan_unroll`` is written as a
+    constant."""
     out = {}
     for key, value in dataclasses.asdict(cfg).items():
         out[key] = value
-        if key == "remat":
-            out["remat_policy"] = "full"
-        elif key == "loss_chunk":
+        if key == "loss_chunk":
             out["scan_unroll"] = False
     return out
 
 
 def config_from_dict(d: dict) -> ModelConfig:
     """Inverse of :func:`config_to_dict`: rebuilds the MoE, SSM and MLA
-    sub-configs and the tuple fields JSON turned into lists.  A
-    ``remat_policy`` other than ``"full"`` waits for ROADMAP A14; the
+    sub-configs and the tuple fields JSON turned into lists.  The
     reference's ``scan_unroll`` (a dry-run flag of its layer scan) is
     dropped."""
     d = dict(d)
-    policy = d.pop("remat_policy", "full")
-    if policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={policy!r} is not ported yet (ROADMAP A14); the port runs 'full'")
     d.pop("scan_unroll", None)
     if d.get("moe") is not None:
         d["moe"] = MoEConfig(**d["moe"])

@@ -37,16 +37,16 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import can_remat, linear, normal_init, rms_norm, seeded_generator
-from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.layers import (can_remat, linear, normal_init, remat_call, rms_norm,
+                                       seeded_generator, spec_rms_norm)
+from repro_torch.models.mlp import init_mlp, mlp_forward, spec_mlp
 from repro_torch.models.rope import rope_cos_sin, text_positions
-from repro_torch.models.transformer import _ce_sum, dtype_of, unstack
-from repro_torch.utils.pytree import nest_map
+from repro_torch.models.transformer import _ce_sum, dtype_of, stacked_specs, unstack
+from repro_torch.utils.pytree import flatten_paths, nest_map
 
 Tensor = torch.Tensor
 Tree = Any
@@ -80,6 +80,19 @@ def init_encdec(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -
     return {"embed": embed, "enc_layers": enc, "enc_norm": norm(), "dec_layers": dec,
             "final_norm": norm(),
             "lm_head": normal_init(gen, (cfg.d_model, cfg.vocab_size), cfg.init_scale, dtype)}
+
+
+def encdec_param_specs(cfg: ModelConfig, model_axis: str = "model") -> Dict[str, tuple]:
+    """The twin of the reference's ``encdec_param_specs``: placements keyed
+    by parameter path (see :func:`repro_torch.models.transformer.lm_param_specs`)."""
+    gqa, mlp = A.spec_gqa(cfg, model_axis), spec_mlp(cfg.mlp_type, model_axis)
+    enc = {"norm1": spec_rms_norm(), "attn": gqa, "norm2": spec_rms_norm(), "ffn": mlp}
+    dec = {"norm1": spec_rms_norm(), "self_attn": gqa, "norm_x": spec_rms_norm(),
+           "cross_attn": gqa, "norm2": spec_rms_norm(), "ffn": mlp}
+    return flatten_paths({
+        "embed": (model_axis, None), "enc_layers": stacked_specs(enc),
+        "enc_norm": spec_rms_norm(), "dec_layers": stacked_specs(dec),
+        "final_norm": spec_rms_norm(), "lm_head": (None, model_axis)})
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int, mem_len: int,
@@ -127,7 +140,7 @@ def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
     x = frames.to(dtype_of(cfg))
     remat = remat and can_remat(x)
     for i in range(cfg.n_encoder_layers):
-        x = checkpoint(layer, x, i, use_reentrant=False) if remat else layer(x, i)
+        x = remat_call(cfg.remat_policy, layer, x, i) if remat else layer(x, i)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
@@ -186,7 +199,7 @@ def decode_train(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor)
 
     remat = cfg.remat and can_remat(x)
     for i in range(cfg.n_layers):
-        x = checkpoint(layer, x, i, use_reentrant=False) if remat else layer(x, i)
+        x = remat_call(cfg.remat_policy, layer, x, i) if remat else layer(x, i)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return linear(x, params["lm_head"])
 

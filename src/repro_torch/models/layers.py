@@ -1,7 +1,10 @@
 """Shared primitive layers of the LM zoo: RMSNorm, linear maps over a batch
 of per-slot weights, and initialisers drawing from a ``torch.Generator``.
 
-Parameters are nested dicts of tensors in the reference's layouts.  A
+Parameters are nested dicts of tensors in the reference's layouts.  Their
+placements (the ``spec_*`` functions of the model modules, the twins of the
+reference's ``PartitionSpec`` trees) are tuples with one entry per dim: a
+mesh axis name, a tuple of names, or None (replicated along that dim).  A
 *slotted* call gives every parameter a leading axis that matches the
 activations' batch axis, one parameter set per row: what ``jax.vmap`` of the
 reference's decode over the slot axis lowered to.
@@ -12,8 +15,16 @@ import math
 from typing import Sequence
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Tensor = torch.Tensor
+
+REMAT_POLICIES = ("full", "dots")
+# the reference's ``dots_with_no_batch_dims_saveable``: the outputs of dot
+# products without batch dimensions are kept; batched ones (attention's
+# scores and values, the MoE's expert products) are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 # float32 elements drawn at once: a larger leaf is drawn in slices along its
@@ -41,6 +52,25 @@ def can_remat(x: Tensor) -> bool:
     return not torch._C._functorch.is_functorch_wrapped_tensor(x)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_call(policy: str, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), the
+    reference's ``jax.checkpoint`` with its policy: ``"full"`` recomputes
+    the whole call in the backward pass, ``"dots"`` keeps the outputs of
+    ``mm`` / ``addmm`` and recomputes everything else.  Either way the
+    gradients are those of ``fn`` itself."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     """The initialisers' generator on ``device``, seeded with ``seed``; on
     the meta device (which has no generator) one that allocates nothing."""
@@ -64,6 +94,11 @@ def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
         blk.copy_(torch.randn(blk.shape, generator=gen, dtype=torch.float32,
                               device=dev).mul_(scale))
     return out
+
+
+def spec_rms_norm() -> dict:
+    """The placement of an RMSNorm's parameters (replicated)."""
+    return {"scale": (None,)}
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:

@@ -67,6 +67,13 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()
     }
 
 
+def spec_mamba2(cfg: ModelConfig, model_axis: str = "model") -> Dict:
+    """Placements: the inner channels over ``model_axis``."""
+    mp = model_axis
+    return {"in_proj": (None, mp), "conv_w": (None, mp), "conv_b": (mp,), "a_log": (None,),
+            "dt_bias": (None,), "d_skip": (None,), "norm": (mp,), "out_proj": (mp, None)}
+
+
 def ssd_decode_step(
     state: Tensor,  # (B, H, P, N) float32
     x_t: Tensor,  # (B, H, P)

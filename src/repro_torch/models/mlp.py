@@ -24,6 +24,14 @@ def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str, scale: float, 
     return p
 
 
+def spec_mlp(mlp_type: str, model_axis: str = "model") -> Dict:
+    """Placements: the hidden dim over ``model_axis``."""
+    mp = model_axis
+    if mlp_type == "swiglu":
+        return {"w_gate": (None, mp), "w_up": (None, mp), "w_down": (mp, None)}
+    return {"w_up": (None, mp), "w_down": (mp, None)}
+
+
 def activation(params: Dict, mlp_type: str, up) -> torch.Tensor:
     """The hidden activation of ``mlp_type``; ``up(name)`` projects the input
     through the weight ``params[name]``."""

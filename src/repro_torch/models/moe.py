@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import normal_init
-from repro_torch.models.mlp import activation, init_mlp, mlp_forward
+from repro_torch.models.mlp import activation, init_mlp, mlp_forward, spec_mlp
 
 Tensor = torch.Tensor
 
@@ -49,6 +49,20 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple = ()) -
     if mo.n_shared:
         p["shared"] = init_mlp(gen, d, mo.n_shared * fe, cfg.mlp_type, s, dtype, stack)
     return p
+
+
+def spec_moe(cfg: ModelConfig, model_axis: str = "model") -> Dict[str, Any]:
+    """Placements: each expert's hidden dim over ``model_axis`` (the
+    reference's tensor-parallel experts), the router replicated."""
+    mp = model_axis
+    sp: Dict[str, Any] = {"router": (None, None)}
+    if cfg.mlp_type == "swiglu":
+        sp["w_gate"] = (None, None, mp)
+    sp["w_up"] = (None, None, mp)
+    sp["w_down"] = (None, mp, None)
+    if cfg.moe.n_shared:
+        sp["shared"] = spec_mlp(cfg.mlp_type, model_axis)
+    return sp
 
 
 def top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:

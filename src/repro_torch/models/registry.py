@@ -35,6 +35,12 @@ class ModelBundle:
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         return T.init_cache(self.cfg, batch, max_seq, self.device)
 
+    def param_specs(self, model_axis: str = "model") -> Dict[str, tuple]:
+        """Each parameter's placement over a mesh, keyed by its path: a
+        tuple with one entry per dim (an axis name, a tuple of names, or
+        None), the reference's ``PartitionSpec`` entries."""
+        return T.lm_param_specs(self.cfg, model_axis)
+
     def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
         return T.lm_prefill(params, self.cfg, batch["tokens"], cache,
@@ -74,6 +80,9 @@ class EncDecBundle(ModelBundle):
     def init_cache(self, batch: int, max_seq: int, mem_len: Optional[int] = None) -> Dict:
         """``mem_len`` defaults to ``max_seq``, as in the reference."""
         return E.init_encdec_cache(self.cfg, batch, max_seq, mem_len or max_seq, self.device)
+
+    def param_specs(self, model_axis: str = "model") -> Dict[str, tuple]:
+        return E.encdec_param_specs(self.cfg, model_axis)
 
     def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:

@@ -25,7 +25,10 @@ Entry points:
   gradient kernels), plus the MoE layers' load-balance loss; with
   ``cfg.remat`` every period is recomputed in the
   backward pass (``torch.utils.checkpoint``, non-reentrant), the reference's
-  ``jax.checkpoint`` of its scanned period, except under ``torch.func``
+  ``jax.checkpoint`` of its scanned period — all of it under
+  ``remat_policy="full"``, all but the outputs of the unbatched matmuls
+  under ``"dots"`` (:func:`repro_torch.models.layers.remat_call`) — except
+  under ``torch.func``
   transforms (the agents' vmapped gradients), where checkpointing has no
   vmap rule and every activation is kept.  With ``slotted=True`` every
   parameter carries a leading slot axis, one agent per row, and each
@@ -40,8 +43,9 @@ taken over the text tail.  A decode step rotates at the degenerate ids
 the prefill's prefix carried.
 
 Caches are updated in place and returned.  Hybrid stacks use no RoPE (their
-Mamba layers carry position).  The attention logit softcap raises
-``NotImplementedError`` naming ROADMAP A14.
+Mamba layers carry position).  The attention logit softcap
+(``cfg.attn_logit_softcap``) caps the scores on every path, K6's prefill
+included.
 """
 from __future__ import annotations
 
@@ -49,7 +53,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ref as kref
@@ -59,15 +62,19 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     can_remat,
+    REMAT_POLICIES,
     linear,
     normal_init,
+    remat_call,
     rms_norm,
     seeded_generator,
+    spec_rms_norm,
     vec,
 )
-from repro_torch.models.mlp import init_mlp, mlp_forward
-from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.models.mlp import init_mlp, mlp_forward, spec_mlp
+from repro_torch.models.moe import init_moe, moe_forward, spec_moe
 from repro_torch.models.rope import mrope_text_positions, rope_cos_sin, text_positions
+from repro_torch.utils.pytree import flatten_paths
 
 Tensor = torch.Tensor
 Tree = Any
@@ -80,11 +87,14 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not cover (the
-    attention logit softcap) and ``ValueError`` for an unknown arch_type."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attention logit softcap not ported yet (ROADMAP A14)")
+    """Raise ``ValueError`` for an unknown arch_type or remat policy, or a
+    softcap that is not positive."""
+    if cfg.attn_logit_softcap is not None and not cfg.attn_logit_softcap > 0:
+        raise ValueError(f"{cfg.name}: attn_logit_softcap must be > 0, "
+                         f"got {cfg.attn_logit_softcap}")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"{cfg.name}: unknown remat_policy {cfg.remat_policy!r} "
+                         f"(one of {REMAT_POLICIES})")
     if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
         raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
 
@@ -120,6 +130,41 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, ffn_kind: str,
     elif ffn_kind == "moe":
         p["ffn"] = init_moe(gen, cfg, dtype, stack)
     return p
+
+
+def spec_block(cfg: ModelConfig, kind: str, ffn_kind: str, model_axis: str = "model") -> Dict:
+    """The placements of one layer's parameters (see :func:`lm_param_specs`)."""
+    sp: Dict[str, Any] = {"norm1": spec_rms_norm()}
+    if kind == "attn":
+        sp["mixer"] = (A.spec_mla if cfg.attn_impl == "mla" else A.spec_gqa)(cfg, model_axis)
+    else:
+        sp["mixer"] = M.spec_mamba2(cfg, model_axis)
+    if ffn_kind != "none":
+        sp["norm2"] = spec_rms_norm()
+        sp["ffn"] = (spec_mlp(cfg.mlp_type, model_axis) if ffn_kind == "dense"
+                     else spec_moe(cfg, model_axis))
+    return sp
+
+
+def stacked_specs(tree: Tree) -> Tree:
+    """Placements of a stacked layer: the leading period axis replicated."""
+    return _index(tree, lambda sp: (None,) + sp) if isinstance(tree, dict) else (None,) + tree
+
+
+def lm_param_specs(cfg: ModelConfig, model_axis: str = "model") -> Dict[str, tuple]:
+    """The twin of the reference's ``lm_param_specs``: each parameter's
+    placement over a mesh with a ``model_axis`` (heads, FFN hidden and
+    inner channels sharded; norms, routers and latent projections
+    replicated), a tuple with one entry per dim, keyed by the parameter's
+    path (:func:`repro_torch.utils.pytree.flatten_paths`)."""
+    head_pat, period_pat, _ = _period_patterns(cfg)
+    specs: Dict[str, Any] = {"embed": (model_axis, None), "final_norm": spec_rms_norm()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, model_axis)
+    specs["head_layers"] = [spec_block(cfg, k, f, model_axis) for k, f in head_pat]
+    specs["layers"] = {f"pos{i}": stacked_specs(spec_block(cfg, k, f, model_axis))
+                       for i, (k, f) in enumerate(period_pat)}
+    return flatten_paths(specs)
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tree:
@@ -283,7 +328,7 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
     remat = cfg.remat and can_remat(x)
     auxs = []
     for p in range(n_periods):
-        x, a = checkpoint(period, x, p, use_reentrant=False) if remat else period(x, p)
+        x, a = remat_call(cfg.remat_policy, period, x, p) if remat else period(x, p)
         auxs.append(a)
     aux = aux + torch.sum(torch.stack(auxs))
     return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), aux

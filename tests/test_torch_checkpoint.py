@@ -197,7 +197,7 @@ def test_config_json_equals_the_reference(arch):
 def test_config_from_dict_refuses_moe_and_mla():
     """MoE and MLA sub-configs are ported: a well-formed one is rebuilt (the
     reduced Mixtral and DeepSeek-V2-Lite round-trip), a malformed one is
-    refused; the ``dots`` remat policy still waits for ROADMAP A14."""
+    refused; the ``dots`` remat policy round-trips."""
     for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b"):
         cfg = get_reduced(arch)
         assert config_from_dict(json.loads(json.dumps(config_to_dict(cfg)))) == cfg
@@ -205,5 +205,5 @@ def test_config_from_dict_refuses_moe_and_mla():
     for key in ("moe", "mla"):
         with pytest.raises(TypeError):
             config_from_dict(dict(d, **{key: {"n_experts": 8, "no_such_field": 1}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        config_from_dict(dict(d, remat_policy="dots"))
+    dots = config_from_dict(dict(d, remat_policy="dots"))
+    assert dots.remat_policy == "dots" and config_to_dict(dots) == dict(d, remat_policy="dots")

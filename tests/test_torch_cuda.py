@@ -579,6 +579,41 @@ def test_k6_non_causal_within_tolerance(cuda, gen, b, hq, hkv, sq, sk, d, dtype)
         assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,dv,causal,window,dtype,cap", [
+    # Gemma-2's cap at Qwen3-8B's prefill, and a cap of 2 on scores drawn
+    # twice as large (it bites): causal, windowed, ragged, MLA's head dims,
+    # without the causal mask, f32 at the reduced models' head dims
+    (1, 32, 8, 2048, 2048, 128, 128, True, None, torch.bfloat16, 50.0),
+    (1, 8, 2, 129, 129, 128, 128, True, None, torch.bfloat16, 2.0),
+    (2, 8, 2, 333, 333, 64, 64, True, 100, torch.bfloat16, 2.0),
+    (1, 8, 8, 300, 300, 192, 128, True, None, torch.bfloat16, 2.0),
+    (1, 8, 8, 63, 257, 32, 32, False, None, torch.bfloat16, 2.0),
+    (2, 4, 4, 130, 130, 32, 32, False, None, torch.float32, 50.0),
+    (2, 4, 2, 77, 77, 32, 32, True, 20, torch.float32, 2.0),
+    (1, 4, 4, 45, 45, 48, 32, True, None, torch.float32, 2.0),
+    (1, 4, 2, 16, 16, 16, 16, True, None, torch.float32, 2.0),
+])
+def test_k6_softcap_within_tolerance(cuda, gen, b, hq, hkv, sq, sk, d, dv, causal, window,
+                                     dtype, cap):
+    """K6 with the attention logit softcap against its capped plain version."""
+    scale = 2.0 if cap < 10 else 1.0
+    q = (scale * torch.randn(b, sq, hq, d, generator=gen, device=cuda)).to(dtype).transpose(1, 2)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, sk, dv, generator=gen, device=cuda).to(dtype)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_tc"] == (1 if dtype == torch.bfloat16 else 0)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    if dtype == torch.bfloat16:
+        model = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap,
+                                        p_dtype=torch.bfloat16).float()
+        assert bool(((out.float() - model).abs() <= _bf16_ulp(model) + 2.0 ** -8).all())
+
+
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
 def test_reduced_encdec_and_vlm_gpu_match_cpu(cuda, arch):
     """The bundle's prefill (K6 without the causal mask on Seamless's

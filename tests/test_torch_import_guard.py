@@ -49,7 +49,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "figures.bench_driver", "figures.check_regress", "models.encdec",
                  "configs.seamless_m4t_medium", "configs.qwen2_vl_2b", "launch.dryrun",
                  "launch.cost_correction", "utils.roofline", "figures.roofline",
-                 "figures.experiments_md"):
+                 "figures.experiments_md", "launch.specs"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -122,9 +122,15 @@ NO_COUNTERPART = {
 }
 
 
-# a reference module whose twin has another name -> (the twin, the
-# reference's public names without a counterpart there, with the reason)
+# a reference module outside the packages' ``__all__`` whose twin has
+# another name, or lacks some of its names -> (the twin, the reference's
+# public names without a counterpart there, with the reason)
 RENAMED_TWINS = {
+    "repro.launch.specs": ("repro_torch.launch.specs", {
+        "to_shardings": "NamedSharding objects for jax.jit's in/out shardings; the port's "
+                        "ranks cut and gather their shards themselves (launch.steps."
+                        "shard_leaves, gather_leaves, batch_share)",
+    }),
     "repro.utils.hlo": ("repro_torch.utils.roofline", {
         "collective_bytes": "no HLO to parse: eager PyTorch compiles no module; the dry run's "
                             "CountingMesh counts the bytes its collectives would move",

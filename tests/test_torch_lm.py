@@ -321,13 +321,14 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_families_and_short_prompts_raise():
-    """The attention logit softcap (no reference config sets it) raises
-    naming A14, an unknown arch_type raises, and so does a Mamba prompt
-    shorter than the conv window, counting a prefix; the encoder-decoder and
-    VLM families now build."""
+    """The attention logit softcap (no reference config sets it) builds, a
+    cap that is not positive raises, an unknown arch_type raises, and so
+    does a Mamba prompt shorter than the conv window, counting a prefix; the
+    encoder-decoder and VLM families now build."""
     base = get_reduced("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="A14"):
-        get_bundle(dataclasses.replace(base, attn_logit_softcap=30.0), "cpu")
+    assert get_bundle(dataclasses.replace(base, attn_logit_softcap=30.0), "cpu")
+    with pytest.raises(ValueError, match="attn_logit_softcap"):
+        get_bundle(dataclasses.replace(base, attn_logit_softcap=0.0), "cpu")
     with pytest.raises(ValueError, match="arch_type"):
         get_bundle(dataclasses.replace(base, arch_type="vision"), "cpu")
     for bad in ({"modality": "vlm", "arch_type": "vlm", "mrope_sections": (4, 6, 6)},

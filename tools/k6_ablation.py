@@ -6,7 +6,9 @@ variants of it, each with one part of the design changed or removed by a
 text substitution, and prints the device time of each (``torch.profiler``,
 kernels only, a mean over 20 calls, two repetitions in turn) at Qwen3-8B's
 attention shape, (B, Hq, Hkv, D) = (1, 32, 8, 128) in bf16: S = 2048 causal
-and not, and the served S = 500 causal.  Run from the repository root on a
+and not, and the served S = 500 causal, without the attention logit softcap,
+and S = 2048 causal with Gemma-2's cap of 50; beside each time, the largest
+error against the (capped) plain version.  Run from the repository root on a
 machine with an H100 and ``nvcc``:
 
     python3 tools/k6_ablation.py
@@ -28,14 +30,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import tma_strides  # noqa: E402
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "build", "k6_ablation")
 
-STEADY_SOFTMAX = ("softmax_tile<BK>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, sk, "
-                  "causal,\n                           window, scale_log2);")
+STEADY_SOFTMAX = ("softmax_tile<BK, CAP>(sc, m, alpha, rs, it.k_begin + t * BK, r0, row, col, "
+                  "sk,\n                                causal, window, scale_log2, cap_k, cap);")
 VARIANTS = {
     "base": [],
     # 64 keys per tile instead of 128
@@ -57,8 +59,15 @@ VARIANTS = {
     "no_softmax": [(STEADY_SOFTMAX, "alpha[0] = alpha[1] = 1.f; rs[0] = rs[1] = 0.f;")],
     # no P V product after the first tile (wrong output)
     "no_pv": [("issue_pv<D>(acc, pa, stage_k(kt - 1) + C::KV_BYTES);", "wg_commit();")],
+    # the softcap's tanh as cap - 2 cap / (2^x + 1) from an ex2.approx and an
+    # IEEE division (two SFU operations, relative error ~2^-22) instead of
+    # one tanh.approx.f32 (~2^-11); 2.8853901 = 2 log2(e)
+    "softcap_ex2_div": [(
+        '  asm("tanh.approx.f32 %0, %1;\\n" : "=f"(t) : "f"(s * k));\n  return cap * t;',
+        "  t = cap - __fdiv_rn(2.f * cap, ex2(s * k * 2.8853901f) + 1.f);\n  return t;")],
 }
-CASES = ((2048, True), (2048, False), (500, True))
+# (S, causal, softcap)
+CASES = ((2048, True, None), (2048, False, None), (500, True, None), (2048, True, 50.0))
 
 
 def build_variants():
@@ -110,7 +119,8 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     res = {name: {} for name in fns}
-    for s, causal in CASES:
+    errs = {name: {} for name in fns}
+    for s, causal, cap in CASES:
         # q as the prefill hands it over: a (B, H, S, D) view of (B, S, H, D)
         q = torch.randn(1, s, 32, 128, generator=gen, device=dev).bfloat16().transpose(1, 2)
         k, v = (torch.randn(1, 8, s, 128, generator=gen, device=dev).bfloat16() for _ in range(2))
@@ -119,17 +129,23 @@ def main():
 
         def call(fn):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 32, 8, s, s,
-                     128, *strides, 1.0 / math.sqrt(128), int(causal), 0, 1, stream)
+                     128, *strides, 1.0 / math.sqrt(128), int(causal), 0,
+                     0.0 if cap is None else cap, 1, stream)
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 
-        key = f"S{s}" + ("_causal" if causal else "")
+        key = f"S{s}" + ("_causal" if causal else "") + ("" if cap is None else f"_softcap{cap:g}")
+        want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=cap).float()
+        for name, fn in fns.items():
+            call(fn)
+            torch.cuda.synchronize()
+            errs[name][key] = float((out.float() - want).abs().max())
         for _ in range(2):
             for name, fn in fns.items():
                 res[name].setdefault(key, []).append(device_ms(lambda: call(fn)))
     print(card)
     print(json.dumps({"card": card, "shape": [1, 32, 8, "S", 128], "dtype": "bfloat16",
-                      "device_ms": res}))
+                      "device_ms": res, "max_abs_err": errs}))
     return 0
 
 

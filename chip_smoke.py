@@ -76,9 +76,9 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    whole and Nemotron-4-340B (2 of 96 layers, K6 at head dim 192) prefilled
    and decoded, then the encoder-decoder SeamlessM4T-medium whole (12 + 12
    layers; 4 utterances of 1,024 frames: the encoder through K6 without the
-   causal mask, then 16 greedy steps with cross-attention to the memory) and
+   causal mask, then 8 greedy steps with cross-attention to the memory) and
    the VLM Qwen2-VL-2B whole (256 patch embeddings at their M-RoPE grid ids
-   before 500 tokens, then 8 steps); every path's prefill against the plain
+   before 500 tokens, then 4 steps); every path's prefill against the plain
    versions, which replay the kernel run's MoE routes (logits, greedy first
    tokens, each attention layer and each K7 call; the routes that would flip
    counted); and both at reduced widths, card against CPU in f32 (prefill,
@@ -92,7 +92,7 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    bit-equal, peak memory and time of each ("remat-dots");
    then the LM training launcher ``python -m repro_torch.launch.train``,
    called in-process ("launch"): Mamba2-370m at full width in bf16 with the
-   CLI's defaults but batch 2 (K1 every local step), 6 rounds and a
+   CLI's defaults but batch 2 (K1 every local step), 2 rounds and a
    checkpoint, then restored for two rounds under ``--profile`` (ms a
    round, peak GiB, the device's idle share); reduced Qwen3-8B restored from
    one checkpoint on the card and on the CPU (losses within 1e-4, flags
@@ -133,6 +133,16 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    phase (local, gather, scatter, exchange), both agents' x bit-equal after
    the server round, per-rank peak memory beside the flat path's
    ("collective-hierarchical-mamba2-370m");
+   then tensor parallelism over the model axis ("tp", four ranks on the card
+   again): Qwen3-8B whole in bf16 on (data 1, model 4), each rank's shard
+   drawn leaf by leaf, a 500-token prompt through ``build_prefill_step`` and
+   greedy ``build_decode_step``s, held against the whole model on the card
+   ("tp-qwen3-8b"); Mamba2-370m at full width in bf16 on (data 2, model 2),
+   the first loss and gradient against the whole model's in bf16 and in f32,
+   then a gossip, a server and an int8 + EF round, the leaves held whole
+   bit-identical across the model ranks ("tp-mamba2-370m"); all ten models
+   at reduced widths and pod-as-agent on (pod 1, data 2, model 2), card
+   against CPU ("tp-reduced");
 6. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -220,8 +230,11 @@ SOFTCAP_OPS = 3
 # Path sizes: the paper's quickstart fleet, the largest dense fleet (n = 512,
 # topology.SPARSE_AUTO_MIN_AGENTS) and the documented large-fleet deployment
 # (10^4 agents, 16 samples each); "compare" is the fleet size of the
-# sparse GPU-vs-CPU checks.
-SIZES = dict(paper_samples=32560, paper_rounds=100, dense_agents=512, dense_rounds=20,
+# sparse GPU-vs-CPU checks.  The paper's fleet runs 50 rounds (cut from 100
+# to keep the script inside its time: each of its runs is made on the card
+# and again on the CPU; the test loss falls for PISCO and every baseline by
+# round 10).
+SIZES = dict(paper_samples=32560, paper_rounds=50, dense_agents=512, dense_rounds=20,
              sparse_agents=10000, sparse_rounds=20, compare_agents=1024, dsgt_rounds=10)
 
 # The paper's baselines (Figs. 4-7, Table 2), run on the paper's fleet.
@@ -243,6 +256,25 @@ PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4,
 
 def log(*a):
     print(*a, flush=True)
+
+
+_SYNTHETIC = {}
+
+
+def synthetic(kind: str, n: int, seed: int):
+    """``synthetic_mnist`` / ``synthetic_a9a`` of ``(n, seed)``, drawn once
+    per process and shared read-only: the main, dynamic, async and robust
+    phases build their datasets from the same arrays (the 200,000-sample
+    draw alone takes seconds on the host)."""
+    key = (kind, n, seed)
+    if key not in _SYNTHETIC:
+        from repro_torch.data import synthetic as gen
+
+        arrays = getattr(gen, f"synthetic_{kind}")(n, seed=seed)
+        for a in arrays:
+            a.flags.writeable = False
+        _SYNTHETIC[key] = arrays
+    return _SYNTHETIC[key]
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
@@ -813,19 +845,37 @@ def device_share(prof, label):
     first) of a finished ``torch.profiler`` trace.  Busy time is the union of the
     intervals of device work — kernels, copies and fills, not the step
     annotations the profiler also puts on the device timeline."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("ProfilerStep")]
-    dev_iv = [(e.time_range.start, e.time_range.end) for e in dev_events]
+    events = trace_events(prof)
+    dev_events = [e for e in events if e[1] and not e[0].startswith("ProfilerStep")]
+    dev_iv = [(a, b) for _, _, a, b in dev_events]
     check(len(dev_iv) > 0, f"profile {label}: the trace holds no device activity")
     busy = union_length(dev_iv)
-    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    window = max(e[3] for e in events) - min(e[2] for e in events)
     per_kernel = {}
-    for e in dev_events:
-        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for name, _, a, b in dev_events:
+        per_kernel[name] = per_kernel.get(name, 0.0) + (b - a)
     return window, busy, sorted(per_kernel.items(), key=lambda kv: -kv[1])
+
+
+def trace_events(prof):
+    """(name, on the card, start µs, end µs) of each event of a finished
+    ``torch.profiler`` trace, read from the profiler's raw results with the
+    events ``prof.events()`` leaves out (its utility ops, hidden events)
+    left out here too.  ``prof.events()`` builds one Python object per event
+    and takes seconds for the trace of a full-width model (12 s for 200,000
+    events on one host); it is the fallback where the raw accessors are
+    missing."""
+    from torch.autograd import DeviceType
+
+    try:
+        from torch.autograd.profiler_util import _filter_name
+
+        return [(e.name(), e.device_type() == DeviceType.CUDA, e.start_ns() / 1e3,
+                 e.end_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+                if not (_filter_name(e.name()) or getattr(e, "is_hidden_event", bool)())]
+    except (AttributeError, ImportError):
+        return [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
+                 e.time_range.end) for e in prof.events()]
 
 
 def check_run(torch, label, hist, rounds, n_agents, template, lemma1=True):
@@ -873,7 +923,6 @@ def main_path(torch, dev):
 
     from repro_torch.core import ExperimentSpec
     from repro_torch.data import FederatedDataset
-    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
     from repro_torch.models import simple as models
 
     cpu = torch.device("cpu")
@@ -884,7 +933,7 @@ def main_path(torch, dev):
             launches[k] = launches.get(k, 0) + v
 
     # -- paper: the quickstart / Fig-4 configuration -------------------------
-    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    x, y = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=10)
     spec = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1,
                                  seed=0, topology="ring", rounds=SIZES["paper_rounds"],
@@ -927,7 +976,7 @@ def main_path(torch, dev):
 
     # -- dense-q8: the largest dense fleet, MLP, stochastic int8 with EF -----
     n_dense = SIZES["dense_agents"]
-    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    x, y = synthetic("mnist", n_dense * 80, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
     spec = ExperimentSpec.create(
         algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
@@ -958,7 +1007,7 @@ def main_path(torch, dev):
 
     # -- sparse-10k: 10,000 agents on a degree-4 expander, MLP ---------------
     n_sparse = SIZES["sparse_agents"]
-    x, y = synthetic_mnist(n_sparse * 20, seed=0)  # 16 train samples per agent
+    x, y = synthetic("mnist", n_sparse * 20, 0)  # 16 train samples per agent
     data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
     check(data.samples_per_agent == 16, "sparse-10k: 16 samples per agent")
     spec = ExperimentSpec.create(
@@ -1008,7 +1057,7 @@ def main_path(torch, dev):
     del data
 
     n_cmp = SIZES["compare_agents"]
-    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    x, y = synthetic("mnist", n_cmp * 20, 1)
     small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
     for label, cspec in (("sparse-1024", spec), ("sparse-1024-q8d", spec_q8.replace(
             compression="q8d"))):
@@ -1052,7 +1101,7 @@ SWEEP_RTOL = 1e-4
 # Fig. 4's cells and the int8 cell at 200 of the figure's 600 rounds (to keep
 # the script inside its time); the top-k cell at all 600, where TOPK_SPREAD's
 # limits were read
-FIG_SIZES = dict(fig4_rounds=200, topk_rounds=600, fig4_p=(0.0, 0.1), sweep_seeds=(0, 1, 2))
+FIG_SIZES = dict(fig4_rounds=100, topk_rounds=600, fig4_p=(0.0, 0.1), sweep_seeds=(0, 1, 2))
 
 
 def counted(torch, dev, label, fn):
@@ -1181,7 +1230,7 @@ def compare_topk_run(torch, label, gpu, cpu, card_cg, cpu_cg):
 
 def figures_paths(torch, dev):
     """The paper's figures at full size through ``repro_torch.figures``:
-    Fig. 4's p = 0 and p = 0.1 cells (200 rounds, an eval every round), the
+    Fig. 4's p = 0 and p = 0.1 cells (100 rounds, an eval every round), the
     compression sweep's top-k and int8 cells, the paper spec's 3-seed sweep
     and the sparse-fleet scaling; card against CPU where a figure's numbers
     are read."""
@@ -1191,7 +1240,6 @@ def figures_paths(torch, dev):
 
     from repro_torch.core import Experiment, ExperimentSpec
     from repro_torch.data import FederatedDataset, RoundSampler
-    from repro_torch.data.synthetic import synthetic_a9a
     from repro_torch.figures import fig_sparse
     from repro_torch.figures.common import make_logreg_workload, run_pisco_variant
     from repro_torch.models import simple as models
@@ -1271,7 +1319,7 @@ def figures_paths(torch, dev):
     summary[label] = 1e3 * secs / len(gpu_h.loss)
 
     # -- sweep: the paper spec over three seeds ------------------------------
-    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    x, y = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=10)
     spec = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1,
                                  seed=0, topology="ring", rounds=SIZES["paper_rounds"],
@@ -1334,7 +1382,7 @@ def figures_paths(torch, dev):
 # Phase 2c: dynamic networks and update rules
 # ---------------------------------------------------------------------------
 
-DYN_SIZES = dict(rounds=20, fig_dynamic_rounds=200, fig_optimizers_rounds=200)
+DYN_SIZES = dict(rounds=20, fig_dynamic_rounds=100, fig_optimizers_rounds=100)
 
 
 def drive_dynamic(torch, dev, label, spec, *args, **kw):
@@ -1374,7 +1422,6 @@ def dynamic_paths(torch, dev):
     one cell each of fig_dynamic and fig_optimizers, card against CPU."""
     from repro_torch.core import ExperimentSpec
     from repro_torch.data import FederatedDataset
-    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
     from repro_torch.figures import fig_dynamic, fig_optimizers
     from repro_torch.figures.common import make_logreg_workload, run_pisco_variant
     from repro_torch.models import simple as models
@@ -1392,7 +1439,7 @@ def dynamic_paths(torch, dev):
 
     # -- sparse-10k-bern: link failures q = 0.3, half participation --------
     n_sparse = SIZES["sparse_agents"]
-    x, y = synthetic_mnist(n_sparse * 20, seed=0)
+    x, y = synthetic("mnist", n_sparse * 20, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
     spec = ExperimentSpec.create(
         algo="pisco", n_agents=n_sparse, t_o=2, eta_l=0.1, p=0.05, seed=0,
@@ -1469,7 +1516,7 @@ def dynamic_paths(torch, dev):
     del want, data
 
     n_cmp = SIZES["compare_agents"]
-    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    x, y = synthetic("mnist", n_cmp * 20, 1)
     small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
     for label, cspec in (("sparse-1024-bern", spec),
                          ("sparse-1024-q8d-cohort", spec_q8.replace(compression="q8d")),
@@ -1483,7 +1530,7 @@ def dynamic_paths(torch, dev):
 
     # -- dense-q8-matching: K3 over a new W_k every round ------------------
     n_dense = SIZES["dense_agents"]
-    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    x, y = synthetic("mnist", n_dense * 80, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
     spec = ExperimentSpec.create(
         algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
@@ -1512,7 +1559,7 @@ def dynamic_paths(torch, dev):
     del hist, data, mixing
 
     # -- paper-static-process: the static process is the frozen W ----------
-    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    x, y = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=10)
     paper = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1,
                                   seed=0, topology="ring", rounds=SIZES["paper_rounds"],
@@ -1534,7 +1581,7 @@ def dynamic_paths(torch, dev):
                          128)
     check_bit_equal(torch, label, hist, want, "the inline path")
 
-    # -- fig-dynamic: ring, q = 0.3, half participation, 200 rounds -------
+    # -- fig-dynamic: ring, q = 0.3, half participation, 100 rounds -------
     work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
     n_test = len(work[cpu][0].y_test)
 
@@ -1561,7 +1608,7 @@ def dynamic_paths(torch, dev):
     check_readout_tie(label, gpu_h, cpu_h, got, want_r, fig_dynamic.GRAD_TARGET)
     summary[label] = 1e3 * secs / len(gpu_h.loss)
 
-    # -- fig-optimizers: Adam (lr 0.05) + FedAdam at p = 0.2, 200 rounds ---
+    # -- fig-optimizers: Adam (lr 0.05) + FedAdam at p = 0.2, 100 rounds ---
     label = "fig-optimizers/adam+fedadam,p=0.2"
     cell = dict(p=0.2, t_o=2, eta_l=0.3, rounds=DYN_SIZES["fig_optimizers_rounds"],
                 optimizer="adam:lr=0.05", server_optimizer="fedadam")
@@ -1602,7 +1649,7 @@ def check_readout_tie(label, gpu, cpu, got, want, target):
 # Phase 2d: simulated systems costs and asynchronous execution
 # ---------------------------------------------------------------------------
 
-ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=200, fig_timecost_rounds=100)
+ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=100, fig_timecost_rounds=50)
 # fig_async's rule at n agents: poly decay, staleness bound 2, a server
 # buffer of half the fleet
 ASYNC_RULE = "poly:alpha=0.5,bound=2,buffer={}"
@@ -1711,7 +1758,6 @@ def async_paths(torch, dev):
 
     from repro_torch.core import ExperimentSpec
     from repro_torch.data import FederatedDataset
-    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
     from repro_torch.figures import fig_async, fig_timecost
     from repro_torch.figures.common import make_logreg_workload
     from repro_torch.models import simple as models
@@ -1738,7 +1784,7 @@ def async_paths(torch, dev):
         del fleet
 
     # -- sparse-10k-async: stragglers, bounded staleness, buffered server ---
-    x, y = synthetic_mnist(n_sparse * 20, seed=0)
+    x, y = synthetic("mnist", n_sparse * 20, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
     sync = ExperimentSpec.create(
         algo="pisco", n_agents=n_sparse, t_o=2, eta_l=0.1, p=0.05, seed=0,
@@ -1804,7 +1850,7 @@ def async_paths(torch, dev):
     del hist, data
 
     n_cmp = SIZES["compare_agents"]
-    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    x, y = synthetic("mnist", n_cmp * 20, 1)
     small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
     for label, cspec in (("sparse-1024-async", spec),
                          ("sparse-1024-q8d-async", spec_q8.replace(compression="q8d"))):
@@ -1818,7 +1864,7 @@ def async_paths(torch, dev):
 
     # -- dense-q8-async: K3 over the engine's W_k under wan-gossip ---------
     n_dense = SIZES["dense_agents"]
-    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    x, y = synthetic("mnist", n_dense * 80, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
     spec = ExperimentSpec.create(
         algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
@@ -1846,7 +1892,7 @@ def async_paths(torch, dev):
     del hist, data
 
     # -- paper-events-free / -uniform: the trivial engine is the scan driver
-    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    x, y = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=10)
     paper = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1,
                                   seed=0, topology="ring", rounds=SIZES["paper_rounds"],
@@ -1869,7 +1915,7 @@ def async_paths(torch, dev):
         check(dev_s <= UNIFORM_SIM_RTOL, f"{label}: sim_time_s deviates by {dev_s}")
         summary[label] = 1e3 * hist.wall_time_s / len(hist.loss)
 
-    # -- fig-async-full: the stragglers cell, 200 rounds, sync and async ---
+    # -- fig-async-full: the stragglers cell, 100 rounds, sync and async ---
     work = {d: make_logreg_workload(quick=False, seed=0, device=d) for d in (dev, cpu)}
     rounds_f = ASYNC_SIZES["fig_async_rounds"]
     window = max(1, min(20, rounds_f // 10))
@@ -2137,7 +2183,6 @@ def robust_paths(torch, dev, card):
     from repro_torch.core.adversary import adversary_mask, parse_adversary_spec
     from repro_torch.core.mixing import make_robust_agg
     from repro_torch.data import FederatedDataset
-    from repro_torch.data.synthetic import synthetic_a9a, synthetic_mnist
     from repro_torch.figures import fig_robust
     from repro_torch.models import simple as models
     from repro_torch.sim import FREE_NETWORK
@@ -2160,7 +2205,7 @@ def robust_paths(torch, dev, card):
 
     # -- sparse-10k-signflip-trimmed: K4 over the folded CSR ---------------
     n_sparse = SIZES["sparse_agents"]
-    x, y = synthetic_mnist(n_sparse * 20, seed=0)
+    x, y = synthetic("mnist", n_sparse * 20, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_sparse)
     clean = with_server_round(ExperimentSpec.create(
         algo="pisco", n_agents=n_sparse, t_o=2, eta_l=0.1, p=0.05, seed=0,
@@ -2267,7 +2312,7 @@ def robust_paths(torch, dev, card):
     summary[label] = 1e3 * hist.wall_time_s / spec_q8.rounds
     del hist, data
 
-    x, y = synthetic_mnist(n_cmp * 20, seed=1)
+    x, y = synthetic("mnist", n_cmp * 20, 1)
     small = FederatedDataset.from_arrays(x, y, n_agents=n_cmp)
     for label, cspec in (("sparse-1024-signflip", spec),
                          ("sparse-1024-q8d-signflip", spec_q8.replace(compression="q8d"))):
@@ -2279,7 +2324,7 @@ def robust_paths(torch, dev, card):
 
     # -- dense-q8-collusion-median: q written out, no K3 -------------------
     n_dense = SIZES["dense_agents"]
-    x, y = synthetic_mnist(n_dense * 80, seed=0)
+    x, y = synthetic("mnist", n_dense * 80, 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=n_dense)
     spec = with_server_round(ExperimentSpec.create(
         algo="pisco", n_agents=n_dense, t_o=2, eta_l=0.1, p=0.1, seed=0,
@@ -2341,7 +2386,7 @@ def robust_paths(torch, dev, card):
     del hist, mem, back, restored, tree, data, mixing, bound
 
     # -- paper-random-krum: loop, block (two sizes), events: bit-equal -----
-    x, y = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    x, y = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(x, y, n_agents=10)
     loss = lambda p, b: models.logreg_loss(p, b, rho=0.01)  # noqa: E731
     params0 = models.logreg_init(124)
@@ -2557,7 +2602,10 @@ def lm_kernel_checks(torch, dev):
                                          # f32 at 192 and at the reduced MLA's 48 / 32
                                          (1, 8, 2, 300, 192, 64, torch.float32),
                                          (1, 4, 4, 45, (48, 32), None, torch.float32),
-                                         (2, 4, 4, 130, 48, 20, torch.float32)):
+                                         (2, 4, 4, 130, 48, 20, torch.float32),
+                                         # tp-qwen3-8b's share on 4 model ranks:
+                                         # 8 q heads, 2 KV heads at the prompt
+                                         (1, 8, 2, 500, 128, None, torch.bfloat16)):
         d, dv = d if isinstance(d, tuple) else (d, d)
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt, dv)
         e, e_p = check6(q, k, v, True, window, dt, (b, hq, hkv, s, d) + ((dv,) if dv != d else ()))
@@ -2658,10 +2706,12 @@ def lm_kernel_checks(torch, dev):
         f32_window_ms=None,
     )
     # the zoo's forms: Nemotron-4's head dim 192 (S 500 and 2048), MLA's
-    # q/k 192 against v 128 (S 500; the kernel on v padded to 192)
+    # q/k 192 against v 128 (S 500; the kernel on v padded to 192); a rank's
+    # share of Qwen3-8B on 4 model ranks (tp-qwen3-8b's prefill)
     for key, (s, hq, hkv, d, dv) in (("d192_s2048", (2048, 96, 8, 192, 192)),
                                      ("d192_s500", (500, 96, 8, 192, 192)),
-                                     ("mla_s500", (500, 16, 16, 192, 128))):
+                                     ("mla_s500", (500, 16, 16, 192, 128)),
+                                     ("tp4_s500", (500, 8, 2, 128, 128))):
         rows["flash_attention"][key] = dict(shape=[1, hq, hkv, s, d, dv],
                                             **k6_times(s, hq, hkv, d, dv))
         log(f"K6 {key}: {json.dumps(rows['flash_attention'][key])}")
@@ -2723,6 +2773,8 @@ def lm_kernel_checks(torch, dev):
                                          (2, 77, 8, 32, 2, 16, torch.bfloat16, False),
                                          (1, 1, 32, 64, 1, 128, torch.bfloat16, False),
                                          (1, 65, 32, 64, 1, 128, torch.bfloat16, False),
+                                         # Mamba2-370m's share on 2 model ranks
+                                         (2, 1024, 16, 64, 1, 128, torch.bfloat16, False),
                                          (1, 1000, 32, 64, 1, 128, torch.bfloat16, True),
                                          (1, 1000, 32, 64, 1, 128, torch.float32, True)):
         args = ssd_inputs(b, l, h, p, g, n, dt)
@@ -2754,6 +2806,18 @@ def lm_kernel_checks(torch, dev):
         plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=256), iters=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
+    # a rank's share of Mamba2-370m on 2 model ranks: 16 of its 32 heads
+    args = ssd_inputs(2, 1024, 16, 64, 1, 128, torch.bfloat16)
+    nb, fl = ssd_cost(2, 1024, 16, 64, 1, 128, 256, 2)
+    b_ms, b_by = bound_ms(nb, fl, BF16_FLOP_PER_S)
+    rows["ssd_scan"]["tp2_l1024"] = dict(
+        shape=[2, 1024, 16, 64, 1, 128], dtype="bfloat16",
+        max_abs_err=max(max_err(a, b) for a, b in zip(ops.ssd_scan(*args, chunk=256),
+                                                        ref.ssd_scan_ref(*args, chunk=256))),
+        ms=time_ms(torch, lambda: ops.ssd_scan(*args, chunk=256)),
+        device_ms=device_ms(torch, lambda: ops.ssd_scan(*args, chunk=256)),
+        plain_ms=time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=256), iters=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
     del args
     torch.cuda.empty_cache()
     for name in ("flash_attention", "ssd_scan"):
@@ -2946,7 +3010,6 @@ def serve_report(torch, dev, label, engine, rep, card, kernel=None):
     and four traced decode steps (device busy share, heaviest device ops).
     ``kernel`` = (name, substring of its device symbol): its share of the
     traced prefill's device time is logged too."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks = [0] * engine.n_slots
@@ -2971,8 +3034,8 @@ def serve_report(torch, dev, label, engine, rep, card, kernel=None):
             log(f"profile {label} {what}:   {us / 1e3 / n:8.3f} ms  {name[:100]}")
         if kernel is not None and what == "prefill":
             k_us = sum(us for name, us in top if kernel[1] in name)
-            k_n = sum(1 for e in prof.events() if kernel[1] in e.name and e.device_type
-                      == DeviceType.CUDA)
+            k_n = sum(1 for name, on_card, _, _ in trace_events(prof)
+                      if on_card and kernel[1] in name)
             log(f"profile {label} prefill: {kernel[0]} {k_us / 1e3:.3f} ms in {k_n} kernel "
                 f"launches, {100.0 * k_us / busy:.1f}% of the prefill's {busy / 1e3:.3f} ms "
                 "device time")
@@ -3114,12 +3177,12 @@ ZOO_PREFILL = {"prefill-qwen2.5-14b": "qwen2.5-14b", "prefill-granite-20b": "gra
                "prefill-nemotron-4-340b": "nemotron-4-340b",
                "prefill-seamless-m4t-medium": "seamless-m4t-medium",
                "prefill-qwen2-vl-2b": "qwen2-vl-2b"}
-ZOO_PREFILL_LEN, ZOO_DECODE_STEPS = 500, 8
+ZOO_PREFILL_LEN, ZOO_DECODE_STEPS = 500, 4
 # SeamlessM4T: 4 utterances of TRAIN_4K's seq // 4 = 1,024 frames (the
 # reference's FRAMES_PER_SEQ_DIV), 16 greedy steps; Qwen2-VL: one 448² image,
 # 16 x 16 patches after the 2 x 2 merge (t = 0, h = row, w = column), before
 # ZOO_PREFILL_LEN text tokens at t = h = w = 16 + i
-SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_DECODE_STEPS = 4, 1024, 16
+SEAMLESS_BATCH, SEAMLESS_FRAMES, SEAMLESS_DECODE_STEPS = 4, 1024, 8
 VLM_GRID = 16
 # depth cuts (published widths kept): the layers each path runs, where the
 # whole model does not fit one card with its slot copies
@@ -3772,8 +3835,9 @@ def a14_paths(torch, dev, card):
 # Phase 5a: the LM training launcher ("launch")
 # ---------------------------------------------------------------------------
 
-# (a) Mamba2-370m at its published width with the CLI's defaults (4 agents
-# on a ring, T_o 2, seq 128, eta_l 0.05) but batch 2 (the agents' vmapped
+# (a) Mamba2-370m at its published width with the CLI's defaults (on a
+# ring, T_o 2, seq 128, eta_l 0.05) but 2 agents, not 4 (the state and its
+# checkpoint halve: 4.1 GiB to save and restore, not 8.2), and batch 2 (the agents' vmapped
 # gradient keeps every activation, since checkpointing has no vmap rule:
 # ~1.45 GiB a layer at batch 4, 70 GiB for the 48 layers beside 8.3 GiB of
 # state): 6 rounds checkpointed at round 6, then two more restored from it
@@ -3785,9 +3849,10 @@ def a14_paths(torch, dev, card):
 # host, ~16 ms an agent, 34 s for 2,048) and LAUNCH_SPARSE_ROUNDS rounds of
 # batch 1 and seq 32 (its vmapped gradient over 2,048 agents at batch 4 and
 # seq 128 outgrows one card: 256 agents hold 18 GB on the CPU)
-LAUNCH_FULL_AGENTS = 4  # the CLI's default --n-agents
-LAUNCH_FULL = ["--arch", "mamba2-370m", "--batch", "2", "--log-every", "5"]
-LAUNCH_FULL_ROUNDS = 4  # then 2 restored under the profiler
+LAUNCH_FULL_AGENTS = 2  # the CLI's default --n-agents is 4
+LAUNCH_FULL = ["--arch", "mamba2-370m", "--n-agents", str(LAUNCH_FULL_AGENTS), "--batch", "2",
+               "--log-every", "5"]
+LAUNCH_FULL_ROUNDS = 2  # then 2 restored under the profiler
 LAUNCH_REDUCED = ["--arch", "qwen3-8b", "--reduced", "--log-every", "1"]
 LAUNCH_README_ROUNDS = 10
 LAUNCH_SPARSE_ROUNDS = 4
@@ -3986,7 +4051,7 @@ def launch_paths(torch, dev, card):
 # The example's LM_100M at full width, its default arguments but the rounds;
 # the launcher's requests; the deltas served from the checkpoint (dense and
 # top-k at f = 1 are lossless, the other two lossy)
-FLEET = dict(rounds=50, requests=8, prompt_len=32, gen=16, slots=4,
+FLEET = dict(rounds=32, requests=4, prompt_len=32, gen=16, slots=4,
              lossless=("dense", "topk:f=1.0"), lossy=("topk:f=0.05,q8", "lowrank:r=4"))
 
 
@@ -3999,7 +4064,7 @@ def _trees_equal(torch, a, b):
 
     la, lb = nest_leaves(a), nest_leaves(b)
     return len(la) == len(lb) and all(
-        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y.to(x.device))
         for x, y in zip(la, lb))
 
 
@@ -4016,7 +4081,6 @@ def fleet_paths(torch, dev, card):
     from repro_torch import checkpoint as ckpt
     from repro_torch.core import Experiment, ExperimentSpec
     from repro_torch.data import FederatedDataset, RoundSampler
-    from repro_torch.data.synthetic import synthetic_a9a
     from repro_torch.examples import train_federated_lm as ex
     from repro_torch.figures import bench_driver, fig_serve
     from repro_torch.launch import serve as launcher
@@ -4219,7 +4283,7 @@ def fleet_paths(torch, dev, card):
     # -- recorders on training: the round table equals the CPU's, losses the
     # unrecorded run's ---------------------------------------------------------
     cpu = torch.device("cpu")
-    xa, ya = synthetic_a9a(SIZES["paper_samples"], seed=0)
+    xa, ya = synthetic("a9a", SIZES["paper_samples"], 0)
     data = FederatedDataset.from_arrays(xa, ya, n_agents=10)
     paper = ExperimentSpec.create(algo="pisco", n_agents=10, t_o=5, eta_l=0.3, p=0.1, seed=0,
                                   topology="ring", rounds=SIZES["paper_rounds"], eval_every=10)
@@ -4293,9 +4357,9 @@ def fleet_paths(torch, dev, card):
 # FSDP rule's least sharded dim, so that 5 of its 11 leaves shard over data
 # (as at full width) and the card-vs-CPU comparison covers the gathers and
 # the reduce-scatter.
-COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=1024,
+COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=256,
                   batch=2, t_o=2, eta_l=1e-2, eta_c=1.0, wire="float32",
-                  reduced_seq=64, reduced_batch=2, reduced_rounds=3, hier_seq=1024,
+                  reduced_seq=64, reduced_batch=2, reduced_rounds=2, hier_seq=256,
                   hier_reduced_d_model=1024)
 # collective-reduced, card against CPU: f32 round losses within 1e-4 relative
 # and the final x within 1e-4 of its largest magnitude (cuBLAS and the CPU
@@ -4316,6 +4380,21 @@ def _stats_all_reduce(torch, t, op):
     return host
 
 
+def _same_on_every_rank(torch, t) -> bool:
+    """Whether ``t`` equals rank 0's on every rank: rank 0's bytes
+    broadcast through the host and compared on each rank, the verdicts
+    min-reduced (a quarter of the bytes of a max and a min all-reduce in
+    float32)."""
+    import torch.distributed as dist
+
+    mine = t.detach().to("cpu").contiguous().reshape(-1)
+    ref = mine.clone() if dist.get_rank() == 0 else torch.empty_like(mine)
+    dist.broadcast(ref.view(torch.uint8), src=0)  # the bytes, whatever the dtype
+    ok = torch.tensor([int(torch.equal(ref, mine))], dtype=torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
 def _rank_invariants(torch, label, state, n_ranks, what):
     """Lemma 1 on this state: mean over ranks of y equals that of g, within
     2^-5 of the leaf's largest |y| (about fifteen bf16 roundings of 2^-9 over
@@ -4324,10 +4403,10 @@ def _rank_invariants(torch, label, state, n_ranks, what):
 
     worst = 0.0
     for k in sorted(state.y):
-        sy = _stats_all_reduce(torch, state.y[k], dist.ReduceOp.SUM)
-        sg = _stats_all_reduce(torch, state.g[k], dist.ReduceOp.SUM)
+        # the sum over ranks of y - g: that of y less that of g, in one all-reduce
+        d = _stats_all_reduce(torch, state.y[k].float() - state.g[k].float(), dist.ReduceOp.SUM)
         ymax = float(_stats_all_reduce(torch, state.y[k].abs().amax(), dist.ReduceOp.MAX))
-        dev = float((sy - sg).abs().max()) / n_ranks
+        dev = float(d.abs().max()) / n_ranks
         tol = (2.0 ** -5 if state.y[k].dtype == torch.bfloat16 else 1e-5) * ymax
         check(dev <= tol, f"{label} {what}: Lemma 1 off by {dev} on {k} (limit {tol})")
         worst = max(worst, dev / max(ymax, 1e-30))
@@ -4452,10 +4531,8 @@ def _collective_run(torch, spec, dev, label, full):
             check(np.isfinite(float(loss)), f"{label}: {kind} loss {float(loss)}")
             if kind == "global":  # x bit-equal on every rank after the server round
                 for name, v in state.x.items():
-                    hi = _stats_all_reduce(torch, v, dist.ReduceOp.MAX)
-                    lo = _stats_all_reduce(torch, v, dist.ReduceOp.MIN)
-                    check(torch.equal(hi, lo), f"{label}: x/{name} differs across ranks "
-                                               "after the server round")
+                    check(_same_on_every_rank(torch, v), f"{label}: x/{name} differs across "
+                                                         "ranks after the server round")
             out["rounds"][kind]["lemma1"] = _rank_invariants(torch, label, state, world, kind)
         sync()
         out["launches"] = ops.launch_counts()
@@ -4493,12 +4570,13 @@ def _collective_run(torch, spec, dev, label, full):
             mixed, worst = mix(), 0.0
             for name in sorted(mixed):
                 v = before_of(name)
-                before = _stats_all_reduce(torch, v, dist.ReduceOp.SUM)
-                after = _stats_all_reduce(torch, mixed[name], dist.ReduceOp.SUM)
+                # the sum over ranks after less the sum before, in one all-reduce
+                moved = _stats_all_reduce(torch, mixed[name].float() - v.float(),
+                                          dist.ReduceOp.SUM)
                 vmax = float(_stats_all_reduce(torch, v.abs().amax(), dist.ReduceOp.MAX))
                 # each rank's output rounds once to bf16 (2^-9 relative at most)
                 tol = world * 2.0 ** -8 * vmax + 1e-30
-                d = float((after - before).abs().max())
+                d = float(moved.abs().max())
                 check(d <= tol, f"{label}: ring gossip moved the sum of {stream}/{name} by {d} "
                                 f"(limit {tol})")
                 worst = max(worst, d / tol)
@@ -4553,7 +4631,6 @@ def _hierarchical_run(torch, spec, dev, label, full):
     import dataclasses
 
     import numpy as np
-    import torch.distributed as dist
 
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.configs.shapes import TRAIN_4K
@@ -4632,10 +4709,8 @@ def _hierarchical_run(torch, spec, dev, label, full):
           f"{label}: a gathered leaf cut again is not this rank's shard")
     if kinds[-1] == "global":  # after the server round: both agents bit-equal
         for name, v in whole.items():
-            hi = _stats_all_reduce(torch, v, dist.ReduceOp.MAX)
-            lo = _stats_all_reduce(torch, v, dist.ReduceOp.MIN)
-            check(torch.equal(hi, lo), f"{label}: x/{name} differs across the agents after "
-                                       "the server round")
+            check(_same_on_every_rank(torch, v), f"{label}: x/{name} differs across the agents "
+                                                 "after the server round")
     out["x"] = {k: v.detach().float().cpu() for k, v in whole.items()} if not full else None
     return out
 
@@ -4844,6 +4919,655 @@ def collective_paths(torch, dev, card, spec=None):
                       "rowwise_quant_dequant")}
 
 
+# ---------------------------------------------------------------------------
+# Phase tp: tensor parallelism over the model axis (four ranks, one card)
+# ---------------------------------------------------------------------------
+
+# ``seed`` draws tp-qwen3-8b's and tp-mamba2-370m's weights and data (0 here;
+# tools/tp_readings.py reads other seeds); ``paths`` picks the paths the
+# ranks run
+TP = dict(world=4, qwen_prompt=500, qwen_decode=4, mamba_seq=256, mamba_batch=2, t_o=2,
+          eta_l=1e-2, eta_c=1.0, reduced_seq=16, reduced_batch=2, reduced_decode=4,
+          pod_d_model=1024, seed=0, paths=("qwen", "mamba", "reduced"))
+# tp-mamba2-370m: the first local loss and gradient of each agent on its
+# model ranks against the whole model's on the same card and batch.  In
+# bf16 through 48 layers (the ranks' partial sums round to bf16 before the
+# all-reduce; tools/tp_readings.py, seeds 0-3: losses 1.0e-4-3.0e-4 apart,
+# gradient norms 1.2e-3-2.1e-3 at the median leaf, 1.5e-2-2.4e-2 at the
+# worst, a per-head vector's): the loss within TP_LOSS_RTOL relative and each
+# leaf's gradient norm, gathered over model, within TP_GRAD_NORM_RTOL.  The
+# same weights in f32, where bf16's noise does not hide a wrong shard (the
+# gated norm's sum of squares over half the channels alone moves its
+# gradients by ~1e-2): the loss relative and every element of every leaf's
+# gradient within TP_F32_TOL of the leaf's largest magnitude
+TP_LOSS_RTOL = 1e-3
+TP_GRAD_NORM_RTOL = 5e-2
+TP_F32_TOL = 1e-3
+# tp-qwen3-8b, on the same tokens: the logits at the whole model's TP_TOP_K
+# largest of every row within PREFILL_LOGIT_TOL (max |err| / (1 + max
+# |logit|); seeds 0-3 read 0.018-0.032), and the whole row's rms error
+# within TP_LOGIT_RMS_TOL of its rms (0.048-0.052: bf16 random weights
+# through 36 layers; a wrong shard gives O(1)).  The maximum over all
+# 151,936 logits (0.037-0.053) is reported.
+TP_TOP_K = 64
+TP_LOGIT_RMS_TOL = 0.1
+# tp-reduced: f32, the card against the same ranks on the CPU (cuBLAS and the
+# CPU sum in other orders): COLLECTIVE_TOL's exact limit, of the largest
+# magnitude of each tensor
+TP_REDUCED_TOL = 1e-4
+
+
+def _tp_reduced_batch(torch, cfg, b, s, n_dec, seed):
+    """Tokens (and frames) of a reduced model's batch, and teacher tokens
+    for the decode steps, drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, dtype=torch.int32)}
+    if cfg.is_enc_dec:
+        batch["frames"] = torch.randn(b, s // 2, cfg.d_model, generator=gen)
+    dec = torch.randint(0, cfg.vocab_size, (b, n_dec), generator=gen, dtype=torch.int32)
+    return batch, dec
+
+
+def _tp_whole_leaves_equal(torch, mesh, tree, layout, label):
+    """The leaves held whole: bit-identical on every model rank; returns
+    how many were checked."""
+    n = 0
+    for name, v in tree.items():
+        if layout.get(name) is None:
+            parts = mesh.all_gather(v, ("model",))
+            check(all(torch.equal(parts[0], p) for p in parts[1:]),
+                  f"{label}: the whole leaf {name} differs across the model ranks")
+            n += 1
+    return n
+
+
+def _tp_qwen(torch, spec, dev, out_dir):
+    """tp-qwen3-8b on this rank: Qwen3-8B's model shard drawn leaf by leaf,
+    one prompt through ``build_prefill_step``, greedy ``build_decode_step``s."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import shard_tree
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+    from repro_torch.weights import init_model_shard
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh((1, spec["world"]), ("data", "model"), dev)
+    cfg = get_config("qwen3-8b")
+    bundle = get_bundle(cfg, dev)
+    layout, differs, _ = S.param_layout(bundle, mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model_shard(bundle, layout, mesh, seed=spec["seed"])
+    sync()
+    init_s = time.perf_counter() - t0
+    held = sum(v.numel() * v.element_size() for v in flatten_paths(params).values())
+    whole = sum(v.numel() * v.element_size()
+                for v in flatten_paths(get_bundle(cfg, "meta").init(0)).values())
+    # while drawing, a rank holds its shards and one whole leaf (the largest,
+    # the stacked FFN's, in its f32 draw): reported, not held to the limit
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    check(held < whole / 2, f"tp-qwen3-8b: a rank holds {held} bytes of the whole model's "
+                            f"{whole}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    prompt = torch.from_numpy(np.load(os.path.join(out_dir, "tp_prompt.npy"))).to(dev)
+    n_prompt, n_dec = prompt.shape[1], spec["qwen_decode"]
+    pre = S.build_prefill_step(bundle, InputShape("tp", n_prompt, 1, "prefill"), mesh)
+    dec = S.build_decode_step(bundle, InputShape("tp", n_prompt + n_dec, 1, "decode"), mesh)
+    whole_cache = bundle.init_cache(1, n_prompt + n_dec)
+    c_layout, _ = S.cache_layout(bundle, whole_cache, mesh)
+    cache = shard_tree(whole_cache, c_layout, mesh)
+    del whole_cache
+    out = {"held_gib": held / 2**30, "whole_gib": whole / 2**30, "init_s": init_s,
+           "init_peak_gib": init_peak, "notes": pre.notes.get("dropped_shardings", [])}
+    mesh.clock.on = True
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        mesh.clock.reset()
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(params, {"tokens": prompt}, cache)
+        sync()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["prefill_exchange_ms"] = 1e3 * mesh.clock.seconds.get("exchange", 0.0)
+        out["prefill_bytes"] = mesh.clock.bytes_sent
+        out["prefill_launches"] = ops.launch_counts()
+        last = logits[0, -1].float().cpu().numpy()
+        tokens = [int(np.argmax(last))]
+        dec_logits = []
+        mesh.clock.reset()
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n_dec):
+            tok = torch.tensor([[tokens[-1]]], dtype=torch.int32, device=dev)
+            lg, cache = dec.fn(params, tok, cache)
+            row = lg[0, -1].float().cpu().numpy()
+            dec_logits.append(row)
+            tokens.append(int(np.argmax(row)))
+        sync()
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / n_dec
+        out["decode_exchange_ms"] = 1e3 * mesh.clock.seconds.get("exchange", 0.0) / n_dec
+        out["decode_bytes"] = mesh.clock.bytes_sent / n_dec
+        out["decode_launches"] = ops.launch_counts()
+    mesh.clock.on = False
+    out["tokens"] = tokens
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    check(out["peak_gib"] * 2**30 < whole / 2, f"tp-qwen3-8b: a rank's peak while serving "
+                                                f"{out['peak_gib']:.2f} GiB of the whole model's "
+                                                f"{whole / 2**30:.2f}")
+    if mesh.rank == 0:
+        np.save(os.path.join(out_dir, "tp_qwen_logits.npy"), np.stack([last] + dec_logits))
+    del params, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_mamba(torch, spec, dev):
+    """tp-mamba2-370m on this rank: two agents of two model ranks; the first
+    local loss and gradient against the whole model's (drawn here, dropped
+    after), then a gossip, a server and a q8d + EF gossip round through
+    ``build_train_steps``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core import mixing as M
+    from repro_torch.core.pisco import (PiscoConfig, init_compression_state, init_rank_state,
+                                        make_rank_round_fn)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import ModelAxis, make_mesh, rank_slice
+    from repro_torch.launch.specs import gather_model
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+    from repro_torch.weights import init_model_shard
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    seed = spec["seed"]
+    cfg = get_config("mamba2-370m")
+    seq, batch, t_o = spec["mamba_seq"], spec["mamba_batch"], spec["t_o"]
+    bundle = get_bundle(cfg, dev)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=seq, global_batch=2 * batch)
+    steps = S.build_train_steps(bundle, shape, mesh, t_o=t_o, eta_l=spec["eta_l"],
+                                eta_c=spec["eta_c"], wire_dtype="native")
+    layout, differs, _ = S.param_layout(bundle, mesh)
+    x0 = flatten_paths(init_model_shard(bundle, layout, mesh, seed=seed))
+    vg = S.flat_value_and_grad(get_bundle(cfg, dev, ModelAxis(mesh)))
+    sampler = make_lm_sampler(cfg, 2, batch, seq, t_o, seed=seed)
+    batches = [tuple(rank_slice(b, mesh, ("data",), axis=1 - i, device=dev)
+                     for i, b in enumerate(sampler(k))) for k in range(4)]
+    first = {k: v[0] for k, v in batches[1][0].items()}
+    whole = flatten_paths(bundle.init(seed=seed))
+    loss, grads = vg(x0, first)
+    grads = gather_model(grads, layout, mesh)
+    w_loss, w_grads = S.flat_value_and_grad(bundle)(whole, first)
+    norm_dev = {}
+    for name, g in w_grads.items():
+        want = float(g.double().norm())
+        norm_dev[name] = abs(float(grads[name].double().norm()) - want) / max(want, 1e-30)
+    del grads, w_grads
+    # the same weights and batch in f32
+    cfg32 = get_config("mamba2-370m", "float32")
+    f32 = lambda t: {k: v.float() for k, v in t.items()}  # noqa: E731
+    loss32, grads32 = S.flat_value_and_grad(get_bundle(cfg32, dev, ModelAxis(mesh)))(f32(x0),
+                                                                                  first)
+    grads32 = gather_model(grads32, layout, mesh)
+    w_loss32, w_grads32 = S.flat_value_and_grad(get_bundle(cfg32, dev))(f32(whole), first)
+    del whole
+    f32_dev = {name: float((grads32[name] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+               for name, g in w_grads32.items()}
+    del grads32, w_grads32
+    out = {"first_loss": float(loss), "whole_loss": float(w_loss), "grad_norm_dev": norm_dev,
+           "f32_loss_dev": abs(float(loss32) - float(w_loss32)) / abs(float(w_loss32)),
+           "f32_grad_dev": f32_dev,
+           "agent": mesh.coords["data"], "layout_differs": differs, "n_leaves": len(x0),
+           "n_split": sum(v is not None for v in layout.values()), "rounds": {}}
+    pcfg = PiscoConfig(2, t_o, spec["eta_l"], spec["eta_c"])
+    cmix = M.compressed_mixing(steps["train_gossip"].mixing, bits=8)
+    plan = [("gossip", steps["train_gossip"].fn), ("global", steps["train_global"].fn),
+            ("gossip-q8d", make_rank_round_fn(vg, pcfg, cmix, global_round=False))]
+    state = init_rank_state(vg, x0, batches[0][1])
+    del x0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.clock.on = True
+    ops.reset_launch_counts()
+    for k, (kind, fn) in enumerate(plan, start=1):
+        if kind == "gossip-q8d":
+            state = init_compression_state(state, cmix)
+        mesh.clock.reset()
+        sync()
+        t0 = time.perf_counter()
+        state, loss = fn(state, *batches[k])
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        exch = 1e3 * mesh.clock.seconds.get("exchange", 0.0)
+        out["rounds"][kind] = dict(ms=ms, exchange_ms=exch, local_ms=ms - exch,
+                                   bytes_sent=mesh.clock.bytes_sent, loss=float(loss))
+        check(bool(np.isfinite(float(loss))), f"tp-mamba2-370m: {kind} loss {float(loss)}")
+        mesh.clock.on = False
+        n_whole = 0
+        for f in ("x", "y", "g"):
+            n_whole += _tp_whole_leaves_equal(torch, mesh, getattr(state, f), layout,
+                                              f"tp-mamba2-370m {kind} {f}")
+            check(all(bool(torch.isfinite(v).all()) for v in getattr(state, f).values()),
+                  f"tp-mamba2-370m {kind}: non-finite {f}")
+        out["rounds"][kind]["n_whole_checked"] = n_whole
+        if kind == "global":  # the agents' x bit-equal after the server round
+            for name, v in state.x.items():
+                parts = mesh.all_gather(v, ("data",))
+                check(torch.equal(parts[0], parts[1]), f"tp-mamba2-370m: x/{name} differs "
+                                                       "across the agents after the server round")
+        mesh.clock.on = True
+    sync()
+    mesh.clock.on = False
+    out["launches"] = ops.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_reduced_one(torch, cfg, mesh, spec, seed):
+    """One reduced model on this rank's mesh (card or CPU): prefill, decode
+    steps, one value_and_grad and one gossip round on the model shard; the
+    tensors come back on the CPU, each rank's own shards."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core.pisco import init_rank_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import ModelAxis, rank_slice
+    from repro_torch.launch.specs import shard_tree
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths, nest_map
+
+    dev = mesh.device
+    b, s, n_dec = spec["reduced_batch"], spec["reduced_seq"], spec["reduced_decode"]
+    whole = get_bundle(cfg, "cpu")
+    layout, _, _ = S.param_layout(whole, mesh)
+    params = nest_map(lambda t: t.to(dev), shard_tree(whole.init(seed=0), layout, mesh))
+    tpb = get_bundle(cfg, dev, ModelAxis(mesh))
+    batch, dec = _tp_reduced_batch(torch, cfg, b, s, n_dec, seed)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    kw = {"mem_len": s // 2} if cfg.is_enc_dec else {}
+    cache = whole.init_cache(b, s + n_dec, **kw)
+    c_layout, _ = S.cache_layout(whole, cache, mesh)
+    cache = nest_map(lambda t: t.to(dev), shard_tree(cache, c_layout, mesh))
+    out = {}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, cache = tpb.prefill(params, batch, cache)
+        out["launches"] = ops.launch_counts()
+        out["prefill"] = logits.float().cpu()
+        for i in range(n_dec):
+            logits, cache = tpb.decode(params, dec[:, i:i + 1].to(dev), cache)
+            out[f"decode{i}"] = logits.float().cpu()
+    loss, grads = tpb.value_and_grad(params, batch)
+    out["loss"] = loss.float().cpu()
+    out.update({"grad/" + k: v.float().cpu() for k, v in flatten_paths(grads).items()})
+    if not cfg.is_enc_dec:  # one gossip round of PISCO over the two agents
+        shape = dataclasses.replace(TRAIN_4K, seq_len=s, global_batch=2 * b)
+        steps = S.build_train_steps(get_bundle(cfg, dev), shape, mesh, t_o=1, eta_l=0.05,
+                                    eta_c=0.9)
+        sampler = make_lm_sampler(cfg, 2, b, s, 1, seed=seed)
+        bt = [tuple(rank_slice(x, mesh, ("data",), axis=1 - i, device=dev)
+                    for i, x in enumerate(sampler(k))) for k in range(2)]
+        vg = S.flat_value_and_grad(tpb)
+        x0 = flatten_paths(params)
+        state, rloss = steps["train_gossip"].fn(init_rank_state(vg, x0, bt[0][1]), *bt[1])
+        out["round_loss"] = rloss.float().cpu()
+        out.update({"x/" + k: v.float().cpu() for k, v in state.x.items()})
+    return out
+
+
+def _tp_pod_one(torch, mesh, spec):
+    """Pod-as-agent on (pod 1, data 2, model 2): the reduced Qwen3-8B widened
+    to d_model 1,024, a gossip and a server round, each rank on the data
+    shard of its model shard; this rank's x shards back on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core.pisco import init_rank_state
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import ModelAxis, rank_slice
+    from repro_torch.launch.specs import shard_model
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+
+    dev = mesh.device
+    cfg = dataclasses.replace(get_reduced("qwen3-8b"), d_model=spec["pod_d_model"])
+    b, s = spec["reduced_batch"], spec["reduced_seq"]
+    shape = dataclasses.replace(TRAIN_4K, seq_len=s, global_batch=b)
+    steps = S.build_train_steps(get_bundle(cfg, dev), shape, mesh, t_o=1, eta_l=0.01,
+                                eta_c=0.9, agent_mode="hierarchical")
+    notes = steps["train_gossip"].notes
+    layout, _, _ = S.param_layout(get_bundle(cfg, "cpu"), mesh)
+    x0 = shard_model(flatten_paths(get_bundle(cfg, "cpu").init(seed=0)), layout, mesh)
+    x0 = S.shard_leaves({k: v.to(dev) for k, v in x0.items()}, notes["data_dims"], mesh)
+    sampler = make_lm_sampler(cfg, 1, b, s, 1, seed=0)
+    bd = notes["batch_dims"]
+    bt = [tuple(rank_slice(x, mesh, ("pod",), axis=1 - i, device=dev)
+                for i, x in enumerate(sampler(k))) for k in range(3)]
+    bt = [(S.batch_share(loc, bd["local"], mesh), S.batch_share(com, bd["comm"], mesh))
+          for loc, com in bt]
+    vg = S.sharded_value_and_grad(S.flat_value_and_grad(get_bundle(cfg, dev, ModelAxis(mesh))),
+                                  mesh, notes["data_dims"])
+    state = init_rank_state(vg, x0, bt[0][1])
+    out = {"n_data_split": sum(d is not None for d in notes["data_dims"].values())}
+    for k, kind in enumerate(("gossip", "global"), start=1):
+        state, loss = steps["train_" + kind].fn(state, *bt[k])
+        out[f"{kind}/loss"] = loss.float().cpu()
+    out.update({"x/" + k: v.float().cpu() for k, v in state.x.items()})
+    return out
+
+
+def _tp_reduced(torch, spec, dev):
+    """tp-reduced on this rank: every arch at reduced() in f32 and
+    pod-as-agent, on the card and on the CPU over the same ranks; returns
+    each check's largest deviation as a share of its limit."""
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.launch.mesh import make_mesh
+
+    card = make_mesh((2, 2), ("data", "model"), dev)
+    cpu = make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {"archs": {}, "launches": {}}
+
+    def compare(a, b):
+        used = 0.0
+        for k in b:
+            scale = max(float(b[k].abs().max()), 1e-30)
+            used = max(used, float((a[k] - b[k]).abs().max()) / (TP_REDUCED_TOL * scale))
+        return used
+
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_reduced(arch)
+        got = _tp_reduced_one(torch, cfg, card, spec, 100 + i)
+        want = _tp_reduced_one(torch, cfg, cpu, spec, 100 + i)
+        for k, v in got.pop("launches").items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        del want["launches"]
+        out["archs"][arch] = dict(used=compare(got, want), loss=float(got["loss"]),
+                                  keys=len(want))
+    card3 = make_mesh((1, 2, 2), ("pod", "data", "model"), dev)
+    cpu3 = make_mesh((1, 2, 2), ("pod", "data", "model"), "cpu")
+    got, want = _tp_pod_one(torch, card3, spec), _tp_pod_one(torch, cpu3, spec)
+    n_split = got.pop("n_data_split")
+    want.pop("n_data_split")
+    out["pod"] = dict(used=compare(got, want), n_data_split=n_split,
+                      losses=[float(got["gossip/loss"]), float(got["global/loss"])])
+    return out
+
+
+def tp_rank(rank, spec, port, out_dir):
+    """Body of one spawned rank of the tp phase; results go to
+    ``out_dir/tp<r>.json``.  An exception fails the spawn, and the script."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(spec["device"])
+    if dev.type == "cuda":  # every rank on the one card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=spec["world"])
+    try:
+        res = {}
+        for name, path in (("qwen", lambda: _tp_qwen(torch, spec, dev, out_dir)),
+                           ("mamba", lambda: _tp_mamba(torch, spec, dev)),
+                           ("reduced", lambda: _tp_reduced(torch, spec, dev))):
+            if name in spec["paths"]:
+                t0 = time.perf_counter()
+                res[name] = path()
+                res[name]["s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_prompt(torch, spec, out_dir):
+    """tp-qwen3-8b's prompt, drawn on the CPU and written for the ranks."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator().manual_seed(5 + spec["seed"])
+    prompt = torch.randint(0, get_config("qwen3-8b").vocab_size, (1, spec["qwen_prompt"]),
+                           generator=gen, dtype=torch.int32)
+    np.save(os.path.join(out_dir, "tp_prompt.npy"), prompt.numpy())
+    return prompt
+
+
+def _tp_qwen_whole(torch, dev, prompt, tokens, seed):
+    """Qwen3-8B whole on this process, after the ranks: the prefill of the
+    prompt, then a decode step on each of the ranks' greedy tokens (the
+    model dropped after); the last position's logits of each call."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+
+    bundle = get_bundle(get_config("qwen3-8b"), dev)
+    params = bundle.init(seed=seed)
+    cache = bundle.init_cache(1, prompt.shape[1] + len(tokens))
+    rows = []
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, {"tokens": prompt.to(dev)}, cache)
+        rows.append(logits[0, -1].float().cpu().numpy())
+        for t in tokens[:-1]:
+            tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
+            logits, cache = bundle.decode(params, tok, cache)
+            rows.append(logits[0, -1].float().cpu().numpy())
+    del params, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return np.stack(rows)
+
+
+def _tp_qwen_report(tp_logits, want, tokens):
+    """tp-qwen3-8b's statistics of the ranks' logits against the whole
+    model's on the same tokens, and its greedy-token readout."""
+    import numpy as np
+
+    rows, greedy = [], []
+    for got, w, tok in zip(tp_logits, want, tokens):
+        scale = 1.0 + float(np.abs(w).max())
+        top = np.argpartition(w, -TP_TOP_K)[-TP_TOP_K:]
+        err = got - w
+        band = 2.0 * float(np.abs(err[top]).max())
+        rows.append(dict(full=float(np.abs(err).max()) / scale, top=band / (2.0 * scale),
+                         rms=float(np.sqrt(np.mean(err.astype(np.float64) ** 2))
+                                   / np.sqrt(np.mean(w.astype(np.float64) ** 2)))))
+        # the greedy token against the whole model's logits at the same
+        # position: its whole-model logit within twice the row's measured
+        # deviation at the top logits of the maximum, hence the maximiser
+        # wherever the whole model's top two lie further apart than that
+        hi, second = (float(v) for v in np.sort(w)[[-1, -2]])
+        greedy.append(dict(exact=int(np.argmax(w)) == tok, margin=hi - second, band=band,
+                           within=hi - float(w[tok]) <= band, token=float(w[tok]), top=hi))
+    return rows, greedy
+
+
+def tp_paths(torch, dev, card, spec=None):
+    """The tp phase: four spawned ranks sharing the card (gloo, exchanges
+    staged through the host) run tp-qwen3-8b on (data 1, model 4),
+    tp-mamba2-370m and tp-reduced on (data 2, model 2) and pod-as-agent on
+    (pod 1, data 2, model 2); then Qwen3-8B whole on the card after them.
+    Checks and reports what they return.  Returns the card's launches summed
+    over the ranks."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    spec = dict(TP if spec is None else spec, device=str(dev))
+    world, paths = spec["world"], spec["paths"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        prompt = _tp_prompt(torch, spec, out_dir)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(spec, port, out_dir), nprocs=world, join=True,
+                           start_method="spawn")
+        res = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"tp{r}.json")) as f:
+                res.append(json.load(f))
+        if "qwen" in paths:
+            tp_logits = np.load(os.path.join(out_dir, "tp_qwen_logits.npy"))
+    log(f"tp: {world} ranks spawned and joined in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for r in res:
+        for part in ([r["qwen"]["prefill_launches"], r["qwen"]["decode_launches"]]
+                     if "qwen" in r else []) + [r[p]["launches"] for p in ("mamba", "reduced")
+                                                if p in r]:
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+
+    if "qwen" in paths:  # -- tp-qwen3-8b ---------------------------------------
+        label = "tp-qwen3-8b"
+        q = [r["qwen"] for r in res]
+        check(all(r["tokens"] == q[0]["tokens"] for r in q), f"{label}: ranks decoded apart")
+        t0 = time.perf_counter()
+        want = _tp_qwen_whole(torch, dev, prompt, q[0]["tokens"], spec["seed"])
+        log(f"{label}: the whole model on the card, the prompt and the ranks' {len(want) - 1} "
+            f"tokens, in {time.perf_counter() - t0:.1f} s")
+        rows, greedy = _tp_qwen_report(tp_logits, want, q[0]["tokens"])
+        worst = {k: max(x[k] for x in rows) for k in ("full", "top", "rms")}
+        log(f"{label} (seed {spec['seed']}): prefill and {len(want) - 1} decode steps' logits on "
+            f"4 model ranks against the whole model on the card, on the same tokens: max |err| "
+            f"/ (1 + max |logit|) at the whole model's top {TP_TOP_K} prefill "
+            f"{rows[0]['top']:.3e}, decode max {max(x['top'] for x in rows[1:]):.3e} (limit "
+            f"{PREFILL_LOGIT_TOL}); over the whole vocabulary prefill {rows[0]['full']:.3e}, "
+            f"decode max {max(x['full'] for x in rows[1:]):.3e}; rms err / rms logit max "
+            f"{worst['rms']:.3e} (limit {TP_LOGIT_RMS_TOL}); greedy tokens {q[0]['tokens']}: "
+            f"{sum(g['exact'] for g in greedy)} of {len(greedy)} the whole model's argmax; the "
+            f"whole model's top-2 margins {[round(g['margin'], 4) for g in greedy]} against "
+            f"twice the row's deviation at its top logits {[round(g['band'], 4) for g in greedy]}")
+        check(worst["top"] <= PREFILL_LOGIT_TOL, f"{label}: top logits differ by {worst['top']}")
+        check(worst["rms"] <= TP_LOGIT_RMS_TOL, f"{label}: rms error {worst['rms']}")
+        for i, g in enumerate(greedy):
+            check(g["within"], f"{label}: greedy token {q[0]['tokens'][i]} at step {i}: the "
+                               f"whole model's logit {g['token']} against its maximum {g['top']}, "
+                               f"beyond twice the row's deviation {g['band']}")
+        for r, x in enumerate(q):
+            log(f"{label} rank {r}: holds {x['held_gib']:.3f} of the whole model's "
+                f"{x['whole_gib']:.3f} GiB (drawn leaf by leaf in {x['init_s']:.1f} s, peak "
+                f"{x['init_peak_gib']:.3f} GiB while drawing); prefill {x['prefill_ms']:.1f} ms "
+                f"(exchange {x['prefill_exchange_ms']:.1f} ms, {x['prefill_bytes'] / 1e6:.1f} MB "
+                f"all-reduced and gathered), decode {x['decode_ms']:.2f} ms a step (exchange "
+                f"{x['decode_exchange_ms']:.2f} ms, {x['decode_bytes'] / 1e6:.3f} MB), K6 "
+                f"launches {x['prefill_launches'].get('flash_attention', 0)} "
+                f"({x['prefill_launches'].get('flash_attention_tc', 0)} on the tensor cores), "
+                f"peak {x['peak_gib']:.3f} GiB; {x['s']:.1f} s")
+            check(x["prefill_launches"].get("flash_attention", 0) == 36,
+                  f"{label} rank {r}: K6 launched {x['prefill_launches']} in the prefill")
+
+    if "mamba" in paths:  # -- tp-mamba2-370m -----------------------------------
+        label = "tp-mamba2-370m"
+        m = [r["mamba"] for r in res]
+        loss_dev = [abs(x["first_loss"] - x["whole_loss"]) / abs(x["whole_loss"]) for x in m]
+        norm_dev = {}
+        for x in m:
+            for k, v in x["grad_norm_dev"].items():
+                norm_dev[k] = max(norm_dev.get(k, 0.0), v)
+        worst = max(norm_dev, key=norm_dev.get)
+        f32_loss = max(x["f32_loss_dev"] for x in m)
+        f32_grad = {}
+        for x in m:
+            for k, v in x["f32_grad_dev"].items():
+                f32_grad[k] = max(f32_grad.get(k, 0.0), v)
+        worst32 = max(f32_grad, key=f32_grad.get)
+        log(f"{label} (seed {spec['seed']}): in f32 on the same weights and batch, the first "
+            f"loss {f32_loss:.3e} relative from the whole model's, the gradients within "
+            f"{f32_grad[worst32]:.3e} of each leaf's largest magnitude (worst {worst32}; limit "
+            f"{TP_F32_TOL})")
+        log(f"{label} (seed {spec['seed']}): first local losses on the model ranks "
+            f"{[x['first_loss'] for x in m]} against the whole model's "
+            f"{[x['whole_loss'] for x in m]} on the same card and batch: max relative "
+            f"deviation {max(loss_dev):.3e} (limit {TP_LOSS_RTOL}); gradient norms gathered over "
+            f"model against the whole model's: worst leaf {worst} {norm_dev[worst]:.3e}, median "
+            f"{float(np.median(list(norm_dev.values()))):.3e} (limit {TP_GRAD_NORM_RTOL}); "
+            f"{m[0]['n_split']} of {m[0]['n_leaves']} leaves split over model, layout departs "
+            f"from the reference's on {m[0]['layout_differs']}")
+        check(max(loss_dev) <= TP_LOSS_RTOL, f"{label}: first local loss apart by "
+                                             f"{max(loss_dev)}")
+        check(norm_dev[worst] <= TP_GRAD_NORM_RTOL, f"{label}: the gradient of {worst} apart "
+                                                    f"by {norm_dev[worst]} in norm")
+        check(f32_loss <= TP_F32_TOL and f32_grad[worst32] <= TP_F32_TOL,
+              f"{label}: in f32, the loss apart by {f32_loss}, the gradient of {worst32} by "
+              f"{f32_grad[worst32]}")
+        for kind in m[0]["rounds"]:
+            per = {k: float(np.mean([x["rounds"][kind][k] for x in m]))
+                   for k in ("ms", "local_ms", "exchange_ms")}
+            log(f"path {label} {kind}: {per['ms']:.1f} ms a round (mean over ranks; local "
+                f"{per['local_ms']:.1f}, exchange {per['exchange_ms']:.1f}), "
+                f"{m[0]['rounds'][kind]['bytes_sent'] / 1e9:.3f} GB sent per rank, losses "
+                f"{[round(x['rounds'][kind]['loss'], 6) for x in m]}; "
+                f"{m[0]['rounds'][kind]['n_whole_checked']} whole leaves of x, y and g "
+                f"bit-identical across the model ranks")
+        log(f"path {label}: peak {', '.join(format(x['peak_gib'], '.3f') for x in m)} GiB a "
+            f"rank; launches per rank {m[0]['launches']}; {m[0]['s']:.1f} s")
+        for x in m:  # per rank: K8 once per leaf (gossip), K2 and K9 twice (q8d's x and y)
+            n, lc = x["n_leaves"], x["launches"]
+            check(lc["fused_mix_combine"] == n
+                  and lc["row_absmax"] == lc["rowwise_quant_dequant"] == 2 * n
+                  and lc["fused_local_step"] > 0,
+                  f"{label}: launches per rank {lc} for {n} leaves")
+
+    if "reduced" in paths:  # -- tp-reduced -------------------------------------
+        label = "tp-reduced"
+        red = [r["reduced"] for r in res]
+        for arch in red[0]["archs"]:
+            used = max(x["archs"][arch]["used"] for x in red)
+            log(f"compare {label}/{arch}: prefill, {spec['reduced_decode']} decode steps, "
+                f"value_and_grad and one gossip round on (data 2, model 2), card vs CPU: "
+                f"{red[0]['archs'][arch]['keys']} tensors within {used:.3f} of "
+                f"{TP_REDUCED_TOL} x their largest magnitude; loss "
+                f"{red[0]['archs'][arch]['loss']:.6f}")
+            check(used <= 1.0, f"{label}/{arch}: card and CPU apart ({used} of the limit)")
+        used = max(x["pod"]["used"] for x in red)
+        log(f"compare {label}/pod-as-agent: (pod 1, data 2, model 2), gossip and server rounds, "
+            f"card vs CPU: x within {used:.3f} of the limit, {red[0]['pod']['n_data_split']} "
+            f"leaves split over data, losses {red[0]['pod']['losses']}")
+        check(used <= 1.0, f"{label}/pod-as-agent: card and CPU apart ({used} of the limit)")
+        log(f"{label}: launches on the card {red[0]['launches']} (rank 0); "
+            f"{red[0]['s']:.1f} s")
+        for k in ("flash_attention", "ssd_scan"):
+            check(red[0]["launches"].get(k, 0) > 0, f"{label}: {k} not launched")
+    log(f"tp: launches summed over ranks {launches}; on {card}")
+    log(f"tp: {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches.get(k, 0) for k, _, _ in KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -4879,29 +5603,28 @@ def main() -> int:
                     name == "flash_attention" and "Compiling entry" in line):
                 log(f"ptxas {name}: {line.strip()}")
 
-    rows = kernel_checks(torch, dev)
-    rows.update(lm_kernel_checks(torch, dev))
-    collective_kernel_checks(torch, dev, rows)
-    launches = main_path(torch, dev)
-    for k, v in figures_paths(torch, dev).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in dynamic_paths(torch, dev).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in async_paths(torch, dev).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in robust_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
-    launches.update(serve_paths(torch, dev, card))
-    for k, v in zoo_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in a14_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in launch_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in fleet_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
-    for k, v in collective_paths(torch, dev, card).items():
-        launches[k] = launches.get(k, 0) + v
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, dev, *args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    rows = timed("kernels", kernel_checks)
+    rows.update(timed("lm_kernels", lm_kernel_checks))
+    timed("collective_kernels", collective_kernel_checks, rows)
+    launches = timed("main", main_path)
+    for name, fn, args in (("figures", figures_paths, ()), ("dynamic", dynamic_paths, ()),
+                           ("async", async_paths, ()), ("robust", robust_paths, (card,)),
+                           ("serve", serve_paths, (card,)), ("zoo", zoo_paths, (card,)),
+                           ("a14", a14_paths, (card,)), ("launch", launch_paths, (card,)),
+                           ("fleet", fleet_paths, (card,)),
+                           ("collective", collective_paths, (card,)),
+                           ("tp", tp_paths, (card,))):
+        for k, v in timed(name, fn, *args).items():
+            launches[k] = launches.get(k, 0) + v
+    log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 

@@ -112,13 +112,15 @@ class StochasticQuantizer(Compressor):
 
     def quantize(
         self, rows: torch.Tensor, residual: Optional[torch.Tensor] = None,
-        noise: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None, absmax: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(q, new_residual)`` of the (n, d) message rows ``m = rows (+
         residual)``: the row abs-max (K2) and the round trip with the
         error-feedback update (K9), in the rows' dtype.  ``noise`` is used
-        only in stochastic mode."""
-        absmax = row_absmax(rows, residual)
+        only in stochastic mode; ``absmax``, when given, is the rows' scale
+        (K2 then not run here)."""
+        if absmax is None:
+            absmax = row_absmax(rows, residual)
         return rowwise_quant_dequant(rows, absmax, bits=self.bits, residual=residual,
                                      noise=noise if self.stochastic else None)
 
@@ -238,6 +240,9 @@ class CompressedGossip:
     # ``w`` / ``csr`` do not carry (MixingOps.wire_corrupt): q is written
     # out, corrupted, then mixed by the plain gossip
     corrupt: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
+    # a collective mixer's model shards: the whole leaf's row abs-max from
+    # a shard's (MixingOps.row_max)
+    row_max: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
 
     def __post_init__(self):
         if sum(b is not None for b in (self.w, self.csr, self.base_gossip)) != 1:
@@ -271,7 +276,8 @@ class CompressedGossip:
             return tree_agent_mix({"leaf": q}, w)["leaf"]
         return sparse_mix_csr(q.reshape(q.shape[0], -1), *csr).reshape(q.shape)
 
-    def _mix_leaf(self, x, residual, gen, i: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _mix_leaf(self, x, residual, gen, i: int,
+                  key: str = "") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # a collective mixer's leaf is one rank's own message: one row
         rows = x.reshape(1 if self.per_rank else x.shape[0], -1)
         res = None if residual is None else residual.reshape(rows.shape)
@@ -280,9 +286,11 @@ class CompressedGossip:
             if self.compressor.stochastic and gen is not None:
                 noise = torch.rand(rows.shape, generator=gen, dtype=torch.float32,
                                    device=rows.device)
+            absmax = row_absmax(rows, res)
+            if self.row_max is not None:
+                absmax = self.row_max(key, absmax)
             if self.base_gossip is None and self.corrupt is None:
                 kw = dict(bits=self.compressor.bits, gamma=self.gamma, noise=noise)
-                absmax = row_absmax(rows, res)
                 w, csr = self._operands()
                 if w is not None:
                     out, new_res = compressed_mix(rows, res, w, absmax, **kw)
@@ -290,7 +298,7 @@ class CompressedGossip:
                     out, new_res = sparse_compressed_mix_csr(rows, res, *csr, absmax, **kw)
                 return out.reshape(x.shape), (None if new_res is None
                                               else new_res.reshape(x.shape))
-            q, new_res = self.compressor.quantize(rows, res, noise)
+            q, new_res = self.compressor.quantize(rows, res, noise, absmax)
         else:
             m = rows if res is None else rows + res
             q = self.compressor.compress(m)
@@ -305,12 +313,12 @@ class CompressedGossip:
         mixed, new_res = {}, {}
         for i, k in enumerate(sorted(tree)):
             r = residual[k] if self.error_feedback else None
-            mixed[k], new_res[k] = self._mix_leaf(tree[k], r, gen, i)
+            mixed[k], new_res[k] = self._mix_leaf(tree[k], r, gen, i, k)
         return mixed, (new_res if self.error_feedback else residual)
 
     def stateless(self, tree: Tree) -> Tree:
         """Deterministic rounding, no error feedback — the baseline form."""
-        return {k: self._mix_leaf(tree[k], None, None, i)[0]
+        return {k: self._mix_leaf(tree[k], None, None, i, k)[0]
                 for i, k in enumerate(sorted(tree))}
 
 
@@ -344,7 +352,7 @@ def compress_mixing(
         base_gossip=base.gossip if w is None and csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
         per_rank=base.mesh is not None, stream=base.mesh.rank if base.mesh is not None else 0,
-        corrupt=base.wire_corrupt,
+        corrupt=base.wire_corrupt, row_max=base.row_max,
     )
     return dataclasses.replace(
         base,

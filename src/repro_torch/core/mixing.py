@@ -171,6 +171,12 @@ class MixingOps:
     # q out and corrupts it before mixing.  None without an adversary, or
     # when the operands carry it (a sign flip folded into the weights).
     wire_corrupt: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
+    # A collective mixer whose leaves are model shards: ``row_max(key,
+    # absmax)`` turns the abs-max of a shard's row into the whole leaf's
+    # (the max over the model ranks), so that a quantiser scales each leaf
+    # as one row, as the reference's does on the whole leaf.  None: leaves
+    # are whole.
+    row_max: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
 
 
 def dense_mixing(topology: Topology, device: torch.device) -> MixingOps:

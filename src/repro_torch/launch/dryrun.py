@@ -9,15 +9,18 @@ operation, collective and roofline record (the twin of
 Parameters, caches and batches are meta tensors: nothing is allocated on
 any device, and the step runs its plain PyTorch path (the kernels' plain
 versions), as the reference lowers its jnp path.  The meshes are
-:func:`repro_torch.launch.mesh.make_production_mesh`'s: 16 agents (single)
-or 2 x 16 (multi), one H100 each.  A train step is one agent's round on its
-card; a prefill or decode is one card's rows of the serving batch, which
-splits over the agents when it divides across them and otherwise runs on
-one card (the record's ``n_chips``).  The counts are per device and step
+:func:`repro_torch.launch.mesh.make_production_mesh`'s, the reference's: 16
+agents (single, 256 H100s) or 2 x 16 (multi, 512), each agent over a model
+axis of 16 cards.  A train step is one card's model shard of its agent's
+round (tensor parallelism inside the agent); a prefill or decode is one
+card's model shard of its agent's rows of the serving batch, which splits
+over the agents when it divides across them and otherwise runs on one
+agent's 16 cards (the record's ``n_chips``).  The counts are per device and step
 (:mod:`repro_torch.utils.roofline`): ``memory`` (arguments, outputs,
 transients, peak live bytes, outputs written in place), ``cost`` (matmul
 FLOPs, unfused bytes accessed, transcendental elements), ``collectives``
-(the mesh's bytes per kind) and ``roofline`` at the H100's peaks.
+(the mesh's bytes per kind, and ``model_axis``: those of the model axis) and
+``roofline`` at the H100's peaks.
 ``lower_s`` is the trace's host seconds; eager PyTorch compiles nothing,
 so ``compile_s`` is 0.  Each run writes one JSON per (arch, shape, mesh,
 step), which :mod:`repro_torch.figures.roofline` aggregates, and exits 1

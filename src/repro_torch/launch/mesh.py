@@ -18,12 +18,18 @@ pinned host buffers: the model, the state and the kernels stay on the card,
 only the bytes in flight pass through the host.  The choice is read once
 from ``dist.get_backend()`` when the mesh is built.
 
-The agent axes and the "data" axis inside a pod-as-agent agent are ported;
-the "model" axis (tensor parallelism inside an agent) has size 1 here.
-:func:`make_production_mesh` is the port's counterpart of the reference's
-256- and 512-chip meshes for the dry run: the same 16 or 32 agents, one card
-each, with no process group behind it; its collectives move no data and
-count the bytes they would move.
+The agent axes, the "data" axis inside a pod-as-agent agent and the
+"model" axis (tensor parallelism inside an agent) are ported.  Over the
+model axis an agent's ranks each hold their shard of every leaf the
+placements split and run the forward and backward on their share of the
+heads and widths; the collectives that GSPMD inserts for the reference are
+written out as autograd functions over the model sub-group (:func:`enter`,
+:func:`exit_sum`, :func:`gather_last`), which the models reach through a
+:class:`ModelAxis` handle (None: the whole model on one rank).
+:func:`make_production_mesh` is the port's layout of the reference's 256-
+and 512-chip meshes for the dry run, (data 16, model 16) and (pod 2, data
+16, model 16), with no process group behind it; its collectives move no data
+and count the bytes they would move.
 """
 from __future__ import annotations
 
@@ -147,7 +153,10 @@ class RankMesh:
         """For each ``(axis, shift)``: the block of the rank ``shift`` steps
         behind along ``axis`` — what the reference's ``ppermute`` with
         ``perm = [(s, (s + shift) % size)]`` delivers.  All moves go out in
-        one batch of sends and receives."""
+        one batch of sends and receives (none for no moves: a single agent's
+        identity gossip)."""
+        if not moves:
+            return []
         with self.clock.span("exchange", self.device):
             send = self._to_wire(x)
             ops, recvs = [], []
@@ -169,6 +178,17 @@ class RankMesh:
             if buf is x:
                 buf = x.clone()
             dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group(axes)[0])
+            self.clock.bytes_sent += buf.numel() * buf.element_size()
+            return self._from_wire(buf)
+
+    def all_reduce_max(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks of ``axes`` (a new
+        tensor)."""
+        with self.clock.span("exchange", self.device):
+            buf = self._to_wire(x)
+            if buf is x:
+                buf = x.clone()
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group(axes)[0])
             self.clock.bytes_sent += buf.numel() * buf.element_size()
             return self._from_wire(buf)
 
@@ -282,49 +302,168 @@ class CountingMesh:
         default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
     calls_by_kind: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    model_bytes: int = 0  # of the bytes above, those over the model axis alone
 
     axis_names = RankMesh.axis_names
     coords = RankMesh.coords
     size = RankMesh.size
     index = RankMesh.index
 
-    def _count(self, kind: str, out: torch.Tensor) -> torch.Tensor:
-        self.bytes_by_kind[kind] += out.numel() * out.element_size()
+    def _count(self, kind: str, out: torch.Tensor, axes: Sequence[str] = ()) -> torch.Tensor:
+        n = out.numel() * out.element_size()
+        self.bytes_by_kind[kind] += n
         self.calls_by_kind[kind] += 1
+        if tuple(axes) == ("model",):
+            self.model_bytes += n
         return out
 
     def shift(self, x: torch.Tensor, moves: Sequence[Tuple[str, int]]) -> List[torch.Tensor]:
         return [self._count("collective-permute", torch.empty_like(x)) for _ in moves]
 
     def all_reduce_sum(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-        return self._count("all-reduce", torch.empty_like(x))
+        return self._count("all-reduce", torch.empty_like(x), axes)
+
+    def all_reduce_max(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        return self._count("all-reduce", torch.empty_like(x), axes)
 
     def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-        return self._count("all-gather", x.new_empty((self.size(axes),) + tuple(x.shape)))
+        return self._count("all-gather", x.new_empty((self.size(axes),) + tuple(x.shape)), axes)
 
     def reduce_scatter_sum(self, x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
-        return self._count("reduce-scatter", x.chunk(self.size(axes), dim)[0].clone())
+        return self._count("reduce-scatter", x.chunk(self.size(axes), dim)[0].clone(), axes)
 
     def reset_counts(self) -> None:
         for k in COLLECTIVE_KINDS:
             self.bytes_by_kind[k] = self.calls_by_kind[k] = 0
+        self.model_bytes = 0
 
     def collective_counts(self) -> Dict[str, int]:
         """The reference's ``collective_bytes`` record: bytes and calls per
         kind, the ``wire_*`` figures (equal here: no host upcast to
-        correct), ``raw_total`` and ``total``."""
+        correct), ``raw_total`` and ``total``; and ``model_axis``, the bytes
+        of those collectives that ran over the model axis alone (tensor
+        parallelism's all-reduces and all-gathers)."""
         out: Dict[str, int] = dict(self.bytes_by_kind)
         out.update({f"wire_{k}": v for k, v in self.bytes_by_kind.items()})
         out.update({f"n_{k}": v for k, v in self.calls_by_kind.items()})
         out["raw_total"] = out["total"] = sum(self.bytes_by_kind.values())
+        out["model_axis"] = self.model_bytes
         return out
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = "meta") -> CountingMesh:
-    """The port's layout of the reference's production meshes: 16 agents on
-    a ``data`` axis (single) or 2 x 16 on ``pod`` x ``data`` (multi), and a
-    ``model`` axis of 1, so one card per agent (16 or 32 cards); under
-    pod-as-agent the multi mesh's 2 agents spread over 16 cards each."""
-    shape = (2, 16, 1) if multi_pod else (16, 1)
+    """The reference's production meshes: 16 agents on a ``data`` axis
+    (single, 256 cards) or 2 x 16 on ``pod`` x ``data`` (multi, 512 cards),
+    each agent over a ``model`` axis of 16 cards; under pod-as-agent the
+    multi mesh's 2 agents spread over 16 x 16 cards each."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return CountingMesh(shape=dict(zip(axes, shape)), device=torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _model_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of the model ranks' partial ``x``: in float32 for a 16-bit
+    ``x``, rounded once to its dtype, as one device's product accumulates
+    the whole contraction before it rounds."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return mesh.all_reduce_sum(x.to(torch.float32), (axis,)).to(x.dtype)
+    return mesh.all_reduce_sum(x, (axis,))
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, sum over the model ranks backward: where a
+    replicated tensor enters a region each rank computes a share of."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Exit(torch.autograd.Function):
+    """Sum over the model ranks forward, identity backward: the ranks'
+    partial results leave the region replicated."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _model_sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' last dims concatenated forward (row-major over the model
+    ranks), this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        n = mesh.shape[axis]
+        ctx.n, ctx.i = n, mesh.coords[axis]
+        parts = mesh.all_gather(x, (axis,))  # (n, ..., d)
+        return parts.movedim(0, -2).reshape(*x.shape[:-1], n * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, -1)[ctx.i].contiguous(), None, None
+
+
+def enter(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    return _Enter.apply(x, mesh, axis)
+
+
+def exit_sum(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    return _Exit.apply(x, mesh, axis)
+
+
+def gather_last(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    return _Gather.apply(x, mesh, axis)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelAxis:
+    """The models' handle on an agent's model axis: the mesh and the axis
+    name.  The models take None for the whole model on one rank; a leaf
+    whose dim the placements leave whole is computed whole on every rank."""
+
+    mesh: object
+    axis: str = "model"
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coords[self.axis]
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return enter(x, self.mesh, self.axis)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        return exit_sum(x, self.mesh, self.axis)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_last(x, self.mesh, self.axis)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the model ranks (no gradient)."""
+        return self.mesh.all_reduce_max(x.detach(), (self.axis,))
+
+
+def model_axis(mesh, axis: str = "model") -> Optional[ModelAxis]:
+    """The handle of ``mesh``'s model axis, None when it has none or it is
+    of size 1."""
+    if mesh is None or mesh.shape.get(axis, 1) == 1:
+        return None
+    return ModelAxis(mesh, axis)

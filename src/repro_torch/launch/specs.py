@@ -15,16 +15,23 @@ reads a mesh by its ``shape`` dict alone, as the reference's do, so a
 The models declare intent (heads over "model", d_ff over "model", ...); not
 every dim divides every mesh axis, so :func:`sanitize_specs` replicates
 what does not divide and reports it.  :func:`add_fsdp_axis` is pod-as-agent's
-FSDP: each agent's replica spreads over the intra-pod data axis.  The
+FSDP: each agent's replica spreads over the intra-pod data axis.
+:func:`model_dims` reads, per leaf, the dim the ``model`` axis splits, and
+:func:`shard_model` / :func:`gather_model` cut a rank's model shard out of a
+whole tree and put the whole back from the shards.  The
 reference's ``to_shardings`` (``NamedSharding`` objects for ``jax.jit``)
 has no twin: the port's ranks slice their shards themselves
 (:func:`repro_torch.launch.steps.build_train_steps`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.utils.pytree import nest_map_with_path
 
 Spec = Tuple[Any, ...]
 
@@ -119,3 +126,88 @@ def data_dims(spec_tree: Dict[str, Spec], axis: str = "data",
         dims = [i - skip_leading for i, e in enumerate(spec) if i >= skip_leading and e == axis]
         out[path] = dims[0] if dims else None
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A dim cut into consecutive segments, each split over the model ranks
+    (True) or held whole on every rank (False); a rank's shard is its block
+    of every split segment beside every whole one, in order.  The layout of
+    a leaf that packs several tensors along one dim (Mamba-2's ``in_proj``:
+    z, x, B, C, dt), where the reference's contiguous chunks would cross
+    their boundaries."""
+
+    dim: int
+    sizes: Tuple[int, ...]
+    split: Tuple[bool, ...]
+
+    def local_sizes(self, n: int) -> Tuple[int, ...]:
+        return tuple(s // n if sp else s for s, sp in zip(self.sizes, self.split))
+
+
+Layout = Union[None, int, Segments]
+
+
+def model_dims(spec_tree: Dict[str, Spec], axis: str = "model") -> Dict[str, Optional[int]]:
+    """Per leaf, the dim that ``axis`` splits in a sanitized placement, or
+    None for a leaf held whole (the twin of :func:`data_dims` for the model
+    axis, over unstacked placements)."""
+    return data_dims(spec_tree, axis, skip_leading=0)
+
+
+def _shard_one(v: torch.Tensor, layout: Layout, n: int, i: int) -> torch.Tensor:
+    if layout is None:
+        return v
+    if isinstance(layout, Segments):
+        parts = v.split(layout.sizes, layout.dim)
+        return torch.cat([p.chunk(n, layout.dim)[i] if sp else p
+                          for p, sp in zip(parts, layout.split)], layout.dim).contiguous()
+    return v.chunk(n, layout)[i].clone(memory_format=torch.contiguous_format)
+
+
+def shard_leaf(v: torch.Tensor, layout: Layout, mesh, axis: str = "model") -> torch.Tensor:
+    """This rank's model shard of one whole leaf (a copy; the leaf itself
+    when it is held whole)."""
+    return _shard_one(v, layout, mesh.shape[axis], mesh.coords[axis])
+
+
+def shard_model(tree: Dict[str, Any], dims: Dict[str, Layout], mesh,
+                axis: str = "model") -> Dict[str, Any]:
+    """This rank's model shard of each leaf of a whole, path-keyed tree:
+    its block of the dim ``dims`` names (or of each split segment), the leaf
+    as it is where ``dims`` is None."""
+    return {k: shard_leaf(v, dims.get(k), mesh, axis) for k, v in tree.items()}
+
+
+def _gather_dim(v: torch.Tensor, d: int, mesh, axis: str) -> torch.Tensor:
+    d = d % v.dim()
+    parts = mesh.all_gather(v.contiguous(), (axis,))  # (n, *shard)
+    return parts.movedim(0, d).reshape(v.shape[:d] + (-1,) + v.shape[d + 1:])
+
+
+def gather_model(shards: Dict[str, Any], dims: Dict[str, Layout], mesh,
+                 axis: str = "model") -> Dict[str, Any]:
+    """The whole leaves from the model ranks' shards (an all-gather over
+    ``axis`` per split leaf or segment), the inverse of
+    :func:`shard_model`."""
+    out = {}
+    n = mesh.shape[axis]
+    for k, v in shards.items():
+        layout = dims.get(k)
+        if layout is None:
+            out[k] = v
+        elif isinstance(layout, Segments):
+            parts = v.split(layout.local_sizes(n), layout.dim)
+            out[k] = torch.cat([_gather_dim(p, layout.dim, mesh, axis) if sp else p
+                                for p, sp in zip(parts, layout.split)], layout.dim)
+        else:
+            out[k] = _gather_dim(v, layout, mesh, axis)
+    return out
+
+
+def shard_tree(tree: Any, layout: Dict[str, Layout], mesh, axis: str = "model") -> Any:
+    """This rank's model shard of every leaf of a nested tree (parameters
+    or a cache, keyed as :func:`~repro_torch.utils.pytree.flatten_paths`
+    keys them)."""
+    return nest_map_with_path(lambda p, t: shard_leaf(t, layout.get(p), mesh, axis), tree)
+

@@ -25,12 +25,21 @@ function, its arguments as meta tensors (nothing allocated) and notes.
 
   Both are one card's share: the serving batch splits over the agent axes
   when it divides across them, as the reference shards it over its batch
-  axes, and the notes record the cards (``n_chips``) that serve it.
+  axes, and each card's rows run over the agent's model ranks; the notes
+  record the cards (``n_chips``: batch cards x model) that serve it.
 
-``spec.lower()`` runs the function on its meta arguments under the counters
-of :mod:`repro_torch.utils.roofline` and returns their record: the port's
-counterpart of the reference's lowering and compilation.  The "model" axis
-(tensor parallelism inside an agent) has size 1 on the port's meshes.
+The "model" axis is tensor parallelism inside an agent: each rank holds its
+model shard of every leaf (:func:`param_layout`: the reference's sanitized
+placements, ``bundle.param_specs("model")``, but for the Mamba-2 leaves
+listed in the notes' ``layout_differs``) and of the cache
+(:func:`cache_layout`, ``bundle.cache_specs``), and the bundle runs on its
+share (``get_bundle(cfg, device, tp=ModelAxis(mesh))``), with the model
+axis's collectives written out.  Gossip and the server sum run over the
+ranks with the same model coordinate; leaves held whole stay bit-identical
+across the model ranks.  ``spec.lower()`` runs the function on its meta
+arguments under the counters of :mod:`repro_torch.utils.roofline` and
+returns their record: the port's counterpart of the reference's lowering
+and compilation.
 """
 from __future__ import annotations
 
@@ -45,8 +54,10 @@ from repro_torch.core.mixing import MixingOps, collective_shift_mixing
 from repro_torch.core.pisco import PiscoConfig, PiscoState, make_rank_round_fn
 from repro_torch.core.topology import mixing_rate
 from repro_torch.launch import input_specs as I
-from repro_torch.launch.mesh import agent_axes_for, n_agents_for
-from repro_torch.launch.specs import add_fsdp_axis, data_dims, sanitize_specs, stack_spec_tree
+from repro_torch.launch.mesh import agent_axes_for, model_axis, n_agents_for
+from repro_torch.launch.specs import (Layout, Segments, add_fsdp_axis, data_dims, model_dims,
+                                      sanitize_specs, shard_model, shard_tree, stack_spec_tree)
+from repro_torch.models import mamba2 as M
 from repro_torch.models.registry import ModelBundle, get_bundle
 from repro_torch.models.transformer import params_from_paths
 from repro_torch.utils.pytree import flatten_paths
@@ -72,8 +83,61 @@ class StepSpec:
 
 
 def meta_bundle(bundle: ModelBundle) -> ModelBundle:
-    """The bundle's twin on the meta device."""
-    return bundle if bundle.device.type == "meta" else get_bundle(bundle.cfg, META)
+    """The bundle's twin on the meta device (with the same model axis)."""
+    return bundle if bundle.device.type == "meta" else get_bundle(bundle.cfg, META, bundle.tp)
+
+
+# ---------------------------------------------------------------------------
+# The model axis: each leaf's split
+# ---------------------------------------------------------------------------
+
+
+def _norm_layout(layout: Layout, ndim: int) -> Layout:
+    return layout % ndim if isinstance(layout, int) else layout
+
+
+def _port_layout(cfg, dims: Dict[str, Layout], shapes: Dict[str, Any],
+                 n: int) -> Tuple[Dict[str, Layout], List[str]]:
+    """``(layout, differs)``: the reference's model dims with the Mamba-2
+    leaves put in the port's layout (:func:`repro_torch.models.mamba2.tp_layout`),
+    and the paths where the two differ."""
+    out = dict(dims)
+    if cfg.ssm is not None:
+        mamba = M.tp_layout(cfg, n)
+        for path in dims:
+            name = path.rsplit("/", 1)[-1]
+            if name in mamba:
+                out[path] = mamba[name]
+    differs = [p for p in sorted(out) if _norm_layout(out[p], len(shapes[p].shape))
+               != _norm_layout(dims[p], len(shapes[p].shape))]
+    return {p: _norm_layout(v, len(shapes[p].shape)) for p, v in out.items()}, differs
+
+
+def param_layout(bundle: ModelBundle, mesh,
+                 axis: str = "model") -> Tuple[Dict[str, Layout], List[str], List[str]]:
+    """``(layout, differs, dropped)`` of the parameters over ``mesh``'s
+    model axis: per leaf path the dim this rank holds a block of (or the
+    :class:`~repro_torch.launch.specs.Segments` of a packed leaf, or None:
+    whole), from the reference's placements sanitized on the whole shapes
+    (a dim that does not divide stays whole; ``dropped`` is the sanitizer's
+    report), with the Mamba-2 leaves in the port's layout (``differs``)."""
+    mb = meta_bundle(bundle)
+    shapes = flatten_paths(mb.init(0))
+    specs, dropped = sanitize_specs(mb.param_specs(axis), shapes, mesh)
+    layout, differs = _port_layout(bundle.cfg, model_dims(specs, axis), shapes,
+                                   mesh.shape[axis])
+    return layout, differs, dropped
+
+
+def cache_layout(bundle: ModelBundle, cache: Dict, mesh,
+                 axis: str = "model") -> Tuple[Dict[str, Layout], List[str]]:
+    """``(layout, differs)`` of a whole cache over the model axis
+    (``bundle.cache_specs`` sanitized on its shapes; the Mamba-2 conv window
+    and SSM state in the port's layout)."""
+    shapes = flatten_paths(cache)
+    specs, _ = sanitize_specs(bundle.cache_specs(None, axis), shapes, mesh)
+    return _port_layout(bundle.cfg, model_dims(specs, axis), shapes, mesh.shape[axis])
+
 
 
 # ---------------------------------------------------------------------------
@@ -142,20 +206,35 @@ def flat_value_and_grad(bundle: ModelBundle) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class _MeshView:
+    """A mesh shape alone (what the placement functions read)."""
+
+    shape: Dict[str, int]
+
+
 def fsdp_placement(bundle: ModelBundle, mesh, n_agents: int,
-                   agent_axes: Sequence[str] = ("pod",)) -> Tuple[Dict, List[str], Dict]:
+                   agent_axes: Sequence[str] = ("pod",),
+                   layout: Optional[Dict[str, Layout]] = None) -> Tuple[Dict, List[str], Dict]:
     """``(placements, dropped, dims)`` of pod-as-agent's agent-stacked
     leaves, as the reference's ``build_train_steps`` places them: the model's
     placements stacked over the agent axes, ``add_fsdp_axis(..., "data",
     skip_leading=1)``, then ``sanitize_specs`` (with its report of dropped
     entries).  ``dims`` is the per-agent leaf's dim that the data axis
-    splits, None where a leaf stays whole on every data rank."""
+    splits, None where a leaf stays whole on every data rank.  With a model
+    ``layout`` (a model axis above 1) the rule runs on each leaf's model
+    shard, which is what the data ranks split: the model entries keep the
+    data axis off their dims, and only the data entries are sanitized."""
     mb = meta_bundle(bundle)
+    leaves = flatten_paths(mb.init(0))
+    if layout is not None:
+        leaves = shard_model(leaves, layout, mesh)
     stacked = {k: torch.empty((n_agents,) + tuple(v.shape), dtype=v.dtype, device=META)
-               for k, v in flatten_paths(mb.init(0)).items()}
+               for k, v in leaves.items()}
     specs = stack_spec_tree(mb.param_specs("model"), agent_axes)
     specs = add_fsdp_axis(specs, stacked, mesh, "data", skip_leading=1)
-    specs, dropped = sanitize_specs(specs, stacked, mesh)
+    view = mesh if layout is None else _MeshView({**mesh.shape, "model": 1})
+    specs, dropped = sanitize_specs(specs, stacked, view)
     return specs, dropped, data_dims(specs, "data", skip_leading=1)
 
 
@@ -269,6 +348,9 @@ def build_train_steps(
     shifts = mesh_gossip_shifts(mesh, agent_axes)
     gossip_ops = collective_shift_mixing(
         mesh, agent_axes, shifts, wire_dtype=None if wire_dtype == "native" else wire_dtype)
+    tp = model_axis(mesh)
+    if tp is not None:
+        bundle = get_bundle(bundle.cfg, bundle.device, tp)
     # over the dry run's counting mesh the round runs on the meta device
     vg = flat_value_and_grad(meta_bundle(bundle) if mesh.device.type == "meta" else bundle)
     notes = {
@@ -284,21 +366,29 @@ def build_train_steps(
     local = {k: I.TensorSpec(v.shape[:1] + v.shape[2:], v.dtype) for k, v in local_spec.items()}
     x = flatten_paths(meta_bundle(bundle).init(0))
     local, one = I.materialize(local, META), I.materialize(one, META)
+    layout = None
+    if tp is not None:
+        layout, differs, dropped = param_layout(bundle, mesh)
+        x = shard_model(x, layout, mesh)
+        split = {k for k, v in layout.items() if v is not None}
+        gossip_ops = dataclasses.replace(
+            gossip_ops, row_max=lambda k, a: tp.max(a) if k in split else a)
+        notes.update(model_axis=tp.size, model_layout=_layout_notes(layout),
+                     layout_differs=differs, dropped_shardings=dropped)
     if hierarchical:
-        specs, dropped, dims = fsdp_placement(bundle, mesh, n_agents, agent_axes)
+        specs, dropped, dims = fsdp_placement(bundle, mesh, n_agents, agent_axes, layout)
         b_per_agent = shape.global_batch // n_agents
         bdims = {"comm": batch_dims(one, b_per_agent), "local": batch_dims(local, b_per_agent, 1)}
         vg = sharded_value_and_grad(vg, mesh, dims)
         x = shard_leaves(x, dims, mesh)
         local, one = batch_share(local, bdims["local"], mesh), batch_share(one, bdims["comm"], mesh)
-        # x, y and g, each this rank's shard (shard_bytes of the placements:
-        # the model axis is 1)
-        state_bytes = 3 * sum(v.numel() * v.element_size() for v in x.values())
         notes.update(agent_mode=agent_mode, placements={k: list(v) for k, v in specs.items()},
                      dropped_shardings=dropped, data_dims=dims, batch_dims=bdims,
-                     state_bytes_per_card=state_bytes, gather="whole agent before the "
-                     "gradient call (the reference gathers one layer at a time): peak bytes "
-                     "hold the gathered parameters and gradient, not the reference's")
+                     gather="the agent's whole model shard before the gradient call (the "
+                     "reference gathers one layer at a time): peak bytes hold the gathered "
+                     "model shard's parameters and gradient, not the reference's")
+    # x, y and g, each this rank's shard
+    notes["state_bytes_per_card"] = 3 * sum(v.numel() * v.element_size() for v in x.values())
     state = PiscoState(x=x, y={k: torch.empty_like(v) for k, v in x.items()},
                        g={k: torch.empty_like(v) for k, v in x.items()},
                        step=torch.zeros((), dtype=torch.int32, device=META))
@@ -318,19 +408,43 @@ def build_train_steps(
 def serve_split(mesh, batch: int) -> Tuple[Optional[Tuple[str, ...]], int]:
     """``(batch_axes, cards)`` of a serving batch on ``mesh``: the
     reference's rule, every agent axis when the batch divides across them
-    (each card serves ``batch // cards`` rows), else none (one card serves
-    the whole batch and the others idle)."""
+    (each agent's model ranks serve ``batch // cards`` rows), else none (one
+    agent serves the whole batch and the others idle)."""
     axes = agent_axes_for(mesh)
     cards = mesh.size(axes)
     return (tuple(axes), cards) if batch % cards == 0 else (None, 1)
 
 
 def _per_card(shape: InputShape, mesh) -> Tuple[InputShape, Dict[str, Any]]:
-    """One card's share of a serving shape and the notes that record it."""
+    """One agent's share of a serving shape and the notes that record it
+    (``n_chips``: the serving agents' cards, model ranks included)."""
     axes, cards = serve_split(mesh, shape.global_batch)
     rows = shape.global_batch // cards
-    notes = {"batch_axes": axes, "n_chips": cards, "rows_per_chip": rows}
+    model = mesh.shape.get("model", 1)
+    notes = {"batch_axes": axes, "n_chips": cards * model, "rows_per_chip": rows,
+             "model_axis": model}
     return dataclasses.replace(shape, global_batch=rows), notes
+
+
+def _layout_notes(layout: Dict[str, Layout]) -> Dict[str, Any]:
+    return {k: (dataclasses.asdict(v) if isinstance(v, Segments) else v)
+            for k, v in layout.items()}
+
+
+def serve_args(bundle: ModelBundle, mesh, params: Any, cache: Dict,
+               notes: Dict[str, Any]) -> Tuple[ModelBundle, Any, Dict]:
+    """The serving bundle on ``mesh``'s model axis and this rank's model
+    shards of ``params`` and ``cache`` (as they are without a model axis);
+    the layouts go into ``notes``."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return bundle, params, cache
+    bundle = get_bundle(bundle.cfg, bundle.device, tp)
+    layout, differs, dropped = param_layout(bundle, mesh)
+    c_layout, c_differs = cache_layout(bundle, cache, mesh)
+    notes.update(model_layout=_layout_notes(layout), cache_layout=_layout_notes(c_layout),
+                 layout_differs=differs + c_differs, dropped_shardings=dropped)
+    return bundle, shard_tree(params, layout, mesh), shard_tree(cache, c_layout, mesh)
 
 
 def _serve_cache(bundle: ModelBundle, shape: InputShape) -> Dict:
@@ -340,29 +454,33 @@ def _serve_cache(bundle: ModelBundle, shape: InputShape) -> Dict:
 
 
 def build_prefill_step(bundle: ModelBundle, shape: InputShape, mesh) -> StepSpec:
-    """One card's prefill of its rows of ``shape.global_batch`` sequences of
-    ``shape.seq_len`` tokens into a fresh cache (:func:`serve_split`; the
-    mesh's model axis is 1, so no collective runs)."""
+    """One agent's prefill of its rows of ``shape.global_batch`` sequences
+    of ``shape.seq_len`` tokens into a fresh cache (:func:`serve_split`),
+    each model rank on its shard of the parameters and cache."""
     mb = meta_bundle(bundle)
     card, notes = _per_card(shape, mesh)
     batch = I.materialize(I.prefill_inputs(mb.cfg, card), META)
-    args = (mb.init(0), batch, _serve_cache(mb, card))
+    mb, params, cache = serve_args(mb, mesh, mb.init(0), _serve_cache(mb, card), notes)
+    args = (params, batch, cache)
     return StepSpec("prefill", lambda p, b, c: mb.prefill(p, b, c), args, notes, mesh=mesh)
 
 
 def build_decode_step(bundle: ModelBundle, shape: InputShape, mesh, *,
                       opt_idle_batch: bool = False) -> StepSpec:
-    """One card's decode step of its rows of ``shape.global_batch`` against
-    a cache of ``shape.seq_len`` positions (:func:`serve_split`).
-    ``opt_idle_batch`` is accepted and recorded: the reference re-shards a
-    batch-1 decode over its idle data axis, and with one card per agent
-    there is no such axis, so it changes nothing."""
+    """One agent's decode step of its rows of ``shape.global_batch``
+    against a cache of ``shape.seq_len`` positions (:func:`serve_split`),
+    each model rank on its shard.  ``opt_idle_batch`` is accepted and
+    recorded: the reference re-shards a batch-1 decode over its idle data
+    axis (sequence-parallel KV caches, SSM heads and experts over data),
+    which is not ported yet, so it changes nothing."""
     mb = meta_bundle(bundle)
     card, notes = _per_card(shape, mesh)
     token = I.materialize(I.decode_token_input(card), META)
-    args = (mb.init(0), token, _serve_cache(mb, card))
+    mb, params, cache = serve_args(mb, mesh, mb.init(0), _serve_cache(mb, card), notes)
+    args = (params, token, cache)
     notes["opt_idle_batch"] = opt_idle_batch
     if opt_idle_batch:
-        notes["opt_idle_batch_note"] = ("no idle data axis: one card per agent, model axis 1; "
-                                        "the step is unchanged")
+        notes["opt_idle_batch_note"] = (
+            "not ported yet: the reference's sequence-parallel KV caches, SSM heads and "
+            "experts over the idle data axis; the step runs on the model axis alone")
     return StepSpec("decode", lambda p, t, c: mb.decode(p, t, c), args, notes, mesh=mesh)

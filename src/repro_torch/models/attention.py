@@ -31,6 +31,15 @@ reference's, not a K6 call.
 
 Caches are updated in place (the reference returns new arrays): the engine
 keeps one slot-stacked cache and every write lands in it.
+
+Tensor parallelism (``tp``, see :mod:`repro_torch.models.layers`): a rank
+holds its share of the q heads (``wq``, ``bq``, ``wo`` by head; MLA's
+``w_uk`` / ``w_uv`` too) and computes attention on them; the local head
+counts come from the weights' shapes.  Where the placements hold ``wk`` /
+``wv`` whole (MQA, or fewer KV heads than model ranks) every rank projects
+all KV heads, caches them all as the placements give it, and attends with
+those of its q heads (:func:`local_kv`).  MLA's latent projections and
+cache stay whole.  ``wo``'s partial product leaves summed over the ranks.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ import torch
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, normal_init, rms_norm, vec
+from repro_torch.models.layers import linear, normal_init, rms_norm, sharded, vec
 from repro_torch.models.rope import apply_rope
 
 Tensor = torch.Tensor
@@ -83,11 +92,37 @@ def spec_gqa(cfg: ModelConfig, model_axis: str = "model") -> Dict:
     return sp
 
 
+def spec_gqa_cache(cfg: ModelConfig, batch_axes, model_axis: str = "model") -> Dict:
+    """The KV cache's placements: the batch over ``batch_axes``, the KV
+    heads over ``model_axis`` (whole under MQA)."""
+    kv = (batch_axes, None, model_axis if cfg.n_kv_heads > 1 else None, None)
+    return {"k": kv, "v": kv}
+
+
+def gqa_tp(params: Dict, cfg: ModelConfig, tp):
+    """``tp`` when this layer's q heads are split over the model ranks."""
+    return sharded(tp, params["wq"].shape[-2], cfg.n_heads)
+
+
+def _region_params(params: Dict, tp, whole) -> Dict:
+    """The layer's parameters with every leaf named in ``whole`` entered
+    (a leaf held whole that a rank's share reads: its gradient is summed
+    over the model ranks)."""
+    if tp is None:
+        return params
+    return {k: tp.enter(v) if k in whole else v for k, v in params.items()}
+
+
 def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = False,
-                 x_kv: Optional[Tensor] = None):
+                 x_kv: Optional[Tensor] = None, tp=None):
     """q (B, S, H, hd), k and v (B, S_kv, Hkv, hd), with bias and QK-norm;
     k and v project ``x_kv`` (a cross-attention's memory) when given, else
-    ``x``."""
+    ``x``.  Under ``tp`` (an entered ``x``) q holds this rank's heads and k
+    and v the heads its placements give it (all when ``wk`` is whole)."""
+    if tp is not None:
+        kv_whole = params["wk"].shape[-2] == cfg.n_kv_heads
+        whole = {"q_norm", "k_norm"} | ({"wk", "wv", "bk", "bv"} if kv_whole else set())
+        params = _region_params(params, tp, whole)
     xkv = x if x_kv is None else x_kv
     q = linear(x, params["wq"], slotted)
     k = linear(xkv, params["wk"], slotted)
@@ -100,6 +135,22 @@ def _project_qkv(params: Dict, cfg: ModelConfig, x: Tensor, slotted: bool = Fals
         q = rms_norm(q, vec(params["q_norm"], slotted, 4), cfg.norm_eps)
         k = rms_norm(k, vec(params["k_norm"], slotted, 4), cfg.norm_eps)
     return q, k, v
+
+
+def local_kv(cfg: ModelConfig, tp, h_local: int, k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+    """The K and V heads (dim 2) of this rank's ``h_local`` q heads.  K and V
+    already split over the ranks are the rank's own; whole ones are cut to
+    the KV heads of its q heads (views), each q head's own (copies) where
+    the rank's heads do not fall into whole groups."""
+    if tp is None or k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    group = cfg.n_heads // cfg.n_kv_heads
+    heads = torch.arange(tp.index * h_local, (tp.index + 1) * h_local) // group
+    if h_local % group == 0 or group % h_local == 0:
+        lo, hi = int(heads[0]), int(heads[-1]) + 1
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = heads.to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def rope_qk(q: Tensor, k: Tensor, cos_sin) -> Tuple[Tensor, Tensor]:
@@ -194,18 +245,24 @@ def attention_train(
 
 
 def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, *, causal: bool = True,
-                x_kv: Optional[Tensor] = None, cos_sin_kv=None) -> Tensor:
+                x_kv: Optional[Tensor] = None, cos_sin_kv=None, tp=None) -> Tensor:
     """The training forward of a GQA layer, x (B, S, d) -> (B, S, d).  A
     cross-attention takes k and v from ``x_kv`` (B, S_kv, d), rotated with
     ``cos_sin_kv`` (``cos_sin`` when None)."""
-    q, k, v = _project_qkv(params, cfg, x, x_kv=x_kv)
+    tp = gqa_tp(params, cfg, tp)
+    if tp is not None:
+        x = tp.enter(x)
+        x_kv = None if x_kv is None else tp.enter(x_kv)
+    q, k, v = _project_qkv(params, cfg, x, x_kv=x_kv, tp=tp)
     if cos_sin is not None:
         q = apply_rope(q, *cos_sin)
         k = apply_rope(k, *(cos_sin if cos_sin_kv is None else cos_sin_kv))
+    k, v = local_kv(cfg, tp, q.shape[2], k, v)
     out = attention_train(q, k, v, causal=causal, window=cfg.sliding_window,
                           chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
     b, s, h, hd = out.shape
-    return linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
+    out = linear(out.reshape(b, s, h * hd), params["wo"].flatten(0, 1))
+    return out if tp is None else tp.exit(out)
 
 
 def decode_attention_core(
@@ -257,10 +314,15 @@ def gqa_decode(
     cache: Dict,
     pos: Tensor,  # (B,) int: tokens already in each row's context
     slotted: bool = False,
+    tp=None,
 ) -> Tensor:
     """One token per row; writes its K/V into ``cache`` at the row's own
-    ``pos`` (``pos % window`` under SWA) and returns (B, 1, d)."""
-    q, k, v = _project_qkv(params, cfg, x, slotted)
+    ``pos`` (``pos % window`` under SWA) and returns (B, 1, d).  Under
+    ``tp`` the cache holds the KV heads the placements give this rank."""
+    tp = gqa_tp(params, cfg, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = _project_qkv(params, cfg, x, slotted, tp=tp)
     q, k = rope_qk(q, k, cos_sin)
     size = cache["k"].shape[1]
     pos = pos.to(torch.long)
@@ -274,9 +336,11 @@ def gqa_decode(
     valid = idx <= pos[:, None]
     if cfg.sliding_window is not None:
         valid = valid | (pos[:, None] >= size)  # the rolling buffer is full once wrapped
-    out = decode_attention_core(q, cache["k"], cache["v"], valid, cfg.attn_logit_softcap)
+    k_att, v_att = local_kv(cfg, tp, q.shape[2], cache["k"], cache["v"])
+    out = decode_attention_core(q, k_att, v_att, valid, cfg.attn_logit_softcap)
     b, _, h, hd = out.shape
-    return linear(out.reshape(b, 1, h * hd), params["wo"].flatten(-3, -2), slotted)
+    out = linear(out.reshape(b, 1, h * hd), params["wo"].flatten(-3, -2), slotted)
+    return out if tp is None else tp.exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -308,10 +372,23 @@ def spec_mla(cfg: ModelConfig, model_axis: str = "model") -> Dict:
             "wo": (mp, None, None)}
 
 
-def _mla_qkr(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, slotted: bool = False):
+def spec_mla_cache(cfg: ModelConfig, batch_axes, model_axis: str = "model") -> Dict:
+    """The latent cache's placements: the batch over ``batch_axes``, held
+    whole over the model ranks."""
+    return {"c_kv": (batch_axes, None, None), "k_rope": (batch_axes, None, None)}
+
+
+MLA_WHOLE = ("w_dkv", "w_kr", "kv_norm")
+
+
+def _mla_qkr(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, slotted: bool = False,
+             tp=None):
     """q_nope (B, S, H, nope), q_rope (B, S, H, rope), the normed latent
-    c_kv (B, S, r) and the one shared RoPE key k_rope (B, S, rope)."""
+    c_kv (B, S, r) and the one shared RoPE key k_rope (B, S, rope).  Under
+    ``tp`` (an entered ``x``) q holds this rank's heads and the latents are
+    whole."""
     m = cfg.mla
+    params = _region_params(params, tp, MLA_WHOLE)
     q = linear(x, params["wq"], slotted)
     q_nope = q[..., :m.nope_head_dim]
     q_rope = apply_rope(q[..., m.nope_head_dim:], *cos_sin)
@@ -331,14 +408,18 @@ def mla_qkv(params: Dict, q_nope, q_rope, c_kv, k_rope):
     return (torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_b], dim=-1), value)
 
 
-def mla_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin) -> Tensor:
+def mla_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, tp=None) -> Tensor:
     """The training forward of an MLA layer (materialised K/V), x (B, S, d)
     -> (B, S, d)."""
-    q, k, v = mla_qkv(params, *_mla_qkr(params, cfg, x, cos_sin))
+    tp = gqa_tp(params, cfg, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = mla_qkv(params, *_mla_qkr(params, cfg, x, cos_sin, tp=tp))
     out = attention_train(q, k, v, window=None, chunk=cfg.attn_chunk,
                           softcap=cfg.attn_logit_softcap)
     b, s, h, dv = out.shape
-    return linear(out.reshape(b, s, h * dv), params["wo"].flatten(0, 1))
+    out = linear(out.reshape(b, s, h * dv), params["wo"].flatten(0, 1))
+    return out if tp is None else tp.exit(out)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device=None,
@@ -366,12 +447,17 @@ def mla_decode(
     cache: Dict,
     pos: Tensor,  # (B,) int
     slotted: bool = False,
+    tp=None,
 ) -> Tensor:
     """Absorbed-matrix MLA decode: attention in the compressed latent space
     (MQA-shaped), ``W_uk`` folded into the query and ``W_uv`` applied after
-    the value reduction; writes the token's latents at the row's ``pos``."""
+    the value reduction; writes the token's latents at the row's ``pos``
+    (every model rank the same whole latents)."""
     m = cfg.mla
-    q_nope, q_rope, c_new, r_new = _mla_qkr(params, cfg, x, cos_sin, slotted)
+    tp = gqa_tp(params, cfg, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    q_nope, q_rope, c_new, r_new = _mla_qkr(params, cfg, x, cos_sin, slotted, tp)
     size = cache["c_kv"].shape[1]
     pos = pos.to(torch.long)
     slot = pos.clamp(max=size - 1)  # the reference's clamped dynamic_update_slice
@@ -391,4 +477,5 @@ def mla_decode(
     ctx = torch.einsum("bhst,btr->bshr", probs, c_cache)
     out = torch.einsum(f"bshr,{per}rhk->bshk", ctx, params["w_uv"])
     b, _, h, dv = out.shape
-    return linear(out.reshape(b, 1, h * dv), params["wo"].flatten(-3, -2), slotted)
+    out = linear(out.reshape(b, 1, h * dv), params["wo"].flatten(-3, -2), slotted)
+    return out if tp is None else tp.exit(out)

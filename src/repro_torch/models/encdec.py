@@ -28,9 +28,13 @@ Entry points:
 
 The reference's prefill (``repro.models.registry``) is the encoder plus one
 decode step on the first token; :class:`repro_torch.models.registry.ModelBundle`
-keeps it.  The cache is updated in place and returned; a prefill replaces
-its ``memory`` entry with the encoder's output, whatever ``mem_len`` it was
-made with.
+keeps it.  Every entry point takes ``tp`` (the agent's model axis, or None),
+as :mod:`repro_torch.models.transformer`'s do: the attention layers run on
+the rank's heads, the FFNs on its block of the hidden dim, and a split
+vocabulary is looked up, projected and reduced as the decoder-only LM's.
+The cache is updated in place and returned; a prefill replaces its
+``memory`` entry with the encoder's output, whatever ``mem_len`` it was made
+with.
 """
 from __future__ import annotations
 
@@ -42,10 +46,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (can_remat, linear, normal_init, remat_call, rms_norm,
-                                       seeded_generator, spec_rms_norm)
+                                       seeded_generator, sharded, spec_rms_norm)
 from repro_torch.models.mlp import init_mlp, mlp_forward, spec_mlp
 from repro_torch.models.rope import rope_cos_sin, text_positions
-from repro_torch.models.transformer import _ce_sum, dtype_of, stacked_specs, unstack
+from repro_torch.models.transformer import (_ce_sum, dtype_of, embed_lookup, head_logits,
+                                            stacked_specs, unstack, vocab_ce_sum, vocab_tp)
 from repro_torch.utils.pytree import flatten_paths, nest_map
 
 Tensor = torch.Tensor
@@ -57,13 +62,15 @@ Tree = Any
 # ---------------------------------------------------------------------------
 
 
-def init_encdec(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tree:
+def init_encdec(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
+                leaf_hook=None) -> Tree:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
     with ``seed`` (each stacked leaf drawn whole).  On the meta device: the
-    tree's shapes and dtypes, nothing allocated."""
+    tree's shapes and dtypes, nothing allocated.  ``leaf_hook``: see
+    :func:`repro_torch.models.layers.seeded_generator`."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    gen = seeded_generator(dev, seed)
+    gen = seeded_generator(dev, seed, leaf_hook)
 
     def norm(stack: tuple = ()) -> Dict[str, Tensor]:
         return {"scale": torch.ones(stack + (cfg.d_model,), dtype=dtype, device=dev)}
@@ -95,6 +102,13 @@ def encdec_param_specs(cfg: ModelConfig, model_axis: str = "model") -> Dict[str,
         "final_norm": spec_rms_norm(), "lm_head": (None, model_axis)})
 
 
+def encdec_cache_specs(cfg: ModelConfig, batch_axes, model_axis: str = "model") -> Dict:
+    """The twin of the reference's ``encdec_cache_specs``, keyed by path."""
+    kv = A.spec_gqa_cache(cfg, batch_axes, model_axis)
+    return flatten_paths({"pos": (), "self_kv": stacked_specs(kv),
+                          "memory": (batch_axes, None, None)})
+
+
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int, mem_len: int,
                       device: DeviceLike = None) -> Dict:
     """``pos``, the decoder's self-attention K/V (n_layers, batch, max_seq,
@@ -122,8 +136,12 @@ def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device):
 # ---------------------------------------------------------------------------
 
 
+def _ffn_tp(lp: Dict, cfg: ModelConfig, tp):
+    return sharded(tp, lp["ffn"]["w_down"].shape[-2], cfg.d_ff)
+
+
 def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
-            attend: Callable[[Dict, Tensor, Any], Tensor], remat: bool) -> Tensor:
+            attend: Callable[[Dict, Tensor, Any], Tensor], remat: bool, tp=None) -> Tensor:
     """The encoder stack, each layer's self-attention computed by
     ``attend(attn_params, normed_x, cos_sin)``."""
     b, t, _ = frames.shape
@@ -135,7 +153,7 @@ def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
         lp = layers[i]
         x = x + attend(lp["attn"], rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps), cos_sin)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
-        return x + mlp_forward(lp["ffn"], cfg.mlp_type, h)
+        return x + mlp_forward(lp["ffn"], cfg.mlp_type, h, tp=_ffn_tp(lp, cfg, tp))
 
     x = frames.to(dtype_of(cfg))
     remat = remat and can_remat(x)
@@ -144,28 +162,33 @@ def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
-def encode(params: Tree, cfg: ModelConfig, frames: Tensor) -> Tensor:
+def encode(params: Tree, cfg: ModelConfig, frames: Tensor, tp=None) -> Tensor:
     """frames (B, T, d_model), the stub frontend's output -> the encoder
     memory (B, T, d_model): the training forward, bidirectional."""
     return _encode(params, cfg, frames,
-                   lambda p, h, cs: A.gqa_forward(p, cfg, h, cs, causal=False), cfg.remat)
+                   lambda p, h, cs: A.gqa_forward(p, cfg, h, cs, causal=False, tp=tp),
+                   cfg.remat, tp)
 
 
 def encode_prefill(params: Tree, cfg: ModelConfig, frames: Tensor, *,
-                   use_kernels: bool = True) -> Tensor:
+                   use_kernels: bool = True, tp=None) -> Tensor:
     """The encoder of the prefill: every layer's self-attention through K6
     without the causal mask (its plain version when ``use_kernels`` is
     False)."""
 
     def attend(p: Dict, h: Tensor, cos_sin) -> Tensor:
-        q, k, v = A._project_qkv(p, cfg, h)
+        ttp = A.gqa_tp(p, cfg, tp)
+        h_in = h if ttp is None else ttp.enter(h)
+        q, k, v = A._project_qkv(p, cfg, h_in, tp=ttp)
         q, k = A.rope_qk(q, k, cos_sin)
+        k, v = (t.contiguous() for t in A.local_kv(cfg, ttp, q.shape[2], k, v))
         core = A.attention_core(q, k, v, causal=False, softcap=cfg.attn_logit_softcap,
                                 use_kernel=use_kernels)
         b, s = h.shape[:2]
-        return linear(core.reshape(b, s, -1), p["wo"].flatten(0, 1))
+        out = linear(core.reshape(b, s, -1), p["wo"].flatten(0, 1))
+        return out if ttp is None else ttp.exit(out)
 
-    return _encode(params, cfg, frames, attend, False)
+    return _encode(params, cfg, frames, attend, False, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -174,43 +197,54 @@ def encode_prefill(params: Tree, cfg: ModelConfig, frames: Tensor, *,
 
 
 def _dec_layer(lp: Dict, cfg: ModelConfig, x: Tensor, memory: Tensor, cos_sin,
-               mem_cos_sin) -> Tensor:
+               mem_cos_sin, tp=None) -> Tensor:
     h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-    x = x + A.gqa_forward(lp["self_attn"], cfg, h, cos_sin, causal=True)
+    x = x + A.gqa_forward(lp["self_attn"], cfg, h, cos_sin, causal=True, tp=tp)
     h = rms_norm(x, lp["norm_x"]["scale"], cfg.norm_eps)
     x = x + A.gqa_forward(lp["cross_attn"], cfg, h, cos_sin, causal=False, x_kv=memory,
-                          cos_sin_kv=mem_cos_sin)
+                          cos_sin_kv=mem_cos_sin, tp=tp)
     h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp_forward(lp["ffn"], cfg.mlp_type, h)
+    return x + mlp_forward(lp["ffn"], cfg.mlp_type, h, tp=_ffn_tp(lp, cfg, tp))
 
 
-def decode_train(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor) -> Tensor:
-    """Teacher-forced decoder over ``tokens`` (B, S) against ``memory``;
-    returns logits (B, S, V)."""
+def _decoder_hidden(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor,
+                    tp=None) -> Tensor:
+    """The teacher-forced decoder to its final norm."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens, vocab_tp(params, cfg, tp))
     cos_sin = _cos_sin(cfg, b, s, 0, x.device)
     mem_cos_sin = _cos_sin(cfg, b, memory.shape[1], 0, x.device)
 
     layers = unstack(params["dec_layers"], cfg.n_layers)
 
     def layer(xx: Tensor, i: int) -> Tensor:
-        return _dec_layer(layers[i], cfg, xx, memory, cos_sin, mem_cos_sin)
+        return _dec_layer(layers[i], cfg, xx, memory, cos_sin, mem_cos_sin, tp)
 
     remat = cfg.remat and can_remat(x)
     for i in range(cfg.n_layers):
         x = remat_call(cfg.remat_policy, layer, x, i) if remat else layer(x, i)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return linear(x, params["lm_head"])
+    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
 
 
-def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
+def decode_train(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor,
+                 tp=None) -> Tensor:
+    """Teacher-forced decoder over ``tokens`` (B, S) against ``memory``;
+    returns logits (B, S, V)."""
+    return head_logits(params, cfg, _decoder_hidden(params, cfg, tokens, memory, tp), tp)
+
+
+def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None) -> Tensor:
     """Next-token cross-entropy of the decoder over ``batch["tokens"]`` (B,
     S) given ``batch["frames"]`` (B, T, d_model); logits in float32."""
-    memory = encode(params, cfg, batch["frames"])
+    memory = encode(params, cfg, batch["frames"], tp)
     tokens = batch["tokens"]
-    logits = decode_train(params, cfg, tokens, memory)
     b, s = tokens.shape
+    vtp = vocab_tp(params, cfg, tp)
+    if vtp is not None:
+        hidden = _decoder_hidden(params, cfg, tokens, memory, tp)
+        return vocab_ce_sum(hidden[:, :-1], params["lm_head"], tokens[:, 1:],
+                            vtp) / (b * (s - 1))
+    logits = decode_train(params, cfg, tokens, memory, tp)
     return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1))
 
 
@@ -220,7 +254,7 @@ def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
 
 
 def encdec_decode_step(params: Tree, cfg: ModelConfig, token: Tensor,
-                       cache: Dict) -> Tuple[Tensor, Dict]:
+                       cache: Dict, tp=None) -> Tuple[Tensor, Dict]:
     """One token per row (``token`` (B, 1)) at the cache's ``pos``: causal
     self-attention against the cached K/V (written in place), then
     cross-attention to the whole memory, K/V projected anew from it.
@@ -228,19 +262,20 @@ def encdec_decode_step(params: Tree, cfg: ModelConfig, token: Tensor,
     pos, memory = cache["pos"], cache["memory"]
     b = token.shape[0]
     posv = pos.reshape(1).expand(b)
-    x = params["embed"][token.long()]
+    x = embed_lookup(params["embed"], token, vocab_tp(params, cfg, tp))
     cos_sin = _cos_sin(cfg, b, 1, posv, x.device)
     mem_cos_sin = _cos_sin(cfg, b, memory.shape[1], 0, x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
-        x = x + A.gqa_decode(lp["self_attn"], cfg, h, cos_sin, _layer(cache["self_kv"], i), posv)
+        x = x + A.gqa_decode(lp["self_attn"], cfg, h, cos_sin, _layer(cache["self_kv"], i), posv,
+                             tp=tp)
         h = rms_norm(x, lp["norm_x"]["scale"], cfg.norm_eps)
         x = x + A.gqa_forward(lp["cross_attn"], cfg, h, cos_sin, causal=False, x_kv=memory,
-                              cos_sin_kv=mem_cos_sin)
+                              cos_sin_kv=mem_cos_sin, tp=tp)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_forward(lp["ffn"], cfg.mlp_type, h)
+        x = x + mlp_forward(lp["ffn"], cfg.mlp_type, h, tp=_ffn_tp(lp, cfg, tp))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = linear(x, params["lm_head"])
+    logits = head_logits(params, cfg, x, tp)
     pos.add_(1)
     return logits, cache

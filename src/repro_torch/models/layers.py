@@ -8,6 +8,15 @@ mesh axis name, a tuple of names, or None (replicated along that dim).  A
 *slotted* call gives every parameter a leading axis that matches the
 activations' batch axis, one parameter set per row: what ``jax.vmap`` of the
 reference's decode over the slot axis lowered to.
+
+Tensor parallelism.  The model functions take ``tp``, a
+:class:`repro_torch.launch.mesh.ModelAxis` handle or None (the whole model).
+Under a handle a layer reads its local head count or width from its
+weights' shapes; a replicated input is passed through ``tp.enter`` where a
+region computed on this rank's share begins (identity forward, sum over the
+model ranks backward), as is every leaf held whole that the region reads
+(its gradient is partial on each rank), and the region's partial output
+leaves through ``tp.exit`` (sum forward, identity backward).
 """
 from __future__ import annotations
 
@@ -71,12 +80,26 @@ def remat_call(policy: str, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+class _HookedGenerator(torch.Generator):
+    """A generator whose draws :func:`normal_init` passes through
+    ``leaf_hook`` (see :func:`seeded_generator`)."""
+
+
+def seeded_generator(device: torch.device, seed: int, leaf_hook=None) -> torch.Generator:
     """The initialisers' generator on ``device``, seeded with ``seed``; on
-    the meta device (which has no generator) one that allocates nothing."""
+    the meta device (which has no generator) one that allocates nothing.
+    With ``leaf_hook``, every leaf :func:`normal_init` draws from it is
+    replaced by ``leaf_hook(leaf)`` as soon as it is drawn (an initialiser
+    can keep a rank's shard of each leaf and drop the whole one; the draws,
+    and so the values, are those without the hook)."""
     if device.type == "meta":
-        return _MetaGenerator().manual_seed(seed)
-    return torch.Generator(device=device).manual_seed(seed)
+        gen = _MetaGenerator()
+    else:
+        gen = (torch.Generator if leaf_hook is None else _HookedGenerator)(device=device)
+    gen.manual_seed(seed)
+    if leaf_hook is not None:
+        gen.leaf_hook = leaf_hook
+    return gen
 
 
 def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
@@ -87,13 +110,15 @@ def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float, dtype,
     rows = max(1, DRAW_CHUNK // max(1, math.prod(shape[1:])))
     if rows >= lead:  # one slice covers the leaf
         draw = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return draw.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=dev)
-    for r0 in range(0, lead, rows):
-        blk = out[r0:r0 + rows]
-        blk.copy_(torch.randn(blk.shape, generator=gen, dtype=torch.float32,
-                              device=dev).mul_(scale))
-    return out
+        out = draw.mul_(scale).to(dtype)
+    else:
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for r0 in range(0, lead, rows):
+            blk = out[r0:r0 + rows]
+            blk.copy_(torch.randn(blk.shape, generator=gen, dtype=torch.float32,
+                                  device=dev).mul_(scale))
+    hook = getattr(gen, "leaf_hook", None)
+    return out if hook is None else hook(out)
 
 
 def spec_rms_norm() -> dict:
@@ -116,6 +141,14 @@ def linear(x: Tensor, w: Tensor, slotted: bool = False) -> Tensor:
     if slotted:
         return torch.bmm(x, w.reshape(b, d, -1)).reshape(b, s, *w.shape[2:])
     return (x.reshape(b * s, d) @ w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
+
+
+def sharded(tp, local: int, full: int):
+    """``tp`` when a leaf's dim of ``full`` entries is split over its model
+    ranks (this rank holds ``local`` < ``full`` of them), else None: a leaf
+    the placements hold whole is computed whole on every rank, with no
+    collective."""
+    return tp if tp is not None and local < full else None
 
 
 def vec(p: Tensor, slotted: bool, ndim: int) -> Tensor:

@@ -12,18 +12,27 @@ is forward-only), so none is written here; K7 stays the prefill's kernel.
 
 Layout: heads H = d_inner / head_dim (P), groups G (B/C shared per group),
 state size N.  Caches are updated in place.
+
+Tensor parallelism (``tp``) splits the layer by head.  The reference's
+``in_proj`` placement cuts contiguous column chunks, which cross the z / x /
+B / C / dt boundaries, so the port's shard of ``in_proj`` is this rank's
+heads of z, x and dt beside the whole B and C (``conv_w`` / ``conv_b``: its
+heads' x channels beside the whole B and C channels; :func:`tp_layout`).  K7
+runs on the local heads; the gated RMSNorm's sum of squares is summed over
+the model ranks; ``out_proj``'s partial product leaves summed.  The decode
+caches hold the local conv channels and SSM heads.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import ssd_chunked_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, normal_init, rms_norm, vec
+from repro_torch.models.layers import linear, normal_init, rms_norm, sharded, vec
 
 Tensor = torch.Tensor
 
@@ -74,6 +83,77 @@ def spec_mamba2(cfg: ModelConfig, model_axis: str = "model") -> Dict:
             "dt_bias": (None,), "d_skip": (None,), "norm": (mp,), "out_proj": (mp, None)}
 
 
+def spec_mamba2_cache(cfg: ModelConfig, batch_axes, model_axis: str = "model") -> Dict:
+    """The reference's cache placements: the conv window's channels over
+    ``model_axis``, the SSM state whole (the port's layout is
+    :func:`tp_layout`'s)."""
+    return {"conv": (batch_axes, None, model_axis), "ssm": (batch_axes, None, None, None)}
+
+
+def tp_layout(cfg: ModelConfig, n: int) -> Dict[str, object]:
+    """The port's model-axis layout of a Mamba-2 layer's leaves and cache
+    over ``n`` ranks, by leaf name (dims counted from the end, so that a
+    stacked leaf reads them the same): split by head when the heads divide,
+    with B and C whole (:class:`repro_torch.launch.specs.Segments`); every
+    leaf whole otherwise.  ``a_log``, ``dt_bias`` and ``d_skip`` stay whole,
+    as placed, and each rank reads its heads' entries."""
+    from repro_torch.launch.specs import Segments
+
+    s, d_in, n_heads, _ = _dims(cfg)
+    names = ("in_proj", "conv_w", "conv_b", "norm", "out_proj", "a_log", "dt_bias", "d_skip",
+             "conv", "ssm")
+    if n == 1 or n_heads % n:
+        return dict.fromkeys(names)
+    gn = s.n_groups * s.d_state
+    conv = Segments(-1, (d_in, 2 * gn), (True, False))
+    return {"in_proj": Segments(-1, (d_in, d_in, 2 * gn, n_heads), (True, True, False, True)),
+            "conv_w": conv, "conv_b": conv, "norm": -1, "out_proj": -2, "a_log": None,
+            "dt_bias": None, "d_skip": None, "conv": conv, "ssm": -3}
+
+
+def _local(params: Dict, cfg: ModelConfig, tp):
+    """(tp or None, local d_inner, local heads, this rank's head block)."""
+    s, d_in, n_heads, _ = _dims(cfg)
+    d_loc = params["out_proj"].shape[-2]
+    tp = sharded(tp, d_loc, d_in)
+    h_loc = d_loc // s.head_dim
+    lo = 0 if tp is None else tp.index * h_loc
+    return tp, d_loc, h_loc, (lo, lo + h_loc)
+
+
+def _tp_params(params: Dict, cfg: ModelConfig, tp, heads) -> Dict:
+    """Under ``tp``: the whole B / C columns of ``in_proj`` and channels of
+    the conv entered (their gradients summed over the ranks), and this
+    rank's entries of the whole per-head leaves."""
+    if tp is None:
+        return params
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    d_loc = params["out_proj"].shape[-2]
+    p = dict(params)
+
+    def enter_bc(w, start):
+        a, bc, c = w.split([start, 2 * gn, w.shape[-1] - start - 2 * gn], -1)
+        return torch.cat([a, tp.enter(bc), c], -1)
+
+    p["in_proj"] = enter_bc(params["in_proj"], 2 * d_loc)
+    p["conv_w"] = enter_bc(params["conv_w"], d_loc)
+    p["conv_b"] = enter_bc(params["conv_b"], d_loc)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        p[k] = tp.enter(params[k])[..., heads[0]:heads[1]]
+    return p
+
+
+def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, cfg: ModelConfig, tp) -> Tensor:
+    """``rms_norm(y * silu(z))`` over the whole d_inner: under ``tp`` the
+    local sum of squares is summed over the ranks."""
+    g = y * F.silu(z)
+    if tp is None:
+        return rms_norm(g, scale, cfg.norm_eps)
+    gf = g.to(torch.float32)
+    var = tp.enter(tp.exit(torch.sum(gf * gf, dim=-1, keepdim=True))) / _dims(cfg)[1]
+    return (gf * torch.rsqrt(var + cfg.norm_eps) * scale.to(torch.float32)).to(g.dtype)
+
+
 def ssd_decode_step(
     state: Tensor,  # (B, H, P, N) float32
     x_t: Tensor,  # (B, H, P)
@@ -110,16 +190,19 @@ def conv_decode_step(window: Tensor, x_t: Tensor, w: Tensor, b: Tensor,
     return y[:, None, :], full[:, 1:, :]
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: Tensor):
-    s, d_in, _, _ = _dims(cfg)
+def _split_proj(cfg: ModelConfig, zxbcdt: Tensor, d_in: Optional[int] = None):
+    s = cfg.ssm
+    d_in = _dims(cfg)[1] if d_in is None else d_in
     gn = s.n_groups * s.d_state
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * gn, zxbcdt.shape[-1] - 2 * d_in - 2 * gn],
                              dim=-1)
     return z, xbc, dt  # xbc = [x, B, C] conv channels
 
 
-def _split_xbc(cfg: ModelConfig, xbc: Tensor):
-    s, d_in, n_heads, _ = _dims(cfg)
+def _split_xbc(cfg: ModelConfig, xbc: Tensor, d_in: Optional[int] = None):
+    s = cfg.ssm
+    d_in = _dims(cfg)[1] if d_in is None else d_in
+    n_heads = d_in // s.head_dim
     gn = s.n_groups * s.d_state
     x, b_mat, c_mat = torch.split(xbc, [d_in, gn, gn], dim=-1)
     bsz, l = x.shape[:2]
@@ -128,20 +211,25 @@ def _split_xbc(cfg: ModelConfig, xbc: Tensor):
             c_mat.reshape(bsz, l, s.n_groups, s.d_state))
 
 
-def mamba2_forward(params: Dict, cfg: ModelConfig, u: Tensor) -> Tensor:
+def mamba2_forward(params: Dict, cfg: ModelConfig, u: Tensor, tp=None) -> Tensor:
     """The training forward, u (B, L, d_model) -> (B, L, d_model): the
     chunked SSD through :func:`ssd_reference` (differentiable)."""
-    s, d_in, _, _ = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(cfg, linear(u, params["in_proj"]))
+    s = cfg.ssm
+    tp, d_in, _, heads = _local(params, cfg, tp)
+    if tp is not None:
+        u_in, params = tp.enter(u), _tp_params(params, cfg, tp, heads)
+    else:
+        u_in = u
+    z, xbc, dt_raw = _split_proj(cfg, linear(u_in, params["in_proj"]), d_in)
     x, b_mat, c_mat = _split_xbc(cfg, F.silu(causal_conv(xbc, params["conv_w"],
-                                                         params["conv_b"])))
+                                                         params["conv_b"])), d_in)
     dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     y, _ = ssd_reference(x, dt.to(x.dtype), a, b_mat, c_mat, s.chunk)
     y = y.to(u.dtype) + params["d_skip"].to(u.dtype)[None, None, :, None] * x
     y = y.reshape(u.shape[0], u.shape[1], d_in)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return linear(y, params["out_proj"])
+    out = linear(_gated_norm(y, z, params["norm"], cfg, tp), params["out_proj"])
+    return out if tp is None else tp.exit(out)
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device=None, stack: tuple = ()) -> Dict:
@@ -154,13 +242,18 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device=None, stack: t
 
 
 def mamba2_decode(params: Dict, cfg: ModelConfig, u: Tensor, cache: Dict,
-                  slotted: bool = False) -> Tensor:
-    """u (B, 1, d_model) -> (B, 1, d_model); advances ``cache`` in place."""
-    s, d_in, n_heads, _ = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(cfg, linear(u, params["in_proj"], slotted))
+                  slotted: bool = False, tp=None) -> Tensor:
+    """u (B, 1, d_model) -> (B, 1, d_model); advances ``cache`` in place
+    (under ``tp``: this rank's conv channels and SSM heads)."""
+    tp, d_in, _, heads = _local(params, cfg, tp)
+    if tp is not None:
+        u_in, params = tp.enter(u), _tp_params(params, cfg, tp, heads)
+    else:
+        u_in = u
+    z, xbc, dt_raw = _split_proj(cfg, linear(u_in, params["in_proj"], slotted), d_in)
     conv_out, conv_win = conv_decode_step(cache["conv"], xbc, params["conv_w"],
                                           params["conv_b"], slotted)
-    x, b_mat, c_mat = _split_xbc(cfg, F.silu(conv_out))
+    x, b_mat, c_mat = _split_xbc(cfg, F.silu(conv_out), d_in)
     dt = softplus(dt_raw.to(torch.float32) + vec(params["dt_bias"], slotted, 3))  # (B, 1, H)
     a = -torch.exp(params["a_log"])
     y, new_state = ssd_decode_step(
@@ -173,5 +266,6 @@ def mamba2_decode(params: Dict, cfg: ModelConfig, u: Tensor, cache: Dict,
     d_skip = d_skip[..., :, None]  # (H, 1) or (B, H, 1) against (B, H, P)
     y = y.to(u.dtype) + d_skip * x[:, 0]
     y = y.reshape(u.shape[0], 1, d_in)
-    y = rms_norm(y * F.silu(z), vec(params["norm"], slotted, 3), cfg.norm_eps)
-    return linear(y, params["out_proj"], slotted)
+    y = _gated_norm(y, z, vec(params["norm"], slotted, 3), cfg, tp)
+    out = linear(y, params["out_proj"], slotted)
+    return out if tp is None else tp.exit(out)

@@ -44,6 +44,13 @@ def activation(params: Dict, mlp_type: str, up) -> torch.Tensor:
     raise ValueError(f"unknown mlp_type {mlp_type!r}")
 
 
-def mlp_forward(params: Dict, mlp_type: str, x: torch.Tensor, slotted: bool = False):
+def mlp_forward(params: Dict, mlp_type: str, x: torch.Tensor, slotted: bool = False,
+                tp=None):
+    """The block on ``x``; under ``tp`` (the hidden dim split over the model
+    ranks: ``w_gate`` and ``w_up`` by column, ``w_down`` by row) the input
+    enters and the rank's partial output exits summed."""
+    if tp is not None:
+        x = tp.enter(x)
     h = activation(params, mlp_type, lambda w: linear(x, w, slotted))
-    return linear(h, params["w_down"], slotted)
+    out = linear(h, params["w_down"], slotted)
+    return out if tp is None else tp.exit(out)

@@ -23,6 +23,13 @@ slots) routes and dispatches each row on its own, with the capacity of its
 own tokens: what ``jax.vmap`` of the reference's layer over the slots
 computes.  Expert products are plain PyTorch, as the reference computes them
 outside any Pallas kernel.
+
+Tensor parallelism (``tp``): each model rank holds its block of every
+expert's hidden dim (and of the shared experts'), routes identically (the
+router is whole and its input replicated), dispatches its slice, and the
+ranks' partial outputs are summed; the routing weights enter the region, so
+the router's gradient is summed over the ranks, and the load-balance loss,
+computed on every rank from the same routes, is counted once.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig, MoEConfig
-from repro_torch.models.layers import normal_init
+from repro_torch.models.layers import normal_init, sharded
 from repro_torch.models.mlp import activation, init_mlp, mlp_forward, spec_mlp
 
 Tensor = torch.Tensor
@@ -161,7 +168,7 @@ def dispatch_in_place(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tens
         * top_w[0, j].to(xf.dtype) for j, i in enumerate(top_idx[0].tolist())])[None]
 
 
-def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor) -> Tuple[Tensor, Tensor]:
+def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None) -> Tuple[Tensor, Tensor]:
     """xf (T, d) -> (y (T, d), aux): one routing group."""
     mo = cfg.moe
     logits = xf.to(torch.float32) @ params["router"]
@@ -172,20 +179,30 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor) -> Tuple[Tensor, Ten
     # meta device (the dry run) it takes the batched form, as the reference lowers
     in_place = xf.shape[0] == 1 and xf.device.type != "meta"
     dispatch = dispatch_in_place if in_place else dispatch_batched
-    y = _combine(dispatch(experts, cfg, xf, top_idx, top_w), top_idx)
+    tp_e = sharded(tp, experts["w_down"].shape[-2], mo.d_expert)
+    tp_s = (sharded(tp, params["shared"]["w_down"].shape[-2], mo.n_shared * mo.d_expert)
+            if mo.n_shared else None)
+    x_e, w_e = (xf, top_w) if tp_e is None else (tp_e.enter(xf), tp_e.enter(top_w))
+    y = _combine(dispatch(experts, cfg, x_e, top_idx, w_e), top_idx)
+    if tp_e is not None:
+        # the shared experts, n_shared times as wide, split too: one partial
+        # sum leaves the region
+        if mo.n_shared:
+            y = y + mlp_forward(params["shared"], cfg.mlp_type, x_e[None])[0]
+        return tp_e.exit(y), aux
     if mo.n_shared:
-        y = y + mlp_forward(params["shared"], cfg.mlp_type, xf[None])[0]
+        y = y + mlp_forward(params["shared"], cfg.mlp_type, xf[None], tp=tp_s)[0]
     return y, aux
 
 
 def moe_forward(params: Dict, cfg: ModelConfig, x: Tensor,
-                slotted: bool = False) -> Tuple[Tensor, Tensor]:
+                slotted: bool = False, tp=None) -> Tuple[Tensor, Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux loss).  With ``slotted`` every leaf
     of ``params`` carries a leading axis of size B and each row is its own
     routing group; aux is then one loss per row."""
     b, s, d = x.shape
     if not slotted:
-        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d))
+        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp)
         return y.reshape(b, s, d), aux
     ys, auxs = [], []
     for row in range(b):

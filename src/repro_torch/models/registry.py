@@ -7,6 +7,12 @@ configuration and one device.  The encoder-decoder's (``cfg.is_enc_dec``)
 is an :class:`EncDecBundle`: its cache holds the encoder memory, its
 prefill runs the encoder and one decode step on the first token (the
 reference's), and its batches carry ``frames``.
+
+A bundle made with ``tp`` (an agent's
+:class:`repro_torch.launch.mesh.ModelAxis`) runs every entry point on this
+rank's model shard of the parameters and cache (tensor parallelism inside
+the agent); its logits, losses and gradients are the whole model's, the
+gradients each leaf's shard.
 """
 from __future__ import annotations
 
@@ -28,9 +34,11 @@ Tree = Any
 class ModelBundle:
     cfg: ModelConfig
     device: torch.device
+    tp: Any = dataclasses.field(default=None, compare=False)
 
-    def init(self, seed: int = 0) -> Tree:
-        return T.init_lm(self.cfg, seed=seed, device=self.device)
+    def init(self, seed: int = 0, leaf_hook=None) -> Tree:
+        """``leaf_hook``: see :func:`repro_torch.models.layers.seeded_generator`."""
+        return T.init_lm(self.cfg, seed=seed, device=self.device, leaf_hook=leaf_hook)
 
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         return T.init_cache(self.cfg, batch, max_seq, self.device)
@@ -41,14 +49,21 @@ class ModelBundle:
         None), the reference's ``PartitionSpec`` entries."""
         return T.lm_param_specs(self.cfg, model_axis)
 
+    def cache_specs(self, batch_axes, model_axis: str = "model") -> Dict[str, tuple]:
+        """Each cache leaf's placement, keyed by path: the batch over
+        ``batch_axes`` (None: whole), heads or channels over
+        ``model_axis``; the reference's ``bundle.cache_specs``."""
+        return T.cache_specs(self.cfg, batch_axes, model_axis)
+
     def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
         return T.lm_prefill(params, self.cfg, batch["tokens"], cache,
                             prefix_embeds=batch.get("prefix_embeds"),
-                            positions=batch.get("positions"), use_kernels=use_kernels)
+                            positions=batch.get("positions"), use_kernels=use_kernels,
+                            tp=self.tp)
 
     def decode(self, params: Tree, token: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-        return T.lm_decode(params, self.cfg, token, cache)
+        return T.lm_decode(params, self.cfg, token, cache, tp=self.tp)
 
     def decode_slots(self, slot_params: Tree, tokens: torch.Tensor,
                      cache: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -56,7 +71,7 @@ class ModelBundle:
         return T.lm_decode(slot_params, self.cfg, tokens, cache, slotted=True)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
-        return T.lm_loss(params, self.cfg, batch)
+        return T.lm_loss(params, self.cfg, batch, tp=self.tp)
 
     def value_and_grad(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
         """``(loss, grads)`` of :meth:`loss` at ``params`` (the twin of
@@ -74,8 +89,8 @@ class EncDecBundle(ModelBundle):
     """The encoder-decoder's bundle; batches are ``{"frames": (B, T,
     d_model), "tokens": (B, S)}``."""
 
-    def init(self, seed: int = 0) -> Tree:
-        return E.init_encdec(self.cfg, seed=seed, device=self.device)
+    def init(self, seed: int = 0, leaf_hook=None) -> Tree:
+        return E.init_encdec(self.cfg, seed=seed, device=self.device, leaf_hook=leaf_hook)
 
     def init_cache(self, batch: int, max_seq: int, mem_len: Optional[int] = None) -> Dict:
         """``mem_len`` defaults to ``max_seq``, as in the reference."""
@@ -84,6 +99,9 @@ class EncDecBundle(ModelBundle):
     def param_specs(self, model_axis: str = "model") -> Dict[str, tuple]:
         return E.encdec_param_specs(self.cfg, model_axis)
 
+    def cache_specs(self, batch_axes, model_axis: str = "model") -> Dict[str, tuple]:
+        return E.encdec_cache_specs(self.cfg, batch_axes, model_axis)
+
     def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
         """The encoder over ``batch["frames"]`` (K6 without the causal mask
@@ -91,21 +109,22 @@ class EncDecBundle(ModelBundle):
         ``batch["tokens"][:, :1]``; returns (logits (B, 1, V), cache at
         pos 1)."""
         cache["memory"] = E.encode_prefill(params, self.cfg, batch["frames"],
-                                           use_kernels=use_kernels)
-        return E.encdec_decode_step(params, self.cfg, batch["tokens"][:, :1], cache)
+                                           use_kernels=use_kernels, tp=self.tp)
+        return E.encdec_decode_step(params, self.cfg, batch["tokens"][:, :1], cache, tp=self.tp)
 
     def decode(self, params: Tree, token: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-        return E.encdec_decode_step(params, self.cfg, token, cache)
+        return E.encdec_decode_step(params, self.cfg, token, cache, tp=self.tp)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
-        return E.encdec_loss(params, self.cfg, batch)
+        return E.encdec_loss(params, self.cfg, batch, tp=self.tp)
 
 
-def get_bundle(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
+def get_bundle(cfg: ModelConfig, device: DeviceLike = None, tp: Any = None) -> ModelBundle:
     """The bundle of a configuration on ``device`` (CUDA when none is
-    given): an :class:`EncDecBundle` for an encoder-decoder."""
+    given): an :class:`EncDecBundle` for an encoder-decoder.  ``tp``: the
+    agent's model axis when the bundle runs on a rank's model shard."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:  # the index tensors report
         dev = torch.device("cuda", torch.cuda.current_device())
-    return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev)
+    return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev, tp=tp)

@@ -46,6 +46,15 @@ Caches are updated in place and returned.  Hybrid stacks use no RoPE (their
 Mamba layers carry position).  The attention logit softcap
 (``cfg.attn_logit_softcap``) caps the scores on every path, K6's prefill
 included.
+
+Tensor parallelism: every entry point takes ``tp``, the agent's model axis
+(:class:`repro_torch.launch.mesh.ModelAxis`) or None, and then the rank's
+model shard of the parameters and cache (:func:`repro_torch.launch.specs.shard_model`).
+The layers split by head and width (see :mod:`repro_torch.models.layers`);
+a split vocabulary is looked up with the ids outside the rank's block
+masked, the loss is the vocab-parallel cross-entropy (max, log-sum-exp and
+target logit reduced over the ranks), and the prefill's and decode's logits
+are gathered over the ranks, the reference's replicated output.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from repro_torch.models.layers import (
     remat_call,
     rms_norm,
     seeded_generator,
+    sharded,
     spec_rms_norm,
     vec,
 )
@@ -167,13 +177,36 @@ def lm_param_specs(cfg: ModelConfig, model_axis: str = "model") -> Dict[str, tup
     return flatten_paths(specs)
 
 
-def init_lm(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None) -> Tree:
+def _spec_block_cache(cfg: ModelConfig, kind: str, batch_axes, model_axis: str) -> Dict:
+    if kind == "attn" and cfg.attn_impl == "mla":
+        return A.spec_mla_cache(cfg, batch_axes, model_axis)
+    if kind == "attn":
+        return A.spec_gqa_cache(cfg, batch_axes, model_axis)
+    return M.spec_mamba2_cache(cfg, batch_axes, model_axis)
+
+
+def cache_specs(cfg: ModelConfig, batch_axes, model_axis: str = "model") -> Dict[str, tuple]:
+    """The twin of the reference's ``cache_specs``: each cache leaf's
+    placement (the batch over ``batch_axes``, heads or channels over
+    ``model_axis``), keyed by path."""
+    head_pat, period_pat, _ = _period_patterns(cfg)
+    specs: Dict[str, Any] = {
+        "pos": (),
+        "head_layers": [_spec_block_cache(cfg, k, batch_axes, model_axis) for k, _ in head_pat],
+        "layers": {f"pos{i}": stacked_specs(_spec_block_cache(cfg, k, batch_axes, model_axis))
+                   for i, (k, _) in enumerate(period_pat)}}
+    return flatten_paths(specs)
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
+            leaf_hook=None) -> Tree:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
     with ``seed`` (stacked layers drawn whole, one leaf at a time).  On the
-    meta device: the tree's shapes and dtypes, nothing allocated."""
+    meta device: the tree's shapes and dtypes, nothing allocated.
+    ``leaf_hook``: see :func:`repro_torch.models.layers.seeded_generator`."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    gen = seeded_generator(dev, seed)
+    gen = seeded_generator(dev, seed, leaf_hook)
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     params: Dict[str, Any] = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), cfg.init_scale, dtype),
@@ -255,12 +288,14 @@ def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device, positions=None):
     return rope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
 
 
-def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False):
+def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False,
+         tp=None):
     """The block's FFN on its normed input: (out, MoE aux loss or None)."""
     h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
     if ffn_kind == "dense":
-        return mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted), None
-    return moe_forward(bp["ffn"], cfg, h, slotted)
+        tp = sharded(tp, bp["ffn"]["w_down"].shape[-2], cfg.d_ff)
+        return mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted, tp), None
+    return moe_forward(bp["ffn"], cfg, h, slotted, tp)
 
 
 def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
@@ -269,34 +304,62 @@ def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
     return params["embed"].transpose(-1, -2)
 
 
+def vocab_tp(params: Tree, cfg: ModelConfig, tp):
+    """``tp`` when the vocabulary is split over the model ranks."""
+    return sharded(tp, params["embed"].shape[0], cfg.vocab_size)
+
+
+def embed_lookup(embed: Tensor, ids: Tensor, tp=None) -> Tensor:
+    """``embed[ids]``; under ``tp`` (``embed`` this rank's block of rows) the
+    ids outside the block look up zeros and the ranks' rows are summed."""
+    if tp is None:
+        return embed[ids.long()]
+    n = embed.shape[0]
+    local = ids.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)]
+    return tp.exit(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+
+
+def head_logits(params: Tree, cfg: ModelConfig, hidden: Tensor, tp=None) -> Tensor:
+    """The vocabulary projection, gathered over the model ranks when the
+    vocabulary is split (the reference's replicated logits)."""
+    tp = vocab_tp(params, cfg, tp)
+    if tp is None:
+        return linear(hidden, _lm_head(params, cfg))
+    return tp.gather(linear(tp.enter(hidden), _lm_head(params, cfg)))
+
+
 # ---------------------------------------------------------------------------
 # Training forward and loss
 # ---------------------------------------------------------------------------
 
 
 def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor,
-                  cos_sin) -> Tuple[Tensor, Tensor]:
+                  cos_sin, tp=None) -> Tuple[Tensor, Tensor]:
     """One layer of the training forward: (x, MoE aux loss)."""
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
-    if kind == "attn":
-        h = (A.mla_forward if cfg.attn_impl == "mla" else A.gqa_forward)(bp["mixer"], cfg, h,
-                                                                          cos_sin)
+    if kind == "attn" and cfg.attn_impl == "mla":
+        h = A.mla_forward(bp["mixer"], cfg, h, cos_sin, tp=tp)
+    elif kind == "attn":
+        h = A.gqa_forward(bp["mixer"], cfg, h, cos_sin, tp=tp)
     else:
-        h = M.mamba2_forward(bp["mixer"], cfg, h)
+        h = M.mamba2_forward(bp["mixer"], cfg, h, tp=tp)
     x = x + h
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn_kind != "none":
-        h, a = _ffn(bp, cfg, ffn_kind, x)
+        h, a = _ffn(bp, cfg, ffn_kind, x, tp=tp)
         x = x + h
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor]) -> Tensor:
+def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor], cfg: ModelConfig,
+           tp=None) -> Tensor:
     """Token embeddings (B, S_txt, d), after the prefix (B, S_img, d) when
     one is given (cast to the embeddings' dtype)."""
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens, vocab_tp(params, cfg, tp))
     if prefix_embeds is None:
         return x
     return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -304,16 +367,16 @@ def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor]) -> Ten
 
 def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
                    prefix_embeds: Optional[Tensor] = None,
-                   positions: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                   positions: Optional[Tensor] = None, tp=None) -> Tuple[Tensor, Tensor]:
     """Forward to the final norm, without the vocabulary projection; returns
     (hidden (B, S_img + S_txt, d), MoE aux loss summed over the layers)."""
     head_pat, period_pat, n_periods = _period_patterns(cfg)
-    x = _embed(params, tokens, prefix_embeds)
+    x = _embed(params, tokens, prefix_embeds, cfg, tp)
     b, s, _ = x.shape
     cos_sin = _cos_sin(cfg, b, s, 0, x.device, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, (k, f) in zip(params["head_layers"], head_pat):
-        x, a = block_forward(bp, cfg, k, f, x, cos_sin)
+        x, a = block_forward(bp, cfg, k, f, x, cos_sin, tp)
         aux = aux + a
 
     layers = [unstack(params["layers"][f"pos{i}"], n_periods) for i in range(len(period_pat))]
@@ -321,7 +384,7 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
     def period(x_in: Tensor, p: int) -> Tuple[Tensor, Tensor]:
         a_tot = torch.zeros((), dtype=torch.float32, device=x_in.device)
         for i, (k, f) in enumerate(period_pat):
-            x_in, a = block_forward(layers[i][p], cfg, k, f, x_in, cos_sin)
+            x_in, a = block_forward(layers[i][p], cfg, k, f, x_in, cos_sin, tp)
             a_tot = a_tot + a
         return x_in, a_tot
 
@@ -336,31 +399,54 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
 
 def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor, *,
                prefix_embeds: Optional[Tensor] = None,
-               positions: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+               positions: Optional[Tensor] = None, tp=None) -> Tuple[Tensor, Tensor]:
     """Full causal training forward over the prefix and the tokens; returns
     (logits (B, S_img + S_txt, V), MoE aux)."""
-    hidden, aux = _hidden_states(params, cfg, tokens, prefix_embeds, positions)
-    return linear(hidden, _lm_head(params, cfg)), aux
+    hidden, aux = _hidden_states(params, cfg, tokens, prefix_embeds, positions, tp)
+    return head_logits(params, cfg, hidden, tp), aux
 
 
-def _ce_sum(logits: Tensor, targets: Tensor) -> Tensor:
+def _ce_sum(logits: Tensor, targets: Tensor, tp=None) -> Tensor:
+    """The summed cross-entropy of ``logits`` (..., V) in float32; under
+    ``tp`` the logits are this rank's block of the vocabulary and the max,
+    the sum of exponentials and the target's logit are reduced over the
+    model ranks."""
     pred = logits.to(torch.float32)
-    gold = torch.gather(pred, -1, targets.long()[..., None])[..., 0]
-    return torch.sum(torch.logsumexp(pred, dim=-1) - gold)
+    if tp is None:
+        gold = torch.gather(pred, -1, targets.long()[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(pred, dim=-1) - gold)
+    n = pred.shape[-1]
+    top = tp.max(torch.amax(pred, dim=-1, keepdim=True))
+    lse = torch.log(tp.exit(torch.sum(torch.exp(pred - top), dim=-1))) + top[..., 0]
+    local = targets.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(pred, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = tp.exit(torch.where(inside, gold, torch.zeros_like(gold)))
+    return torch.sum(lse - gold)
 
 
-def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int) -> Tensor:
+def vocab_ce_sum(hidden: Tensor, head: Tensor, targets: Tensor, tp=None) -> Tensor:
+    """``_ce_sum`` of the logits ``hidden @ head``: under ``tp`` (``head``
+    this rank's vocabulary columns) the hidden states enter and the logits
+    stay split."""
+    if tp is not None:
+        hidden = tp.enter(hidden)
+    return _ce_sum(linear(hidden, head), targets, tp)
+
+
+def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int,
+                tp=None) -> Tensor:
     """Next-token CE over sequence chunks: one (B, chunk, V) logits block is
     live at a time in the forward pass."""
     b, s_pred, _ = hidden.shape
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s_pred, min(chunk, s_pred)):
         c1 = min(c0 + chunk, s_pred)
-        total = total + _ce_sum(linear(hidden[:, c0:c1], head), targets[:, c0:c1])
+        total = total + vocab_ce_sum(hidden[:, c0:c1], head, targets[:, c0:c1], tp)
     return total / (b * s_pred)
 
 
-def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
+def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None) -> Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S): position t
     of the text tail predicts token t + 1, logits in float32; plus the MoE
     aux loss.  ``batch`` may carry ``prefix_embeds`` and ``positions``
@@ -368,11 +454,17 @@ def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
     tokens = batch["tokens"]
     prefix, positions = batch.get("prefix_embeds"), batch.get("positions")
     b, s = tokens.shape
+    vtp = vocab_tp(params, cfg, tp)
     if cfg.loss_chunk > 0:
-        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions)
+        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp)
         return _chunked_ce(hidden[:, -s:-1], _lm_head(params, cfg), tokens[:, 1:],
-                           cfg.loss_chunk) + aux
-    logits, aux = lm_forward(params, cfg, tokens, prefix_embeds=prefix, positions=positions)
+                           cfg.loss_chunk, vtp) + aux
+    if vtp is not None:
+        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp)
+        return vocab_ce_sum(hidden[:, -s:-1], _lm_head(params, cfg), tokens[:, 1:],
+                            vtp) / (b * (s - 1)) + aux
+    logits, aux = lm_forward(params, cfg, tokens, prefix_embeds=prefix, positions=positions,
+                             tp=tp)
     return _ce_sum(logits[:, -s:-1], tokens[:, 1:]) / (b * (s - 1)) + aux
 
 
@@ -382,42 +474,50 @@ def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict) -> Tensor:
 
 
 def _prefill_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor,
-                   cos_sin, cc: Dict, use_kernels: bool) -> Tensor:
+                   cos_sin, cc: Dict, use_kernels: bool, tp=None) -> Tensor:
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
     mp = bp["mixer"]
     b, s, _ = x.shape
+    if kind == "attn":
+        ttp = A.gqa_tp(mp, cfg, tp)
+        h = h if ttp is None else ttp.enter(h)
     if kind == "attn" and cfg.attn_impl == "mla":
-        q_nope, q_rope, c_kv, k_rope = A._mla_qkr(mp, cfg, h, cos_sin)
+        q_nope, q_rope, c_kv, k_rope = A._mla_qkr(mp, cfg, h, cos_sin, tp=ttp)
         A.mla_fill_cache(cc, c_kv, k_rope)
         q, k, v = A.mla_qkv(mp, q_nope, q_rope, c_kv, k_rope)
         core = A.attention_core(q, k, v, causal=True, softcap=cfg.attn_logit_softcap,
                                 use_kernel=use_kernels)
         out = linear(core.reshape(b, s, -1), mp["wo"].flatten(0, 1))
     elif kind == "attn":
-        q, k, v = A._project_qkv(mp, cfg, h)
+        q, k, v = A._project_qkv(mp, cfg, h, tp=ttp)
         q, k = A.rope_qk(q, k, cos_sin)
         A.gqa_fill_cache(cc, k, v)
+        # K6 reads whole tiles through TMA: the rank's KV heads made contiguous
+        k, v = (t.contiguous() for t in A.local_kv(cfg, ttp, q.shape[2], k, v))
         core = A.attention_core(q, k, v, causal=True, window=cfg.sliding_window,
                                 softcap=cfg.attn_logit_softcap, use_kernel=use_kernels)
         out = linear(core.reshape(b, s, -1), mp["wo"].flatten(0, 1))
     else:
-        s_cfg, d_in, _, _ = M._dims(cfg)
-        z, xbc, dt_raw = M._split_proj(cfg, linear(h, mp["in_proj"]))
+        s_cfg = cfg.ssm
+        ttp, d_in, _, heads = M._local(mp, cfg, tp)
+        if ttp is not None:
+            h, mp = ttp.enter(h), M._tp_params(mp, cfg, ttp, heads)
+        z, xbc, dt_raw = M._split_proj(cfg, linear(h, mp["in_proj"]), d_in)
         conv_full = M.causal_conv(xbc, mp["conv_w"], mp["conv_b"])
         conv_win = xbc[:, -(s_cfg.d_conv - 1):, :]
-        xm, b_mat, c_mat = M._split_xbc(cfg, F.silu(conv_full))
+        xm, b_mat, c_mat = M._split_xbc(cfg, F.silu(conv_full), d_in)
         dt = M.softplus(dt_raw.to(torch.float32) + mp["dt_bias"])
         a_neg = -torch.exp(mp["a_log"])
         scan = ssd_scan if use_kernels else kref.ssd_scan_ref
         y, final_state = scan(xm, dt.to(xm.dtype), a_neg, b_mat, c_mat, chunk=s_cfg.chunk)
         y = y.to(x.dtype) + mp["d_skip"].to(x.dtype)[None, None, :, None] * xm
-        y = rms_norm(y.reshape(b, s, d_in) * F.silu(z), mp["norm"], cfg.norm_eps)
-        out = linear(y, mp["out_proj"])
+        out = linear(M._gated_norm(y.reshape(b, s, d_in), z, mp["norm"], cfg, ttp),
+                     mp["out_proj"])
         cc["conv"].copy_(conv_win)
         cc["ssm"].copy_(final_state)
-    x = x + out
+    x = x + (out if ttp is None else ttp.exit(out))
     if ffn_kind != "none":
-        x = x + _ffn(bp, cfg, ffn_kind, x)[0]
+        x = x + _ffn(bp, cfg, ffn_kind, x, tp=tp)[0]
     return x
 
 
@@ -430,6 +530,7 @@ def lm_prefill(
     prefix_embeds: Optional[Tensor] = None,
     positions: Optional[Tensor] = None,
     use_kernels: bool = True,
+    tp=None,
 ) -> Tuple[Tensor, Dict]:
     """Full causal forward over the prefix (if any) and the tokens, and the
     cache fill; returns (logits (B, S_img + S, V), cache), the cache's
@@ -438,21 +539,21 @@ def lm_prefill(
     A Mamba layer keeps the last ``d_conv - 1`` inputs of its convolution
     in the cache, so prompts shorter than that are refused."""
     head_pat, period_pat, n_periods = _period_patterns(cfg)
-    x = _embed(params, tokens, prefix_embeds)
+    x = _embed(params, tokens, prefix_embeds, cfg, tp)
     b, s, _ = x.shape
     if "mamba" in cfg.layer_kinds() and s < cfg.ssm.d_conv - 1:
         raise ValueError(f"{cfg.name}: a prompt needs at least {cfg.ssm.d_conv - 1} tokens "
                          f"(the conv window), got {s}")
     cos_sin = _cos_sin(cfg, b, s, 0, x.device, positions)
     for bp, (k, f), cc in zip(params["head_layers"], head_pat, cache["head_layers"]):
-        x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels)
+        x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels, tp)
     for p in range(n_periods):
         for i, (k, f) in enumerate(period_pat):
             bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
             cc = _index(cache["layers"][f"pos{i}"], lambda t: t[p])
-            x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels)
+            x = _prefill_block(bp, cfg, k, f, x, cos_sin, cc, use_kernels, tp)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = linear(x, _lm_head(params, cfg))
+    logits = head_logits(params, cfg, x, tp)
     cache["pos"].fill_(s)
     return logits, cache
 
@@ -463,16 +564,16 @@ def lm_prefill(
 
 
 def _decode_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor, cos_sin,
-                  cc: Dict, pos: Tensor, slotted: bool) -> Tensor:
+                  cc: Dict, pos: Tensor, slotted: bool, tp=None) -> Tensor:
     h = rms_norm(x, vec(bp["norm1"]["scale"], slotted, 3), cfg.norm_eps)
     if kind == "attn":
         decode = A.mla_decode if cfg.attn_impl == "mla" else A.gqa_decode
-        h = decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted)
+        h = decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted, tp)
     else:
-        h = M.mamba2_decode(bp["mixer"], cfg, h, cc, slotted)
+        h = M.mamba2_decode(bp["mixer"], cfg, h, cc, slotted, tp)
     x = x + h
     if ffn_kind != "none":
-        x = x + _ffn(bp, cfg, ffn_kind, x, slotted)[0]
+        x = x + _ffn(bp, cfg, ffn_kind, x, slotted, tp)[0]
     return x
 
 
@@ -483,6 +584,7 @@ def lm_decode(
     cache: Dict,
     *,
     slotted: bool = False,
+    tp=None,
 ) -> Tuple[Tensor, Dict]:
     """One decode step; returns (logits (B, 1, V), cache advanced in place).
 
@@ -495,16 +597,18 @@ def lm_decode(
     pos = cache["pos"]
     posv = pos.reshape(1).expand(b) if pos.dim() == 0 else pos
     tok = token[:, 0].long()
+    if slotted and tp is not None:
+        raise ValueError("slotted decode runs on whole parameters (no model axis)")
     if slotted:
         x = params["embed"][torch.arange(b, device=tok.device), tok][:, None, :]
     else:
-        x = params["embed"][tok][:, None, :]
+        x = embed_lookup(params["embed"], tok, vocab_tp(params, cfg, tp))[:, None, :]
     cos_sin = _cos_sin(cfg, b, 1, posv, x.device)
     for j, ((k, f), bp) in enumerate(zip(head_pat, params["head_layers"])):
         cc = cache["head_layers"][j]
         if slotted:
             cc = _index(cc, lambda t: t[:, 0])
-        x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted)
+        x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp)
     for p in range(n_periods):
         for i, (k, f) in enumerate(period_pat):
             if slotted:
@@ -513,8 +617,9 @@ def lm_decode(
             else:
                 bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
                 cc = _index(cache["layers"][f"pos{i}"], lambda t: t[p])
-            x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted)
+            x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp)
     x = rms_norm(x, vec(params["final_norm"]["scale"], slotted, 3), cfg.norm_eps)
-    logits = linear(x, _lm_head(params, cfg), slotted)
+    logits = (linear(x, _lm_head(params, cfg), slotted) if slotted
+              else head_logits(params, cfg, x, tp))
     pos.add_(1)
     return logits, cache

@@ -9,7 +9,10 @@ encoder-decoder's among them) cross with :func:`lm_params_from_jax` /
 :func:`lm_cache_from_jax` and back; a PISCO
 state over LM trees crosses with :func:`lm_state_from_jax` as flat,
 path-keyed dicts, and :func:`split_state` / :func:`join_states` cut an
-agent-stacked state into one state per rank and back.
+agent-stacked state into one state per rank and back.  Over a model axis
+:func:`lm_params_from_jax` cuts each leaf to the rank's model shard, and
+:func:`init_model_shard` draws a rank's shard of a random init without the
+whole model.
 """
 from __future__ import annotations
 
@@ -145,7 +148,8 @@ def tree_to_numpy(tree: Any, bf16_dtype: Any = None) -> Any:
     return _leaf_to_numpy(tree, bf16_dtype)
 
 
-def lm_params_from_jax(params: Any, device: DeviceLike) -> Any:
+def lm_params_from_jax(params: Any, device: DeviceLike, layout: Any = None,
+                       mesh: Any = None) -> Any:
     """LM parameters of the reference as the port's, every family's leaves
     as they are: ``init_lm``'s nested tree (dicts, the ``head_layers`` list
     and the stacked ``layers``: MoE's float32 router, its (periods, experts,
@@ -153,8 +157,15 @@ def lm_params_from_jax(params: Any, device: DeviceLike) -> Any:
     projections, Mamba's float32 ``a_log`` / ``dt_bias`` / ``d_skip``) and
     the encoder-decoder's ``init_encdec`` tree (the stacked ``enc_layers``
     and ``dec_layers`` with their ``cross_attn``); this one function carries
-    both."""
-    return tree_from_jax(params, device)
+    both.  With a model ``layout`` (:func:`repro_torch.launch.steps.param_layout`)
+    each leaf is then cut to ``mesh``'s rank's model shard
+    (:func:`repro_torch.launch.specs.shard_tree`)."""
+    tree = tree_from_jax(params, device)
+    if layout is None:
+        return tree
+    from repro_torch.launch.specs import shard_tree
+
+    return shard_tree(tree, layout, mesh)
 
 
 def lm_cache_from_jax(cache: Any, device: DeviceLike) -> Any:
@@ -235,3 +246,36 @@ def join_states(states: List[Any]) -> Dict[str, Any]:
     if states[0].ef:
         out["ef"] = {s: stack([st.ef[s] for st in states]) for s in ("x", "y")}
     return out
+
+
+def init_model_shard(bundle: Any, layout: Mapping[str, Any], mesh: Any, seed: int = 0) -> Any:
+    """``bundle.init(seed)`` cut to this rank's model shard without ever
+    holding the whole model: each random leaf is cut as soon as it is drawn
+    (``bundle.init``'s ``leaf_hook``) and its whole tensor dropped, so a rank
+    holds one whole leaf at most beside its shards; the values are the
+    whole init's, block for block.  ``layout``: the model layout of the
+    parameters (:func:`repro_torch.launch.steps.param_layout`)."""
+    import dataclasses
+
+    from repro_torch.launch.specs import shard_leaf, shard_tree
+    from repro_torch.utils.pytree import flatten_paths
+
+    # the order in which the init draws its random leaves, by path (a meta
+    # init draws the same leaves in the same order and allocates nothing)
+    drawn: list = []
+    meta = dataclasses.replace(bundle, device=torch.device("meta")).init(
+        seed, leaf_hook=lambda t: drawn.append(t) or t)
+    path_of = {id(t): p for p, t in flatten_paths(meta).items()}
+    order = iter([path_of.get(id(t)) for t in drawn])
+    done = set()
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        path = next(order)
+        if path is None:
+            return t
+        done.add(path)
+        return shard_leaf(t, layout.get(path), mesh)
+
+    tree = bundle.init(seed, leaf_hook=cut)
+    rest = {p: layout.get(p) for p in flatten_paths(tree) if p not in done}
+    return shard_tree(tree, rest, mesh) if rest else tree

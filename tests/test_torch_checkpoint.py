@@ -128,6 +128,33 @@ def test_latest_checkpoint_and_overwrite(tmp_path):
     assert sorted(os.listdir(d)) == ["ckpt_10.npz", "ckpt_11.npz", "ckpt_2.npz", "ckpt_9.npz"]
 
 
+def test_deflated_members_restore_like_stored_ones(tmp_path):
+    """Stored members are read at their offsets, deflated ones through
+    np.load: the same leaves, bit for bit, and the same subtree."""
+    import zipfile
+
+    a = _arrays(3)
+    stored = tckpt.save_checkpoint(str(tmp_path / "s"), 4, _port_tree(a))
+    deflated = str(tmp_path / "ckpt_4.npz")
+    with zipfile.ZipFile(stored) as src, zipfile.ZipFile(deflated, "w",
+                                                          zipfile.ZIP_DEFLATED) as dst:
+        for info in src.infolist():
+            dst.writestr(info.filename, src.read(info))
+    with zipfile.ZipFile(deflated) as z:
+        assert all(i.compress_type == zipfile.ZIP_DEFLATED for i in z.infolist())
+    (s_step, s_tree), (d_step, d_tree) = (tckpt.restore_checkpoint(p)
+                                          for p in (stored, deflated))
+    assert s_step == d_step == 4
+    s_leaves, d_leaves = _leaves(s_tree), _leaves(d_tree)
+    assert [t.dtype for t in s_leaves] == [t.dtype for t in d_leaves]
+    assert [t.shape for t in s_leaves] == [t.shape for t in d_leaves]
+    assert all(np.array_equal(_bits(x), _bits(y)) for x, y in zip(s_leaves, d_leaves))
+    assert s_leaves[-1].shape == () and s_leaves[-1].dtype == torch.float32  # the 0-d step
+    sub = [tckpt.restore_checkpoint(p, subtree=("nested", 1))[1] for p in (stored, deflated)]
+    assert all(np.array_equal(_bits(x), _bits(y)) for x, y in zip(*map(_leaves, sub)))
+    assert tckpt.read_manifest(stored) == tckpt.read_manifest(deflated)
+
+
 def test_reference_prng_key_comes_back_as_uint32(tmp_path):
     import jax
 

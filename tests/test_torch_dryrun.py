@@ -176,7 +176,7 @@ def test_decode_matmul_flops_closed_form(b, s):
         + 2 * 2 * b * h * s * hd
     want = cfg.n_layers * per_layer + 2 * b * d * v
     spec = tdry.build_steps(cfg, InputShape("d", s, b, "decode"),
-                            make_production_mesh())["decode"]
+                            CountingMesh({"data": 16, "model": 1}, torch.device("meta")))["decode"]
     counts = spec.lower()
     assert counts["flops_int"] == want
     assert counts["memory"]["alias_bytes"] > 0  # the cache is written in place
@@ -189,8 +189,10 @@ def test_train_round_collectives_closed_form():
     leaves = flatten_paths(get_bundle(cfg, "meta").init(0))
     n_params = sum(t.numel() for t in leaves.values())
     for multi, shifts in ((False, 2), (True, 3)):
+        # one card per agent (a model axis of 1): the agent axes' traffic alone
+        shape = {"pod": 2, "data": 16, "model": 1} if multi else {"data": 16, "model": 1}
         steps = tdry.build_steps(cfg, InputShape("t", 16, 64, "train"),
-                                 make_production_mesh(multi_pod=multi))
+                                 CountingMesh(shape, torch.device("meta")))
         gossip = steps["train_gossip"].lower()["collectives"]
         assert gossip["collective-permute"] == 2 * shifts * 4 * n_params
         assert gossip["n_collective-permute"] == 2 * shifts * len(leaves)
@@ -207,7 +209,9 @@ def test_serve_step_useful_ratio_is_model_flops_over_flops(kind, batch, multi, c
     record's useful ratio is model FLOPs over the step's FLOPs."""
     cfg = get_reduced("qwen3-8b")
     shape = InputShape("s", 32, batch, kind)
-    mesh = make_production_mesh(multi_pod=multi)
+    # one card per agent (a model axis of 1): the batch split alone
+    mesh = CountingMesh({"pod": 2, "data": 16, "model": 1} if multi else
+                        {"data": 16, "model": 1}, torch.device("meta"))
     spec = tdry.build_steps(cfg, shape, mesh)[kind]
     assert spec.notes["n_chips"] == cards and spec.notes["rows_per_chip"] == batch // cards
     per_card = spec.lower()["flops_int"]
@@ -246,8 +250,8 @@ def test_dryrun_cli_records(tmp_path, capsys, monkeypatch):
     out = str(tmp_path)
     assert tdry.main(["--arch", "mamba2-370m", "--shape", "long_500k", "--out", out]) == 0
     rec = troof.load_records(out)[0]
-    # a batch of one does not split: one card of the 16 serves it
-    assert rec["status"] == "ok" and rec["n_chips"] == 1 and rec["compile_s"] == 0.0
+    # a batch of one does not split: one agent of the 16, its 16 model cards, serves it
+    assert rec["status"] == "ok" and rec["n_chips"] == 16 and rec["compile_s"] == 0.0
     assert rec["notes"]["batch_axes"] is None and rec["notes"]["rows_per_chip"] == 1
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
                                   "alias_bytes"}
@@ -327,8 +331,8 @@ def test_tables_are_the_reference_scripts():
 def test_run_one_records_variants(tmp_path):
     """``opt_idle_batch`` and the levers are recorded in the record."""
     rec = tdry.run_one("mamba2-370m", "long_500k", "multi", opt_idle_batch=True, ssm_chunk=128)[0]
-    assert rec["status"] == "ok" and rec["n_chips"] == 1
+    assert rec["status"] == "ok" and rec["n_chips"] == 16
     assert rec["variant"]["opt_idle_batch"] and rec["notes"]["opt_idle_batch"]
-    assert "no idle data axis" in rec["notes"]["opt_idle_batch_note"]
+    assert "not ported yet" in rec["notes"]["opt_idle_batch_note"]
     assert rec["variant"]["ssm_chunk"] == 128
     assert dataclasses.asdict(get_config("mamba2-370m").ssm)["chunk"] != 128

@@ -4,7 +4,8 @@ bundles' ``param_specs``) against the reference's ``repro.launch.specs`` and
 placements path for path, the stacked, FSDP'd and sanitized placements of
 ``build_train_steps(agent_mode="hierarchical")`` and of the flat mode, the
 report of dropped entries and ``shard_bytes``, on meshes (pod 2, data 16,
-model 1) — the port's — and (2, 16, 16) — the reference's.  The
+model 16) — the reference's and the port's — and (2, 16, 1), one card per
+agent.  The
 reference's functions read only ``mesh.shape``, so one stand-in serves both
 packages without JAX devices.  Exact: these are integers and names."""
 import re
@@ -22,12 +23,12 @@ from repro.models import get_bundle as j_get_bundle  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.launch import specs as tspecs  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
-from repro_torch.launch.steps import fsdp_placement  # noqa: E402
+from repro_torch.launch.steps import fsdp_placement, param_layout, shard_leaves  # noqa: E402
 from repro_torch.models.registry import get_bundle  # noqa: E402
 from repro_torch.utils.pytree import flatten_paths  # noqa: E402
 
-MESHES = {"port": {"pod": 2, "data": 16, "model": 1},
-          "reference": {"pod": 2, "data": 16, "model": 16}}
+MESHES = {"port": {"pod": 2, "data": 16, "model": 16},
+          "one card per agent": {"pod": 2, "data": 16, "model": 1}}
 
 
 def _mesh(shape):
@@ -88,17 +89,19 @@ def test_placements_and_shard_bytes_equal_the_reference(arch):
 
 def test_hierarchical_state_is_smaller_per_card_than_flat():
     """On the port's multi mesh a pod-as-agent card holds its agent's
-    shard: Mamba2-370m's stacked x is 1/16 of the flat card's agent but for
-    the few leaves no dim of which is >= 1024 and divides by 16."""
+    shard: of Mamba2-370m's model shard (what a flat card holds of its
+    agent) the data ranks split all but the few leaves no dim of which is
+    >= 1024 and divides by 16, so a card holds 1/16 of the flat card's
+    share and a little more."""
     mesh = make_production_mesh(multi_pod=True)
     mb = get_bundle(get_config("mamba2-370m"), "meta")
-    leaves = flatten_paths(mb.init(0))
-    sp, _, dims = fsdp_placement(mb, mesh, 2)
-    stacked = {k: torch.empty((2,) + tuple(v.shape), dtype=v.dtype, device="meta")
-               for k, v in leaves.items()}
-    whole = sum(v.numel() * v.element_size() for v in leaves.values())
-    per_card = tspecs.shard_bytes(stacked, sp, mesh)
-    assert whole / 16 <= per_card < whole / 8
+    layout = param_layout(mb, mesh)[0]
+    leaves = tspecs.shard_model(flatten_paths(mb.init(0)), layout, mesh)
+    sp, _, dims = fsdp_placement(mb, mesh, 2, layout=layout)
+    flat_card = sum(v.numel() * v.element_size() for v in leaves.values())
+    per_card = sum(v.numel() * v.element_size()
+                   for v in shard_leaves(leaves, dims, mesh).values())
+    assert flat_card / 16 <= per_card < flat_card / 8
     assert {k for k, d in dims.items() if d is None} == {
         "layers/pos0/mixer/a_log", "layers/pos0/mixer/conv_b", "layers/pos0/mixer/conv_w",
         "layers/pos0/mixer/d_skip", "layers/pos0/mixer/dt_bias", "layers/pos0/mixer/norm"}

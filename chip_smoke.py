@@ -124,7 +124,9 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    model over a ring, a ring with deterministic int8 gossip, a 2 x 2 torus,
    the hierarchical mixer and a dense Erdos-Renyi W, on the card against the
    same ranks on the CPU, and over a ring with stochastic int8 gossip (noise
-   drawn on each device) held to its invariants on both ("collective-reduced");
+   drawn on each device) held to its invariants on both, and over the ring
+   with one Byzantine agent of four flipping its sign and the trimmed mean
+   in the server round, card against CPU ("collective-reduced");
    then pod-as-agent on a mesh of 2 pods x 2 data ranks, each pod one agent
    whose x, y and g are sharded over its data ranks (gathered before each
    gradient call, the gradient reduce-scattered after it): the reduced model,
@@ -142,7 +144,13 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    then a gossip, a server and an int8 + EF round, the leaves held whole
    bit-identical across the model ranks ("tp-mamba2-370m"); all ten models
    at reduced widths and pod-as-agent on (pod 1, data 2, model 2), card
-   against CPU ("tp-reduced");
+   against CPU ("tp-reduced"); a batch-1 decode over the idle data axis
+   (``--opt-idle-batch``): Jamba-v0.1 at full width, one period of 8
+   layers, on (data 2, model 2), its KV cache's 524,288 positions, SSM heads
+   and experts split over data, held against the whole model on the whole
+   cache ("idle-batch-jamba-v0.1-52b"), and Mixtral, Jamba and Mamba2-370m at
+   reduced widths, card against CPU and against the whole model
+   ("idle-batch-reduced");
 6. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -252,6 +260,10 @@ PATH_LOSS_RTOL = {"paper": 1e-4, "dense-q8d": 1e-3, "sparse-1024": 1e-4,
                   "dense-q8d-async": 1e-3, "fig-async-full": 1e-4, "fig-timecost-cell": 1e-4,
                   "sparse-1024-signflip": 1e-4, "sparse-1024-q8d-signflip": 1e-3,
                   "dense-q8d-collusion": 1e-3}
+
+
+# seconds of paths inside a phase, printed on the phases line
+SUB_PHASES = {}
 
 
 def log(*a):
@@ -1649,7 +1661,7 @@ def check_readout_tie(label, gpu, cpu, got, want, target):
 # Phase 2d: simulated systems costs and asynchronous execution
 # ---------------------------------------------------------------------------
 
-ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=100, fig_timecost_rounds=50)
+ASYNC_SIZES = dict(rounds=20, compare_rounds=6, fig_async_rounds=100, fig_timecost_rounds=40)
 # fig_async's rule at n agents: poly decay, staleness bound 2, a server
 # buffer of half the fleet
 ASYNC_RULE = "poly:alpha=0.5,bound=2,buffer={}"
@@ -4369,6 +4381,9 @@ COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", 
 # stochastic q8 mixer draws its noise on each device, so the card and the CPU
 # round apart: both are held to the invariants of _stochastic_invariants.
 COLLECTIVE_TOL = {"exact": 1e-4, "q8": 1e-3}
+# collective-reduced's Byzantine configuration: one of the four agents flips
+# its sign (the ring, the trimmed mean in the server round)
+COLLECTIVE_ADVERSARY = "signflip:f=0.25"
 
 
 def _stats_all_reduce(torch, t, op):
@@ -4463,6 +4478,7 @@ def _collective_run(torch, spec, dev, label, full):
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.configs.shapes import TRAIN_4K
     from repro_torch.core import mixing as M
+    from repro_torch.core.adversary import make_adversarial_mixing
     from repro_torch.core.compression import StochasticQuantizer, compress_mixing
     from repro_torch.core.pisco import (PiscoConfig, init_compression_state, init_rank_state,
                                         make_rank_round_fn)
@@ -4600,10 +4616,15 @@ def _collective_run(torch, spec, dev, label, full):
         "hierarchical": M.hierarchical_mixing(torus_mesh),
         "dense-er": M.collective_dense_mixing(
             mesh, agent, make_topology("erdos_renyi", world, prob=0.6, seed=3)),
+        # each rank's sign flip on its own agent's payload (folded into K8's
+        # self weight on the Byzantine rank), the trimmed mean over the gather
+        "ring-signflip-trimmed": make_adversarial_mixing(
+            ring, COLLECTIVE_ADVERSARY, "trimmed", n_agents=world, seed=0),
     }
     state0 = init_rank_state(vg, x0, batches[0][1])
     ops.reset_launch_counts()
     for name, mixing in mixers.items():
+        t0 = time.perf_counter()
         fns = {g: make_rank_round_fn(vg, pcfg, mixing, global_round=g) for g in (False, True)}
         state = init_compression_state(state0, mixing)
         losses = []
@@ -4612,6 +4633,7 @@ def _collective_run(torch, spec, dev, label, full):
             losses.append(float(loss))
             check(np.isfinite(losses[-1]), f"{label}/{name}: round {k} loss {losses[-1]}")
         out["losses"][name] = losses
+        out.setdefault("seconds", {})[name] = time.perf_counter() - t0
         if name == "ring-q8":
             noisy = (mixing, state)
         else:
@@ -4755,7 +4777,9 @@ def collective_rank(rank, spec, port, out_dir):
         cpu = _collective_run(torch, spec, torch.device("cpu"), "collective-reduced", False)
         res = {"reduced": _card_vs_cpu(torch, card, cpu), "reduced_launches": card["launches"],
                "ring_q8": {"card": card["ring-q8"], "cpu": cpu["ring-q8"],
-                           "card_losses": card["losses"]["ring-q8"]}}
+                           "card_losses": card["losses"]["ring-q8"]},
+               "adversary_s": (card["seconds"]["ring-signflip-trimmed"]
+                               + cpu["seconds"]["ring-signflip-trimmed"])}
         del card, cpu
         res["full"] = _collective_run(torch, spec, dev, "collective-mamba2-370m", True)
         label = "collective-hierarchical-reduced"
@@ -4831,6 +4855,7 @@ def collective_paths(torch, dev, card, spec=None):
             f"kept the sum of x within {used:.3f} of its limit, every message on its grid, "
             f"at least {100.0 * away:.1f}% of the elements rounded away from the nearest point")
     log(f"collective-reduced/ring-q8: card losses {res[0]['ring_q8']['card_losses']} (rank 0)")
+    SUB_PHASES["collective-reduced/ring-signflip-trimmed"] = max(r["adversary_s"] for r in res)
     reduced_counts = summed([{"launches": r["reduced_launches"]} for r in res])
     log(f"collective-reduced: launches on the card, summed over ranks {reduced_counts}")
 
@@ -4926,9 +4951,28 @@ def collective_paths(torch, dev, card, spec=None):
 # ``seed`` draws tp-qwen3-8b's and tp-mamba2-370m's weights and data (0 here;
 # tools/tp_readings.py reads other seeds); ``paths`` picks the paths the
 # ranks run
-TP = dict(world=4, qwen_prompt=500, qwen_decode=4, mamba_seq=256, mamba_batch=2, t_o=2,
+# idle-batch-jamba-v0.1-52b: a batch-1 decode whose cache holds LONG_500K's
+# positions, on (data 2, model 2): the idle data axis splits the KV cache's
+# sequence, the SSM state's heads and the experts (the reference's
+# --opt-idle-batch).  One period of 8 layers at full width, bf16; the cache
+# drawn from the seed in blocks of IDLE["block"] positions, `pos` IDLE["back"]
+# positions before the end; IDLE["decode"] greedy steps.  Held against the
+# whole model on the whole cache, fed the same tokens, with tp-qwen3-8b's
+# bands (TP_TOP_K, PREFILL_LOGIT_TOL, TP_LOGIT_RMS_TOL, the greedy band).
+IDLE = dict(arch="jamba-v0.1-52b", layers=8, seq=524288, back=5, decode=4, block=16384)
+# idle-batch-reduced: (arch, pos) at reduced() in f32 on (data 2, model 2),
+# a cache of IDLE_REDUCED_SEQ positions: 4 steps from pos write across the data
+# ranks' boundary at slot 16 (Mixtral's window of 32 below the cache: its
+# writes wrap the ring at pos % 32); card against the same ranks on the CPU
+# and against the whole model, within TP_REDUCED_TOL of the largest logit
+IDLE_REDUCED = (("mixtral-8x7b", 46), ("jamba-v0.1-52b", 14), ("mamba2-370m", 14))
+IDLE_REDUCED_SEQ = 32
+
+
+TP = dict(world=4, qwen_prompt=500, qwen_decode=2, mamba_seq=256, mamba_batch=2, t_o=2,
           eta_l=1e-2, eta_c=1.0, reduced_seq=16, reduced_batch=2, reduced_decode=4,
-          pod_d_model=1024, seed=0, paths=("qwen", "mamba", "reduced"))
+          pod_d_model=1024, seed=0, idle_seq=IDLE["seq"], idle_block=IDLE["block"],
+          paths=("qwen", "mamba", "reduced", "idle"))
 # tp-mamba2-370m: the first local loss and gradient of each agent on its
 # model ranks against the whole model's on the same card and batch.  In
 # bf16 through 48 layers (the ranks' partial sums round to bf16 before the
@@ -4955,6 +4999,238 @@ TP_LOGIT_RMS_TOL = 0.1
 # CPU sum in other orders): COLLECTIVE_TOL's exact limit, of the largest
 # magnitude of each tensor
 TP_REDUCED_TOL = 1e-4
+
+
+
+
+def idle_cache_leaf(torch, path, shape, dtype, seed, dev, seq_dim=None, lo=0, hi=None,
+                    block=None):
+    """Leaf ``path`` of idle-batch's drawn cache, 0.5-scaled normals: a leaf
+    with a sequence (``seq_dim``: the K/V) in blocks of ``block`` positions,
+    each from its own generator seeded from (seed, path, block), positions
+    ``[lo, hi)`` of it; any other leaf whole from one generator.  A rank's
+    block is thus the whole draw's slice, bit for bit."""
+    import zlib
+
+    tag = zlib.crc32(path.encode())
+
+    def draw(shp, *words):
+        gen = torch.Generator(device=dev).manual_seed(zlib.crc32(repr(words).encode()))
+        return torch.randn(shp, generator=gen, dtype=torch.float32, device=dev).mul_(0.5).to(dtype)
+
+    if seq_dim is None:
+        return draw(tuple(shape), seed, tag)
+    hi = shape[seq_dim] if hi is None else hi
+    shp = list(shape)
+    shp[seq_dim] = block
+    first = lo // block
+    parts = [draw(tuple(shp), seed, tag, b) for b in range(first, -(-hi // block))]
+    return torch.cat(parts, seq_dim).narrow(seq_dim, lo - first * block, hi - lo)
+
+
+def idle_cache(torch, bundle, seq, pos, seed, dev, lay=None, mesh=None, block=None):
+    """idle-batch's cache of one sequence of ``seq`` positions at ``pos``:
+    the whole cache, or with ``lay`` (``launch.steps.IdleLayouts``) and
+    ``mesh`` this rank's shard (its model shard, then its idle block), the
+    K/V drawn over the rank's positions alone."""
+    from repro_torch.launch.specs import cache_seq_dim, shard_leaf
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import nest_map_with_path
+
+    template = get_bundle(bundle.cfg, "meta").init_cache(1, seq)
+    block = block or seq
+
+    def leaf(path, t):
+        if path == "pos":
+            return torch.tensor(pos, dtype=t.dtype, device=dev)
+        seq_dim = cache_seq_dim(path, t.dim())
+        drawn_block = lay is not None and seq_dim is not None and lay.cache[path] is not None
+        lo, hi = 0, None
+        if drawn_block:  # only this rank's positions
+            size = t.shape[seq_dim] // mesh.size(lay.axes)
+            lo, hi = mesh.index(lay.axes) * size, (mesh.index(lay.axes) + 1) * size
+        out = idle_cache_leaf(torch, path, tuple(t.shape), t.dtype, seed, dev, seq_dim, lo, hi,
+                              block)
+        if lay is None:
+            return out
+        out = shard_leaf(out, lay.model_cache.get(path), mesh)
+        return out if drawn_block else shard_leaf(out, lay.cache[path], mesh, lay.axes)
+
+    return nest_map_with_path(leaf, template)
+
+
+
+
+
+def _tp_idle(torch, spec, dev, out_dir):
+    """idle-batch-jamba-v0.1-52b on this rank: (data 2, model 2), its model
+    shard of the weights with its block of the experts drawn leaf by leaf,
+    its block of the cache drawn over its positions (checked bit for bit
+    against the whole draw's slice), greedy decode steps timed with their
+    idle-axis and model-axis collectives."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import idle_axis, make_mesh, model_axis
+    from repro_torch.launch.specs import cache_seq_dim, shard_leaf
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import flatten_paths
+    from repro_torch.weights import init_model_shard
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    cfg = dataclasses.replace(get_config(IDLE["arch"]), n_layers=IDLE["layers"])
+    whole = get_bundle(cfg, dev)
+    seq, pos, seed = spec["idle_seq"], spec["idle_seq"] - IDLE["back"], spec["seed"]
+    meta_cache = get_bundle(cfg, "meta").init_cache(1, seq)
+    lay = S.idle_layouts(whole, meta_cache, mesh)
+    idle = dataclasses.replace(idle_axis(mesh), seq=lay.seq)
+    bundle = get_bundle(cfg, dev, model_axis(mesh), idle)
+    if dev.type == "cuda":  # the earlier paths' cached blocks back to the card
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model_shard(whole, lay.model, mesh, seed=seed, idle=(lay.params, lay.axes))
+    sync()
+    out = {"init_s": time.perf_counter() - t0}
+    held = sum(v.numel() * v.element_size() for v in flatten_paths(params).values())
+    whole_bytes = sum(v.numel() * v.element_size()
+                      for v in flatten_paths(get_bundle(cfg, "meta").init(0)).values())
+    check(held < whole_bytes / 2, f"idle-batch: a rank holds {held} bytes of {whole_bytes}")
+    t0 = time.perf_counter()
+    cache = idle_cache(torch, whole, seq, pos, seed, dev, lay, mesh, spec["idle_block"])
+    sync()
+    out["cache_s"] = time.perf_counter() - t0
+    # each of the rank's cache leaves against the whole draw's slice, one at a time
+    n_checked = 0
+    shards = flatten_paths(cache)
+    for path, t in flatten_paths(meta_cache).items():
+        if path == "pos":
+            continue
+        full = idle_cache_leaf(torch, path, tuple(t.shape), t.dtype, seed, dev,
+                               cache_seq_dim(path, t.dim()), block=spec["idle_block"])
+        want = shard_leaf(shard_leaf(full, lay.model_cache.get(path), mesh),
+                          lay.cache[path], mesh, lay.axes)
+        check(torch.equal(want, shards[path]), f"idle-batch: the rank's {path} is not the "
+                                               "whole draw's slice")
+        n_checked += 1
+        del full, want
+    out.update(held_gib=held / 2**30, whole_gib=whole_bytes / 2**30, n_cache_checked=n_checked,
+               cache_gib=sum(v.numel() * v.element_size() for v in shards.values()) / 2**30,
+               whole_cache_gib=sum(v.numel() * v.element_size()
+                                   for v in flatten_paths(meta_cache).values()) / 2**30,
+               split=sorted(k for k, d in {**lay.params, **lay.cache}.items() if d is not None),
+               init_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else 0.0)
+    del shards
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator().manual_seed(9 + seed)
+    tokens = [int(torch.randint(0, cfg.vocab_size, (1,), generator=gen))]
+    rows, steps = [], []
+    mesh.clock.on = True
+    with torch.no_grad():
+        for _ in range(IDLE["decode"]):
+            mesh.clock.reset()
+            idle.reset()
+            sync()
+            t0 = time.perf_counter()
+            tok = torch.tensor([[tokens[-1]]], dtype=torch.int32, device=dev)
+            lg, cache = bundle.decode(params, tok, cache)
+            row = lg[0, -1].float().cpu().numpy()
+            sync()
+            wall = time.perf_counter() - t0
+            ex = mesh.clock.seconds.get("exchange", 0.0)
+            steps.append(dict(ms=1e3 * wall, idle_ms=1e3 * idle.stats["seconds"],
+                              idle_calls=idle.stats["calls"],
+                              idle_sent=idle.stats["bytes_sent"],
+                              model_ms=1e3 * (ex - idle.stats["seconds"]),
+                              model_sent=mesh.clock.bytes_sent - idle.stats["bytes_sent"]))
+            rows.append(row)
+            tokens.append(int(np.argmax(row)))
+    mesh.clock.on = False
+    out.update(tokens=tokens, steps=steps, pos=pos,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else 0.0)
+    if mesh.rank == 0:
+        np.save(os.path.join(out_dir, "tp_idle_logits.npy"), np.stack(rows))
+    del params, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_idle_whole(torch, dev, spec, tokens):
+    """idle-batch-jamba-v0.1-52b's yardstick, after the ranks: the whole
+    model on the whole drawn cache, fed the ranks' tokens; each step's
+    logits."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_bundle
+
+    cfg = dataclasses.replace(get_config(IDLE["arch"]), n_layers=IDLE["layers"])
+    bundle = get_bundle(cfg, dev)
+    params = bundle.init(seed=spec["seed"])
+    seq = spec["idle_seq"]
+    cache = idle_cache(torch, bundle, seq, seq - IDLE["back"], spec["seed"], dev,
+                       block=spec["idle_block"])
+    rows = []
+    with torch.no_grad():
+        for t in tokens[:-1]:
+            tok = torch.tensor([[t]], dtype=torch.int32, device=dev)
+            logits, cache = bundle.decode(params, tok, cache)
+            rows.append(logits[0, -1].float().cpu().numpy())
+    del params, cache, logits
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return np.stack(rows)
+
+
+def _idle_reduced_one(torch, arch, pos, mesh, seed):
+    """idle-batch-reduced on this rank's mesh (card or CPU): one reduced
+    model's decode over the idle axes from a drawn cache at ``pos``, and the
+    whole model's on the whole cache on the same device; logits on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import idle_axis, model_axis
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import nest_map
+
+    dev = mesh.device
+    cfg = get_reduced(arch)
+    whole = get_bundle(cfg, "cpu")
+    cache = idle_cache(torch, whole, IDLE_REDUCED_SEQ, pos, seed, torch.device("cpu"))
+    lay = S.idle_layouts(whole, cache, mesh)
+    params = whole.init(seed=0)
+    shard = nest_map(lambda t: t.to(dev), lay.shard_params(params, mesh))
+    c_shard = nest_map(lambda t: t.to(dev), lay.shard_cache(cache, mesh))
+    idle = dataclasses.replace(idle_axis(mesh), seq=lay.seq)
+    bundle = get_bundle(cfg, dev, model_axis(mesh), idle)
+    one = get_bundle(cfg, dev)
+    # the whole model's own copies (the shards may hold the whole leaves, and pos)
+    params, cache = (nest_map(lambda t: t.to(dev, copy=True), tree) for tree in (params, cache))
+    gen = torch.Generator().manual_seed(seed)
+    dec = torch.randint(0, cfg.vocab_size, (1, 4), generator=gen, dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        for i in range(4):
+            tok = dec[:, i:i + 1].to(dev)
+            lg, c_shard = bundle.decode(shard, tok, c_shard)
+            out[f"decode{i}"] = lg.float().cpu()
+            lg, cache = one.decode(params, tok, cache)
+            out[f"whole{i}"] = lg.float().cpu()
+    out["idle_calls"] = idle.stats["calls"]
+    return out
 
 
 def _tp_reduced_batch(torch, cfg, b, s, n_dec, seed):
@@ -5307,6 +5583,17 @@ def _tp_reduced(torch, spec, dev):
         del want["launches"]
         out["archs"][arch] = dict(used=compare(got, want), loss=float(got["loss"]),
                                   keys=len(want))
+    t0 = time.perf_counter()
+    out["idle"] = {}
+    for i, (arch, pos) in enumerate(IDLE_REDUCED):
+        got = _idle_reduced_one(torch, arch, pos, card, 200 + i)
+        want = _idle_reduced_one(torch, arch, pos, cpu, 200 + i)
+        keys = [f"decode{j}" for j in range(4)]
+        out["idle"][arch] = dict(
+            used=compare({k: got[k] for k in keys}, {k: want[k] for k in keys}),
+            whole=compare({k: got[k] for k in keys}, {k: got["whole" + k[6:]] for k in keys}),
+            calls=got["idle_calls"])
+    out["idle_s"] = time.perf_counter() - t0
     card3 = make_mesh((1, 2, 2), ("pod", "data", "model"), dev)
     cpu3 = make_mesh((1, 2, 2), ("pod", "data", "model"), "cpu")
     got, want = _tp_pod_one(torch, card3, spec), _tp_pod_one(torch, cpu3, spec)
@@ -5337,7 +5624,8 @@ def tp_rank(rank, spec, port, out_dir):
         res = {}
         for name, path in (("qwen", lambda: _tp_qwen(torch, spec, dev, out_dir)),
                            ("mamba", lambda: _tp_mamba(torch, spec, dev)),
-                           ("reduced", lambda: _tp_reduced(torch, spec, dev))):
+                           ("reduced", lambda: _tp_reduced(torch, spec, dev)),
+                           ("idle", lambda: _tp_idle(torch, spec, dev, out_dir))):
             if name in spec["paths"]:
                 t0 = time.perf_counter()
                 res[name] = path()
@@ -5443,6 +5731,8 @@ def tp_paths(torch, dev, card, spec=None):
                 res.append(json.load(f))
         if "qwen" in paths:
             tp_logits = np.load(os.path.join(out_dir, "tp_qwen_logits.npy"))
+        if "idle" in paths:
+            idle_logits = np.load(os.path.join(out_dir, "tp_idle_logits.npy"))
     log(f"tp: {world} ranks spawned and joined in {time.perf_counter() - t0:.1f} s")
     launches = {}
     for r in res:
@@ -5490,6 +5780,53 @@ def tp_paths(torch, dev, card, spec=None):
                 f"peak {x['peak_gib']:.3f} GiB; {x['s']:.1f} s")
             check(x["prefill_launches"].get("flash_attention", 0) == 36,
                   f"{label} rank {r}: K6 launched {x['prefill_launches']} in the prefill")
+
+    if "idle" in paths:  # -- idle-batch-jamba-v0.1-52b --------------------------
+        label = "idle-batch-jamba-v0.1-52b"
+        d = [r["idle"] for r in res]
+        check(all(r["tokens"] == d[0]["tokens"] for r in d), f"{label}: ranks decoded apart")
+        t0 = time.perf_counter()
+        want = _tp_idle_whole(torch, dev, spec, d[0]["tokens"])
+        whole_s = time.perf_counter() - t0
+        log(f"{label}: the whole model on the whole cache on the card, fed the ranks' "
+            f"{len(want)} tokens, in {whole_s:.1f} s")
+        rows, greedy = _tp_qwen_report(idle_logits, want, d[0]["tokens"][1:])
+        worst = {k: max(x[k] for x in rows) for k in ("full", "top", "rms")}
+        log(f"{label} (seed {spec['seed']}): {len(rows)} decode steps from pos {d[0]['pos']} of "
+            f"a {spec['idle_seq']}-position cache on (data 2, model 2) against the whole model "
+            f"on the whole cache: max |err| / (1 + max |logit|) at the whole model's top "
+            f"{TP_TOP_K} {worst['top']:.3e} (limit {PREFILL_LOGIT_TOL}); over the whole "
+            f"vocabulary {worst['full']:.3e}; rms err / rms logit {worst['rms']:.3e} (limit "
+            f"{TP_LOGIT_RMS_TOL}); greedy tokens {d[0]['tokens'][1:]}: "
+            f"{sum(g['exact'] for g in greedy)} of {len(greedy)} the whole model's argmax; "
+            f"top-2 margins {[round(g['margin'], 4) for g in greedy]} against twice the row's "
+            f"deviation at its top logits {[round(g['band'], 4) for g in greedy]}")
+        check(worst["top"] <= PREFILL_LOGIT_TOL, f"{label}: top logits differ by {worst['top']}")
+        check(worst["rms"] <= TP_LOGIT_RMS_TOL, f"{label}: rms error {worst['rms']}")
+        for i, g in enumerate(greedy):
+            check(g["within"], f"{label}: greedy token {d[0]['tokens'][i + 1]} at step {i}: the "
+                               f"whole model's logit {g['token']} against its maximum {g['top']}, "
+                               f"beyond twice the row's deviation {g['band']}")
+        for r, x in enumerate(d):
+            st = x["steps"]
+            mean = {k: float(np.mean([s_[k] for s_ in st])) for k in st[0]}
+            log(f"{label} rank {r}: holds {x['held_gib']:.3f} of the whole model's "
+                f"{x['whole_gib']:.3f} GiB (drawn leaf by leaf in {x['init_s']:.1f} s, peak "
+                f"{x['init_peak_gib']:.3f} GiB while drawing) and {x['cache_gib']:.3f} of the "
+                f"cache's {x['whole_cache_gib']:.3f} GiB (drawn in {x['cache_s']:.1f} s, "
+                f"{x['n_cache_checked']} leaves the whole draw's slice bit for bit); decode "
+                f"{mean['ms']:.1f} ms a step: idle axis {mean['idle_calls']:.0f} collectives, "
+                f"{mean['idle_ms']:.1f} ms, {mean['idle_sent'] / 1e3:.1f} KB sent; model axis "
+                f"{mean['model_ms']:.1f} ms, {mean['model_sent'] / 1e3:.1f} KB sent; peak "
+                f"{x['peak_gib']:.3f} GiB; {x['s']:.1f} s")
+            check(x["n_cache_checked"] > 0 and mean["idle_calls"] > 0,
+                  f"{label} rank {r}: {x['n_cache_checked']} cache leaves checked, "
+                  f"{mean['idle_calls']} idle-axis collectives a step")
+        split = {k.rsplit("/", 1)[-1] for k in d[0]["split"]}
+        log(f"{label}: split over the idle axis: {sorted(split)}")
+        check(split == {"k", "v", "ssm", "w_up", "w_gate", "w_down"},
+              f"{label}: the idle axis split {sorted(split)}")
+        SUB_PHASES["idle-batch-jamba-v0.1-52b"] = max(x["s"] for x in d) + whole_s
 
     if "mamba" in paths:  # -- tp-mamba2-370m -----------------------------------
         label = "tp-mamba2-370m"
@@ -5559,6 +5896,18 @@ def tp_paths(torch, dev, card, spec=None):
             f"card vs CPU: x within {used:.3f} of the limit, {red[0]['pod']['n_data_split']} "
             f"leaves split over data, losses {red[0]['pod']['losses']}")
         check(used <= 1.0, f"{label}/pod-as-agent: card and CPU apart ({used} of the limit)")
+        for arch, x in red[0]["idle"].items():
+            used = max(r_["idle"][arch]["used"] for r_ in red)
+            whole = max(r_["idle"][arch]["whole"] for r_ in red)
+            log(f"compare idle-batch-reduced/{arch}: 4 decode steps of one sequence on (data 2, "
+                f"model 2), the cache's sequence, SSM heads and experts split over data: card "
+                f"vs CPU within {used:.3f}, card vs the whole model on the card within "
+                f"{whole:.3f} of {TP_REDUCED_TOL} x the largest logit; {x['calls']} idle-axis "
+                f"collectives")
+            check(used <= 1.0 and whole <= 1.0 and x["calls"] > 0,
+                  f"idle-batch-reduced/{arch}: {used} and {whole} of the limit, "
+                  f"{x['calls']} idle collectives")
+        SUB_PHASES["idle-batch-reduced"] = max(r_["idle_s"] for r_ in red)
         log(f"{label}: launches on the card {red[0]['launches']} (rank 0); "
             f"{red[0]['s']:.1f} s")
         for k in ("flash_attention", "ssd_scan"):
@@ -5624,7 +5973,8 @@ def main() -> int:
                            ("tp", tp_paths, (card,))):
         for k, v in timed(name, fn, *args).items():
             launches[k] = launches.get(k, 0) + v
-    log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+    log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + "; within "
+        "them: " + ", ".join(f"{k} {v:.1f} s" for k, v in SUB_PHASES.items()))
     for name, _, _ in KERNELS:
         check(launches.get(name, 0) > 0, f"{name} was not launched on the main path")
 

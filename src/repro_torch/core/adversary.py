@@ -32,8 +32,8 @@ participant counts are the base network's, so bytes and simulated seconds
 cannot tell an adversarial run from a clean one; pricing and the event
 engine see the base network (:func:`unwrap_network`).
 
-:func:`make_adversarial_mixing` wraps a dense, sparse, dynamic or
-asynchronous mixing.  A sign flip folds into the gossip operator itself:
+:func:`make_adversarial_mixing` wraps a dense, sparse, dynamic,
+asynchronous or collective mixing.  A sign flip folds into the gossip operator itself:
 sender j's weights are scaled by d_j (-scale on Byzantine agents, 1
 elsewhere) in the dense W (row j: ``out_i = sum_j W[j, i] x_j``) or in the
 CSR (``data_e d[indices_e]``, ``self_w_i d_i``), frozen or staged each
@@ -43,6 +43,14 @@ run unchanged over it, with no extra pass over the payload.  ``random`` and
 compressed gossip writes q out to corrupt it (``MixingOps.wire_corrupt``).
 The server round corrupts the uploads, then aggregates them with the base
 rule or a robust one (:func:`repro_torch.core.mixing.make_robust_agg`).
+
+Over a collective mixer (a rank mesh, flat or pod-as-agent) each rank
+corrupts its own agent's payload (:class:`RankCorruption`), then the base
+gossip or server sum runs; on a one-axis ring the fused candidate combine
+(K8) sends the corrupted candidate, a sign flip folded into its self
+weight.  A robust rule gathers the payloads over the agent axes and every
+rank takes the same result.  The round index comes from the round
+(:func:`repro_torch.core.pisco.make_rank_round_fn`).
 """
 from __future__ import annotations
 
@@ -52,8 +60,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.mixing import MixingOps, _csr_gossip, make_robust_agg
-from repro_torch.utils.pytree import tree_agent_mix
+from repro_torch.core.mixing import MixingOps, _csr_gossip, make_robust_agg, parse_robust_spec
+from repro_torch.utils.pytree import krum_distances, krum_scores_of, tree_agent_mix
 
 Tree = Dict[str, torch.Tensor]
 
@@ -304,6 +312,161 @@ def _staged_gossip(net) -> Callable[[Tree], Tree]:
     return lambda tree: tree_agent_mix(tree, net.gossip_w)
 
 
+# ---------------------------------------------------------------------------
+# Over a rank mesh: each rank corrupts its own agent's payload
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentShards:
+    """Where a rank's leaves sit in its agent's whole leaves, when they are
+    shards (an agent over several ranks: pod-as-agent's data axis, the
+    model axis): ``shapes[key]`` the agent's whole leaf shape, ``cut(key,
+    whole)`` this rank's block of a whole leaf, ``replicas[key]`` how many
+    of the agent's ranks hold the same block
+    (:func:`repro_torch.launch.steps.agent_shards` derives it from
+    pod-as-agent's placement).  What reads it (Krum's distances, the
+    ``random`` and ``collusion`` draws) is refused without it when an agent
+    spans more than one rank (:func:`make_adversarial_mixing`)."""
+
+    shapes: Dict[str, Tuple[int, ...]]
+    cut: Callable[[str, torch.Tensor], torch.Tensor]
+    replicas: Dict[str, int]
+
+
+class RankCorruption:
+    """One rank's side of a :class:`Corruption` over a collective mixer:
+    its agent's payload on the wire, leaf by leaf.  The rank's agent is its
+    index over the agent axes; a Byzantine agent's leaf is replaced as the
+    agent-stacked :meth:`Corruption.leaf` replaces its row: ``signflip``
+    exactly, ``random`` with the same draw of the Byzantine rows' noise
+    (pure in (seed, round, leaf)) and this agent's row of it, ``collusion``
+    with the fleet mean from a float32 sum over the agent axes (every rank
+    joins it) plus the scaled direction.  Noise and direction are drawn at
+    the agent's whole leaf shape and cut to the rank's block under
+    ``shards``.  ``round_index()`` gives the round's k."""
+
+    def __init__(self, corrupt: Corruption, mesh, agent_axes: Tuple[str, ...],
+                 round_index: Callable[[], Optional[int]],
+                 shards: Optional[AgentShards] = None):
+        self.corrupt, self.mesh, self.axes = corrupt, mesh, tuple(agent_axes)
+        self.round_index, self.shards = round_index, shards
+        self.n = mesh.size(self.axes)
+        self.agent = mesh.index(self.axes)
+        byz = np.flatnonzero(corrupt.mask)
+        self.byzantine = bool(corrupt.mask[self.agent])
+        self.row = int(np.searchsorted(byz, self.agent)) if self.byzantine else -1
+        adv = corrupt.adv
+        self.folds = adv.folds
+        # this rank's factor on its own term when the corruption folds
+        self.sender_weight = -float(adv.scale) if self.byzantine and self.folds else 1.0
+
+    def _whole_shape(self, key: Optional[str], x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape) if self.shards is None else tuple(self.shards.shapes[key])
+
+    def _cut(self, key: Optional[str], whole: torch.Tensor) -> torch.Tensor:
+        return whole if self.shards is None else self.shards.cut(key, whole)
+
+    def leaf(self, x: torch.Tensor, i: int, key: Optional[str] = None) -> torch.Tensor:
+        """Leaf ``i`` (sorted-key order; ``key`` its name, needed under
+        ``shards``) of this rank's payload as sent in the current round."""
+        adv = self.corrupt.adv
+        if key is None and self.shards is not None:
+            key = sorted(self.shards.shapes)[i]
+        if adv.kind == "collusion":  # a collective: every rank of the agent axes joins
+            mean = self.mesh.all_reduce_sum(x.to(torch.float32), self.axes) / self.n
+        if not self.byzantine:
+            return x
+        if adv.kind == "signflip":
+            return (-float(adv.scale) * x.to(torch.float32)).to(x.dtype)
+        shape = self._whole_shape(key, x)
+        if adv.kind == "random":
+            k = self.round_index()
+            seed = _seed_of(_ADV_TAG, int(adv.seed) & 0x7FFFFFFF, int(k), i)
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+            noise = torch.randn((len(self.corrupt.index(x.device)),) + shape, generator=gen,
+                                dtype=torch.float32, device=x.device)
+            return (float(adv.scale) * self._cut(key, noise[self.row])).to(x.dtype)
+        d = self._cut(key, self.corrupt.direction(i, shape, x.device))
+        return (mean + float(adv.scale) * d).to(x.dtype)
+
+    def __call__(self, tree: Tree) -> Tree:
+        return {key: self.leaf(tree[key], i, key) for i, key in enumerate(sorted(tree))}
+
+
+def _rank_robust_agg(robust_agg: str, n_agents: int, mesh, agent_axes: Tuple[str, ...],
+                     shards: Optional[AgentShards]) -> Callable[[Tree], Tree]:
+    """A robust server rule over a rank mesh: each leaf gathered over the
+    agent axes, the rule applied to the stack, and this rank's row (every
+    row alike) kept.  Krum's distances sum each leaf's term once per agent:
+    terms of blocks split over the agent's ranks are summed over them, and
+    a block held by ``r`` of them counts 1/r each."""
+    rule, f = parse_robust_spec(robust_agg)
+    stacked_rule = make_robust_agg(robust_agg, n_agents)
+    me = mesh.index(agent_axes)
+    intra = tuple(a for a in mesh.axis_names if a not in agent_axes and mesh.shape[a] > 1)
+
+    def agg(tree: Tree) -> Tree:
+        stacked = {k: mesh.all_gather(v, agent_axes) for k, v in tree.items()}
+        if rule != "krum":
+            return {k: v[me] for k, v in stacked_rule(stacked).items()}
+        d2 = krum_distances(stacked, None if shards is None else
+                            {k: 1.0 / shards.replicas[k] for k in stacked})
+        if intra:
+            d2 = mesh.all_reduce_sum(d2, intra)
+        sel = int(torch.argmin(krum_scores_of(d2, int(np.ceil(f * n_agents)))))
+        return {k: v[sel].clone() for k, v in stacked.items()}
+
+    return agg
+
+
+def _rank_adversarial_mixing(base: MixingOps, adv: Optional[AdversaryProcess],
+                             robust_agg: str, robust, n_agents: int,
+                             shards: Optional[AgentShards]) -> MixingOps:
+    """:func:`make_adversarial_mixing` over a collective mixer (one agent
+    per rank, or one per group of ranks under pod-as-agent)."""
+    mesh, axes = base.mesh, base.agent_axes
+    if axes is None:
+        raise ValueError(f"collective mixer {base.name!r} does not name its agent axes")
+    if mesh.size(axes) != n_agents:
+        raise ValueError(f"n_agents={n_agents} but the mesh has {mesh.size(axes)} agents")
+    intra = [a for a in mesh.axis_names if a not in axes and mesh.shape[a] > 1]
+    needs = []  # what reads the agent's whole leaves
+    if adv is not None and adv.kind in ("random", "collusion"):
+        needs.append(f"the {adv.kind} draw")
+    if robust is not None and parse_robust_spec(robust_agg)[0] == "krum":
+        needs.append("Krum")
+    if intra and shards is None and needs:
+        raise ValueError(f"{' and '.join(needs)} over agents that span the {intra} ranks need "
+                         "shards= (where a rank's leaves sit in its agent's: "
+                         "repro_torch.launch.steps.agent_shards)")
+    agg = (_rank_robust_agg(robust_agg, n_agents, mesh, axes, shards) if robust is not None
+           else base.global_avg)
+    name, changes = base.name, {}
+    if adv is None:
+        new_gossip, new_global = base.gossip, agg
+    else:
+        static_messages = (base.gossip_messages if base.gossip_messages is not None
+                           else 2 * base.gossip_edges)
+        net = AdversarialNetwork(None, n_agents, static_messages)
+        rc = RankCorruption(adv.make_corrupt(), mesh, axes, lambda: net.k, shards)
+        base_gossip = base.gossip
+
+        def new_gossip(tree: Tree) -> Tree:
+            return base_gossip(rc(tree))
+
+        def new_global(tree: Tree) -> Tree:
+            return agg(rc(tree))
+
+        changes.update(network=net, wire_corrupt=rc.leaf, plain_gossip=base.gossip,
+                       rank_adversary=rc)
+        name += f"/adv:{adv.spec()}"
+    if robust is not None:
+        name += f"/robust:{robust_agg}"
+    return dataclasses.replace(base, gossip=new_gossip, global_avg=new_global, name=name,
+                               **changes)
+
+
 def make_adversarial_mixing(
     base: MixingOps,
     adversary: Optional[str] = None,
@@ -311,32 +474,35 @@ def make_adversarial_mixing(
     *,
     n_agents: int,
     seed: int = 0,
+    shards: Optional[AgentShards] = None,
 ) -> MixingOps:
-    """Wrap a dense, sparse, dynamic or asynchronous mixing with fault
-    injection and/or a robust server rule (see the module docstring).
+    """Wrap a dense, sparse, dynamic, asynchronous or collective mixing with
+    fault injection and/or a robust server rule (see the module docstring).
 
     ``adversary=None`` with ``robust_agg="mean"`` returns ``base`` itself.
     Accounting metadata (``gossip_edges``, ``gossip_messages``, realized
     counts) is kept: Byzantine agents send wrong bytes, not fewer.  Wrap
-    before compression.  Collective mixers (flat or pod-as-agent) are
-    refused: corrupting a rank's payloads needs an adversary over rank
-    meshes, the next item of ROADMAP A17 after the model axis, before NCCL
-    across cards."""
+    before compression.  Over a collective mixer (flat or pod-as-agent)
+    each rank corrupts its own agent's payload before its gossip and its
+    server upload (:class:`RankCorruption`; the round gives the round index
+    to ``network.k``) and a robust rule runs on the payloads gathered over
+    the agent axes.  When an agent spans more than one rank (pod-as-agent,
+    a model axis), ``shards`` says where a rank's leaves sit in its agent's;
+    Krum and the ``random`` and ``collusion`` draws read it and are refused
+    without it.  A sign flip and the elementwise rules (mean, trimmed,
+    median) act on any block alike and need none."""
     adv = parse_adversary_spec(adversary, n_agents, seed) if adversary is not None else None
     robust = make_robust_agg(robust_agg, n_agents)
     if adv is None and robust is None:
         return base
+    if base.mesh is not None:
+        return _rank_adversarial_mixing(base, adv, robust_agg, robust, n_agents, shards)
     agg = robust if robust is not None else base.global_avg
     name = base.name
     changes: dict = {}
     if adv is None:
         new_gossip, new_global = base.gossip, agg
     else:
-        if base.mesh is not None:
-            raise NotImplementedError(
-                "an adversary over collective mixers needs one over rank meshes, which is "
-                "not ported yet (ROADMAP A17: after the model axis, before NCCL across cards)"
-            )
         corrupt = adv.make_corrupt()
         net = base.network
         frozen = base.w is not None or base.csr is not None

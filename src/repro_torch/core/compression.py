@@ -342,14 +342,14 @@ def compress_mixing(
     if gamma is None:
         gamma = 0.5 if isinstance(compressor, TopKCompressor) else 1.0
     w, csr, net = base.w, base.csr, base.network
-    if net is not None and w is None and csr is None:
+    if net is not None and w is None and csr is None and base.mesh is None:
         # a dynamic network's operand, staged for the round (an adversarial
         # network over frozen operands stages the round index only)
         staged = lambda: net.gossip_w  # noqa: E731
         w, csr = (None, staged) if net.sparse else (staged, None)
     cg = CompressedGossip(
         compressor=compressor, w=w, csr=csr,
-        base_gossip=base.gossip if w is None and csr is None else None,
+        base_gossip=(base.plain_gossip or base.gossip) if w is None and csr is None else None,
         error_feedback=error_feedback, seed=seed, gamma=gamma,
         per_rank=base.mesh is not None, stream=base.mesh.rank if base.mesh is not None else 0,
         corrupt=base.wire_corrupt, row_max=base.row_max,

@@ -177,6 +177,15 @@ class MixingOps:
     # as one row, as the reference's does on the whole leaf.  None: leaves
     # are whole.
     row_max: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+    # Collective mixers: the mesh axes the agents lie on.
+    agent_axes: Optional[Tuple[str, ...]] = None
+    # A collective mixer under a Byzantine adversary: the base's gossip
+    # before corruption, which compressed gossip runs on the q it wrote out
+    # and corrupted (wire_corrupt), and this rank's side of the adversary
+    # (repro_torch.core.adversary.RankCorruption), which the ring's fused
+    # candidate combine reads.
+    plain_gossip: Optional[Callable[[Tree], Tree]] = None
+    rank_adversary: Optional[Any] = None
 
 
 def dense_mixing(topology: Topology, device: torch.device) -> MixingOps:
@@ -449,7 +458,8 @@ def collective_global_mixing(mesh, agent_axes: Sequence[str]) -> MixingOps:
 
         return tree_map(leaf, tree)
 
-    return MixingOps(gossip=avg, global_avg=avg, name="collective/global", mesh=mesh)
+    return MixingOps(gossip=avg, global_avg=avg, name="collective/global", mesh=mesh,
+                     agent_axes=agent_axes)
 
 
 def _self_weight(shifts: Dict[str, list]) -> float:
@@ -501,6 +511,7 @@ def collective_shift_mixing(
         mesh=mesh,
         shifts={a: list(p) for a, p in shifts_per_axis.items()},
         wire_dtype=wire,
+        agent_axes=agent_axes,
     )
 
 
@@ -525,21 +536,37 @@ def mix_candidate(ops: MixingOps, x_k: Tree, x_half: Tree, eta_c: float) -> Tree
     read again.  The candidate sent is formed in float32 the way K8 forms
     it (one rounding per operation, no fused multiply-add), so on the
     float32 wire the neighbours receive exactly the rank's own term; the
-    native wire rounds it once to the state's dtype."""
-    axis, self_w, moves = ring_of(ops)
+    native wire rounds it once to the state's dtype.
 
-    def leaf(xk: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
+    Under a Byzantine adversary (``ops.rank_adversary``) every rank puts its
+    candidate through the corruption before sending it; a Byzantine rank's
+    own term is what it sent: a sign flip folds into K8's self weight; any
+    other corruption replaces the term, and K8 runs on the sent payload as
+    both its state operands with ``eta_c = 1`` (its candidate is then the
+    payload itself), in the wire dtype, its output rounded once to the
+    state's dtype."""
+    axis, self_w, moves = ring_of(ops)
+    adv = ops.rank_adversary
+
+    def leaf(i: int, xk: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
         cand = xk.to(torch.float32, copy=True).mul_(1.0 - eta_c)
         cand.add_(xh.to(torch.float32, copy=True).mul_(eta_c))
         wire = cand.to(xk.dtype if ops.wire_dtype is None else ops.wire_dtype)
+        del cand
+        if adv is not None:
+            wire = adv.leaf(wire, i)
         received = ops.mesh.shift(wire, [(axis, s) for s, _ in moves])
-        del cand, wire  # a leaf's copies are ~1 GB at full width: free before K8's output
         right = received[1] if len(moves) > 1 else None
-        return mix_combine_half(xk, xh, received[0], right, eta_c=eta_c, w_self=self_w,
-                                w_left=moves[0][1],
-                                w_right=moves[1][1] if len(moves) > 1 else 0.0)
+        weights = dict(w_left=moves[0][1], w_right=moves[1][1] if len(moves) > 1 else 0.0)
+        if adv is not None and adv.byzantine and not adv.folds:
+            return mix_combine_half(wire, wire, received[0], right, eta_c=1.0,
+                                    w_self=self_w, **weights).to(xk.dtype)
+        del wire  # a leaf's copies are ~1 GB at full width: free before K8's output
+        w_self = self_w * (adv.sender_weight if adv is not None else 1.0)
+        return mix_combine_half(xk, xh, received[0], right, eta_c=eta_c, w_self=w_self,
+                                **weights)
 
-    return tree_map(leaf, x_k, x_half)
+    return {k: leaf(i, x_k[k], x_half[k]) for i, k in enumerate(sorted(x_k))}
 
 
 def collective_dense_mixing(mesh, agent_axes: Sequence[str], topology: Topology) -> MixingOps:
@@ -560,6 +587,7 @@ def collective_dense_mixing(mesh, agent_axes: Sequence[str], topology: Topology)
         name=f"collective/dense/{topology.name}",
         gossip_edges=int(topology.adj.sum()) // 2,
         mesh=mesh,
+        agent_axes=agent_axes,
     )
 
 

@@ -343,17 +343,25 @@ def make_rank_round_fn(
 
     The mesh's clock, when on, charges the round's phases: "local" (every
     gradient call and the local steps), "mix" (the two mixes, which include
-    the mesh's "exchange")."""
+    the mesh's "exchange").
+
+    Under a Byzantine adversary (:func:`repro_torch.core.adversary.make_adversarial_mixing`)
+    the round hands its index, the state's step, to the mixing's
+    adversarial network before it mixes, so that ``random`` corruption is
+    pure in (seed, round, leaf)."""
     mix = mixing.global_avg if global_round else mixing.gossip
     compressed = mixing.compression is not None and not global_round
     fused_x = not global_round and mixing.compression is None and ring_of(mixing) is not None
     mesh = mixing.mesh
+    adversarial = getattr(mixing.network, "adversarial", False)
 
     def span(name: str):
         return mesh.clock.span(name, mesh.device)
 
     def round_fn(state: PiscoState, local_batches, comm_batch):
         ef = state.ef
+        if adversarial:
+            mixing.network.k = int(state.step)
         with span("local"):
             x_half, y_to, g_to, mean_loss = _local_phase(
                 value_and_grad, state, local_batches, cfg.eta_l)

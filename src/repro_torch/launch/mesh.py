@@ -18,8 +18,10 @@ pinned host buffers: the model, the state and the kernels stay on the card,
 only the bytes in flight pass through the host.  The choice is read once
 from ``dist.get_backend()`` when the mesh is built.
 
-The agent axes, the "data" axis inside a pod-as-agent agent and the
-"model" axis (tensor parallelism inside an agent) are ported.  Over the
+The agent axes, the "data" axis inside a pod-as-agent agent, the "model"
+axis (tensor parallelism inside an agent) and the idle axes of a batch-1
+decode (:class:`IdleAxis`: every axis but "model", which then splits the
+one sequence's cache and the experts) are ported.  Over the
 model axis an agent's ranks each hold their shard of every leaf the
 placements split and run the forward and backward on their share of the
 heads and widths; the collectives that GSPMD inserts for the reference are
@@ -303,6 +305,7 @@ class CountingMesh:
     calls_by_kind: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
     model_bytes: int = 0  # of the bytes above, those over the model axis alone
+    idle_bytes: int = 0  # of the bytes above, those of an IdleAxis's collectives
 
     axis_names = RankMesh.axis_names
     coords = RankMesh.coords
@@ -335,19 +338,21 @@ class CountingMesh:
     def reset_counts(self) -> None:
         for k in COLLECTIVE_KINDS:
             self.bytes_by_kind[k] = self.calls_by_kind[k] = 0
-        self.model_bytes = 0
+        self.model_bytes = self.idle_bytes = 0
 
     def collective_counts(self) -> Dict[str, int]:
         """The reference's ``collective_bytes`` record: bytes and calls per
         kind, the ``wire_*`` figures (equal here: no host upcast to
-        correct), ``raw_total`` and ``total``; and ``model_axis``, the bytes
+        correct), ``raw_total`` and ``total``; ``model_axis``, the bytes
         of those collectives that ran over the model axis alone (tensor
-        parallelism's all-reduces and all-gathers)."""
+        parallelism's all-reduces and all-gathers); and ``idle_axis``, those
+        of a batch-1 decode's idle axes (:class:`IdleAxis`)."""
         out: Dict[str, int] = dict(self.bytes_by_kind)
         out.update({f"wire_{k}": v for k, v in self.bytes_by_kind.items()})
         out.update({f"n_{k}": v for k, v in self.calls_by_kind.items()})
         out["raw_total"] = out["total"] = sum(self.bytes_by_kind.values())
         out["model_axis"] = self.model_bytes
+        out["idle_axis"] = self.idle_bytes
         return out
 
 
@@ -467,3 +472,86 @@ def model_axis(mesh, axis: str = "model") -> Optional[ModelAxis]:
     if mesh is None or mesh.shape.get(axis, 1) == 1:
         return None
     return ModelAxis(mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# The idle axes of a batch-1 decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class IdleAxis:
+    """The models' handle on the axes that carry no batch in a batch-1
+    decode (every axis but ``model``; the reference's ``--opt-idle-batch``):
+    the ranks that share a model coordinate split the sequence's KV cache,
+    the SSM state's heads and the experts among them.  ``index`` is this
+    rank's row-major position over ``axes``; the collectives run over them.
+    Where a leaf does not divide it stays whole over the idle ranks: the
+    SSM state and the experts tell it by their shapes, the attention caches
+    by ``seq``.  ``stats`` counts the calls, the bytes this rank sends
+    (``bytes_sent``, as the mesh clock's) and, while the mesh's clock is on,
+    their seconds (the idle axes' share of the mesh's exchange).  On a
+    :class:`CountingMesh` the collectives' result bytes, the measure its
+    other counts use, also go to its ``idle_axis`` count."""
+
+    mesh: object
+    axes: Tuple[str, ...]
+    seq: bool = True  # the attention caches' sequence split (False: whole, it does not divide)
+    stats: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"calls": 0, "bytes_sent": 0, "seconds": 0.0})
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index(self.axes)
+
+    def _run(self, fn, x: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = fn(x, self.axes)
+        clock = self.mesh.clock
+        if clock.on:
+            if out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
+            self.stats["seconds"] += time.perf_counter() - t0
+        self.stats["calls"] += 1
+        self.stats["bytes_sent"] += x.numel() * x.element_size()
+        if isinstance(self.mesh, CountingMesh):
+            self.mesh.idle_bytes += out.numel() * out.element_size()
+        return out
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the idle ranks."""
+        return self._run(self.mesh.all_reduce_max, x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the idle ranks' partial ``x``: in float32 for a 16-bit
+        ``x``, rounded once to its dtype (as :func:`_model_sum`)."""
+        if x.dtype in (torch.bfloat16, torch.float16):
+            return self._run(self.mesh.all_reduce_sum, x.to(torch.float32)).to(x.dtype)
+        return self._run(self.mesh.all_reduce_sum, x)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The idle ranks' blocks concatenated along ``dim`` in row-major
+        order of their coordinates."""
+        d = dim % x.dim()
+        parts = self._run(self.mesh.all_gather, x.contiguous())  # (n, *x.shape)
+        return parts.movedim(0, d).reshape(x.shape[:d] + (-1,) + x.shape[d + 1:])
+
+    def reset(self) -> None:
+        self.stats.update(calls=0, bytes_sent=0, seconds=0.0)
+
+
+def idle_axes_of(mesh, model: str = "model") -> Tuple[str, ...]:
+    """Every axis of ``mesh`` but ``model``, in mesh order."""
+    return tuple(a for a in mesh.axis_names if a != model)
+
+
+def idle_axis(mesh, model: str = "model") -> Optional[IdleAxis]:
+    """The handle of ``mesh``'s idle axes, None when they hold one rank."""
+    if mesh is None:
+        return None
+    axes = idle_axes_of(mesh, model)
+    return IdleAxis(mesh, axes) if axes and mesh.size(axes) > 1 else None

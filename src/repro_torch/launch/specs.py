@@ -165,33 +165,45 @@ def _shard_one(v: torch.Tensor, layout: Layout, n: int, i: int) -> torch.Tensor:
     return v.chunk(n, layout)[i].clone(memory_format=torch.contiguous_format)
 
 
-def shard_leaf(v: torch.Tensor, layout: Layout, mesh, axis: str = "model") -> torch.Tensor:
-    """This rank's model shard of one whole leaf (a copy; the leaf itself
-    when it is held whole)."""
-    return _shard_one(v, layout, mesh.shape[axis], mesh.coords[axis])
+def _axes(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _rank_on(mesh, axis) -> Tuple[int, int]:
+    """``(n, i)``: the ranks over ``axis`` (a name or a tuple of names)
+    and this rank's row-major position among them."""
+    axes = _axes(axis)
+    return mesh.size(axes), mesh.index(axes)
+
+
+def shard_leaf(v: torch.Tensor, layout: Layout, mesh, axis="model") -> torch.Tensor:
+    """This rank's shard of one whole leaf over ``axis`` (a name, or a
+    tuple of names split as their row-major product: the idle axes); a copy,
+    or the leaf itself when it is held whole."""
+    return _shard_one(v, layout, *_rank_on(mesh, axis))
 
 
 def shard_model(tree: Dict[str, Any], dims: Dict[str, Layout], mesh,
-                axis: str = "model") -> Dict[str, Any]:
+                axis="model") -> Dict[str, Any]:
     """This rank's model shard of each leaf of a whole, path-keyed tree:
     its block of the dim ``dims`` names (or of each split segment), the leaf
     as it is where ``dims`` is None."""
     return {k: shard_leaf(v, dims.get(k), mesh, axis) for k, v in tree.items()}
 
 
-def _gather_dim(v: torch.Tensor, d: int, mesh, axis: str) -> torch.Tensor:
+def _gather_dim(v: torch.Tensor, d: int, mesh, axis) -> torch.Tensor:
     d = d % v.dim()
-    parts = mesh.all_gather(v.contiguous(), (axis,))  # (n, *shard)
+    parts = mesh.all_gather(v.contiguous(), _axes(axis))  # (n, *shard)
     return parts.movedim(0, d).reshape(v.shape[:d] + (-1,) + v.shape[d + 1:])
 
 
 def gather_model(shards: Dict[str, Any], dims: Dict[str, Layout], mesh,
-                 axis: str = "model") -> Dict[str, Any]:
+                 axis="model") -> Dict[str, Any]:
     """The whole leaves from the model ranks' shards (an all-gather over
     ``axis`` per split leaf or segment), the inverse of
     :func:`shard_model`."""
     out = {}
-    n = mesh.shape[axis]
+    n = mesh.size(_axes(axis))
     for k, v in shards.items():
         layout = dims.get(k)
         if layout is None:
@@ -205,9 +217,73 @@ def gather_model(shards: Dict[str, Any], dims: Dict[str, Layout], mesh,
     return out
 
 
-def shard_tree(tree: Any, layout: Dict[str, Layout], mesh, axis: str = "model") -> Any:
+def shard_tree(tree: Any, layout: Dict[str, Layout], mesh, axis="model") -> Any:
     """This rank's model shard of every leaf of a nested tree (parameters
     or a cache, keyed as :func:`~repro_torch.utils.pytree.flatten_paths`
     keys them)."""
     return nest_map_with_path(lambda p, t: shard_leaf(t, layout.get(p), mesh, axis), tree)
+
+
+# ---------------------------------------------------------------------------
+# A batch-1 decode over the idle axes (the reference's --opt-idle-batch)
+# ---------------------------------------------------------------------------
+
+CACHE_SEQ = ("k", "v", "c_kv", "k_rope")
+EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+
+
+def cache_seq_dim(path: str, ndim: int) -> Optional[int]:
+    """The sequence dim of a cache leaf of ``ndim`` dims by its name (the
+    K/V's third from the end, MLA's latents' second), None for a leaf
+    without one."""
+    name = path.rsplit("/", 1)[-1]
+    return ndim - 3 if name in ("k", "v") else ndim - 2 if name in CACHE_SEQ else None
+
+
+def idle_entry(mesh, model_axis: str = "model"):
+    """The placement entry of the idle axes: the one non-model axis, or the
+    tuple of them."""
+    axes = tuple(a for a in mesh.axis_names if a != model_axis)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def optimize_idle_batch_specs(cache_specs: Dict[str, Spec], param_specs: Dict[str, Spec],
+                              mesh) -> Tuple[Dict[str, Spec], Dict[str, Spec]]:
+    """The twin of the reference's ``_optimize_idle_batch_specs`` over flat
+    path-keyed placements: a batch-1 decode carries no batch over the
+    non-model axes, so they take (a) the sequence of the KV caches (``k``,
+    ``v``: the third dim from the end; ``c_kv``, ``k_rope``: the second),
+    (b) the heads of the SSM state (the third from the end), (c) the first
+    of the last three dims of the FFN leaves ``w_up`` / ``w_gate`` /
+    ``w_down`` under ``ffn`` of three dims or more (the experts of an
+    expert-stacked leaf); the conv window keeps its channels on ``model``.
+    A key-based rewrite by the last path component, as the reference's;
+    :func:`sanitize_specs` downstream drops what does not divide."""
+    entry = idle_entry(mesh)
+
+    def cache(path: str, spec: Spec) -> Spec:
+        name, n = path.rsplit("/", 1)[-1], len(spec)
+        new = list(spec)
+        seq = cache_seq_dim(path, n)
+        if seq is not None and 0 <= seq < n:
+            new[seq] = entry
+            return tuple(new)
+        if name == "ssm" and n >= 3:
+            new[n - 3] = entry
+            return tuple(new)
+        if name == "conv" and n >= 1:
+            new[n - 1] = "model"  # the reference's ("model",), as its PartitionSpec holds it
+            return tuple(new)
+        return spec
+
+    def param(path: str, spec: Spec) -> Spec:
+        keys = path.split("/")
+        if len(spec) >= 3 and keys[-1] in EXPERT_LEAVES and "ffn" in keys:
+            new = list(spec)
+            new[len(spec) - 3] = entry
+            return tuple(new)
+        return spec
+
+    return ({k: cache(k, v) for k, v in cache_specs.items()},
+            {k: param(k, v) for k, v in param_specs.items()})
 

@@ -26,7 +26,9 @@ function, its arguments as meta tensors (nothing allocated) and notes.
   Both are one card's share: the serving batch splits over the agent axes
   when it divides across them, as the reference shards it over its batch
   axes, and each card's rows run over the agent's model ranks; the notes
-  record the cards (``n_chips``: batch cards x model) that serve it.
+  record the cards (``n_chips``: batch cards x model) that serve it.  A
+  batch-1 decode with ``opt_idle_batch`` runs on every card: the idle
+  axes split its cache and experts (:func:`idle_layouts`).
 
 The "model" axis is tensor parallelism inside an agent: each rank holds its
 model shard of every leaf (:func:`param_layout`: the reference's sanitized
@@ -50,13 +52,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs.shapes import InputShape
+from repro_torch.core.adversary import AgentShards
 from repro_torch.core.mixing import MixingOps, collective_shift_mixing
 from repro_torch.core.pisco import PiscoConfig, PiscoState, make_rank_round_fn
 from repro_torch.core.topology import mixing_rate
 from repro_torch.launch import input_specs as I
-from repro_torch.launch.mesh import agent_axes_for, model_axis, n_agents_for
-from repro_torch.launch.specs import (Layout, Segments, add_fsdp_axis, data_dims, model_dims,
-                                      sanitize_specs, shard_model, shard_tree, stack_spec_tree)
+from repro_torch.launch.mesh import (agent_axes_for, idle_axes_of, idle_axis, model_axis,
+                                     n_agents_for)
+from repro_torch.launch.specs import (CACHE_SEQ, EXPERT_LEAVES, Layout, Segments, add_fsdp_axis,
+                                      cache_seq_dim, data_dims, model_dims,
+                                      optimize_idle_batch_specs, sanitize_specs, shard_bytes,
+                                      shard_model, shard_tree, stack_spec_tree)
 from repro_torch.models import mamba2 as M
 from repro_torch.models.registry import ModelBundle, get_bundle
 from repro_torch.models.transformer import params_from_paths
@@ -84,7 +90,8 @@ class StepSpec:
 
 def meta_bundle(bundle: ModelBundle) -> ModelBundle:
     """The bundle's twin on the meta device (with the same model axis)."""
-    return bundle if bundle.device.type == "meta" else get_bundle(bundle.cfg, META, bundle.tp)
+    return (bundle if bundle.device.type == "meta"
+            else get_bundle(bundle.cfg, META, bundle.tp, bundle.idle))
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +253,25 @@ def shard_leaves(tree: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
     n, i = mesh.shape["data"], mesh.coords["data"]
     return {k: v if dims[k] is None else v.chunk(n, dims[k])[i].clone(
         memory_format=torch.contiguous_format) for k, v in tree.items()}
+
+
+def agent_shards(whole: Dict[str, Sequence[int]], dims: Dict[str, Optional[int]],
+                 mesh) -> AgentShards:
+    """Where this rank's leaves sit in its agent's under pod-as-agent's
+    placement, for a Byzantine adversary or Krum over the agents
+    (:func:`repro_torch.core.adversary.make_adversarial_mixing`): ``whole``
+    the agent's leaf shapes, ``dims`` the data dims of
+    :func:`fsdp_placement`; a rank's block is its :func:`shard_leaves`
+    chunk, and a leaf held whole is held by every data rank.  Not derived
+    for a model axis above 1, whose ranks hold model shards as well."""
+    if mesh.shape.get("model", 1) > 1:
+        raise ValueError("agent_shards: a model axis above 1 also splits the leaves; "
+                         "build AgentShards from the model layout as well")
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    return AgentShards(
+        shapes={k: tuple(v) for k, v in whole.items()},
+        cut=lambda k, t: t if dims[k] is None else t.chunk(n, dims[k])[i],
+        replicas={k: n if dims[k] is None else 1 for k in whole})
 
 
 def gather_leaves(shards: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
@@ -465,22 +491,159 @@ def build_prefill_step(bundle: ModelBundle, shape: InputShape, mesh) -> StepSpec
     return StepSpec("prefill", lambda p, b, c: mb.prefill(p, b, c), args, notes, mesh=mesh)
 
 
+# ---------------------------------------------------------------------------
+# A batch-1 decode over the idle axes (the reference's --opt-idle-batch)
+# ---------------------------------------------------------------------------
+
+
+def _meta_like(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(tuple(v.shape), dtype=v.dtype, device=META) for k, v in tree.items()}
+
+
+def _numel(t) -> int:
+    return int(np.prod(tuple(t.shape))) if len(t.shape) else 1
+
+
+@dataclasses.dataclass
+class IdleLayouts:
+    """A batch-1 decode's placements over ``mesh``'s model and idle axes.
+
+    ``model`` / ``model_cache``: each leaf's model layout (as
+    :func:`param_layout` / :func:`cache_layout` give it, None everywhere
+    without a model axis); ``params`` / ``cache``: the dim of each leaf's
+    model shard that the idle axes split (None: whole over them).  The port
+    splits the KV caches' (``k``, ``v``, ``c_kv``, ``k_rope``) sequence, the
+    SSM state's heads (the model rank's block of them) and the experts of
+    an expert-stacked FFN leaf, each where it divides.  ``reference``: the
+    reference's placements (:func:`optimize_idle_batch_specs`, then
+    :func:`sanitize_specs` on the whole shapes, whose report is
+    ``dropped``); ``port_bytes`` / ``reference_bytes``: each leaf's bytes on
+    one card; ``differs``: the leaves whose bytes differ, ``added`` the
+    bytes the port's layout adds there (negative: saves).  They differ
+    where the reference's key-based rewrite reads the layer axis of a
+    stacked dense FFN leaf as experts, and where the model rank's heads of
+    the SSM state do not divide over the idle axes (the reference splits
+    all of them over the idle axes alone and holds them whole over model)."""
+
+    axes: Tuple[str, ...]
+    model: Dict[str, Layout]
+    model_cache: Dict[str, Layout]
+    params: Dict[str, Optional[int]]
+    cache: Dict[str, Optional[int]]
+    reference: Dict[str, tuple]
+    dropped: List[str]
+    port_bytes: Dict[str, int]
+    reference_bytes: Dict[str, int]
+    model_differs: List[str]
+
+    @property
+    def seq(self) -> bool:
+        """Whether the attention caches' sequence is split (all of them, or
+        none: they share one length)."""
+        split = {d is not None for k, d in self.cache.items()
+                 if k.rsplit("/", 1)[-1] in CACHE_SEQ}
+        if len(split) > 1:
+            raise ValueError(f"the attention caches split unevenly over {self.axes}")
+        return split != {False}
+
+    @property
+    def differs(self) -> List[str]:
+        return sorted(k for k in self.port_bytes if self.port_bytes[k] != self.reference_bytes[k])
+
+    @property
+    def added(self) -> Dict[str, int]:
+        return {k: self.port_bytes[k] - self.reference_bytes[k] for k in self.differs}
+
+    def shard_params(self, tree: Any, mesh) -> Any:
+        """This rank's shard of a whole parameter tree: its model shard,
+        then its block of that over the idle axes."""
+        return shard_tree(shard_tree(tree, self.model, mesh), self.params, mesh, self.axes)
+
+    def shard_cache(self, tree: Any, mesh) -> Any:
+        return shard_tree(shard_tree(tree, self.model_cache, mesh), self.cache, mesh, self.axes)
+
+    def notes(self) -> Dict[str, Any]:
+        return {"idle_axes": list(self.axes), "model_layout": _layout_notes(self.model),
+                "cache_layout": _layout_notes(self.model_cache), "idle_layout": self.params,
+                "cache_idle_layout": self.cache, "reference_idle_placements":
+                {k: list(v) for k, v in self.reference.items()},
+                "layout_differs": sorted(set(self.model_differs) | set(self.differs)),
+                "idle_bytes_added": self.added, "dropped_shardings": self.dropped}
+
+
+def _idle_dim(path: str, shard, shapes: Dict[str, Any], n: int) -> Optional[int]:
+    """The dim of ``path``'s model shard (``shard``) that the port splits
+    over ``n`` idle ranks, or None."""
+    name, nd = path.rsplit("/", 1)[-1], len(shard.shape)
+    if name in CACHE_SEQ:
+        d = cache_seq_dim(path, nd)
+    elif name == "ssm":
+        d = nd - 3
+    elif (name in EXPERT_LEAVES and nd >= 3
+          and path.rsplit("/", 1)[0] + "/router" in shapes):  # an expert-stacked leaf
+        d = nd - 3
+    else:
+        return None
+    return d if d >= 0 and shard.shape[d] % n == 0 else None
+
+
+def idle_layouts(bundle: ModelBundle, cache: Dict, mesh) -> IdleLayouts:
+    """The placements of a batch-1 decode of ``bundle`` over ``mesh``'s
+    idle axes (every axis but ``model``) beside its model axis, for a whole
+    ``cache`` of that decode (any device: only shapes are read); see
+    :class:`IdleLayouts`."""
+    mb = meta_bundle(bundle)
+    axes = idle_axes_of(mesh)
+    n = mesh.size(axes)
+    p_shapes = flatten_paths(mb.init(0))
+    c_shapes = _meta_like(flatten_paths(cache))
+    c_raw, p_raw = optimize_idle_batch_specs(mb.cache_specs(None), mb.param_specs(), mesh)
+    p_ref, p_drop = sanitize_specs(p_raw, p_shapes, mesh)
+    c_ref, c_drop = sanitize_specs(c_raw, c_shapes, mesh)
+    if mesh.shape.get("model", 1) > 1:
+        layout, p_differs, _ = param_layout(mb, mesh)
+        c_layout, c_differs = cache_layout(mb, c_shapes, mesh)
+    else:
+        layout, p_differs = dict.fromkeys(p_shapes), []
+        c_layout, c_differs = dict.fromkeys(c_shapes), []
+
+    def split(shapes, lay, ref):
+        shards = shard_model(shapes, lay, mesh)
+        dims = {k: _idle_dim(k, v, shapes, n) for k, v in shards.items()}
+        port = {k: _numel(v) // (1 if dims[k] is None else n) * v.element_size()
+                for k, v in shards.items()}
+        return dims, port, {k: shard_bytes({k: shapes[k]}, {k: ref[k]}, mesh) for k in shapes}
+
+    (pd, pp, pr), (cd, cp, cr) = split(p_shapes, layout, p_ref), split(c_shapes, c_layout, c_ref)
+    return IdleLayouts(axes=axes, model=layout, model_cache=c_layout, params=pd, cache=cd,
+                       reference={**p_ref, **c_ref}, dropped=p_drop + c_drop,
+                       port_bytes={**pp, **cp}, reference_bytes={**pr, **cr},
+                       model_differs=p_differs + c_differs)
+
+
 def build_decode_step(bundle: ModelBundle, shape: InputShape, mesh, *,
                       opt_idle_batch: bool = False) -> StepSpec:
     """One agent's decode step of its rows of ``shape.global_batch``
     against a cache of ``shape.seq_len`` positions (:func:`serve_split`),
-    each model rank on its shard.  ``opt_idle_batch`` is accepted and
-    recorded: the reference re-shards a batch-1 decode over its idle data
-    axis (sequence-parallel KV caches, SSM heads and experts over data),
-    which is not ported yet, so it changes nothing."""
+    each model rank on its shard.  With ``opt_idle_batch``, a batch that
+    does not split over the agent axes (one sequence) is served by the
+    whole mesh instead of one agent: the idle axes split the KV caches
+    along the sequence, the SSM state by head and the experts
+    (:func:`idle_layouts`, the reference's ``_optimize_idle_batch_specs``),
+    and ``n_chips`` counts every card."""
     mb = meta_bundle(bundle)
     card, notes = _per_card(shape, mesh)
     token = I.materialize(I.decode_token_input(card), META)
-    mb, params, cache = serve_args(mb, mesh, mb.init(0), _serve_cache(mb, card), notes)
-    args = (params, token, cache)
+    cache = _serve_cache(mb, card)
+    idle = idle_axis(mesh) if opt_idle_batch and notes["batch_axes"] is None else None
+    if idle is None:
+        mb, params, cache = serve_args(mb, mesh, mb.init(0), cache, notes)
+    else:
+        lay = idle_layouts(mb, cache, mesh)
+        idle = dataclasses.replace(idle, seq=lay.seq)
+        mb = get_bundle(mb.cfg, META, model_axis(mesh), idle)
+        params, cache = lay.shard_params(mb.init(0), mesh), lay.shard_cache(cache, mesh)
+        notes.update(lay.notes(), n_chips=mesh.size(mesh.axis_names), idle_ranks=idle.size)
     notes["opt_idle_batch"] = opt_idle_batch
-    if opt_idle_batch:
-        notes["opt_idle_batch_note"] = (
-            "not ported yet: the reference's sequence-parallel KV caches, SSM heads and "
-            "experts over the idle data axis; the step runs on the model axis alone")
+    args = (params, token, cache)
     return StepSpec("decode", lambda p, t, c: mb.decode(p, t, c), args, notes, mesh=mesh)

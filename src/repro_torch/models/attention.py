@@ -265,24 +265,73 @@ def gqa_forward(params: Dict, cfg: ModelConfig, x: Tensor, cos_sin, *, causal: b
     return out if tp is None else tp.exit(out)
 
 
+def split_softmax_values(scores: Tensor, values: Tensor, spec: str, idle) -> Tensor:
+    """``softmax(scores) @ values`` over a key axis split across the idle
+    ranks (each holds a block of the sequence): the scores' max is reduced
+    over the ranks, each rank weighs its values by ``exp(score - max)``
+    (cast to the values' dtype, as the whole softmax's probabilities are),
+    and the numerators and denominators are summed over the ranks in one
+    float32 all-reduce.  ``spec`` contracts the probabilities (the scores'
+    shape, keys last) with ``values``; returns the output in the values'
+    dtype.  One query: the output's leading dims are the scores' non-key
+    dims in the same order, so each row's denominator pairs with its
+    numerators."""
+    s32 = scores.to(torch.float32)
+    top = idle.max(torch.amax(s32, dim=-1, keepdim=True))
+    e = torch.exp(s32 - top)
+    num = torch.einsum(spec, e.to(values.dtype), values).to(torch.float32)
+    den = torch.sum(e, dim=-1)  # the scores' shape without the key axis
+    width = num.numel() // den.numel()
+    packed = torch.cat([num.reshape(den.numel(), width), den.reshape(-1, 1)], dim=1)
+    tot = idle.sum(packed)
+    return (tot[:, :width] / tot[:, width:]).reshape(num.shape).to(values.dtype)
+
+
 def decode_attention_core(
     q: Tensor,  # (B, 1, H, D)
     k_cache: Tensor,  # (B, S_cache, Hkv, D)
     v_cache: Tensor,  # (B, S_cache, Hkv, D)
     valid: Tensor,  # (B, S_cache) bool
     softcap: Optional[float] = None,
+    idle=None,
 ) -> Tensor:
     """One query against the cache, as the reference's ``_sdpa``: scores in
-    the input dtype, capped, softmax in float32, probabilities cast back."""
+    the input dtype, capped, softmax in float32, probabilities cast back.
+    Under ``idle`` the cache is this rank's block of the sequence and the
+    softmax is combined over the idle ranks (:func:`split_softmax_values`)."""
     b, _, h, dh = q.shape
     hkv = k_cache.shape[2]
     qg = q.reshape(b, 1, hkv, h // hkv, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache) * (1.0 / math.sqrt(dh))
     scores = _softcap(scores, softcap)
     scores = torch.where(valid[:, None, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    if idle is not None:
+        out = split_softmax_values(scores, v_cache, "bhgqk,bkhd->bqhgd", idle)
+        return out.reshape(b, 1, h, -1)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache)
     return out.reshape(b, 1, h, -1)
+
+
+def _write_slot(cache: Dict, names, rows: Tensor, slot: Tensor, new, idle) -> int:
+    """Write each row's new entries at its cache ``slot`` (a global index),
+    in place; under ``idle`` only the rank whose block holds the slot writes
+    (the others rewrite what they hold).  Returns the global index of the
+    rank's first entry."""
+    size = cache[names[0]].shape[1]
+    if idle is None:
+        for name, t in zip(names, new):
+            cache[name][rows, slot] = t
+        return 0
+    lo = idle.index * size
+    local = slot - lo
+    mine = (local >= 0) & (local < size)
+    local = local.clamp(0, size - 1)
+    for name, t in zip(names, new):
+        held = cache[name][rows, local]
+        cache[name][rows, local] = torch.where(mine.reshape((-1,) + (1,) * (t.dim() - 1)),
+                                               t, held)
+    return lo
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device=None,
@@ -315,29 +364,34 @@ def gqa_decode(
     pos: Tensor,  # (B,) int: tokens already in each row's context
     slotted: bool = False,
     tp=None,
+    idle=None,
 ) -> Tensor:
     """One token per row; writes its K/V into ``cache`` at the row's own
     ``pos`` (``pos % window`` under SWA) and returns (B, 1, d).  Under
-    ``tp`` the cache holds the KV heads the placements give this rank."""
+    ``tp`` the cache holds the KV heads the placements give this rank;
+    under ``idle`` (:class:`repro_torch.launch.mesh.IdleAxis`) it holds the
+    rank's block of the sequence: positions stay global, only the rank
+    that holds the slot writes it, and the softmax is combined over the
+    idle ranks."""
     tp = gqa_tp(params, cfg, tp)
+    idle = idle if idle is not None and idle.seq else None
     if tp is not None:
         x = tp.enter(x)
     q, k, v = _project_qkv(params, cfg, x, slotted, tp=tp)
     q, k = rope_qk(q, k, cos_sin)
-    size = cache["k"].shape[1]
+    size = cache["k"].shape[1] * (1 if idle is None else idle.size)
     pos = pos.to(torch.long)
     # past the end of a full-attention cache the write lands on its last
     # entry, as the reference's clamped dynamic_update_slice does
     slot = pos % size if cfg.sliding_window is not None else pos.clamp(max=size - 1)
     rows = torch.arange(x.shape[0], device=x.device)
-    cache["k"][rows, slot] = k[:, 0]
-    cache["v"][rows, slot] = v[:, 0]
-    idx = torch.arange(size, device=x.device)[None, :]
-    valid = idx <= pos[:, None]
+    lo = _write_slot(cache, ("k", "v"), rows, slot, (k[:, 0], v[:, 0]), idle)
+    idx = torch.arange(cache["k"].shape[1], device=x.device)[None, :]
+    valid = (idx if not lo else idx + lo) <= pos[:, None]
     if cfg.sliding_window is not None:
         valid = valid | (pos[:, None] >= size)  # the rolling buffer is full once wrapped
     k_att, v_att = local_kv(cfg, tp, q.shape[2], cache["k"], cache["v"])
-    out = decode_attention_core(q, k_att, v_att, valid, cfg.attn_logit_softcap)
+    out = decode_attention_core(q, k_att, v_att, valid, cfg.attn_logit_softcap, idle)
     b, _, h, hd = out.shape
     out = linear(out.reshape(b, 1, h * hd), params["wo"].flatten(-3, -2), slotted)
     return out if tp is None else tp.exit(out)
@@ -448,22 +502,24 @@ def mla_decode(
     pos: Tensor,  # (B,) int
     slotted: bool = False,
     tp=None,
+    idle=None,
 ) -> Tensor:
     """Absorbed-matrix MLA decode: attention in the compressed latent space
     (MQA-shaped), ``W_uk`` folded into the query and ``W_uv`` applied after
     the value reduction; writes the token's latents at the row's ``pos``
-    (every model rank the same whole latents)."""
+    (every model rank the same whole latents).  Under ``idle`` the latent
+    cache is this rank's block of the sequence, as in :func:`gqa_decode`."""
     m = cfg.mla
     tp = gqa_tp(params, cfg, tp)
+    idle = idle if idle is not None and idle.seq else None
     if tp is not None:
         x = tp.enter(x)
     q_nope, q_rope, c_new, r_new = _mla_qkr(params, cfg, x, cos_sin, slotted, tp)
-    size = cache["c_kv"].shape[1]
+    size = cache["c_kv"].shape[1] * (1 if idle is None else idle.size)
     pos = pos.to(torch.long)
     slot = pos.clamp(max=size - 1)  # the reference's clamped dynamic_update_slice
     rows = torch.arange(x.shape[0], device=x.device)
-    cache["c_kv"][rows, slot] = c_new[:, 0]
-    cache["k_rope"][rows, slot] = r_new[:, 0]
+    lo = _write_slot(cache, ("c_kv", "k_rope"), rows, slot, (c_new[:, 0], r_new[:, 0]), idle)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
     per = "b" if slotted else ""
     q_lat = torch.einsum(f"bshk,{per}rhk->bshr", q_nope, params["w_uk"])
@@ -471,10 +527,14 @@ def mla_decode(
     scores = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
               + torch.einsum("bshr,btr->bhst", q_rope, r_cache)) * scale
     scores = _softcap(scores, cfg.attn_logit_softcap)
-    valid = torch.arange(size, device=x.device)[None, :] <= pos[:, None]
+    valid = (torch.arange(c_cache.shape[1], device=x.device)[None, :] + lo if lo else
+             torch.arange(c_cache.shape[1], device=x.device)[None, :]) <= pos[:, None]
     scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhst,btr->bshr", probs, c_cache)
+    if idle is not None:
+        ctx = split_softmax_values(scores, c_cache, "bhst,btr->bshr", idle)
+    else:
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", probs, c_cache)
     out = torch.einsum(f"bshr,{per}rhk->bshk", ctx, params["w_uv"])
     b, _, h, dv = out.shape
     out = linear(out.reshape(b, 1, h * dv), params["wo"].flatten(-3, -2), slotted)

@@ -254,11 +254,14 @@ def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None) -> Tensor:
 
 
 def encdec_decode_step(params: Tree, cfg: ModelConfig, token: Tensor,
-                       cache: Dict, tp=None) -> Tuple[Tensor, Dict]:
+                       cache: Dict, tp=None, idle=None) -> Tuple[Tensor, Dict]:
     """One token per row (``token`` (B, 1)) at the cache's ``pos``: causal
     self-attention against the cached K/V (written in place), then
     cross-attention to the whole memory, K/V projected anew from it.
-    Returns (logits (B, 1, V), the cache advanced in place)."""
+    Returns (logits (B, 1, V), the cache advanced in place).  Under
+    ``idle`` the self-attention cache is this rank's block of the sequence
+    (:func:`repro_torch.models.attention.gqa_decode`); the memory stays
+    whole."""
     pos, memory = cache["pos"], cache["memory"]
     b = token.shape[0]
     posv = pos.reshape(1).expand(b)
@@ -269,7 +272,7 @@ def encdec_decode_step(params: Tree, cfg: ModelConfig, token: Tensor,
         lp = _layer(params["dec_layers"], i)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps)
         x = x + A.gqa_decode(lp["self_attn"], cfg, h, cos_sin, _layer(cache["self_kv"], i), posv,
-                             tp=tp)
+                             tp=tp, idle=idle)
         h = rms_norm(x, lp["norm_x"]["scale"], cfg.norm_eps)
         x = x + A.gqa_forward(lp["cross_attn"], cfg, h, cos_sin, causal=False, x_kv=memory,
                               cos_sin_kv=mem_cos_sin, tp=tp)

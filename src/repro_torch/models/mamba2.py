@@ -21,6 +21,9 @@ heads' x channels beside the whole B and C channels; :func:`tp_layout`).  K7
 runs on the local heads; the gated RMSNorm's sum of squares is summed over
 the model ranks; ``out_proj``'s partial product leaves summed.  The decode
 caches hold the local conv channels and SSM heads.
+
+A batch-1 decode over the idle axes (``idle``) splits the SSM state's
+heads further, the model rank's heads over its idle ranks.
 """
 from __future__ import annotations
 
@@ -242,9 +245,14 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device=None, stack: t
 
 
 def mamba2_decode(params: Dict, cfg: ModelConfig, u: Tensor, cache: Dict,
-                  slotted: bool = False, tp=None) -> Tensor:
+                  slotted: bool = False, tp=None, idle=None) -> Tensor:
     """u (B, 1, d_model) -> (B, 1, d_model); advances ``cache`` in place
-    (under ``tp``: this rank's conv channels and SSM heads)."""
+    (under ``tp``: this rank's conv channels and SSM heads).  Under ``idle``
+    (:class:`repro_torch.launch.mesh.IdleAxis`) the SSM state holds this
+    rank's block of the model rank's heads: the recurrence runs on those
+    heads and their outputs are gathered over the idle ranks, so that the
+    gated norm sees the model rank's whole group; the conv window stays
+    whole over the idle ranks."""
     tp, d_in, _, heads = _local(params, cfg, tp)
     if tp is not None:
         u_in, params = tp.enter(u), _tp_params(params, cfg, tp, heads)
@@ -256,10 +264,27 @@ def mamba2_decode(params: Dict, cfg: ModelConfig, u: Tensor, cache: Dict,
     x, b_mat, c_mat = _split_xbc(cfg, F.silu(conv_out), d_in)
     dt = softplus(dt_raw.to(torch.float32) + vec(params["dt_bias"], slotted, 3))  # (B, 1, H)
     a = -torch.exp(params["a_log"])
-    y, new_state = ssd_decode_step(
-        cache["ssm"], x[:, 0].to(torch.float32), dt[:, 0], a,
-        b_mat[:, 0].to(torch.float32), c_mat[:, 0].to(torch.float32),
-    )
+    if idle is None or cache["ssm"].shape[1] == x.shape[2]:  # the heads whole over idle
+        y, new_state = ssd_decode_step(
+            cache["ssm"], x[:, 0].to(torch.float32), dt[:, 0], a,
+            b_mat[:, 0].to(torch.float32), c_mat[:, 0].to(torch.float32),
+        )
+    else:
+        if slotted:
+            raise ValueError("a slotted decode runs whole over the idle axes")
+        h_sub = cache["ssm"].shape[1]
+        lo = idle.index * h_sub
+        rep = x.shape[2] // b_mat.shape[2]  # heads per group of the rank's heads
+        heads = slice(lo, lo + h_sub)
+
+        def per_head(t: Tensor) -> Tensor:
+            return torch.repeat_interleave(t[:, 0].to(torch.float32), rep, dim=1)[:, heads]
+
+        y, new_state = ssd_decode_step(
+            cache["ssm"], x[:, 0, heads].to(torch.float32), dt[:, 0, heads], a[heads],
+            per_head(b_mat), per_head(c_mat),
+        )
+        y = idle.gather(y, 1)
     cache["conv"].copy_(conv_win)
     cache["ssm"].copy_(new_state)
     d_skip = params["d_skip"].to(u.dtype)

@@ -30,6 +30,11 @@ router is whole and its input replicated), dispatches its slice, and the
 ranks' partial outputs are summed; the routing weights enter the region, so
 the router's gradient is summed over the ranks, and the load-balance loss,
 computed on every rank from the same routes, is counted once.
+
+A batch-1 decode over the idle axes (``idle``) splits the experts over
+them: each rank runs the selected experts it holds (the batched form, the
+dry run's, drops the entries routed elsewhere) and the partial outputs are
+summed over the idle ranks.
 """
 from __future__ import annotations
 
@@ -133,23 +138,33 @@ def _combine(contrib: Tensor, top_idx: Tensor) -> Tensor:
 
 
 def dispatch_batched(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tensor,
-                     top_w: Tensor) -> Tensor:
+                     top_w: Tensor, lo: int = 0) -> Tensor:
     """The reference's dispatch: xf (T, d) through an (E, cap, d) buffer and
     one batched product over the experts -> each entry's weighted output
-    (T, k, d), zero where dropped.  No host sync."""
+    (T, k, d), zero where dropped.  No host sync.  On a rank that holds
+    experts ``[lo, lo + E_local)`` (``experts`` their leaves) the buffer is
+    theirs, the entries routed elsewhere are dropped and each held expert
+    keeps its first ``cap`` entries of the whole layer's capacity."""
     mo = cfg.moe
     t, d = xf.shape
     k = mo.top_k
+    n_loc = experts["w_down"].shape[-3]
     cap = capacity(mo, t)
+    whole = n_loc == mo.n_experts
     flat_expert = top_idx.reshape(-1)  # (T·k,)
+    if not whole:  # held experts, the entries routed elsewhere in a last bin of their own
+        local = flat_expert - lo
+        flat_expert = torch.where((local >= 0) & (local < n_loc), local,
+                                  torch.full_like(local, n_loc))
     order = torch.argsort(flat_expert, stable=True)  # entries grouped by expert
-    counts = _expert_counts(top_idx, mo.n_experts)
+    counts = (_expert_counts(top_idx, mo.n_experts) if whole
+              else _expert_counts(flat_expert, n_loc + 1)[:n_loc])
     offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix
     slot = torch.arange(cap, device=xf.device)
-    in_range = slot[None, :] < torch.clamp(counts, max=cap)[:, None]  # (E, cap)
+    in_range = slot[None, :] < torch.clamp(counts, max=cap)[:, None]  # (E_local, cap)
     src = order[torch.clamp(offsets[:, None] + slot[None, :], max=t * k - 1)]
-    x_exp = xf[src // k] * in_range[..., None].to(xf.dtype)  # (E, cap, d)
-    y_exp = _ffn(experts, cfg.mlp_type, x_exp)  # (E, cap, d)
+    x_exp = xf[src // k] * in_range[..., None].to(xf.dtype)  # (E_local, cap, d)
+    y_exp = _ffn(experts, cfg.mlp_type, x_exp)  # (E_local, cap, d)
     w = top_w.reshape(-1)[src] * in_range.to(torch.float32)
     # each kept entry's weighted output to its place in the (T·k) stream;
     # unused buffer rows go to a spare row past its end
@@ -160,16 +175,29 @@ def dispatch_batched(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tenso
 
 
 def dispatch_in_place(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tensor,
-                      top_w: Tensor) -> Tensor:
+                      top_w: Tensor, lo: int = 0) -> Tensor:
     """One token (xf (1, d)): its k distinct experts, none dropped, each
-    read in place -> (1, k, d).  The k expert ids cross to the host."""
-    return torch.stack([
-        _ffn({n: w[i] for n, w in experts.items()}, cfg.mlp_type, xf)[0]
-        * top_w[0, j].to(xf.dtype) for j, i in enumerate(top_idx[0].tolist())])[None]
+    read in place -> (1, k, d).  The k expert ids cross to the host.  On a
+    rank that holds experts ``[lo, lo + E_local)`` only those run; the
+    entries of the others are zero."""
+    n_loc = experts["w_down"].shape[-3]
+    rows = []
+    for j, i in enumerate(top_idx[0].tolist()):
+        if lo <= i < lo + n_loc:
+            rows.append(_ffn({n: w[i - lo] for n, w in experts.items()}, cfg.mlp_type, xf)[0]
+                        * top_w[0, j].to(xf.dtype))
+        else:
+            rows.append(torch.zeros_like(xf[0]))
+    return torch.stack(rows)[None]
 
 
-def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None) -> Tuple[Tensor, Tensor]:
-    """xf (T, d) -> (y (T, d), aux): one routing group."""
+def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None,
+                idle=None) -> Tuple[Tensor, Tensor]:
+    """xf (T, d) -> (y (T, d), aux): one routing group.  Under ``idle`` this
+    rank holds its block of the experts (over the idle axes): it runs the
+    entries routed to them, and the partial outputs are summed over the
+    idle ranks (in float32 for 16-bit) before the shared experts are
+    added; the routing is computed on every rank from the same inputs."""
     mo = cfg.moe
     logits = xf.to(torch.float32) @ params["router"]
     top_idx, top_w, probs = route(logits, mo)
@@ -183,7 +211,11 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None) -> Tuple[Te
     tp_s = (sharded(tp, params["shared"]["w_down"].shape[-2], mo.n_shared * mo.d_expert)
             if mo.n_shared else None)
     x_e, w_e = (xf, top_w) if tp_e is None else (tp_e.enter(xf), tp_e.enter(top_w))
-    y = _combine(dispatch(experts, cfg, x_e, top_idx, w_e), top_idx)
+    if idle is None or experts["w_down"].shape[-3] == mo.n_experts:  # whole over idle
+        y = _combine(dispatch(experts, cfg, x_e, top_idx, w_e), top_idx)
+    else:
+        lo = idle.index * experts["w_down"].shape[-3]
+        y = idle.sum(_combine(dispatch(experts, cfg, x_e, top_idx, w_e, lo), top_idx))
     if tp_e is not None:
         # the shared experts, n_shared times as wide, split too: one partial
         # sum leaves the region
@@ -196,13 +228,14 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None) -> Tuple[Te
 
 
 def moe_forward(params: Dict, cfg: ModelConfig, x: Tensor,
-                slotted: bool = False, tp=None) -> Tuple[Tensor, Tensor]:
+                slotted: bool = False, tp=None, idle=None) -> Tuple[Tensor, Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux loss).  With ``slotted`` every leaf
     of ``params`` carries a leading axis of size B and each row is its own
-    routing group; aux is then one loss per row."""
+    routing group; aux is then one loss per row.  ``idle``: the experts
+    split over a batch-1 decode's idle axes (:func:`_moe_tokens`)."""
     b, s, d = x.shape
     if not slotted:
-        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp)
+        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp, idle)
         return y.reshape(b, s, d), aux
     ys, auxs = [], []
     for row in range(b):

@@ -35,6 +35,7 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     tp: Any = dataclasses.field(default=None, compare=False)
+    idle: Any = dataclasses.field(default=None, compare=False)
 
     def init(self, seed: int = 0, leaf_hook=None) -> Tree:
         """``leaf_hook``: see :func:`repro_torch.models.layers.seeded_generator`."""
@@ -57,13 +58,19 @@ class ModelBundle:
 
     def prefill(self, params: Tree, batch: Dict, cache: Dict, *,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, Dict]:
+        self._whole_sequence("prefill")
         return T.lm_prefill(params, self.cfg, batch["tokens"], cache,
                             prefix_embeds=batch.get("prefix_embeds"),
                             positions=batch.get("positions"), use_kernels=use_kernels,
                             tp=self.tp)
 
+    def _whole_sequence(self, what: str) -> None:
+        if self.idle is not None:
+            raise ValueError(f"{what} runs on a whole cache: a bundle over idle axes decodes "
+                             "only (its cache holds a block of the sequence)")
+
     def decode(self, params: Tree, token: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-        return T.lm_decode(params, self.cfg, token, cache, tp=self.tp)
+        return T.lm_decode(params, self.cfg, token, cache, tp=self.tp, idle=self.idle)
 
     def decode_slots(self, slot_params: Tree, tokens: torch.Tensor,
                      cache: Dict) -> Tuple[torch.Tensor, Dict]:
@@ -108,23 +115,29 @@ class EncDecBundle(ModelBundle):
         on every layer) into the cache's memory, then one decode step on
         ``batch["tokens"][:, :1]``; returns (logits (B, 1, V), cache at
         pos 1)."""
+        self._whole_sequence("prefill")
         cache["memory"] = E.encode_prefill(params, self.cfg, batch["frames"],
                                            use_kernels=use_kernels, tp=self.tp)
         return E.encdec_decode_step(params, self.cfg, batch["tokens"][:, :1], cache, tp=self.tp)
 
     def decode(self, params: Tree, token: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-        return E.encdec_decode_step(params, self.cfg, token, cache, tp=self.tp)
+        return E.encdec_decode_step(params, self.cfg, token, cache, tp=self.tp, idle=self.idle)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
         return E.encdec_loss(params, self.cfg, batch, tp=self.tp)
 
 
-def get_bundle(cfg: ModelConfig, device: DeviceLike = None, tp: Any = None) -> ModelBundle:
+def get_bundle(cfg: ModelConfig, device: DeviceLike = None, tp: Any = None,
+               idle: Any = None) -> ModelBundle:
     """The bundle of a configuration on ``device`` (CUDA when none is
     given): an :class:`EncDecBundle` for an encoder-decoder.  ``tp``: the
-    agent's model axis when the bundle runs on a rank's model shard."""
+    agent's model axis when the bundle runs on a rank's model shard;
+    ``idle``: a batch-1 decode's idle axes
+    (:class:`repro_torch.launch.mesh.IdleAxis`), when its cache and experts
+    are split over them (decode only)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:  # the index tensors report
         dev = torch.device("cuda", torch.cuda.current_device())
-    return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev, tp=tp)
+    return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev, tp=tp,
+                                                             idle=idle)

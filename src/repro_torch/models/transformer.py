@@ -289,13 +289,13 @@ def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device, positions=None):
 
 
 def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False,
-         tp=None):
+         tp=None, idle=None):
     """The block's FFN on its normed input: (out, MoE aux loss or None)."""
     h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
     if ffn_kind == "dense":
         tp = sharded(tp, bp["ffn"]["w_down"].shape[-2], cfg.d_ff)
         return mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted, tp), None
-    return moe_forward(bp["ffn"], cfg, h, slotted, tp)
+    return moe_forward(bp["ffn"], cfg, h, slotted, tp, idle)
 
 
 def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
@@ -564,16 +564,16 @@ def lm_prefill(
 
 
 def _decode_block(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor, cos_sin,
-                  cc: Dict, pos: Tensor, slotted: bool, tp=None) -> Tensor:
+                  cc: Dict, pos: Tensor, slotted: bool, tp=None, idle=None) -> Tensor:
     h = rms_norm(x, vec(bp["norm1"]["scale"], slotted, 3), cfg.norm_eps)
     if kind == "attn":
         decode = A.mla_decode if cfg.attn_impl == "mla" else A.gqa_decode
-        h = decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted, tp)
+        h = decode(bp["mixer"], cfg, h, cos_sin, cc, pos, slotted, tp, idle)
     else:
-        h = M.mamba2_decode(bp["mixer"], cfg, h, cc, slotted, tp)
+        h = M.mamba2_decode(bp["mixer"], cfg, h, cc, slotted, tp, idle)
     x = x + h
     if ffn_kind != "none":
-        x = x + _ffn(bp, cfg, ffn_kind, x, slotted, tp)[0]
+        x = x + _ffn(bp, cfg, ffn_kind, x, slotted, tp, idle)[0]
     return x
 
 
@@ -585,13 +585,18 @@ def lm_decode(
     *,
     slotted: bool = False,
     tp=None,
+    idle=None,
 ) -> Tuple[Tensor, Dict]:
     """One decode step; returns (logits (B, 1, V), cache advanced in place).
 
     Shared parameters take the reference's cache: leaves (n_periods, B, ...)
     and a scalar ``pos``.  Slotted parameters (a leading slot axis of size
     B on every leaf) take the engine's slot-stacked cache: leaves
-    (B, n_periods, 1, ...) and ``pos`` (B,), one position per slot."""
+    (B, n_periods, 1, ...) and ``pos`` (B,), one position per slot.
+    ``idle``: a batch-1 decode's idle axes
+    (:class:`repro_torch.launch.mesh.IdleAxis`), over which the cache's
+    sequence, the SSM state's heads and the experts are split (the
+    reference's ``--opt-idle-batch``)."""
     head_pat, period_pat, n_periods = _period_patterns(cfg)
     b = token.shape[0]
     pos = cache["pos"]
@@ -608,7 +613,7 @@ def lm_decode(
         cc = cache["head_layers"][j]
         if slotted:
             cc = _index(cc, lambda t: t[:, 0])
-        x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp)
+        x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp, idle)
     for p in range(n_periods):
         for i, (k, f) in enumerate(period_pat):
             if slotted:
@@ -617,7 +622,7 @@ def lm_decode(
             else:
                 bp = _index(params["layers"][f"pos{i}"], lambda t: t[p])
                 cc = _index(cache["layers"][f"pos{i}"], lambda t: t[p])
-            x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp)
+            x = _decode_block(bp, cfg, k, f, x, cos_sin, cc, posv, slotted, tp, idle)
     x = rms_norm(x, vec(params["final_norm"]["scale"], slotted, 3), cfg.norm_eps)
     logits = (linear(x, _lm_head(params, cfg), slotted) if slotted
               else head_logits(params, cfg, x, tp))

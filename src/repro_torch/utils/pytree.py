@@ -8,7 +8,7 @@ draws line up with the reference.  Mixing accumulates in float32.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -188,21 +188,37 @@ def tree_agent_median(tree: Tree) -> Tree:
     return tree_map(leaf, tree)
 
 
+def krum_distances(tree: Tree, weights: Optional[Dict[str, float]] = None) -> torch.Tensor:
+    """(n, n) float32: the agents' squared distances summed over all leaves
+    (Gram form ``|x_i|^2 + |x_j|^2 - 2 x_i . x_j`` clamped at 0), each
+    leaf's term scaled by ``weights[key]`` where given."""
+    keys = sorted(tree)
+    n = tree[keys[0]].shape[0]
+    d2 = torch.zeros((n, n), dtype=torch.float32, device=tree[keys[0]].device)
+    for k in keys:
+        xf = tree[k].reshape(n, -1).to(torch.float32)
+        sq = torch.sum(xf * xf, dim=1)
+        term = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (xf @ xf.T), 0.0)
+        w = 1.0 if weights is None else weights[k]
+        d2 = d2 + (term if w == 1.0 else w * term)
+    return d2
+
+
+def krum_scores_of(d2: torch.Tensor, n_byz: int) -> torch.Tensor:
+    """(n,) Krum scores from the distances of :func:`krum_distances`: each
+    agent's sum to its ``max(1, n - n_byz - 2)`` closest peers, itself
+    excluded."""
+    n = d2.shape[0]
+    m = max(1, n - int(n_byz) - 2)
+    d2 = d2 + torch.diag(torch.full((n,), float("inf"), device=d2.device))
+    return torch.sum(torch.sort(d2, dim=1).values[:, :m], dim=1)
+
+
 def krum_scores(tree: Tree, n_byz: int) -> torch.Tensor:
     """(n,) Krum scores: each agent's summed squared distance (over all
     leaves, Gram form ``|x_i|^2 + |x_j|^2 - 2 x_i . x_j`` clamped at 0) to
     its ``max(1, n - n_byz - 2)`` closest peers, itself excluded."""
-    leaves = tree_leaves(tree)
-    n = leaves[0].shape[0]
-    dev = leaves[0].device
-    d2 = torch.zeros((n, n), dtype=torch.float32, device=dev)
-    for x in leaves:
-        xf = x.reshape(n, -1).to(torch.float32)
-        sq = torch.sum(xf * xf, dim=1)
-        d2 = d2 + torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (xf @ xf.T), 0.0)
-    m = max(1, n - int(n_byz) - 2)
-    d2 = d2 + torch.diag(torch.full((n,), float("inf"), device=dev))
-    return torch.sum(torch.sort(d2, dim=1).values[:, :m], dim=1)
+    return krum_scores_of(krum_distances(tree), n_byz)
 
 
 def tree_agent_krum(tree: Tree, n_byz: int) -> Tree:

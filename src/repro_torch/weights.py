@@ -248,17 +248,22 @@ def join_states(states: List[Any]) -> Dict[str, Any]:
     return out
 
 
-def init_model_shard(bundle: Any, layout: Mapping[str, Any], mesh: Any, seed: int = 0) -> Any:
+def init_model_shard(bundle: Any, layout: Mapping[str, Any], mesh: Any, seed: int = 0,
+                     idle: Any = None) -> Any:
     """``bundle.init(seed)`` cut to this rank's model shard without ever
     holding the whole model: each random leaf is cut as soon as it is drawn
     (``bundle.init``'s ``leaf_hook``) and its whole tensor dropped, so a rank
     holds one whole leaf at most beside its shards; the values are the
     whole init's, block for block.  ``layout``: the model layout of the
-    parameters (:func:`repro_torch.launch.steps.param_layout`)."""
+    parameters (:func:`repro_torch.launch.steps.param_layout`).  ``idle``:
+    ``(dims, axes)`` of a batch-1 decode over the idle axes
+    (:class:`repro_torch.launch.steps.IdleLayouts`' ``params`` and
+    ``axes``): each model shard is then cut to this rank's block over those
+    axes as well (its experts)."""
     import dataclasses
 
-    from repro_torch.launch.specs import shard_leaf, shard_tree
-    from repro_torch.utils.pytree import flatten_paths
+    from repro_torch.launch.specs import shard_leaf
+    from repro_torch.utils.pytree import flatten_paths, nest_map_with_path
 
     # the order in which the init draws its random leaves, by path (a meta
     # init draws the same leaves in the same order and allocates nothing)
@@ -269,13 +274,17 @@ def init_model_shard(bundle: Any, layout: Mapping[str, Any], mesh: Any, seed: in
     order = iter([path_of.get(id(t)) for t in drawn])
     done = set()
 
+    def shard(t: torch.Tensor, path: str) -> torch.Tensor:
+        t = shard_leaf(t, layout.get(path), mesh)
+        return t if idle is None else shard_leaf(t, idle[0].get(path), mesh, idle[1])
+
     def cut(t: torch.Tensor) -> torch.Tensor:
         path = next(order)
         if path is None:
             return t
         done.add(path)
-        return shard_leaf(t, layout.get(path), mesh)
+        return shard(t, path)
 
     tree = bundle.init(seed, leaf_hook=cut)
-    rest = {p: layout.get(p) for p in flatten_paths(tree) if p not in done}
-    return shard_tree(tree, rest, mesh) if rest else tree
+    rest = [p for p in flatten_paths(tree) if p not in done]
+    return nest_map_with_path(lambda p, t: t if p in done else shard(t, p), tree) if rest else tree

@@ -363,9 +363,73 @@ def test_wrapped_global_avg_applies_rule_to_corrupted_payloads():
 
 
 def test_collective_mixers_are_refused():
-    base = dataclasses.replace(tmixing.identity_mixing(4), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        make_adversarial_mixing(base, "signflip:f=0.25", n_agents=4)
+    """Collective bases were refused before the adversary over rank meshes
+    was ported (the name is kept): now each rank of the mesh wraps its own
+    agent (the rank paths are held against the reference in
+    ``test_torch_adversary_ranks.py``).  Only a collective mixer that does
+    not name its agent axes, or whose mesh holds another number of agents,
+    is refused."""
+    from repro_torch.launch.mesh import CountingMesh
+
+    n = 4
+    mask = adversary_mask("signflip:f=0.25", n, seed=2)
+    for r in range(n):
+        mesh = CountingMesh({"data": n}, CPU, rank=r)
+        base = tmixing.collective_shift_mixing(
+            mesh, ("data",), {"data": [(0, 0.5), (1, 0.25), (-1, 0.25)]})
+        adv = make_adversarial_mixing(base, "signflip:f=0.25", "trimmed", n_agents=n, seed=2)
+        assert adv.name == "collective/shift/adv:signflip:f=0.25/robust:trimmed"
+        assert adv.rank_adversary.byzantine == mask[r] and adv.network.adversarial
+        assert adv.plain_gossip is base.gossip and adv.shifts == base.shifts
+        x = torch.arange(6.0).reshape(2, 3)
+        sent = adv.wire_corrupt(x, 0)
+        assert torch.equal(sent, -x if mask[r] else x)
+    with pytest.raises(ValueError, match="agent axes"):
+        make_adversarial_mixing(dataclasses.replace(base, agent_axes=None), "signflip:f=0.25",
+                                n_agents=n)
+    with pytest.raises(ValueError, match="agents"):
+        make_adversarial_mixing(base, "signflip:f=0.25", n_agents=8)
+
+
+@pytest.mark.parametrize("axes,adversary,robust,refused", [
+    (("pod", "data"), "signflip:f=0.25", "krum", True),
+    (("pod", "data"), None, "krum", True),
+    (("pod", "data"), "random:f=0.25", "mean", True),
+    (("pod", "data"), "collusion:f=0.25", "trimmed", True),
+    (("pod", "data"), "signflip:f=0.25", "median", False),
+    (("data", "model"), "collusion:f=0.25", "krum", True),
+    (("data", "model"), "signflip:f=0.25", "trimmed", False),
+])
+def test_agents_over_several_ranks_need_their_shards(axes, adversary, robust, refused):
+    """Four agents over two ranks each (pod-as-agent's data axis, or a model axis):
+    Krum and the ``random`` / ``collusion`` draws read the agent's whole
+    leaves, so the default route (no ``shards=``) refuses them rather than
+    treat each rank's block as the whole leaf; a sign flip and the
+    elementwise rules take it.  Under pod-as-agent ``agent_shards`` derives
+    the shards from the placement's data dims and every case is taken."""
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.launch.steps import agent_shards, mesh_gossip_shifts
+
+    agent_axes = axes[:1]
+    mesh = CountingMesh({axes[0]: 4, axes[1]: 2}, CPU, rank=1)
+    base = tmixing.collective_shift_mixing(mesh, agent_axes,
+                                           mesh_gossip_shifts(mesh, agent_axes))
+    if refused:
+        with pytest.raises(ValueError, match="shards="):
+            make_adversarial_mixing(base, adversary, robust, n_agents=4, seed=2)
+    else:
+        assert make_adversarial_mixing(base, adversary, robust, n_agents=4,
+                                       seed=2).mesh is mesh
+    whole = {"b": (3,), "w": (8, 3)}
+    if axes[-1] == "model":
+        with pytest.raises(ValueError, match="model axis"):
+            agent_shards(whole, {"b": None, "w": 0}, mesh)
+        return
+    shards = agent_shards(whole, {"b": None, "w": 0}, mesh)
+    adv = make_adversarial_mixing(base, adversary, robust, n_agents=4, seed=2, shards=shards)
+    assert adv.mesh is mesh and shards.replicas == {"b": 2, "w": 1}
+    w = torch.arange(24.0).reshape(8, 3)  # rank 1: pod 0, data 1, the second half of w's rows
+    assert torch.equal(shards.cut("w", w), w[4:]) and torch.equal(shards.cut("b", w[0]), w[0])
 
 
 # ---------------------------------------------------------------------------

@@ -292,14 +292,21 @@ def test_dryrun_cli_records(tmp_path, capsys, monkeypatch):
 def test_payload_has_an_ok_record_for_every_pair():
     """The committed ``--all --mesh both`` payload, and beside it the
     ``--all --mesh multi --agent-mode hierarchical`` train records, each
-    holding less state a card than the flat multi record of its arch."""
+    holding less state a card than the flat multi record of its arch, and
+    the long_500k decodes with ``--opt-idle-batch --tag opt_idle_batch``,
+    each holding no more than its flat record."""
     recs = {os.path.basename(r["_file"]): r for r in jmd.load(PAYLOAD)}
     want = {f"{a}__{s}__{m}__{step}.json"
             for a in ARCH_IDS for s, shape in tshapes.SHAPES.items() if jdry.applicable(a, s)
             for m in ("single", "multi") for step in STEPS[shape.kind]}
     hier = {f"{a}__train_4k__multi__{step}__hierarchical.json"
             for a in ARCH_IDS for step in STEPS["train"]}
-    assert set(recs) == want | hier
+    idle = {f"{a}__long_500k__{m}__decode__opt_idle_batch.json"
+            for a in ARCH_IDS if jdry.applicable(a, "long_500k") for m in ("single", "multi")}
+    assert set(recs) == want | hier | idle
+    for name in idle:
+        flat = recs[name.replace("__opt_idle_batch", "")]
+        assert recs[name]["memory"]["argument_bytes"] <= flat["memory"]["argument_bytes"]
     for name in hier:
         flat = recs[name.replace("__hierarchical", "")]
         assert recs[name]["agent_mode"] == "hierarchical"
@@ -331,8 +338,9 @@ def test_tables_are_the_reference_scripts():
 def test_run_one_records_variants(tmp_path):
     """``opt_idle_batch`` and the levers are recorded in the record."""
     rec = tdry.run_one("mamba2-370m", "long_500k", "multi", opt_idle_batch=True, ssm_chunk=128)[0]
-    assert rec["status"] == "ok" and rec["n_chips"] == 16
+    assert rec["status"] == "ok" and rec["n_chips"] == 512
     assert rec["variant"]["opt_idle_batch"] and rec["notes"]["opt_idle_batch"]
-    assert "not ported yet" in rec["notes"]["opt_idle_batch_note"]
+    assert rec["notes"]["idle_axes"] == ["pod", "data"]
+    assert "opt_idle_batch_note" not in rec["notes"]
     assert rec["variant"]["ssm_chunk"] == 128
     assert dataclasses.asdict(get_config("mamba2-370m").ssm)["chunk"] != 128

@@ -77,11 +77,24 @@ def test_tp_decode_flops_closed_form(b, s):
 
 
 def test_opt_idle_batch_is_recorded_as_not_ported(reduced):
+    """``--opt-idle-batch`` is ported (the name is kept from when it was
+    not): a batch that splits over the agent axes leaves no axis idle, so
+    the flag changes nothing there; a batch of one runs on all 256 cards,
+    its KV cache's sequence split over the data axis and counted on the
+    ``idle_axis`` collectives."""
     rec = tdry.run_one("qwen3-8b", "decode_32k", "single", opt_idle_batch=True)[0]
     assert rec["status"] == "ok" and rec["notes"]["opt_idle_batch"]
-    assert rec["notes"]["opt_idle_batch_note"].startswith("not ported yet")
+    assert "opt_idle_batch_note" not in rec["notes"] and "idle_axes" not in rec["notes"]
     plain = tdry.run_one("qwen3-8b", "decode_32k", "single")[0]
     assert rec["cost"] == plain["cost"] and rec["collectives"] == plain["collectives"]
+    one = tdry.run_one("qwen3-8b", "long_500k", "single", opt_idle_batch=True)[0]
+    flat = tdry.run_one("qwen3-8b", "long_500k", "single")[0]
+    assert one["status"] == "ok" and one["n_chips"] == 256 and flat["n_chips"] == 16
+    assert one["notes"]["idle_axes"] == ["data"]
+    assert {k.rsplit("/", 1)[-1] for k, d in one["notes"]["cache_idle_layout"].items()
+            if d is not None} == {"k", "v"}
+    assert one["collectives"]["idle_axis"] > 0 and flat["collectives"]["idle_axis"] == 0
+    assert one["memory"]["argument_bytes"] < flat["memory"]["argument_bytes"]
 
 
 def test_hierarchical_records_gather_the_model_shard(reduced):

@@ -128,12 +128,15 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    with one Byzantine agent of four flipping its sign and the trimmed mean
    in the server round, card against CPU ("collective-reduced");
    then pod-as-agent on a mesh of 2 pods x 2 data ranks, each pod one agent
-   whose x, y and g are sharded over its data ranks (gathered before each
-   gradient call, the gradient reduce-scattered after it): the reduced model,
-   three rounds, card against CPU ("collective-hierarchical-reduced"), and
-   Mamba2-370m at full width in bf16, a gossip and a server round timed by
-   phase (local, gather, scatter, exchange), both agents' x bit-equal after
-   the server round, per-rank peak memory beside the flat path's
+   whose x, y and g are sharded over its data ranks (inside each gradient
+   call one period gathered at a time, its gradient reduce-scattered when
+   its backward ends): the reduced model, three rounds, card against CPU
+   ("collective-hierarchical-reduced"), and Mamba2-370m at full width in
+   bf16, one gradient call's all-gathers, reduce-scatters and the peak it
+   adds (checked below the gathered agent's parameters plus their
+   gradient), a gossip and a server round timed by phase (local, gather,
+   scatter, exchange), both agents' x bit-equal after the server round,
+   per-rank peak memory beside the flat path's
    ("collective-hierarchical-mamba2-370m");
    then tensor parallelism over the model axis ("tp", four ranks on the card
    again): Qwen3-8B whole in bf16 on (data 1, model 4), each rank's shard
@@ -4689,11 +4692,15 @@ def _hierarchical_run(torch, spec, dev, label, full):
     # from one point); each rank keeps its shard
     x0 = flatten_paths(bundle.init(seed=0) if full else get_bundle(cfg, "cpu").init(seed=0))
     x0 = S.shard_leaves({k: v.to(dev) for k, v in x0.items()}, dims, mesh)
-    vg = S.sharded_value_and_grad(S.flat_value_and_grad(bundle), mesh, dims)
+    vg = S.sharded_value_and_grad(bundle, mesh, dims)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     out = {"losses": [], "rounds": {}, "n_leaves": len(dims),
            "n_sharded": sum(d is not None for d in dims.values()),
            "state_bytes_per_card": notes["state_bytes_per_card"]}
+    if full:  # under remat the backward re-gathers each period
+        n_periods = cfg.n_layers // cfg.scan_period()
+        out["grad_call"] = dict(_grad_call(torch, vg, x0, batches[0][1], mesh, dims, n_periods),
+                                regathers=n_periods if cfg.remat else 0)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     state = init_rank_state(vg, x0, batches[0][1])
@@ -4735,6 +4742,41 @@ def _hierarchical_run(torch, spec, dev, label, full):
                                                  "after the server round")
     out["x"] = {k: v.detach().float().cpu() for k, v in whole.items()} if not full else None
     return out
+
+
+def _grad_call(torch, vg, shards, batch, mesh, dims, n_periods):
+    """One pod-as-agent gradient call on this rank: the all-gathers and
+    reduce-scatters over data that its handle counts, and on the card the
+    peak it adds above the memory allocated before it, beside its bound:
+    this rank's gradient shards twice (unbind's stack of the per-layer
+    gradients, PERF.md section 7) and the largest unit gathered at once (a
+    period or a top-level leaf) with its gradient.  ``gathered_gib``: the
+    gathered agent's parameters, what the whole-agent gather held, with as
+    much again for its gradient."""
+    n = mesh.shape["data"]
+    units = {}  # bytes gathered at once: a period (the stacked layers' share) or a top-level leaf
+    for k, v in shards.items():
+        u = k.split("/")[0]
+        units[u] = units.get(u, 0) + v.numel() * v.element_size() * (1 if dims[k] is None else n)
+    units["layers"] //= n_periods
+    grad_shards = sum(v.numel() * v.element_size() for v in shards.values())
+    dev = mesh.device
+    vg.data_axis.reset()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    loss, grads = vg(shards, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    added = torch.cuda.max_memory_allocated(dev) - before if dev.type == "cuda" else None
+    del loss, grads
+    stats = dict(vg.data_axis.stats)
+    gathered = sum(units.values()) - units["layers"] + units["layers"] * n_periods
+    return dict(n_gather=stats["all-gather"], n_scatter=stats["reduce-scatter"],
+                before_gib=before / 2**30, added_gib=None if added is None else added / 2**30,
+                bound_gib=(2 * grad_shards + 2 * max(units.values())) / 2**30,
+                gathered_gib=gathered / 2**30, shards_gib=grad_shards / 2**30)
 
 
 def _card_vs_cpu(torch, card, cpu):
@@ -4916,6 +4958,15 @@ def collective_paths(torch, dev, card, spec=None):
             f"{per['scatter_ms']:.3f}, exchange {per['exchange_ms']:.3f}), "
             f"{hf[0]['rounds'][kind]['bytes_sent'] / 1e9:.3f} GB sent per rank; losses by rank "
             f"{[round(f['losses'][int(kind[0]) - 1], 6) for f in hf]}")
+    gc = [f["grad_call"] for f in hf]
+    log(f"path {hlabel}: one gradient call per rank: {gc[0]['n_gather']} all-gathers and "
+        f"{gc[0]['n_scatter']} reduce-scatters over data (one of each a period, an all-gather "
+        f"more a period for the backward's re-gather); peak added above the memory allocated "
+        f"before it {', '.join(format(g['added_gib'] or 0.0, '.3f') for g in gc)} GiB "
+        f"(allocated before {gc[0]['before_gib']:.3f} GiB; bound {gc[0]['bound_gib']:.3f} GiB: "
+        f"the gradient shards twice and the largest unit gathered at once with its gradient) "
+        f"against the gathered agent's parameters plus their gradient, "
+        f"{2 * gc[0]['gathered_gib']:.3f} GiB, which the whole-agent gather held; on {card}")
     hpeaks = [f.get("peak_gib", 0.0) for f in hf]
     log(f"path {hlabel}: 2 pods x 2 data ranks, one row of {spec['hier_seq']} tokens a rank; "
         f"{hf[0]['n_sharded']} of {hf[0]['n_leaves']} leaves sharded over data, state "
@@ -4929,6 +4980,19 @@ def collective_paths(torch, dev, card, spec=None):
     for k in ("fused_local_step", "fused_mix_combine"):
         check(hier_reduced_counts.get(k, 0) > 0, f"collective-hierarchical-reduced: {k} not "
                                                  "launched")
+    for g in gc:  # per-period bytes (None on the CPU: nothing measured)
+        # the bound lies below the least a whole-agent gather adds: the
+        # gathered parameters and the gradient shards
+        check(g["bound_gib"] < g["gathered_gib"] + g["shards_gib"],
+              f"{hlabel}: the bound {g['bound_gib']:.3f} GiB does not tell a whole-agent gather "
+              f"({g['gathered_gib'] + g['shards_gib']:.3f} GiB) from the per-period one")
+        check(g["added_gib"] is not None and g["added_gib"] <= g["bound_gib"],
+              f"{hlabel}: a gradient call adds {g['added_gib']} GiB, past its bound "
+              f"({g['bound_gib']:.3f} GiB: the gradient shards twice and the largest unit "
+              f"gathered at once with its gradient)")
+        check(g["n_gather"] == g["n_scatter"] + g["regathers"] and g["n_scatter"] > 0,
+              f"{hlabel}: {g['n_gather']} all-gathers and {g['n_scatter']} reduce-scatters "
+              f"over data in a gradient call ({g['regathers']} periods re-gathered)")
     for f in hf:  # per rank: K8 once per leaf shard (the gossip round's x), K1 every step
         lc = f["launches"]
         check(lc["fused_mix_combine"] == f["n_leaves"] and lc["fused_local_step"] > 0,
@@ -5545,8 +5609,8 @@ def _tp_pod_one(torch, mesh, spec):
                 for i, x in enumerate(sampler(k))) for k in range(3)]
     bt = [(S.batch_share(loc, bd["local"], mesh), S.batch_share(com, bd["comm"], mesh))
           for loc, com in bt]
-    vg = S.sharded_value_and_grad(S.flat_value_and_grad(get_bundle(cfg, dev, ModelAxis(mesh))),
-                                  mesh, notes["data_dims"])
+    vg = S.sharded_value_and_grad(get_bundle(cfg, dev, ModelAxis(mesh)), mesh,
+                                  notes["data_dims"])
     state = init_rank_state(vg, x0, bt[0][1])
     out = {"n_data_split": sum(d is not None for d in notes["data_dims"].values())}
     for k, kind in enumerate(("gossip", "global"), start=1):

@@ -27,7 +27,10 @@ placements split and run the forward and backward on their share of the
 heads and widths; the collectives that GSPMD inserts for the reference are
 written out as autograd functions over the model sub-group (:func:`enter`,
 :func:`exit_sum`, :func:`gather_last`), which the models reach through a
-:class:`ModelAxis` handle (None: the whole model on one rank).
+:class:`ModelAxis` handle (None: the whole model on one rank).  Under
+pod-as-agent the models reach the data axis through a :class:`DataAxis`
+handle, which gathers a period's shards where the period starts and
+reduce-scatters its gradient when the period's backward ends.
 :func:`make_production_mesh` is the port's layout of the reference's 256-
 and 512-chip meshes for the dry run, (data 16, model 16) and (pod 2, data
 16, model 16), with no process group behind it; its collectives move no data
@@ -45,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.utils.pytree import nest_map_with_path
 
 
 @dataclasses.dataclass
@@ -472,6 +476,163 @@ def model_axis(mesh, axis: str = "model") -> Optional[ModelAxis]:
     if mesh is None or mesh.shape.get(axis, 1) == 1:
         return None
     return ModelAxis(mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# Pod-as-agent's data axis: a period's parameters gathered where they are used
+# ---------------------------------------------------------------------------
+
+
+class _DataGather(torch.autograd.Function):
+    """The data ranks' shards gathered along each one's data dim forward,
+    the gradients reduce-scattered back to this rank's shards (summed in
+    their own dtype) backward.  The shards of one dtype travel as one flat
+    buffer: one all-gather and one reduce-scatter per dtype a call.  The
+    forward is charged to the mesh clock's "gather", the backward to its
+    "scatter"; nothing is saved for the backward but shapes."""
+
+    @staticmethod
+    def forward(ctx, handle, dims, *shards):
+        mesh, n = handle.mesh, handle.size
+        ctx.handle, ctx.dims = handle, dims
+        ctx.shapes = [s.shape for s in shards]
+        outs: List[Optional[torch.Tensor]] = [None] * len(shards)
+        with mesh.clock.span("gather", mesh.device):
+            for idx in _by_dtype(shards):
+                parts = handle.collective("all-gather", torch.cat(
+                    [shards[i].reshape(-1) for i in idx]))  # (n, total)
+                off = 0
+                for i in idx:
+                    s, d = shards[i].shape, dims[i]
+                    blk = parts[:, off:off + s.numel()].reshape((n,) + tuple(s))
+                    outs[i] = blk.movedim(0, d).reshape(s[:d] + (n * s[d],) + s[d + 1:])
+                    off += s.numel()
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        handle, n = ctx.handle, ctx.handle.size
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        with handle.mesh.clock.span("scatter", handle.mesh.device):
+            for idx in _by_dtype(grads):
+                rows = []
+                for i in idx:
+                    s, d = ctx.shapes[i], ctx.dims[i]
+                    g = grads[i].reshape(s[:d] + (n, s[d]) + s[d + 1:])
+                    rows.append(g.movedim(d, 0).reshape(n, -1))
+                red = handle.collective("reduce-scatter", torch.cat(rows, 1))[0]
+                for i, blk in zip(idx, red.split([ctx.shapes[i].numel() for i in idx])):
+                    out[i] = blk.view(ctx.shapes[i])
+        return (None, None, *out)
+
+
+class _DataSum(torch.autograd.Function):
+    """The sum of the data ranks' ``x`` forward and backward (a statistic
+    of the agent's batch that every rank's loss reads: the gradient of the
+    summed statistic is the sum of the ranks'), charged to "scatter"."""
+
+    @staticmethod
+    def forward(ctx, handle, x):
+        ctx.handle = handle
+        with handle.mesh.clock.span("scatter", handle.mesh.device):
+            return handle.collective("all-reduce", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        handle = ctx.handle
+        with handle.mesh.clock.span("scatter", handle.mesh.device):
+            return None, handle.collective("all-reduce", g)
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The positions of ``tensors`` grouped by dtype, in first-seen order."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataAxis:
+    """The models' handle on pod-as-agent's data axis: the mesh and, per
+    parameter path, the dim of the agent's leaf (its model shard under a
+    model axis) that the data ranks split, None where every data rank holds
+    it whole (:func:`repro_torch.launch.steps.fsdp_placement`'s ``dims``).
+    A model given one runs on this rank's data shards and its share of the
+    agent's batch.  It gathers each period's parameters at the top of the
+    period (:meth:`gather`), inside the period's remat region; the gradient
+    of a gathered leaf is reduce-scattered as soon as the period's backward
+    ends.  Leaves held whole pass through: their gradients stay this rank's
+    partial sums.  An MoE layer's load-balance loss reads statistics of the
+    agent's whole batch through :meth:`sum`.  ``stats`` counts the
+    collectives over ``data`` by kind (shared by :meth:`gathered`'s
+    copies)."""
+
+    mesh: object
+    dims: Dict[str, Optional[int]]
+    stats: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(("all-gather", "reduce-scatter", "all-reduce"), 0))
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape["data"]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.coords["data"]
+
+    def collective(self, kind: str, x: torch.Tensor) -> torch.Tensor:
+        """One collective over ``data``, counted in ``stats``: an
+        "all-gather" ((n, *x.shape)), a "reduce-scatter" (this rank's block
+        of the sum, split along dim 0) or an "all-reduce" (the sum)."""
+        self.stats[kind] += 1
+        if kind == "all-gather":
+            return self.mesh.all_gather(x, ("data",))
+        if kind == "reduce-scatter":
+            return self.mesh.reduce_scatter_sum(x, ("data",), 0)
+        return self.mesh.all_reduce_sum(x, ("data",))
+
+    def reset(self) -> None:
+        for k in self.stats:
+            self.stats[k] = 0
+
+    def whole_shape(self, path: str, shard: torch.Tensor) -> Tuple[int, ...]:
+        """The gathered shape of the leaf at ``path`` from this rank's shard."""
+        s, d = tuple(shard.shape), self.dims[path]
+        return s if d is None else s[:d] + (self.size * s[d],) + s[d + 1:]
+
+    def gather(self, tree, path: str, layer: bool = False):
+        """``tree`` (a leaf or a nested dict or list of leaves at ``path``
+        of the parameters, "" for the root) with every sharded leaf gathered
+        over the data ranks, in one collective per dtype.  ``layer``: the
+        leaves are one layer of stacked leaves, whose dims count the layer
+        axis first."""
+        found: Dict[str, Tuple[torch.Tensor, int]] = {}
+
+        def visit(p: str, t: torch.Tensor) -> None:
+            d = self.dims[p]
+            if d is not None:
+                # the FSDP rule's min_dim (1,024) exceeds every depth
+                assert not (layer and d == 0), f"{p}: the data axis splits the layer axis"
+                found[p] = (t, d - 1 if layer else d)
+
+        root = (path,) if path else ()
+        nest_map_with_path(visit, tree, root)
+        if not found:
+            return tree
+        keys = list(found)
+        outs = dict(zip(keys, _DataGather.apply(self, tuple(found[k][1] for k in keys),
+                                                *(found[k][0] for k in keys))))
+        return nest_map_with_path(lambda p, t: outs.get(p, t), tree, root)
+
+    def gathered(self, *paths: str) -> "DataAxis":
+        """This handle with the leaves at ``paths`` marked whole (a leaf the
+        caller has gathered once and reuses)."""
+        return dataclasses.replace(self, dims={**self.dims, **dict.fromkeys(paths)})
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the data ranks' ``x``, with the summed gradient."""
+        return _DataSum.apply(self, x)
 
 
 # ---------------------------------------------------------------------------

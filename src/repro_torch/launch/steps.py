@@ -11,9 +11,11 @@ function, its arguments as meta tensors (nothing allocated) and notes.
   each rank; ``"hierarchical"`` (pod-as-agent) makes each pod one agent
   whose x, y and g are sharded over the pod's ``data`` ranks
   (:func:`fsdp_placement`, the reference's ``add_fsdp_axis``) and whose
-  batch splits over them: the ranks gather the agent's parameters before
-  each gradient call and reduce-scatter its gradient after it, and
-  everything else of the round runs on the shards.  Gossip runs over the
+  batch splits over them: inside each gradient call the ranks gather one
+  period of the agent's parameters at a time and reduce-scatter its
+  gradient as soon as the period's backward ends
+  (:func:`sharded_value_and_grad`), and everything else of the round runs
+  on the shards.  Gossip runs over the
   mesh's circulant topology — a ring over one agent axis, a torus over two
   — through :func:`repro_torch.core.mixing.collective_shift_mixing`, the server round
   is a sum over the agent axes.  Over a
@@ -57,8 +59,8 @@ from repro_torch.core.mixing import MixingOps, collective_shift_mixing
 from repro_torch.core.pisco import PiscoConfig, PiscoState, make_rank_round_fn
 from repro_torch.core.topology import mixing_rate
 from repro_torch.launch import input_specs as I
-from repro_torch.launch.mesh import (agent_axes_for, idle_axes_of, idle_axis, model_axis,
-                                     n_agents_for)
+from repro_torch.launch.mesh import (DataAxis, agent_axes_for, idle_axes_of, idle_axis,
+                                     model_axis, n_agents_for)
 from repro_torch.launch.specs import (CACHE_SEQ, EXPERT_LEAVES, Layout, Segments, add_fsdp_axis,
                                       cache_seq_dim, data_dims, model_dims,
                                       optimize_idle_batch_specs, sanitize_specs, shard_bytes,
@@ -91,7 +93,7 @@ class StepSpec:
 def meta_bundle(bundle: ModelBundle) -> ModelBundle:
     """The bundle's twin on the meta device (with the same model axis)."""
     return (bundle if bundle.device.type == "meta"
-            else get_bundle(bundle.cfg, META, bundle.tp, bundle.idle))
+            else get_bundle(bundle.cfg, META, bundle.tp, bundle.idle, bundle.fsdp))
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +279,9 @@ def agent_shards(whole: Dict[str, Sequence[int]], dims: Dict[str, Optional[int]]
 def gather_leaves(shards: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
                   mesh) -> Dict[str, torch.Tensor]:
     """The agent's whole leaves from the data ranks' shards (an all-gather
-    over ``data`` per sharded leaf), charged to the mesh clock's "gather"."""
+    over ``data`` per sharded leaf), charged to the mesh clock's "gather":
+    to rebuild an agent from its ranks (the gradient never gathers it
+    whole)."""
     out = {}
     with mesh.clock.span("gather", mesh.device):
         for k, v in shards.items():
@@ -290,37 +294,47 @@ def gather_leaves(shards: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]
     return out
 
 
-def sharded_value_and_grad(vg: Callable, mesh, dims: Dict[str, Optional[int]]) -> Callable:
-    """Pod-as-agent's ``vg(shards, batch_share) -> (loss, grad shards)``:
-    gather the agent's parameters over ``data``, take the gradient of this
-    rank's share of the batch, then reduce-scatter each sharded leaf's
-    gradient (all-reduce a whole one) in the gradient's dtype, as the
-    reference's reduction does, and divide it by the data size: the agent's
-    mean gradient over its whole batch, as the reference's synchronous data
-    parallelism inside a pod computes it.  The loss is the mean over the data
-    ranks.  The reductions are charged to the mesh clock's "scatter" (their
-    transfers to "exchange" as well).
+GATHER_NOTE = (
+    "one period of the agent's model shard at a time, at the top of the period inside its "
+    "remat region (re-gathered in the backward), its sharded leaves coalesced into one "
+    "all-gather per dtype; each period's gradient reduce-scattered in its own dtype as soon "
+    "as the period's backward ends; the head layers one at a time, the embedding, head and "
+    "final norms where they are used (a tied embedding once); without remat autograd keeps "
+    "each gathered period for the backward, as the reference's residuals would")
 
-    The whole agent is gathered before the call, not one layer at a time as
-    the reference's FSDP gathers inside its layer scan: while the gradient
-    runs, each rank holds the agent's whole parameters and gradient, and only
-    the resting x, y and g are sharded.  A step's peak bytes are therefore the
-    gathered agent's, above the reference's."""
+
+def sharded_value_and_grad(bundle: ModelBundle, mesh, dims: Dict[str, Optional[int]]) -> Callable:
+    """Pod-as-agent's ``vg(shards, batch_share) -> (loss, grad shards)``:
+    ``bundle``'s value-and-grad on this rank's data shards (``dims``,
+    :func:`fsdp_placement`'s) and its share of the agent's batch.  Its loss
+    gathers each period's parameters over ``data`` where the period starts,
+    inside its remat region, and reduce-scatters each period's gradient in
+    its own dtype when the period's backward ends, as the reference's FSDP
+    does inside its layer scan (:class:`~repro_torch.launch.mesh.DataAxis`,
+    the returned function's ``data_axis``); with remat a rank never holds
+    more than one period gathered.  The gradients of leaves held whole are
+    all-reduced, and every gradient is divided by the data size: the
+    agent's mean gradient over its whole batch, as the reference's
+    synchronous data parallelism inside a pod computes it.  The loss is the
+    mean over the data ranks.  The gathers are charged to the mesh clock's
+    "gather", the reductions to its "scatter" (their transfers to
+    "exchange" as well)."""
+    axis = DataAxis(mesh, dims)
+    vg = flat_value_and_grad(dataclasses.replace(bundle, fsdp=axis))
     n = mesh.shape["data"]
 
     def vg_sharded(shards, batch):
-        loss, grads = vg(gather_leaves(shards, dims, mesh), batch)
+        loss, grads = vg(shards, batch)
         out = {}
         with mesh.clock.span("scatter", mesh.device):
             for k in list(grads):
                 g = grads.pop(k)
-                red = (mesh.all_reduce_sum(g, ("data",)) if dims[k] is None
-                       else mesh.reduce_scatter_sum(g, ("data",), dims[k]))
-                out[k] = red / n
-                del g, red
+                out[k] = (g if dims[k] is not None else mesh.all_reduce_sum(g, ("data",))) / n
+                del g
             loss = mesh.all_reduce_sum(loss.detach().to(torch.float32).reshape(1), ("data",))
         return (loss / n).reshape(()), out
 
+    vg_sharded.data_axis = axis
     return vg_sharded
 
 
@@ -378,7 +392,8 @@ def build_train_steps(
     if tp is not None:
         bundle = get_bundle(bundle.cfg, bundle.device, tp)
     # over the dry run's counting mesh the round runs on the meta device
-    vg = flat_value_and_grad(meta_bundle(bundle) if mesh.device.type == "meta" else bundle)
+    vg_bundle = meta_bundle(bundle) if mesh.device.type == "meta" else bundle
+    vg = flat_value_and_grad(vg_bundle)
     notes = {
         "n_agents": n_agents,
         "agent_axes": agent_axes,
@@ -405,14 +420,12 @@ def build_train_steps(
         specs, dropped, dims = fsdp_placement(bundle, mesh, n_agents, agent_axes, layout)
         b_per_agent = shape.global_batch // n_agents
         bdims = {"comm": batch_dims(one, b_per_agent), "local": batch_dims(local, b_per_agent, 1)}
-        vg = sharded_value_and_grad(vg, mesh, dims)
+        vg = sharded_value_and_grad(vg_bundle, mesh, dims)
         x = shard_leaves(x, dims, mesh)
         local, one = batch_share(local, bdims["local"], mesh), batch_share(one, bdims["comm"], mesh)
         notes.update(agent_mode=agent_mode, placements={k: list(v) for k, v in specs.items()},
                      dropped_shardings=dropped, data_dims=dims, batch_dims=bdims,
-                     gather="the agent's whole model shard before the gradient call (the "
-                     "reference gathers one layer at a time): peak bytes hold the gathered "
-                     "model shard's parameters and gradient, not the reference's")
+                     gather=GATHER_NOTE)
     # x, y and g, each this rank's shard
     notes["state_bytes_per_card"] = 3 * sum(v.numel() * v.element_size() for v in x.values())
     state = PiscoState(x=x, y={k: torch.empty_like(v) for k, v in x.items()},

@@ -49,8 +49,9 @@ from repro_torch.models.layers import (can_remat, linear, normal_init, remat_cal
                                        seeded_generator, sharded, spec_rms_norm)
 from repro_torch.models.mlp import init_mlp, mlp_forward, spec_mlp
 from repro_torch.models.rope import rope_cos_sin, text_positions
-from repro_torch.models.transformer import (_ce_sum, dtype_of, embed_lookup, head_logits,
-                                            stacked_specs, unstack, vocab_ce_sum, vocab_tp)
+from repro_torch.models.transformer import (_ce_sum, dtype_of, embed_lookup, gathered,
+                                            head_logits, stacked_specs, unstack, vocab_ce_sum,
+                                            vocab_tp)
 from repro_torch.utils.pytree import flatten_paths, nest_map
 
 Tensor = torch.Tensor
@@ -141,16 +142,18 @@ def _ffn_tp(lp: Dict, cfg: ModelConfig, tp):
 
 
 def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
-            attend: Callable[[Dict, Tensor, Any], Tensor], remat: bool, tp=None) -> Tensor:
+            attend: Callable[[Dict, Tensor, Any], Tensor], remat: bool, tp=None,
+            fsdp=None) -> Tensor:
     """The encoder stack, each layer's self-attention computed by
-    ``attend(attn_params, normed_x, cos_sin)``."""
+    ``attend(attn_params, normed_x, cos_sin)``; under ``fsdp`` each layer
+    gathered where it starts, inside its remat region."""
     b, t, _ = frames.shape
     cos_sin = _cos_sin(cfg, b, t, 0, frames.device)
 
     layers = unstack(params["enc_layers"], cfg.n_encoder_layers)
 
     def layer(x: Tensor, i: int) -> Tensor:
-        lp = layers[i]
+        lp = gathered(fsdp, layers[i], "enc_layers", layer=True)
         x = x + attend(lp["attn"], rms_norm(x, lp["norm1"]["scale"], cfg.norm_eps), cos_sin)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.norm_eps)
         return x + mlp_forward(lp["ffn"], cfg.mlp_type, h, tp=_ffn_tp(lp, cfg, tp))
@@ -159,15 +162,15 @@ def _encode(params: Tree, cfg: ModelConfig, frames: Tensor,
     remat = remat and can_remat(x)
     for i in range(cfg.n_encoder_layers):
         x = remat_call(cfg.remat_policy, layer, x, i) if remat else layer(x, i)
-    return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+    return rms_norm(x, gathered(fsdp, params["enc_norm"], "enc_norm")["scale"], cfg.norm_eps)
 
 
-def encode(params: Tree, cfg: ModelConfig, frames: Tensor, tp=None) -> Tensor:
+def encode(params: Tree, cfg: ModelConfig, frames: Tensor, tp=None, fsdp=None) -> Tensor:
     """frames (B, T, d_model), the stub frontend's output -> the encoder
     memory (B, T, d_model): the training forward, bidirectional."""
     return _encode(params, cfg, frames,
                    lambda p, h, cs: A.gqa_forward(p, cfg, h, cs, causal=False, tp=tp),
-                   cfg.remat, tp)
+                   cfg.remat, tp, fsdp)
 
 
 def encode_prefill(params: Tree, cfg: ModelConfig, frames: Tensor, *,
@@ -208,43 +211,48 @@ def _dec_layer(lp: Dict, cfg: ModelConfig, x: Tensor, memory: Tensor, cos_sin,
 
 
 def _decoder_hidden(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor,
-                    tp=None) -> Tensor:
+                    tp=None, fsdp=None) -> Tensor:
     """The teacher-forced decoder to its final norm."""
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, vocab_tp(params, cfg, tp))
+    x = embed_lookup(gathered(fsdp, params["embed"], "embed"), tokens,
+                     vocab_tp(params, cfg, tp, fsdp))
     cos_sin = _cos_sin(cfg, b, s, 0, x.device)
     mem_cos_sin = _cos_sin(cfg, b, memory.shape[1], 0, x.device)
 
     layers = unstack(params["dec_layers"], cfg.n_layers)
 
     def layer(xx: Tensor, i: int) -> Tensor:
-        return _dec_layer(layers[i], cfg, xx, memory, cos_sin, mem_cos_sin, tp)
+        lp = gathered(fsdp, layers[i], "dec_layers", layer=True)
+        return _dec_layer(lp, cfg, xx, memory, cos_sin, mem_cos_sin, tp)
 
     remat = cfg.remat and can_remat(x)
     for i in range(cfg.n_layers):
         x = remat_call(cfg.remat_policy, layer, x, i) if remat else layer(x, i)
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return rms_norm(x, gathered(fsdp, params["final_norm"], "final_norm")["scale"],
+                    cfg.norm_eps)
 
 
 def decode_train(params: Tree, cfg: ModelConfig, tokens: Tensor, memory: Tensor,
-                 tp=None) -> Tensor:
+                 tp=None, fsdp=None) -> Tensor:
     """Teacher-forced decoder over ``tokens`` (B, S) against ``memory``;
     returns logits (B, S, V)."""
-    return head_logits(params, cfg, _decoder_hidden(params, cfg, tokens, memory, tp), tp)
+    hidden = _decoder_hidden(params, cfg, tokens, memory, tp, fsdp)
+    return head_logits(params, cfg, hidden, tp, fsdp)
 
 
-def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None) -> Tensor:
+def encdec_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None, fsdp=None) -> Tensor:
     """Next-token cross-entropy of the decoder over ``batch["tokens"]`` (B,
-    S) given ``batch["frames"]`` (B, T, d_model); logits in float32."""
-    memory = encode(params, cfg, batch["frames"], tp)
+    S) given ``batch["frames"]`` (B, T, d_model); logits in float32.
+    ``fsdp``: as :func:`repro_torch.models.transformer.lm_loss`'s."""
+    memory = encode(params, cfg, batch["frames"], tp, fsdp)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    vtp = vocab_tp(params, cfg, tp)
+    vtp = vocab_tp(params, cfg, tp, fsdp)
     if vtp is not None:
-        hidden = _decoder_hidden(params, cfg, tokens, memory, tp)
-        return vocab_ce_sum(hidden[:, :-1], params["lm_head"], tokens[:, 1:],
-                            vtp) / (b * (s - 1))
-    logits = decode_train(params, cfg, tokens, memory, tp)
+        hidden = _decoder_hidden(params, cfg, tokens, memory, tp, fsdp)
+        return vocab_ce_sum(hidden[:, :-1], gathered(fsdp, params["lm_head"], "lm_head"),
+                            tokens[:, 1:], vtp) / (b * (s - 1))
+    logits = decode_train(params, cfg, tokens, memory, tp, fsdp)
     return _ce_sum(logits[:, :-1], tokens[:, 1:]) / (b * (s - 1))
 
 

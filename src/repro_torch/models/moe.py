@@ -31,6 +31,15 @@ ranks' partial outputs are summed; the routing weights enter the region, so
 the router's gradient is summed over the ranks, and the load-balance loss,
 computed on every rank from the same routes, is counted once.
 
+Pod-as-agent (``fsdp``, :class:`repro_torch.launch.mesh.DataAxis`): each
+data rank holds its share of the agent's tokens, and the load-balance loss
+is the agent's whole batch's, as the reference's GSPMD computes it: the
+expert counts and the router probabilities are summed over the data ranks
+(with the sum's gradient) before their product.  Each rank dispatches its
+own tokens with the capacity of its own share (``ROADMAP.md`` §C: the
+reference sizes and fills capacity over the whole batch; the two differ
+only where an expert overflows).
+
 A batch-1 decode over the idle axes (``idle``) splits the experts over
 them: each rank runs the selected experts it holds (the batched form, the
 dry run's, drops the entries routed elsewhere) and the partial outputs are
@@ -105,12 +114,19 @@ def _expert_counts(top_idx: Tensor, n_experts: int) -> Tensor:
         0, flat, torch.ones_like(flat))
 
 
-def aux_load_balance_loss(probs: Tensor, top_idx: Tensor, mo: MoEConfig) -> Tensor:
+def aux_load_balance_loss(probs: Tensor, top_idx: Tensor, mo: MoEConfig,
+                          fsdp=None) -> Tensor:
     """``E · sum_e f_e · p_e · coef``: f the share of routed entries, p the
-    mean router probability of each expert."""
+    mean router probability of each expert; under ``fsdp`` both over the
+    agent's whole batch, from the counts and probabilities summed over the
+    data ranks (exact in float32 below 2**24 entries an expert)."""
     counts = _expert_counts(top_idx, mo.n_experts).to(torch.float32)
-    frac = counts / (top_idx.shape[0] * mo.top_k)
-    return mo.n_experts * torch.sum(frac * torch.mean(probs, dim=0)) * mo.router_aux_coef
+    if fsdp is None:
+        frac = counts / (top_idx.shape[0] * mo.top_k)
+        return mo.n_experts * torch.sum(frac * torch.mean(probs, dim=0)) * mo.router_aux_coef
+    counts, p_sum = fsdp.sum(torch.stack([counts, probs.sum(0)]))
+    t = top_idx.shape[0] * fsdp.size
+    return mo.n_experts * torch.sum(counts / (t * mo.top_k) * (p_sum / t)) * mo.router_aux_coef
 
 
 def capacity(mo: MoEConfig, t: int) -> int:
@@ -192,16 +208,18 @@ def dispatch_in_place(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tens
 
 
 def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None,
-                idle=None) -> Tuple[Tensor, Tensor]:
+                idle=None, fsdp=None) -> Tuple[Tensor, Tensor]:
     """xf (T, d) -> (y (T, d), aux): one routing group.  Under ``idle`` this
     rank holds its block of the experts (over the idle axes): it runs the
     entries routed to them, and the partial outputs are summed over the
     idle ranks (in float32 for 16-bit) before the shared experts are
-    added; the routing is computed on every rank from the same inputs."""
+    added; the routing is computed on every rank from the same inputs.
+    Under ``fsdp`` xf is this data rank's share of the agent's batch, and
+    aux the whole batch's."""
     mo = cfg.moe
     logits = xf.to(torch.float32) @ params["router"]
     top_idx, top_w, probs = route(logits, mo)
-    aux = aux_load_balance_loss(probs, top_idx, mo)
+    aux = aux_load_balance_loss(probs, top_idx, mo, fsdp)
     experts = {n: params[n] for n in ("w_gate", "w_up", "w_down") if n in params}
     # one token reads its experts in place, but its ids are data: on the
     # meta device (the dry run) it takes the batched form, as the reference lowers
@@ -228,14 +246,16 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None,
 
 
 def moe_forward(params: Dict, cfg: ModelConfig, x: Tensor,
-                slotted: bool = False, tp=None, idle=None) -> Tuple[Tensor, Tensor]:
+                slotted: bool = False, tp=None, idle=None,
+                fsdp=None) -> Tuple[Tensor, Tensor]:
     """x (B, S, d) -> (y (B, S, d), aux loss).  With ``slotted`` every leaf
     of ``params`` carries a leading axis of size B and each row is its own
     routing group; aux is then one loss per row.  ``idle``: the experts
-    split over a batch-1 decode's idle axes (:func:`_moe_tokens`)."""
+    split over a batch-1 decode's idle axes; ``fsdp``: x is this data
+    rank's share of the agent's batch (:func:`_moe_tokens`)."""
     b, s, d = x.shape
     if not slotted:
-        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp, idle)
+        y, aux = _moe_tokens(params, cfg, x.reshape(b * s, d), tp, idle, fsdp)
         return y.reshape(b, s, d), aux
     ys, auxs = [], []
     for row in range(b):

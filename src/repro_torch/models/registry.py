@@ -12,7 +12,10 @@ A bundle made with ``tp`` (an agent's
 :class:`repro_torch.launch.mesh.ModelAxis`) runs every entry point on this
 rank's model shard of the parameters and cache (tensor parallelism inside
 the agent); its logits, losses and gradients are the whole model's, the
-gradients each leaf's shard.
+gradients each leaf's shard.  One made with ``fsdp`` (pod-as-agent's
+:class:`repro_torch.launch.mesh.DataAxis`) takes this rank's data shards in
+its loss and gradient, and gathers each period's parameters where the
+period starts (training only).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ class ModelBundle:
     device: torch.device
     tp: Any = dataclasses.field(default=None, compare=False)
     idle: Any = dataclasses.field(default=None, compare=False)
+    fsdp: Any = dataclasses.field(default=None, compare=False)
 
     def init(self, seed: int = 0, leaf_hook=None) -> Tree:
         """``leaf_hook``: see :func:`repro_torch.models.layers.seeded_generator`."""
@@ -78,7 +82,7 @@ class ModelBundle:
         return T.lm_decode(slot_params, self.cfg, tokens, cache, slotted=True)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
-        return T.lm_loss(params, self.cfg, batch, tp=self.tp)
+        return T.lm_loss(params, self.cfg, batch, tp=self.tp, fsdp=self.fsdp)
 
     def value_and_grad(self, params: Tree, batch: Dict) -> Tuple[torch.Tensor, Tree]:
         """``(loss, grads)`` of :meth:`loss` at ``params`` (the twin of
@@ -124,20 +128,22 @@ class EncDecBundle(ModelBundle):
         return E.encdec_decode_step(params, self.cfg, token, cache, tp=self.tp, idle=self.idle)
 
     def loss(self, params: Tree, batch: Dict) -> torch.Tensor:
-        return E.encdec_loss(params, self.cfg, batch, tp=self.tp)
+        return E.encdec_loss(params, self.cfg, batch, tp=self.tp, fsdp=self.fsdp)
 
 
 def get_bundle(cfg: ModelConfig, device: DeviceLike = None, tp: Any = None,
-               idle: Any = None) -> ModelBundle:
+               idle: Any = None, fsdp: Any = None) -> ModelBundle:
     """The bundle of a configuration on ``device`` (CUDA when none is
     given): an :class:`EncDecBundle` for an encoder-decoder.  ``tp``: the
     agent's model axis when the bundle runs on a rank's model shard;
     ``idle``: a batch-1 decode's idle axes
     (:class:`repro_torch.launch.mesh.IdleAxis`), when its cache and experts
-    are split over them (decode only)."""
+    are split over them (decode only); ``fsdp``: pod-as-agent's data axis
+    (:class:`repro_torch.launch.mesh.DataAxis`), when its loss and gradient
+    run on a rank's data shards (training only)."""
     T.check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:  # the index tensors report
         dev = torch.device("cuda", torch.cuda.current_device())
     return (EncDecBundle if cfg.is_enc_dec else ModelBundle)(cfg=cfg, device=dev, tp=tp,
-                                                             idle=idle)
+                                                             idle=idle, fsdp=fsdp)

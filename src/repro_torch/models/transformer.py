@@ -55,6 +55,15 @@ a split vocabulary is looked up with the ids outside the rank's block
 masked, the loss is the vocab-parallel cross-entropy (max, log-sum-exp and
 target logit reduced over the ranks), and the prefill's and decode's logits
 are gathered over the ranks, the reference's replicated output.
+
+Pod-as-agent: the loss takes ``fsdp``, the agent's data axis
+(:class:`repro_torch.launch.mesh.DataAxis`) or None, and then the rank's
+data shards of the parameters.  The stacked shards are unbound once, and
+each period gathers its own layers at its top, inside its remat region, so
+that the backward re-gathers the period and its gradient is reduce-scattered
+when its backward ends; head layers are gathered one at a time, the
+embedding, head and final norm where they are used (a tied embedding once).
+An MoE layer routes the agent's whole batch (``repro_torch.models.moe``).
 """
 from __future__ import annotations
 
@@ -289,24 +298,36 @@ def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device, positions=None):
 
 
 def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False,
-         tp=None, idle=None):
-    """The block's FFN on its normed input: (out, MoE aux loss or None)."""
+         tp=None, idle=None, fsdp=None):
+    """The block's FFN on its normed input: (out, MoE aux loss or None);
+    ``fsdp``: an MoE layer routes the agent's whole batch."""
     h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
     if ffn_kind == "dense":
         tp = sharded(tp, bp["ffn"]["w_down"].shape[-2], cfg.d_ff)
         return mlp_forward(bp["ffn"], cfg.mlp_type, h, slotted, tp), None
-    return moe_forward(bp["ffn"], cfg, h, slotted, tp, idle)
+    return moe_forward(bp["ffn"], cfg, h, slotted, tp, idle, fsdp)
 
 
-def _lm_head(params: Tree, cfg: ModelConfig) -> Tensor:
-    if not cfg.tie_embeddings:
-        return params["lm_head"]
-    return params["embed"].transpose(-1, -2)
+def gathered(fsdp, tree: Tree, path: str, layer: bool = False) -> Tree:
+    """``tree`` (the parameters at ``path``) gathered over the data ranks
+    under ``fsdp`` (:class:`repro_torch.launch.mesh.DataAxis`), as it is
+    without."""
+    return tree if fsdp is None else fsdp.gather(tree, path, layer)
 
 
-def vocab_tp(params: Tree, cfg: ModelConfig, tp):
+def _lm_head(params: Tree, cfg: ModelConfig, fsdp=None) -> Tensor:
+    """The vocabulary projection's weight (the embedding's transpose when
+    tied), gathered over the data ranks under ``fsdp``."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    head = gathered(fsdp, params[key], key)
+    return head.transpose(-1, -2) if cfg.tie_embeddings else head
+
+
+def vocab_tp(params: Tree, cfg: ModelConfig, tp, fsdp=None):
     """``tp`` when the vocabulary is split over the model ranks."""
-    return sharded(tp, params["embed"].shape[0], cfg.vocab_size)
+    emb = params["embed"]
+    rows = emb.shape[0] if fsdp is None else fsdp.whole_shape("embed", emb)[0]
+    return sharded(tp, rows, cfg.vocab_size)
 
 
 def embed_lookup(embed: Tensor, ids: Tensor, tp=None) -> Tensor:
@@ -321,13 +342,14 @@ def embed_lookup(embed: Tensor, ids: Tensor, tp=None) -> Tensor:
     return tp.exit(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
 
 
-def head_logits(params: Tree, cfg: ModelConfig, hidden: Tensor, tp=None) -> Tensor:
+def head_logits(params: Tree, cfg: ModelConfig, hidden: Tensor, tp=None,
+                fsdp=None) -> Tensor:
     """The vocabulary projection, gathered over the model ranks when the
     vocabulary is split (the reference's replicated logits)."""
-    tp = vocab_tp(params, cfg, tp)
+    tp = vocab_tp(params, cfg, tp, fsdp)
     if tp is None:
-        return linear(hidden, _lm_head(params, cfg))
-    return tp.gather(linear(tp.enter(hidden), _lm_head(params, cfg)))
+        return linear(hidden, _lm_head(params, cfg, fsdp))
+    return tp.gather(linear(tp.enter(hidden), _lm_head(params, cfg, fsdp)))
 
 
 # ---------------------------------------------------------------------------
@@ -336,8 +358,10 @@ def head_logits(params: Tree, cfg: ModelConfig, hidden: Tensor, tp=None) -> Tens
 
 
 def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tensor,
-                  cos_sin, tp=None) -> Tuple[Tensor, Tensor]:
-    """One layer of the training forward: (x, MoE aux loss)."""
+                  cos_sin, tp=None, fsdp=None) -> Tuple[Tensor, Tensor]:
+    """One layer of the training forward on its gathered parameters: (x,
+    MoE aux loss); ``fsdp``: x is this data rank's share of the agent's
+    batch, which an MoE layer routes whole."""
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
     if kind == "attn" and cfg.attn_impl == "mla":
         h = A.mla_forward(bp["mixer"], cfg, h, cos_sin, tp=tp)
@@ -348,7 +372,7 @@ def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tenso
     x = x + h
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn_kind != "none":
-        h, a = _ffn(bp, cfg, ffn_kind, x, tp=tp)
+        h, a = _ffn(bp, cfg, ffn_kind, x, tp=tp, fsdp=fsdp)
         x = x + h
         if a is not None:
             aux = aux + a
@@ -356,10 +380,11 @@ def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tenso
 
 
 def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor], cfg: ModelConfig,
-           tp=None) -> Tensor:
+           tp=None, fsdp=None) -> Tensor:
     """Token embeddings (B, S_txt, d), after the prefix (B, S_img, d) when
     one is given (cast to the embeddings' dtype)."""
-    x = embed_lookup(params["embed"], tokens, vocab_tp(params, cfg, tp))
+    x = embed_lookup(gathered(fsdp, params["embed"], "embed"), tokens,
+                     vocab_tp(params, cfg, tp, fsdp))
     if prefix_embeds is None:
         return x
     return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -367,24 +392,31 @@ def _embed(params: Tree, tokens: Tensor, prefix_embeds: Optional[Tensor], cfg: M
 
 def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
                    prefix_embeds: Optional[Tensor] = None,
-                   positions: Optional[Tensor] = None, tp=None) -> Tuple[Tensor, Tensor]:
+                   positions: Optional[Tensor] = None, tp=None,
+                   fsdp=None) -> Tuple[Tensor, Tensor]:
     """Forward to the final norm, without the vocabulary projection; returns
-    (hidden (B, S_img + S_txt, d), MoE aux loss summed over the layers)."""
+    (hidden (B, S_img + S_txt, d), MoE aux loss summed over the layers).
+    Under ``fsdp`` each head layer and each period is gathered where it
+    starts, the period inside its remat region."""
     head_pat, period_pat, n_periods = _period_patterns(cfg)
-    x = _embed(params, tokens, prefix_embeds, cfg, tp)
+    x = _embed(params, tokens, prefix_embeds, cfg, tp, fsdp)
     b, s, _ = x.shape
     cos_sin = _cos_sin(cfg, b, s, 0, x.device, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp, (k, f) in zip(params["head_layers"], head_pat):
-        x, a = block_forward(bp, cfg, k, f, x, cos_sin, tp)
+    for j, (bp, (k, f)) in enumerate(zip(params["head_layers"], head_pat)):
+        x, a = block_forward(gathered(fsdp, bp, f"head_layers/{j}"), cfg, k, f, x, cos_sin, tp,
+                             fsdp)
         aux = aux + a
 
+    # the stacked shards unbound once; a period gathers its own layers
     layers = [unstack(params["layers"][f"pos{i}"], n_periods) for i in range(len(period_pat))]
 
     def period(x_in: Tensor, p: int) -> Tuple[Tensor, Tensor]:
+        lp = gathered(fsdp, {f"pos{i}": layers[i][p] for i in range(len(period_pat))}, "layers",
+                      layer=True)
         a_tot = torch.zeros((), dtype=torch.float32, device=x_in.device)
         for i, (k, f) in enumerate(period_pat):
-            x_in, a = block_forward(layers[i][p], cfg, k, f, x_in, cos_sin, tp)
+            x_in, a = block_forward(lp[f"pos{i}"], cfg, k, f, x_in, cos_sin, tp, fsdp)
             a_tot = a_tot + a
         return x_in, a_tot
 
@@ -394,16 +426,18 @@ def _hidden_states(params: Tree, cfg: ModelConfig, tokens: Tensor,
         x, a = remat_call(cfg.remat_policy, period, x, p) if remat else period(x, p)
         auxs.append(a)
     aux = aux + torch.sum(torch.stack(auxs))
-    return rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps), aux
+    norm = gathered(fsdp, params["final_norm"], "final_norm")
+    return rms_norm(x, norm["scale"], cfg.norm_eps), aux
 
 
 def lm_forward(params: Tree, cfg: ModelConfig, tokens: Tensor, *,
                prefix_embeds: Optional[Tensor] = None,
-               positions: Optional[Tensor] = None, tp=None) -> Tuple[Tensor, Tensor]:
+               positions: Optional[Tensor] = None, tp=None,
+               fsdp=None) -> Tuple[Tensor, Tensor]:
     """Full causal training forward over the prefix and the tokens; returns
     (logits (B, S_img + S_txt, V), MoE aux)."""
-    hidden, aux = _hidden_states(params, cfg, tokens, prefix_embeds, positions, tp)
-    return head_logits(params, cfg, hidden, tp), aux
+    hidden, aux = _hidden_states(params, cfg, tokens, prefix_embeds, positions, tp, fsdp)
+    return head_logits(params, cfg, hidden, tp, fsdp), aux
 
 
 def _ce_sum(logits: Tensor, targets: Tensor, tp=None) -> Tensor:
@@ -446,25 +480,36 @@ def _chunked_ce(hidden: Tensor, head: Tensor, targets: Tensor, chunk: int,
     return total / (b * s_pred)
 
 
-def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None) -> Tensor:
+def tie_gathered(params: Tree, cfg: ModelConfig, fsdp) -> Tuple[Tree, Any]:
+    """``(params, fsdp)`` with a tied embedding gathered once over the data
+    ranks, for its lookup and the head both, and marked whole in ``fsdp``."""
+    if fsdp is None or not cfg.tie_embeddings:
+        return params, fsdp
+    return {**params, "embed": fsdp.gather(params["embed"], "embed")}, fsdp.gathered("embed")
+
+
+def lm_loss(params: Tree, cfg: ModelConfig, batch: Dict, tp=None, fsdp=None) -> Tensor:
     """Next-token cross-entropy over ``batch["tokens"]`` (B, S): position t
     of the text tail predicts token t + 1, logits in float32; plus the MoE
     aux loss.  ``batch`` may carry ``prefix_embeds`` and ``positions``
-    (VLM)."""
+    (VLM).  ``fsdp``: pod-as-agent's data axis
+    (:class:`repro_torch.launch.mesh.DataAxis`), when ``params`` are this
+    rank's data shards; each leaf is gathered where it is used."""
     tokens = batch["tokens"]
     prefix, positions = batch.get("prefix_embeds"), batch.get("positions")
     b, s = tokens.shape
-    vtp = vocab_tp(params, cfg, tp)
+    params, fsdp = tie_gathered(params, cfg, fsdp)
+    vtp = vocab_tp(params, cfg, tp, fsdp)
     if cfg.loss_chunk > 0:
-        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp)
-        return _chunked_ce(hidden[:, -s:-1], _lm_head(params, cfg), tokens[:, 1:],
+        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp, fsdp)
+        return _chunked_ce(hidden[:, -s:-1], _lm_head(params, cfg, fsdp), tokens[:, 1:],
                            cfg.loss_chunk, vtp) + aux
     if vtp is not None:
-        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp)
-        return vocab_ce_sum(hidden[:, -s:-1], _lm_head(params, cfg), tokens[:, 1:],
+        hidden, aux = _hidden_states(params, cfg, tokens, prefix, positions, tp, fsdp)
+        return vocab_ce_sum(hidden[:, -s:-1], _lm_head(params, cfg, fsdp), tokens[:, 1:],
                             vtp) / (b * (s - 1)) + aux
     logits, aux = lm_forward(params, cfg, tokens, prefix_embeds=prefix, positions=positions,
-                             tp=tp)
+                             tp=tp, fsdp=fsdp)
     return _ce_sum(logits[:, -s:-1], tokens[:, 1:]) / (b * (s - 1)) + aux
 
 

@@ -1,0 +1,37 @@
+"""The gradient call that pod-as-agent made before each period gathered its
+own parameters, kept as the oracle of ``test_torch_fsdp_layers`` and of
+``tools/fsdp_gather_ab.py``: the agent's whole model shard gathered before
+the call (``launch.steps.gather_leaves``), the gradient, then each sharded
+leaf's gradient reduce-scattered and each whole one all-reduced, divided by
+the data size; the loss the mean over the data ranks.  An MoE layer still
+routes the agent's whole batch (a ``DataAxis`` that shards no leaf)."""
+import dataclasses
+
+import torch
+
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import DataAxis
+
+
+def whole_gather_value_and_grad(bundle, mesh, dims):
+    """``vg(shards, batch_share) -> (loss, grad shards)`` through the whole
+    agent gathered at once; ``data_axis`` counts the MoE layers' collectives."""
+    axis = DataAxis(mesh, dict.fromkeys(dims))
+    vg = S.flat_value_and_grad(dataclasses.replace(bundle, fsdp=axis))
+    n = mesh.shape["data"]
+
+    def call(shards, batch):
+        loss, grads = vg(S.gather_leaves(shards, dims, mesh), batch)
+        out = {}
+        with mesh.clock.span("scatter", mesh.device):
+            for k in list(grads):
+                g = grads.pop(k)
+                red = (mesh.all_reduce_sum(g, ("data",)) if dims[k] is None
+                       else mesh.reduce_scatter_sum(g, ("data",), dims[k]))
+                out[k] = red / n
+                del g, red
+            loss = mesh.all_reduce_sum(loss.detach().to(torch.float32).reshape(1), ("data",))
+        return (loss / n).reshape(()), out
+
+    call.data_axis = axis
+    return call

@@ -105,7 +105,7 @@ _RANK = textwrap.dedent("""
         batches = [(S.batch_share(loc, bd["local"], mesh), S.batch_share(com, bd["comm"], mesh))
                    for loc, com in batches]
         x0 = S.shard_leaves(x0, dims, mesh)
-        vg = S.sharded_value_and_grad(vg, mesh, dims)
+        vg = S.sharded_value_and_grad(get_bundle(cfg, "cpu", ModelAxis(mesh)), mesh, dims)
     res = {"differs": np.array(json.dumps(differs)), "notes": np.array(json.dumps(
         {k: notes[k] for k in ("model_axis", "layout_differs", "agent_axes", "n_agents")}))}
 

@@ -13,8 +13,9 @@ model with two leaves, ``b`` (3,) and ``w`` (8, 3):
   ``random`` with the mean, trimmed, median and Krum server rules, and one
   ring wrapped in q8d (deterministic int8 with error feedback);
 * pod-as-agent, two agents on ``pod`` over two ``data`` ranks each, ``w``
-  split over ``data`` (its rows; ``b`` held by both), the rounds' gradients
-  gathered and reduce-scattered (``repro_torch.launch.steps.sharded_value_and_grad``),
+  split over ``data`` (its rows; ``b`` held by both), ``w`` gathered in the
+  loss and its gradient reduce-scattered (``repro_torch.launch.mesh.DataAxis``,
+  ``repro_torch.launch.steps.sharded_value_and_grad``),
   the agent's shards given by ``repro_torch.launch.steps.agent_shards``.
 
 The Byzantine masks are bit-equal to the reference's.  ``signflip`` and
@@ -91,7 +92,7 @@ def make_data(n):
 """
 
 _PORT = textwrap.dedent("""
-    import json, os
+    import dataclasses, json, os, types
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -118,12 +119,19 @@ _PORT = textwrap.dedent("""
     def loss(p, b):
         return torch.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2)
 
-    def vg(p, b):
-        live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        with torch.enable_grad():
-            value = loss(live, b)
-            grads = torch.autograd.grad(value, [live[k] for k in sorted(live)])
-        return value.detach(), dict(zip(sorted(live), grads))
+    # what sharded_value_and_grad reads of a model bundle; the tree is flat
+    # (params_from_paths keeps an encoder-decoder's as it is)
+    @dataclasses.dataclass
+    class Bundle:
+        fsdp: object = None  # pod-as-agent's DataAxis: the loss gathers w
+        cfg = types.SimpleNamespace(is_enc_dec=True)
+
+        def value_and_grad(self, p, b):
+            live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            with torch.enable_grad():
+                value = loss(live if self.fsdp is None else self.fsdp.gather(live, ""), b)
+                grads = torch.autograd.grad(value, [live[k] for k in sorted(live)])
+            return value.detach(), dict(zip(sorted(live), grads))
 
     meshes = {"flat": make_mesh((4,), ("data",), "cpu"),
               "pod": make_mesh((2, 2), ("pod", "data"), "cpu")}
@@ -141,13 +149,14 @@ _PORT = textwrap.dedent("""
         else:
             base = M.collective_dense_mixing(mesh, agent_axes,
                                              make_topology("erdos_renyi", n, prob=0.6, seed=3))
-        shards, fn, mine = None, vg, lambda t: torch.from_numpy(np.ascontiguousarray(t))
+        shards, fn = None, Bundle().value_and_grad
+        mine = lambda t: torch.from_numpy(np.ascontiguousarray(t))  # noqa: E731
         x = {k: mine(v) for k, v in x0.items()}
         if kind == "pod":  # w's rows split over data, b held by both data ranks
             d, nd = mesh.coords["data"], mesh.shape["data"]
             dims = {"b": None, "w": 0}
             shards = ST.agent_shards({k: v.shape for k, v in x0.items()}, dims, mesh)
-            fn = ST.sharded_value_and_grad(vg, mesh, dims)
+            fn = ST.sharded_value_and_grad(Bundle(), mesh, dims)
             x = ST.shard_leaves(x, dims, mesh)
         mixing = A.make_adversarial_mixing(base, adversary, robust, n_agents=n, seed=SEED,
                                            shards=shards)

@@ -91,7 +91,7 @@ _RANK = textwrap.dedent("""
         batches = [(S.batch_share(loc, bd["local"], mesh), S.batch_share(com, bd["comm"], mesh))
                    for loc, com in batches]
         x0 = S.shard_leaves(x0, dims, mesh)
-        vg = S.sharded_value_and_grad(vg, mesh, dims)
+        vg = S.sharded_value_and_grad(bundle, mesh, dims)
         res["n_sharded"] = np.array(sum(d is not None for d in dims.values()))
         # the reduce-scatter against this rank's block of the all-reduce over
         # the same sub-group, bit for bit

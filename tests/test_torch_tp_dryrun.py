@@ -13,6 +13,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import dryrun as tdry
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import GATHER_NOTE
 
 
 @pytest.fixture
@@ -103,7 +104,7 @@ def test_hierarchical_records_gather_the_model_shard(reduced):
     spec = tdry.build_steps(cfg, InputShape("t", 64, 64, "train"), mesh,
                             agent_mode="hierarchical")["train_gossip"]
     assert spec.notes["model_axis"] == 16
-    assert "model shard" in spec.notes["gather"]
+    assert spec.notes["gather"] == GATHER_NOTE and "one period" in GATHER_NOTE
     assert any(d is not None for d in spec.notes["data_dims"].values())
     counts = spec.lower()
     assert counts["collectives"]["model_axis"] > 0 and counts["collectives"]["all-gather"] > 0

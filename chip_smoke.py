@@ -137,7 +137,16 @@ on a machine with one NVIDIA H100 and the CUDA toolkit.  It
    gradient), a gossip and a server round timed by phase (local, gather,
    scatter, exchange), both agents' x bit-equal after the server round,
    per-rank peak memory beside the flat path's
-   ("collective-hierarchical-mamba2-370m");
+   ("collective-hierarchical-mamba2-370m"); then pod-as-agent's MoE
+   capacity, sized and filled over the agent's whole batch: DeepSeek-V2-Lite
+   at full width in bf16 (capacity factor 1.25, 2 of its 27 layers, one row
+   of 256 tokens a data rank), one gradient call held against the whole
+   agent's on the card ("collective-hierarchical-deepseek-v2-lite-16b"), and
+   the reduced model at capacity factor 1.0 in f32, card against CPU
+   ("collective-hierarchical-moe-reduced"); in both each rank's kept
+   (token, expert) entries equal the whole-batch rule on the agent's
+   gathered routes, and some differ from what each rank's own capacity
+   would keep;
    then tensor parallelism over the model axis ("tp", four ranks on the card
    again): Qwen3-8B whole in bf16 on (data 1, model 4), each rank's shard
    drawn leaf by leaf, a 500-token prompt through ``build_prefill_step`` and
@@ -4366,16 +4375,35 @@ def fleet_paths(torch, dev, card):
 
 # collective-mamba2-370m: a quarter of TRAIN_4K's sequence (1,024 of 4,096,
 # to keep the script inside its time), 4 agents (not 16) with 2
-# sequences each (not 64: global batch 8, not 256), T_o = 2, eta_l = 1e-2,
+# sequences each (not 64: global batch 8, not 256), T_o = 1 (2 before the
+# MoE capacity paths were added; one gradient call fewer a round pays for
+# them), eta_l = 1e-2,
 # eta_c = 1, the f32 wire; "reduced" is collective-reduced's model and sizes.
 # collective-hierarchical-reduced widens that model to d_model 1,024, the
 # FSDP rule's least sharded dim, so that 5 of its 11 leaves shard over data
 # (as at full width) and the card-vs-CPU comparison covers the gathers and
 # the reduce-scatter.
+# collective-hierarchical-deepseek-v2-lite-16b: DeepSeek-V2-Lite
+# (arXiv:2405.04434) at full width in bf16, capacity factor 1.25 as
+# published, layers 27 -> 2 (the dense first layer and one MoE layer of 64
+# experts, top-6), pod 2 x data 2 x model 1, one row of 256 tokens a data
+# rank (capacity 30 an expert over a rank's rows, 60 over the agent's), one
+# pod-as-agent gradient call; collective-hierarchical-moe-reduced: the
+# reduced DeepSeek-V2-Lite widened to d_model 1,024 (as
+# collective-hierarchical-reduced) at capacity factor 1.0, f32, full remat,
+# one row of 64 tokens a rank, card against the same ranks on the CPU.
 COLLECTIVE = dict(world=4, arch="mamba2-370m", reduced=False, dtype="bfloat16", seq=256,
-                  batch=2, t_o=2, eta_l=1e-2, eta_c=1.0, wire="float32",
+                  batch=2, t_o=1, eta_l=1e-2, eta_c=1.0, wire="float32",
                   reduced_seq=64, reduced_batch=2, reduced_rounds=2, hier_seq=256,
-                  hier_reduced_d_model=1024)
+                  hier_reduced_d_model=1024, moe_arch="deepseek-v2-lite-16b", moe_layers=2,
+                  moe_seq=256, moe_reduced_seq=64, moe_reduced_cf=1.0)
+# collective-hierarchical-deepseek-v2-lite-16b against the whole agent's
+# loss and gradient on the same card (the same weights and rows, capacity
+# over the whole batch): the loss within MOE_LOSS_RTOL relative and each
+# leaf's gradient norm, gathered over data, within MOE_GRAD_NORM_RTOL (bf16:
+# the data ranks' gradients round to bf16 before their reduce-scatter)
+MOE_LOSS_RTOL = 1e-3
+MOE_GRAD_NORM_RTOL = 5e-2
 # collective-reduced, card against CPU: f32 round losses within 1e-4 relative
 # and the final x within 1e-4 of its largest magnitude (cuBLAS and the CPU
 # sum in other orders over three rounds); with int8 gossip (q8d) a few
@@ -4779,6 +4807,139 @@ def _grad_call(torch, vg, shards, batch, mesh, dims, n_periods):
                 gathered_gib=gathered / 2**30, shards_gib=grad_shards / 2**30)
 
 
+def _kept_entries(np, flat_expert, n_experts, cap):
+    """The reference's kept entries of a routing group's flat (T·k,) expert
+    ids: each expert's first ``cap`` in a stable sort by expert."""
+    order = np.argsort(flat_expert, kind="stable")
+    counts = np.bincount(flat_expert, minlength=n_experts)
+    place = np.arange(flat_expert.size) - (np.cumsum(counts) - counts)[flat_expert[order]]
+    kept = np.zeros(flat_expert.size, bool)
+    kept[order] = place < cap
+    return kept
+
+
+def _moe_capacity_run(torch, spec, dev, label, full):
+    """One pod-as-agent gradient call of DeepSeek-V2-Lite on this rank (mesh
+    pod 2 x data 2 x model 1, one row of the agent's batch a data rank),
+    its MoE layers' routes and kept entries recorded (each layer's forward
+    and its recompute): this rank's kept set against the whole-batch rule
+    on the agent's routes gathered over data, the entries that capacity
+    over the rank's own rows would have kept otherwise, the buffer's rows c
+    against both capacities, the collectives over data, ms and peak GiB.
+    Full width: on the pod's first data rank the loss and gradients
+    against the whole agent's on the same card; reduced: the gathered
+    gradients for the card-vs-CPU comparison (``grads``, dropped before
+    the JSON)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh, rank_slice
+    from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.models.transformer import _period_patterns
+    from repro_torch.utils.pytree import flatten_paths
+
+    published = get_config(spec["moe_arch"], "bfloat16")
+    if full and not spec["reduced"]:
+        cfg = dataclasses.replace(published, n_layers=spec["moe_layers"])
+    else:  # the reduced model (a rehearsal's full path at the published capacity factor)
+        cfg = dataclasses.replace(get_reduced(spec["moe_arch"]),
+                                  d_model=spec["hier_reduced_d_model"], remat=True)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=(published.moe.capacity_factor if full
+                                      else spec["moe_reduced_cf"])))
+    seq = spec["moe_seq"] if full else spec["moe_reduced_seq"]
+    mo = cfg.moe
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), dev)
+    bundle = get_bundle(cfg, dev)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=seq, global_batch=4)
+    notes = S.build_train_steps(bundle, shape, mesh, agent_mode="hierarchical")[
+        "train_gossip"].notes
+    dims = notes["data_dims"]
+    comm = rank_slice(make_lm_sampler(cfg, 2, 2, seq, 1, seed=0)(0)[1], mesh, ("pod",),
+                      device=dev)
+    batch = S.batch_share(comm, notes["batch_dims"]["comm"], mesh)
+    lead = full and mesh.coords["data"] == 0  # holds the whole agent for the comparison
+    whole = flatten_paths(bundle.init(seed=0) if full else get_bundle(cfg, "cpu").init(seed=0))
+    whole = {k: v.to(dev) for k, v in whole.items()}
+    shards = S.shard_leaves(whole, dims, mesh)
+    if not lead:
+        del whole
+    vg = S.sharded_value_and_grad(bundle, mesh, dims)
+    calls = []
+    real_route, real_dispatch = MOE.route, MOE.dispatch_batched
+
+    def route(logits, m):
+        out = real_route(logits, m)
+        calls.append({"top_idx": out[0]})
+        return out
+
+    def dispatch(*a, **kw):
+        out = real_dispatch(*a, **kw)
+        calls[-1].update(kept=(out != 0).any(-1), c=kw.get("cap"),
+                         rule=kw.get("keep") is not None)
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    MOE.route, MOE.dispatch_batched = route, dispatch
+    try:
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = vg(shards, batch)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        MOE.route, MOE.dispatch_batched = real_route, real_dispatch
+    t = batch["tokens"].numel()
+    i = mesh.coords["data"]
+    out = {"ms": ms, "loss": float(loss), "collectives": dict(vg.data_axis.stats),
+           "cap_rank": MOE.capacity(mo, t), "cap_agent": MOE.capacity(mo, 2 * t),
+           "tokens": t, "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                                     if dev.type == "cuda" else 0.0),
+           "n_moe": sum(f == "moe" for f in cfg.ffn_kinds()), "remat": cfg.remat,
+           # the backward's re-gathers: one per dtype of a period's sharded leaves
+           "regathers": cfg.remat * _period_patterns(cfg)[2] * len(
+               {v.dtype for k, v in shards.items()
+                if k.startswith("layers/") and dims[k] is not None}),
+           "top_k": mo.top_k, "layers": []}
+    for rec in calls:  # the agent's routes: this rank's block follows the ranks before it
+        routes = mesh.all_gather(rec["top_idx"].contiguous(), ("data",)).cpu().numpy()
+        agent = _kept_entries(np, routes.reshape(-1), mo.n_experts, out["cap_agent"]).reshape(
+            routes.shape)[i]
+        own = _kept_entries(np, routes[i].reshape(-1), mo.n_experts,
+                            out["cap_rank"]).reshape(agent.shape)
+        kept = rec["kept"].cpu().numpy()
+        out["layers"].append(dict(c=rec["c"], rule=rec["rule"],
+                                  exact=bool(np.array_equal(kept, agent)),
+                                  differ_from_own=int(np.sum(own != agent)),
+                                  dropped=int(np.sum(~agent)), entries=int(agent.size)))
+    gathered = S.gather_leaves(grads, dims, mesh)
+    del grads
+    if not full:
+        out["grads"] = {k: v.detach().float().cpu() for k, v in gathered.items()}
+    elif lead:
+        w_loss, w_grads = S.flat_value_and_grad(bundle)(whole, comm)
+        del whole
+        norm_dev = {}
+        for name, g in w_grads.items():
+            want = float(g.double().norm())
+            norm_dev[name] = abs(float(gathered[name].double().norm()) - want) / max(want, 1e-30)
+        out.update(whole_loss=float(w_loss), grad_norm_dev=norm_dev,
+                   loss_dev=abs(float(loss) - float(w_loss)) / abs(float(w_loss)))
+        del w_grads
+    del gathered, shards
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _card_vs_cpu(torch, card, cpu):
     """Per deterministic mixer of collective-reduced: this rank's final x on
     the card against the CPU, as the largest deviation over its limit (see
@@ -4836,10 +4997,107 @@ def collective_rank(rank, spec, port, out_dir):
         res["hier_reduced"] = dict(card=card, cpu=cpu, x_used_of_limit=used)
         res["hier_full"] = _hierarchical_run(torch, spec, dev,
                                              "collective-hierarchical-mamba2-370m", True)
+        res.update(_moe_capacity_paths(torch, spec, dev))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         dist.destroy_process_group()
+
+
+def _moe_capacity_paths(torch, spec, dev):
+    """This rank's share of the two MoE capacity paths:
+    collective-hierarchical-moe-reduced on the card and on the CPU, held
+    against each other here (the gathered gradients' largest deviation over
+    COLLECTIVE_TOL["exact"] of each leaf's largest magnitude), then
+    collective-hierarchical-deepseek-v2-lite-16b on the card."""
+    label = "collective-hierarchical-moe-reduced"
+    card = _moe_capacity_run(torch, spec, dev, label, False)
+    cpu = _moe_capacity_run(torch, spec, torch.device("cpu"), label, False)
+    used = 0.0
+    for name, v in card.pop("grads").items():
+        want = cpu["grads"][name]
+        scale = max(float(want.abs().max()), 1e-30)
+        used = max(used, float((v - want).abs().max()) / (COLLECTIVE_TOL["exact"] * scale))
+    del cpu["grads"]
+    return {"moe_reduced": dict(card=card, cpu=cpu, grad_used_of_limit=used),
+            "moe_full": _moe_capacity_run(torch, spec, dev,
+                                          "collective-hierarchical-deepseek-v2-lite-16b", True)}
+
+
+def _moe_capacity_report(runs, label, card):
+    """Log and check one MoE capacity path's per-rank runs: every MoE call
+    under the whole-batch rule with its kept set exact, the recompute's
+    kept set and c equal to the forward's, more than 0 entries that
+    per-rank capacity would have kept otherwise, the collectives over data
+    as counted."""
+    differ = 0
+    for r, run in enumerate(runs):
+        cs = [lay["c"] for lay in run["layers"]]
+        differ += sum(lay["differ_from_own"] for lay in run["layers"][:run["n_moe"]])
+        log(f"path {label} rank {r}: one gradient call {run['ms']:.1f} ms, loss "
+            f"{run['loss']:.6f}, collectives over data {run['collectives']}; c "
+            f"{cs} (forward, recompute) against cap_rank {run['cap_rank']} and cap_agent "
+            f"{run['cap_agent']} over {run['tokens']} tokens; kept sets exact "
+            f"{[lay['exact'] for lay in run['layers']]}, dropped "
+            f"{[lay['dropped'] for lay in run['layers']]} of "
+            f"{run['layers'][0]['entries'] if run['layers'] else 0}, per-rank capacity would "
+            f"keep {[lay['differ_from_own'] for lay in run['layers']]} entries otherwise; peak "
+            f"{run['peak_gib']:.3f} GiB; on {card}")
+        passes = 2 if run["remat"] else 1
+        check(len(run["layers"]) == passes * run["n_moe"] and run["n_moe"] > 0,
+              f"{label} rank {r}: {len(run['layers'])} MoE calls for {run['n_moe']} layers")
+        check(all(lay["rule"] and lay["exact"] for lay in run["layers"]),
+              f"{label} rank {r}: a kept set is not the whole-batch rule's")
+        check(sorted(cs[:run["n_moe"]]) == sorted(cs[run["n_moe"]:]) or not run["remat"],
+              f"{label} rank {r}: the recompute's c {cs} differs from the forward's")
+        check(max(cs) <= min(run["cap_agent"], run["tokens"] * run["top_k"]),
+              f"{label} rank {r}: c {cs} past min(cap_agent, T_rank k)")
+        st = run["collectives"]
+        check(st["all-gather"] == st["reduce-scatter"] + run["regathers"] + passes * run["n_moe"]
+              and st["all-reduce"] == (passes + 1) * run["n_moe"],
+              f"{label} rank {r}: collectives over data {st}")
+    log(f"path {label}: {differ} (token, expert) entries over the ranks' forward MoE calls that "
+        f"capacity over each rank's own rows would have kept otherwise")
+    check(differ > 0, f"{label}: no expert overflowed differently per rank and per agent")
+
+
+def _moe_capacity_summary(res, card):
+    """Report and check the two MoE capacity paths from the ranks' results
+    (:func:`_moe_capacity_paths`)."""
+    import numpy as np
+
+    mr = [r["moe_reduced"] for r in res]
+    label = "collective-hierarchical-moe-reduced"
+    for where in ("card", "cpu"):
+        _moe_capacity_report([r[where] for r in mr], f"{label} ({where})", card)
+    g = np.array([r["card"]["loss"] for r in mr])
+    c = np.array([r["cpu"]["loss"] for r in mr])
+    rel = float(np.max(np.abs(g - c) / np.abs(c)))
+    used = max(r["grad_used_of_limit"] for r in mr)
+    lim = COLLECTIVE_TOL["exact"]
+    log(f"compare {label}: card vs CPU on 2 pods x 2 data ranks, loss deviation {rel:.3e} "
+        f"(limit {lim}), gathered gradients at {used:.3f} of their limit")
+    check(rel <= lim and used <= 1.0, f"{label}: card and CPU apart (loss {rel}, gradients "
+                                      f"{used} of the limit)")
+    mf = [r["moe_full"] for r in res]
+    label = "collective-hierarchical-deepseek-v2-lite-16b"
+    _moe_capacity_report(mf, label, card)
+    for r, run in enumerate(mf):
+        if "grad_norm_dev" not in run:
+            continue
+        nd = run["grad_norm_dev"]
+        worst = max(nd, key=nd.get)
+        log(f"compare {label} rank {r}: against the whole agent on the same card, loss "
+            f"{run['loss']:.6f} vs {run['whole_loss']:.6f} (relative {run['loss_dev']:.3e}, limit "
+            f"{MOE_LOSS_RTOL}); gradient norms gathered over data: worst {worst} "
+            f"{nd[worst]:.3e}, median {float(np.median(list(nd.values()))):.3e} (limit "
+            f"{MOE_GRAD_NORM_RTOL})")
+        check(run["loss_dev"] <= MOE_LOSS_RTOL, f"{label} rank {r}: loss apart by "
+                                                f"{run['loss_dev']}")
+        check(nd[worst] <= MOE_GRAD_NORM_RTOL, f"{label} rank {r}: the gradient of {worst} "
+                                               f"apart by {nd[worst]}")
+    check(sum("grad_norm_dev" in run for run in mf) == 2,
+          f"{label}: not every agent held against its whole gradient")
 
 
 def collective_paths(torch, dev, card, spec=None):
@@ -4974,6 +5232,7 @@ def collective_paths(torch, dev, card, spec=None):
         f"{', '.join(format(p, '.3f') for p in hpeaks)} GiB against the flat path's "
         f"{', '.join(format(p, '.3f') for p in peaks)} GiB; launches summed over ranks "
         f"{hier_counts}; on {card}")
+    _moe_capacity_summary(res, card)
     # the launch checks last (on the CPU, in a rehearsal, nothing launches)
     for k in ("fused_local_step", "fused_mix_combine", "row_absmax", "rowwise_quant_dequant"):
         check(reduced_counts.get(k, 0) > 0, f"collective-reduced: {k} not launched")

@@ -198,16 +198,19 @@ class RankMesh:
             self.clock.bytes_sent += buf.numel() * buf.element_size()
             return self._from_wire(buf)
 
-    def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str],
+                   host: bool = False) -> torch.Tensor:
         """(n, *x.shape): every rank's ``x`` over ``axes``, in row-major
-        order of their coordinates."""
+        order of their coordinates.  ``host``: the result on the host, where
+        gloo's staged exchange left it (one copy from the device otherwise)."""
         with self.clock.span("exchange", self.device):
             group, ranks = self.group(axes)
             send = self._to_wire(x)
             parts = [self._empty_wire(x) for _ in ranks]
             dist.all_gather(parts, send, group=group)
             self.clock.bytes_sent += send.numel() * send.element_size()
-            return self._from_wire(torch.stack(parts))
+            out = torch.stack(parts)
+            return out.cpu() if host else self._from_wire(out)
 
     def reduce_scatter_sum(self, x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
         """This rank's block of the sum of ``x`` over the ranks of ``axes``:
@@ -333,7 +336,8 @@ class CountingMesh:
     def all_reduce_max(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         return self._count("all-reduce", torch.empty_like(x), axes)
 
-    def all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axes: Sequence[str],
+                   host: bool = False) -> torch.Tensor:
         return self._count("all-gather", x.new_empty((self.size(axes),) + tuple(x.shape)), axes)
 
     def reduce_scatter_sum(self, x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
@@ -563,13 +567,19 @@ class DataAxis:
     period (:meth:`gather`), inside the period's remat region; the gradient
     of a gathered leaf is reduce-scattered as soon as the period's backward
     ends.  Leaves held whole pass through: their gradients stay this rank's
-    partial sums.  An MoE layer's load-balance loss reads statistics of the
-    agent's whole batch through :meth:`sum`.  ``stats`` counts the
-    collectives over ``data`` by kind (shared by :meth:`gathered`'s
+    partial sums.  An MoE layer sizes and fills expert capacity over the
+    agent's whole batch from the data ranks' expert counts
+    (:meth:`gather_counts`), and its load-balance loss reads the router
+    probabilities summed over them (:meth:`sum`).  ``split_batch``: each
+    data rank holds its contiguous block of the agent's rows, rank r the
+    r-th (:func:`repro_torch.launch.steps.batch_share`); False where the
+    batch does not divide and every rank holds it whole.  ``stats`` counts
+    the collectives over ``data`` by kind (shared by :meth:`gathered`'s
     copies)."""
 
     mesh: object
     dims: Dict[str, Optional[int]]
+    split_batch: bool = True
     stats: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(("all-gather", "reduce-scatter", "all-reduce"), 0))
 
@@ -633,6 +643,15 @@ class DataAxis:
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of the data ranks' ``x``, with the summed gradient."""
         return _DataSum.apply(self, x)
+
+    def gather_counts(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, *x.shape): every data rank's ``x``, a small integer tensor,
+        in rank order, with no gradient, on the host (on a
+        :class:`CountingMesh` a meta tensor), counted as an "all-gather" and
+        charged to the mesh clock's "scatter"."""
+        self.stats["all-gather"] += 1
+        with self.mesh.clock.span("scatter", self.mesh.device):
+            return self.mesh.all_gather(x.detach(), ("data",), host=True)
 
 
 # ---------------------------------------------------------------------------

@@ -66,8 +66,9 @@ from repro_torch.launch.specs import (CACHE_SEQ, EXPERT_LEAVES, Layout, Segments
                                       optimize_idle_batch_specs, sanitize_specs, shard_bytes,
                                       shard_model, shard_tree, stack_spec_tree)
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.registry import ModelBundle, get_bundle
-from repro_torch.models.transformer import params_from_paths
+from repro_torch.models.transformer import dtype_of, params_from_paths
 from repro_torch.utils.pytree import flatten_paths
 from repro_torch.utils.roofline import count_call
 
@@ -294,6 +295,24 @@ def gather_leaves(shards: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]
     return out
 
 
+def moe_capacity_notes(cfg, t_rank: int, n_data: int) -> Dict[str, Any]:
+    """What pod-as-agent's MoE layers buffer on a data rank of ``t_rank``
+    tokens: the rows an expert's buffer has on the meta device (the
+    balanced share, ``capacity(T_rank)``, which the counts above hold), the
+    agent's capacity, and the worst case on the card, ``min(cap_agent,
+    T_rank · k)`` rows, with its bytes a layer (E × rows × d_model)."""
+    mo = cfg.moe
+    cap_agent = MOE.capacity(mo, n_data * t_rank)
+    worst = min(cap_agent, t_rank * mo.top_k)
+    return {"tokens_per_rank": t_rank, "rows_counted": MOE.capacity(mo, t_rank),
+            "cap_agent": cap_agent, "rows_worst": worst,
+            "worst_buffer_bytes": mo.n_experts * worst * cfg.d_model
+            * dtype_of(cfg).itemsize,
+            "rule": "each data rank keeps clamp(cap_agent - before_r[e], 0, counts_r[e]) "
+                    "entries of expert e (before_r: the ranks before it), in a buffer of max_e "
+                    "rows, read on the host from the all-gathered expert counts"}
+
+
 GATHER_NOTE = (
     "one period of the agent's model shard at a time, at the top of the period inside its "
     "remat region (re-gathered in the backward), its sharded leaves coalesced into one "
@@ -303,7 +322,8 @@ GATHER_NOTE = (
     "each gathered period for the backward, as the reference's residuals would")
 
 
-def sharded_value_and_grad(bundle: ModelBundle, mesh, dims: Dict[str, Optional[int]]) -> Callable:
+def sharded_value_and_grad(bundle: ModelBundle, mesh, dims: Dict[str, Optional[int]],
+                           split_batch: bool = True) -> Callable:
     """Pod-as-agent's ``vg(shards, batch_share) -> (loss, grad shards)``:
     ``bundle``'s value-and-grad on this rank's data shards (``dims``,
     :func:`fsdp_placement`'s) and its share of the agent's batch.  Its loss
@@ -318,8 +338,12 @@ def sharded_value_and_grad(bundle: ModelBundle, mesh, dims: Dict[str, Optional[i
     synchronous data parallelism inside a pod computes it.  The loss is the
     mean over the data ranks.  The gathers are charged to the mesh clock's
     "gather", the reductions to its "scatter" (their transfers to
-    "exchange" as well)."""
-    axis = DataAxis(mesh, dims)
+    "exchange" as well).  ``split_batch``: the share is this rank's block of
+    the agent's rows (:func:`batch_share` of a batch that divides over the
+    data ranks, :func:`batch_splits`); False when every rank holds the whole
+    batch.  An MoE layer fills expert capacity over the agent's batch from
+    it (:mod:`repro_torch.models.moe`)."""
+    axis = DataAxis(mesh, dims, split_batch)
     vg = flat_value_and_grad(dataclasses.replace(bundle, fsdp=axis))
     n = mesh.shape["data"]
 
@@ -349,6 +373,13 @@ def batch_dims(batch: Dict[str, Any], b_per_agent: int, lead: int = 0) -> Dict[s
         out[k] = (lead if len(inner) >= 1 and inner[0] == b_per_agent else
                   lead + 1 if len(inner) >= 2 and inner[1] == b_per_agent else None)
     return out
+
+
+def batch_splits(batch: Dict[str, Any], dims: Dict[str, Optional[int]], mesh) -> bool:
+    """Whether :func:`batch_share` hands each data rank its own block of
+    every batch leaf (each batch dim divides over the data ranks)."""
+    n = mesh.shape["data"]
+    return all(dims[k] is None or v.shape[dims[k]] % n == 0 for k, v in batch.items())
 
 
 def batch_share(batch: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
@@ -420,12 +451,17 @@ def build_train_steps(
         specs, dropped, dims = fsdp_placement(bundle, mesh, n_agents, agent_axes, layout)
         b_per_agent = shape.global_batch // n_agents
         bdims = {"comm": batch_dims(one, b_per_agent), "local": batch_dims(local, b_per_agent, 1)}
-        vg = sharded_value_and_grad(vg_bundle, mesh, dims)
+        vg = sharded_value_and_grad(vg_bundle, mesh, dims,
+                                    batch_splits(one, bdims["comm"], mesh)
+                                    and batch_splits(local, bdims["local"], mesh))
         x = shard_leaves(x, dims, mesh)
         local, one = batch_share(local, bdims["local"], mesh), batch_share(one, bdims["comm"], mesh)
         notes.update(agent_mode=agent_mode, placements={k: list(v) for k, v in specs.items()},
                      dropped_shardings=dropped, data_dims=dims, batch_dims=bdims,
                      gather=GATHER_NOTE)
+        if "moe" in bundle.cfg.ffn_kinds():
+            notes["moe_capacity"] = moe_capacity_notes(bundle.cfg, one["tokens"].numel(),
+                                                       mesh.shape["data"])
     # x, y and g, each this rank's shard
     notes["state_bytes_per_card"] = 3 * sum(v.numel() * v.element_size() for v in x.values())
     state = PiscoState(x=x, y={k: torch.empty_like(v) for k, v in x.items()},

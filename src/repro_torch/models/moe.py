@@ -32,13 +32,24 @@ the router's gradient is summed over the ranks, and the load-balance loss,
 computed on every rank from the same routes, is counted once.
 
 Pod-as-agent (``fsdp``, :class:`repro_torch.launch.mesh.DataAxis`): each
-data rank holds its share of the agent's tokens, and the load-balance loss
-is the agent's whole batch's, as the reference's GSPMD computes it: the
-expert counts and the router probabilities are summed over the data ranks
-(with the sum's gradient) before their product.  Each rank dispatches its
-own tokens with the capacity of its own share (``ROADMAP.md`` §C: the
-reference sizes and fills capacity over the whole batch; the two differ
-only where an expert overflows).
+data rank holds its block of the agent's rows, rank r the r-th, and routes
+its own tokens; capacity is sized and filled over the agent's whole batch,
+as the reference's GSPMD does.  In the agent's token stream rank r's
+entries follow those of ranks 0 … r-1, so the reference's stable sort by
+expert keeps rank r's j-th entry of expert e iff ``before_r[e] + j <
+cap_agent``, ``before_r[e]`` the entries of e on the ranks before it and
+``cap_agent = capacity(n · T_rank)``: rank r keeps ``keep_r[e] =
+clamp(cap_agent - before_r[e], 0, counts_r[e])`` (:func:`agent_keep`).  Only
+the ranks' (E,) expert counts cross (one all-gather with no gradient, read
+on the host), and no token or output moves: every rank holds the layer's
+experts, gathered at the top of its period.  The buffer is (E, c, d) with
+``c = max_e keep_r[e]``, never above min(cap_agent, T_rank · k) and near
+the balanced share ``capacity(T_rank)`` when routes are balanced; on the
+meta device (the dry run), which has no counts, ``c`` is that share.  The
+load-balance loss is the agent's: the gathered counts give its expert
+shares, the router probabilities are summed over the data ranks (with the
+sum's gradient).  Where the agent's batch does not split, every rank holds
+it whole and routes it as one group, with no collective.
 
 A batch-1 decode over the idle axes (``idle``) splits the experts over
 them: each rank runs the selected experts it holds (the batched form, the
@@ -47,7 +58,8 @@ summed over the idle ranks.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -115,23 +127,49 @@ def _expert_counts(top_idx: Tensor, n_experts: int) -> Tensor:
 
 
 def aux_load_balance_loss(probs: Tensor, top_idx: Tensor, mo: MoEConfig,
-                          fsdp=None) -> Tensor:
+                          fsdp=None, agent_counts: Optional[Tensor] = None) -> Tensor:
     """``E · sum_e f_e · p_e · coef``: f the share of routed entries, p the
     mean router probability of each expert; under ``fsdp`` both over the
-    agent's whole batch, from the counts and probabilities summed over the
-    data ranks (exact in float32 below 2**24 entries an expert)."""
-    counts = _expert_counts(top_idx, mo.n_experts).to(torch.float32)
+    agent's whole batch: f from ``agent_counts`` (each expert's entries
+    over the data ranks), p from the router probabilities summed over
+    them."""
     if fsdp is None:
+        counts = _expert_counts(top_idx, mo.n_experts).to(torch.float32)
         frac = counts / (top_idx.shape[0] * mo.top_k)
         return mo.n_experts * torch.sum(frac * torch.mean(probs, dim=0)) * mo.router_aux_coef
-    counts, p_sum = fsdp.sum(torch.stack([counts, probs.sum(0)]))
+    p_sum = fsdp.sum(probs.sum(0))
     t = top_idx.shape[0] * fsdp.size
-    return mo.n_experts * torch.sum(counts / (t * mo.top_k) * (p_sum / t)) * mo.router_aux_coef
+    return mo.n_experts * torch.sum(agent_counts.to(torch.float32) / (t * mo.top_k)
+                                    * (p_sum / t)) * mo.router_aux_coef
 
 
 def capacity(mo: MoEConfig, t: int) -> int:
     """Entries each expert keeps out of a layer's ``t`` tokens."""
     return max(1, min(int(mo.capacity_factor * t * mo.top_k / mo.n_experts), t * mo.top_k))
+
+
+def agent_keep(counts: Tensor, cap_agent: int, index: int) -> Tensor:
+    """(E,) entries of each expert that data rank ``index`` keeps: ``counts``
+    (n, E) every rank's expert counts in rank order, the ranks' rows
+    consecutive blocks of the agent's batch; an expert keeps its first
+    ``cap_agent`` entries in the agent's token order, and rank r's follow
+    those of the ranks before it."""
+    before = counts[:index].sum(0)
+    return torch.minimum(torch.clamp(cap_agent - before, min=0), counts[index])
+
+
+def _agent_capacity(fsdp, top_idx: Tensor, mo: MoEConfig) -> Tuple[Tensor, int, Tensor]:
+    """``(keep, c, agent_counts)`` of this data rank under ``fsdp``: the
+    entries it keeps of each expert (:func:`agent_keep`) and each expert's
+    entries over the agent's batch, both on the device, and the buffer's
+    rows ``c = max_e keep[e]``, read on the host (the balanced share
+    ``capacity(T_rank)`` on the meta device)."""
+    t = top_idx.shape[0]
+    counts = fsdp.gather_counts(_expert_counts(top_idx, mo.n_experts))  # (n, E), host
+    keep = agent_keep(counts, capacity(mo, fsdp.size * t), fsdp.index)
+    c = capacity(mo, t) if counts.device.type == "meta" else int(keep.max())
+    both = torch.stack([keep, counts.sum(0)]).to(top_idx.device)
+    return both[0], c, both[1]
 
 
 def _ffn(params: Dict, mlp_type: str, x: Tensor) -> Tensor:
@@ -154,18 +192,22 @@ def _combine(contrib: Tensor, top_idx: Tensor) -> Tensor:
 
 
 def dispatch_batched(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tensor,
-                     top_w: Tensor, lo: int = 0) -> Tensor:
+                     top_w: Tensor, lo: int = 0, keep: Optional[Tensor] = None,
+                     cap: Optional[int] = None) -> Tensor:
     """The reference's dispatch: xf (T, d) through an (E, cap, d) buffer and
     one batched product over the experts -> each entry's weighted output
     (T, k, d), zero where dropped.  No host sync.  On a rank that holds
     experts ``[lo, lo + E_local)`` (``experts`` their leaves) the buffer is
     theirs, the entries routed elsewhere are dropped and each held expert
-    keeps its first ``cap`` entries of the whole layer's capacity."""
+    keeps its first ``cap`` entries of the whole layer's capacity.  Given
+    ``keep`` (E,) (pod-as-agent, :func:`_agent_capacity`), expert e keeps its
+    first ``keep[e]`` entries in a buffer of ``cap`` rows."""
     mo = cfg.moe
     t, d = xf.shape
     k = mo.top_k
     n_loc = experts["w_down"].shape[-3]
-    cap = capacity(mo, t)
+    if keep is None:
+        cap = capacity(mo, t)
     whole = n_loc == mo.n_experts
     flat_expert = top_idx.reshape(-1)  # (T·k,)
     if not whole:  # held experts, the entries routed elsewhere in a last bin of their own
@@ -177,7 +219,8 @@ def dispatch_batched(experts: Dict, cfg: ModelConfig, xf: Tensor, top_idx: Tenso
               else _expert_counts(flat_expert, n_loc + 1)[:n_loc])
     offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix
     slot = torch.arange(cap, device=xf.device)
-    in_range = slot[None, :] < torch.clamp(counts, max=cap)[:, None]  # (E_local, cap)
+    limit = torch.clamp(counts, max=cap) if keep is None else keep
+    in_range = slot[None, :] < limit[:, None]  # (E_local, cap)
     src = order[torch.clamp(offsets[:, None] + slot[None, :], max=t * k - 1)]
     x_exp = xf[src // k] * in_range[..., None].to(xf.dtype)  # (E_local, cap, d)
     y_exp = _ffn(experts, cfg.mlp_type, x_exp)  # (E_local, cap, d)
@@ -214,17 +257,25 @@ def _moe_tokens(params: Dict, cfg: ModelConfig, xf: Tensor, tp=None,
     entries routed to them, and the partial outputs are summed over the
     idle ranks (in float32 for 16-bit) before the shared experts are
     added; the routing is computed on every rank from the same inputs.
-    Under ``fsdp`` xf is this data rank's share of the agent's batch, and
-    aux the whole batch's."""
+    Under ``fsdp`` xf is this data rank's block of the agent's rows, its
+    capacity and aux the whole batch's (where the batch splits)."""
     mo = cfg.moe
     logits = xf.to(torch.float32) @ params["router"]
     top_idx, top_w, probs = route(logits, mo)
-    aux = aux_load_balance_loss(probs, top_idx, mo, fsdp)
+    if fsdp is not None and not fsdp.split_batch:
+        fsdp = None  # every data rank holds the agent's whole batch
     experts = {n: params[n] for n in ("w_gate", "w_up", "w_down") if n in params}
-    # one token reads its experts in place, but its ids are data: on the
-    # meta device (the dry run) it takes the batched form, as the reference lowers
-    in_place = xf.shape[0] == 1 and xf.device.type != "meta"
-    dispatch = dispatch_in_place if in_place else dispatch_batched
+    if fsdp is not None:
+        keep, c, agent_counts = _agent_capacity(fsdp, top_idx, mo)
+        aux = aux_load_balance_loss(probs, top_idx, mo, fsdp, agent_counts)
+        dispatch = functools.partial(dispatch_batched, keep=keep, cap=c)
+    else:
+        aux = aux_load_balance_loss(probs, top_idx, mo)
+        # one token reads its experts in place (it drops nothing), but its
+        # ids are data: on the meta device (the dry run) it takes the
+        # batched form, as the reference lowers
+        in_place = xf.shape[0] == 1 and xf.device.type != "meta"
+        dispatch = dispatch_in_place if in_place else dispatch_batched
     tp_e = sharded(tp, experts["w_down"].shape[-2], mo.d_expert)
     tp_s = (sharded(tp, params["shared"]["w_down"].shape[-2], mo.n_shared * mo.d_expert)
             if mo.n_shared else None)

@@ -63,7 +63,9 @@ each period gathers its own layers at its top, inside its remat region, so
 that the backward re-gathers the period and its gradient is reduce-scattered
 when its backward ends; head layers are gathered one at a time, the
 embedding, head and final norm where they are used (a tied embedding once).
-An MoE layer routes the agent's whole batch (``repro_torch.models.moe``).
+An MoE layer routes the rank's tokens and sizes and fills expert capacity
+over the agent's whole batch from the data ranks' expert counts; its
+load-balance loss is the whole batch's (``repro_torch.models.moe``).
 """
 from __future__ import annotations
 
@@ -300,7 +302,7 @@ def _cos_sin(cfg: ModelConfig, b: int, s: int, offset, device, positions=None):
 def _ffn(bp: Dict, cfg: ModelConfig, ffn_kind: str, x: Tensor, slotted: bool = False,
          tp=None, idle=None, fsdp=None):
     """The block's FFN on its normed input: (out, MoE aux loss or None);
-    ``fsdp``: an MoE layer routes the agent's whole batch."""
+    ``fsdp``: an MoE layer fills capacity over the agent's whole batch."""
     h = rms_norm(x, vec(bp["norm2"]["scale"], slotted, 3), cfg.norm_eps)
     if ffn_kind == "dense":
         tp = sharded(tp, bp["ffn"]["w_down"].shape[-2], cfg.d_ff)
@@ -361,7 +363,7 @@ def block_forward(bp: Dict, cfg: ModelConfig, kind: str, ffn_kind: str, x: Tenso
                   cos_sin, tp=None, fsdp=None) -> Tuple[Tensor, Tensor]:
     """One layer of the training forward on its gathered parameters: (x,
     MoE aux loss); ``fsdp``: x is this data rank's share of the agent's
-    batch, which an MoE layer routes whole."""
+    batch, whose expert capacity an MoE layer fills over the whole batch."""
     h = rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
     if kind == "attn" and cfg.attn_impl == "mla":
         h = A.mla_forward(bp["mixer"], cfg, h, cos_sin, tp=tp)

@@ -4,9 +4,12 @@ own parameters, kept as the oracle of ``test_torch_fsdp_layers`` and of
 the call (``launch.steps.gather_leaves``), the gradient, then each sharded
 leaf's gradient reduce-scattered and each whole one all-reduced, divided by
 the data size; the loss the mean over the data ranks.  An MoE layer still
-routes the agent's whole batch (a ``DataAxis`` that shards no leaf)."""
+sizes and fills expert capacity over the agent's whole batch and takes its
+load-balance loss's statistics from it, through a ``DataAxis`` that shards
+no leaf."""
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.launch import steps as S
@@ -35,3 +38,14 @@ def whole_gather_value_and_grad(bundle, mesh, dims):
 
     call.data_axis = axis
     return call
+
+
+def reference_kept(flat_expert: np.ndarray, n_experts: int, cap: int) -> np.ndarray:
+    """The reference's kept entries of one routing group's flat (T·k,)
+    expert ids: each expert's first ``cap`` in a stable sort by expert."""
+    order = np.argsort(flat_expert, kind="stable")
+    counts = np.bincount(flat_expert, minlength=n_experts)
+    place = np.arange(flat_expert.size) - (np.cumsum(counts) - counts)[flat_expert[order]]
+    kept = np.zeros(flat_expert.size, bool)
+    kept[order] = place < cap
+    return kept

@@ -20,15 +20,19 @@ every sum is of two terms, the same in any order).  Each rank reads the
 collectives over ``data`` that the handle counts: an all-gather and a
 reduce-scatter per period, head layer and top-level leaf that holds a
 sharded leaf, one more all-gather per period under remat (the backward
-re-gathers it), and an all-reduce per MoE layer and pass, and one for its
-backward (the load-balance loss's expert counts and router probabilities
-summed over the data ranks).  On pod 2 the agents' loss and gathered
-gradients hold within 1e-5 of the reference's ``jax.value_and_grad`` on the
-same weights and the agent's whole batch; for the MoE model that holds the
-load-balance loss, nonlinear in the batch, to the whole batch's.  (Its
-capacity is each rank's share's, the reference's the whole batch's; the
-reduced configurations' capacity factor of 4 drops no entry in either, so
-that difference does not show here: ``ROADMAP.md`` §C.)
+re-gathers it), and per MoE layer and forward pass (two under remat) an
+all-gather of its expert counts and an all-reduce of its router
+probabilities, and one all-reduce for their backward.  The agents' loss and
+gathered gradients hold within 1e-5 of the reference's
+``jax.value_and_grad`` on the same weights and the agent's whole batch; for
+an MoE model that holds the load-balance loss, nonlinear in the batch, and
+the expert capacity, sized and filled over the agent's whole batch, to the
+whole batch's.  The reduced configurations' capacity factor of 4 drops no
+entry; the reduced DeepSeek-V2-Lite (a shared expert, ``topk_softmax``) and
+Mixtral-8x7B (``softmax_topk``) at capacity factor 1.0, in both packages,
+overflow experts (on pod 2 x data 2 x model 1, and the DeepSeek-V2-Lite on
+pod 1 x data 2 x model 2), and from each rank's recorded routes each rank's
+own capacity would keep another set than the agent's.
 
 On the dry run's counting mesh (pod 2 x data 16 x model 16, meta tensors)
 a reduced Qwen3-8B and Mamba2-370m at eight layers count their all-gathers
@@ -55,11 +59,12 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.launch import steps as S  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh, model_axis  # noqa: E402
+from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.models.registry import get_bundle  # noqa: E402
 from repro_torch.models.transformer import _period_patterns  # noqa: E402
 from repro_torch.utils.roofline import count_call  # noqa: E402
 
-from _torch_fsdp import whole_gather_value_and_grad  # noqa: E402
+from _torch_fsdp import reference_kept, whole_gather_value_and_grad  # noqa: E402
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(TESTS, "..", "src")
@@ -74,6 +79,13 @@ CASES = {
     "qwen3-8b-no-remat": dict(arch="qwen3-8b", replace={"remat": False}, mesh=POD, jax=False),
     "qwen3-8b-tp": dict(arch="qwen3-8b", replace={}, mesh=TP, jax=False),
     "mamba2-370m-tp": dict(arch="mamba2-370m", replace={}, mesh=TP, jax=False),
+    # capacity factor 1.0: experts overflow, and the agent's capacity keeps
+    # another set than each rank's would
+    "deepseek-v2-lite-16b-cf1": dict(arch="deepseek-v2-lite-16b", replace={}, mesh=POD, jax=True,
+                                     cf=1.0),
+    "mixtral-8x7b-cf1": dict(arch="mixtral-8x7b", replace={}, mesh=POD, jax=True, cf=1.0),
+    "deepseek-v2-lite-16b-cf1-tp": dict(arch="deepseek-v2-lite-16b", replace={}, mesh=TP,
+                                        jax=True, cf=1.0),
 }
 RUN = dict(seq=16, batch=2, d_model=1024)
 
@@ -94,15 +106,27 @@ _RANK = textwrap.dedent("""
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_mesh, model_axis, rank_slice
-    from repro_torch.launch.specs import shard_model
+    from repro_torch.launch.specs import gather_model, shard_model
     from repro_torch.launch.train import make_lm_sampler
+    from repro_torch.models import moe as MOE
     from repro_torch.models.registry import get_bundle
     from repro_torch.utils.pytree import flatten_paths
 
+    routes, real_route = [], MOE.route
+
+    def recording_route(logits, mo):
+        out = real_route(logits, mo)
+        routes.append(out[0].numpy())
+        return out
+
+    MOE.route = recording_route
     res = {}
     for name, case in CASES.items():
         cfg = dataclasses.replace(get_reduced(case["arch"]), d_model=RUN["d_model"],
                                   **{"remat": True, **case["replace"]})
+        if case.get("cf"):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                   capacity_factor=case["cf"]))
         bundle = get_bundle(cfg, "cpu")
         mesh = make_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]), "cpu")
         n = mesh.shape["pod"]
@@ -123,7 +147,10 @@ _RANK = textwrap.dedent("""
         batch = S.batch_share(rank_slice(comm, mesh, ("pod",)), notes["batch_dims"]["comm"], mesh)
 
         new = S.sharded_value_and_grad(tb, mesh, dims)
+        routes.clear()
         loss, grads = new(shards, batch)
+        if routes:  # the forward's routes (the recompute's follow them)
+            res[name + "/routes"] = np.stack(routes)
         res[name + "/counts"] = np.array(json.dumps(new.data_axis.stats))
         o_loss, o_grads = whole_gather_value_and_grad(tb, mesh, dims)(shards, batch)
         res[name + "/differ"] = np.array(json.dumps(
@@ -132,7 +159,10 @@ _RANK = textwrap.dedent("""
         res[name + "/loss"] = np.array(float(loss))
         res[name + "/dims"] = np.array(json.dumps(dims))
         if case["jax"]:
-            for k, v in S.gather_leaves(grads, dims, mesh).items():
+            whole_grads = S.gather_leaves(grads, dims, mesh)
+            if layout is not None:
+                whole_grads = gather_model(whole_grads, layout, mesh)
+            for k, v in whole_grads.items():
                 res[name + "/grad/" + k] = v.numpy()
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
@@ -159,19 +189,34 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def _with_cf(cfg, case):
+    if not case.get("cf"):
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=case["cf"]))
+
+
+def _cfg(case):
+    return _with_cf(dataclasses.replace(get_reduced(case["arch"]), d_model=RUN["d_model"],
+                                        **{"remat": True, **case["replace"]}), case)
+
+
 def _jcfg(case):
-    return dataclasses.replace(j_get_reduced(case["arch"]), d_model=RUN["d_model"],
-                               **{"remat": True, **case["replace"]})
+    return _with_cf(dataclasses.replace(j_get_reduced(case["arch"]), d_model=RUN["d_model"],
+                                        **{"remat": True, **case["replace"]}), case)
 
 
-def _reference(jcfg, jparams):
+def _agents(case) -> int:
+    return case["mesh"][0][0]
+
+
+def _reference(jcfg, jparams, n_agents):
     """Per agent: the reference's loss and flat gradients on the agent's
-    comm batch of round 0 (both agents start from the same weights)."""
+    comm batch of round 0 (every agent starts from the same weights)."""
     bundle = j_get_bundle(jcfg)
-    comm = j_make_lm_sampler(jcfg, 2, RUN["batch"], RUN["seq"], 1, seed=0)(0)[1]
+    comm = j_make_lm_sampler(jcfg, n_agents, RUN["batch"], RUN["seq"], 1, seed=0)(0)[1]
     vg = jax.jit(jax.value_and_grad(bundle.loss))
     out = []
-    for a in range(2):
+    for a in range(n_agents):
         loss, grads = vg(jparams, jax.tree.map(lambda v, a=a: v[a], comm))
         out.append((float(loss), _flat(grads)))
     return out
@@ -195,7 +240,8 @@ def runs(tmp_path_factory):
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(4)]
     try:
-        ref = {name: _reference(_jcfg(CASES[name]), p) for name, p in jparams.items()}
+        ref = {name: _reference(_jcfg(CASES[name]), p, _agents(CASES[name]))
+               for name, p in jparams.items()}
         logs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -209,8 +255,9 @@ def _counts(cfg, dims) -> dict:
     """The collectives over ``data`` that the handle counts in one gradient
     call: an all-gather and a reduce-scatter per period, head layer and
     top-level leaf that holds a sharded leaf, an all-gather more per period
-    under remat; per MoE layer an all-reduce of its routing statistics a
-    forward pass (two under remat) and one of their gradient."""
+    under remat; per MoE layer and forward pass (two under remat) an
+    all-gather of its expert counts and an all-reduce of its router
+    probabilities, and one all-reduce of their gradient."""
     def sharded(prefix):
         return any(d is not None for k, d in dims.items() if k == prefix or
                    k.startswith(prefix + "/"))
@@ -227,16 +274,15 @@ def _counts(cfg, dims) -> dict:
         moe = (sum(f == "moe" for _, f in head_pat)
                + n_periods * sum(f == "moe" for _, f in period_pat))
     forward = tops + heads + periods
-    return {"all-gather": forward + (periods if cfg.remat else 0), "reduce-scatter": forward,
-            "all-reduce": moe * (3 if cfg.remat else 2)}
+    passes = 2 if cfg.remat else 1
+    return {"all-gather": forward + (periods if cfg.remat else 0) + moe * passes,
+            "reduce-scatter": forward, "all-reduce": moe * (passes + 1)}
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_per_period_gather_is_bit_equal_to_the_whole_gather(runs, name):
     ranks, _ = runs
-    case = CASES[name]
-    cfg = dataclasses.replace(get_reduced(case["arch"]), d_model=RUN["d_model"],
-                              **{"remat": True, **case["replace"]})
+    cfg = _cfg(CASES[name])
     for r, res in enumerate(ranks):
         dims = json.loads(str(res[name + "/dims"]))
         assert sum(d is not None for d in dims.values()) >= len(dims) // 2, dims
@@ -248,15 +294,44 @@ def test_per_period_gather_is_bit_equal_to_the_whole_gather(runs, name):
 @pytest.mark.parametrize("name", [n for n, c in CASES.items() if c["jax"]])
 def test_per_period_gather_matches_the_reference(runs, name):
     ranks, ref = runs
-    for agent in (0, 1):
+    n_agents = _agents(CASES[name])
+    per = len(ranks) // n_agents  # pod-major: agent a's ranks are per·a … per·a + per - 1
+    for agent in range(n_agents):
         want_loss, want = ref[name][agent]
-        for res in ranks[2 * agent: 2 * agent + 2]:  # pod-major: (pod, data) ranks 2a, 2a + 1
+        for res in ranks[per * agent: per * (agent + 1)]:
             assert abs(float(res[name + "/loss"]) - want_loss) <= TOL * abs(want_loss)
             for k, w in want.items():
                 got = res[name + "/grad/" + k]
                 scale = max(float(np.abs(w).max()), 1e-30)
                 err = float(np.abs(got - w).max())
                 assert err <= TOL * scale, f"agent {agent} {k}: {err} > {TOL} x {scale}"
+
+
+@pytest.mark.parametrize("name", [n for n, c in CASES.items() if c.get("cf")])
+def test_agent_capacity_keeps_another_set_than_each_rank_s(runs, name):
+    """From the routes each data rank recorded: the agent's capacity over
+    its whole batch (the reference's) and each rank's over its own rows
+    keep different (token, expert) entries, so the reference comparison
+    above sees the rule."""
+    ranks, _ = runs
+    case = CASES[name]
+    mo = _cfg(case).moe
+    pods, data, model = case["mesh"][0]
+    differ = dropped = 0
+    for a in range(pods):
+        # the agent's data ranks at model coordinate 0, in row order
+        mine = [ranks[(a * data + i) * model][name + "/routes"] for i in range(data)]
+        # the forward's MoE layers (then the recompute's)
+        for layer in range(mine[0].shape[0] // 2):
+            per_rank = [m[layer] for m in mine]  # (T_rank, k) each
+            t = per_rank[0].shape[0]
+            agent = reference_kept(np.concatenate(per_rank).reshape(-1), mo.n_experts,
+                                   capacity(mo, data * t))
+            own = np.concatenate([reference_kept(r.reshape(-1), mo.n_experts, capacity(mo, t))
+                                  for r in per_rank])
+            differ += int(np.sum(agent != own))
+            dropped += int(np.sum(~agent))
+    assert dropped > 0 and differ > 0, (dropped, differ)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m"])
